@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on the card.
 
-    python3 profile_main.py
+    python3 profile_main.py [l2|l1]
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
-port's ``slam_main`` twice on CUDA: once to warm up (kernel build, library
-handles, allocator), then under ``torch.profiler``.  Prints the card, the
+port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
+``EngineConfig.metric="l1"``, chip_smoke.run_engine) twice unprofiled —
+cold, then warm — and once under ``torch.profiler``.  Prints the card, the
 profiled run's wall time, the share of that wall time in which the device
 ran any kernel, the host and device time of each step span
 ("steps.<name>", see runtime/steps.py) and the kernels with the most device
-time.  Writes the full table to chiprun_out/profile_main.txt.
+time.  Writes the full table to chiprun_out/profile_main[_l1].txt.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import tempfile
 import time
 
@@ -46,24 +48,34 @@ def main() -> None:
     from slam_indoor_code_tpu_torch.app import slam_main
     from slam_indoor_code_tpu_torch.ops import build
 
+    metric = sys.argv[1] if len(sys.argv) > 1 else "l2"
+    if metric not in ("l2", "l1"):
+        raise SystemExit(f"metric must be l2 or l1, got {metric!r}")
     _, card_line = chip_smoke.card()
     build.build_all()
     scene, frames = chip_smoke.headline_scene()
     walls = []
     with tempfile.TemporaryDirectory() as out:
         cfg = chip_smoke.headline_config(out)
+
+        def run():
+            if metric == "l1":
+                return chip_smoke.run_engine(scene, frames, "l1")[0]
+            return slam_main(cfg, scene.K, frames=frames)
+
         for _ in range(2):                   # cold (first) run, then warm
             t = time.perf_counter()
-            slam_main(cfg, scene.K, frames=frames)
+            run()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t) * 1e3)
-        print(f"[{card_line}] unprofiled wall: cold {walls[0]:.1f} ms, warm "
-              f"{walls[1]:.1f} ms ({len(frames) / walls[1] * 1e3:.3f} "
-              f"frames/s warm)", flush=True)
+        print(f"[{card_line}] {metric} unprofiled wall: cold {walls[0]:.1f} "
+              f"ms, warm {walls[1]:.1f} ms "
+              f"({len(frames) / walls[1] * 1e3:.3f} frames/s warm)",
+              flush=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            gd = slam_main(cfg, scene.K, frames=frames)
+            gd = run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
     busy = _busy_ms(prof.events())
@@ -96,7 +108,8 @@ def main() -> None:
     table = avg.table(sort_by="self_device_time_total", row_limit=25)
     print(table, flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_main.txt", "w") as f:
+    suffix = "_l1" if metric == "l1" else ""
+    with open(f"chiprun_out/profile_main{suffix}.txt", "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=200))
 
 

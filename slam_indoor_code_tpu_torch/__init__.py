@@ -2,9 +2,9 @@
 
 Same module layout and names as the JAX package, so each function has an
 obvious counterpart there; inside, plain PyTorch functions on tensors with an
-explicit ``torch.device`` and explicit ``torch.Generator``s.  The one TPU
-kernel on the device-ingest main path (the batched fused top-2 matcher) is a
-hand-written CUDA kernel for sm_90a (``csrc/top2_batch.cu``), built with
+explicit ``torch.device`` and explicit ``torch.Generator``s.  Each TPU
+kernel (the fused top-2 matchers) is a hand-written CUDA kernel for sm_90a
+(``csrc/top2_batch.cu``, ``top2_pair.cu``, ``top2_l1.cu``), built with
 plain ``nvcc`` on first use and bound through ``ctypes``
 (``ops/cuda_kernels.py``).
 

@@ -4,8 +4,9 @@ shared library per source, loaded with ``ctypes``.
 No PyTorch headers and no ``torch.utils.cpp_extension``: a source with a
 plain C interface builds in seconds, where one that includes PyTorch's
 headers takes minutes.  Every ``csrc/*.cu`` gets its own ``nvcc`` process and
-all of them start together.  Outputs go to ``_build/`` inside the package
-(ignored by git); a library newer than its source is reused.  Nothing is
+all of them start together; ``csrc/*.cuh`` are headers they share.  Outputs
+go to ``_build/`` inside the package (ignored by git); a library newer than
+its source and the headers is reused.  Nothing is
 built at import time — only on the first launch on a CUDA tensor, or when a
 caller asks (``build_all``).
 """
@@ -45,8 +46,10 @@ def library_path(stem: str) -> Path:
 
 
 def _stale(src: Path) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = library_path(src.stem)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in [src, *CSRC_DIR.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build_all(force: bool = False) -> dict[str, dict]:

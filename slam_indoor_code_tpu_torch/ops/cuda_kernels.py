@@ -1,13 +1,21 @@
 """CUDA kernels for the hot matching op: fused distance matrix + top-2.
 
-Counterpart of the JAX package's ops/pallas_kernels.py.  ``top2_batch`` is
-``top2_pallas_batch``: ONE query set [N,D] against B candidate sets [B,M,D]
-in one launch of ``csrc/top2_batch.cu`` (sm_90a, built by ops/build.py and
-bound through ctypes).  ``top2_batch_plain`` is the same function in plain
-PyTorch: the CPU path, and the kernel's oracle on the card.
+Counterparts of the JAX package's ops/pallas_kernels.py, each a hand-written
+sm_90a kernel in ``csrc/`` (built by ops/build.py, bound through ctypes)
+with its plain PyTorch version beside it:
 
-The wrapper takes the plain version only for a tensor on the CPU; on a CUDA
-tensor it launches the kernel or raises — there is no fallback.
+- ``top2_batch`` is ``top2_pallas_batch``: ONE query set [N,D] against B
+  candidate sets [B,M,D] in one launch (squared L2 or Hamming);
+  ``lanes_per_block > 1`` is ``_l2_kernel_b_multi``.
+- ``top2_pair`` is ``top2_pallas`` for L2 and Hamming (``_l2_kernel``): one
+  pair, its column axis split across blocks.
+- ``top2_l1`` is ``top2_pallas(metric="l1")`` (``_l1_kernel``) over Bt pairs
+  that share the query set, as ``match_batch`` vmaps it on the TPU.
+
+The plain versions are the CPU path and the kernels' oracles on the card.
+A wrapper takes its plain version only for a tensor on the CPU; on a CUDA
+tensor it launches the kernel or raises — there is no fallback.  Each
+wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -17,8 +25,39 @@ import ctypes
 import torch
 
 BIG = 3.0e38
-MAX_D = 256   # the kernel's shared-memory plan covers D <= 256 (bf16 SIFT
-#               is 128; Hamming unpacks 8 words to 256 bits)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+# ctypes signatures of the C entry points: every pointer and the stream as
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as c_int,
+# cudaError_t returned as c_int.
+SIGNATURES = {
+    # a, b, mask, d1, i1, d2, N, M, D, B, lanes_per_block, stream
+    "top2_batch_launch": [_P] * 6 + [_I] * 5 + [_P],
+    # a, b, mask, d1, i1, d2, pd1, pi1, pd2, N, M, D, S, cols_per_split, stream
+    "top2_pair_launch": [_P] * 9 + [_I] * 5 + [_P],
+    # a, b, mask, d1, i1, d2, N, M, D, Bt, stream
+    "top2_l1_launch": [_P] * 6 + [_I] * 4 + [_P],
+}
+
+PAIR_ROWS = 128      # query rows per block of top2_pair (csrc/top2_l2.cuh)
+PAIR_COLS = 32       # its column tile: a split is a multiple of it
+
+
+def set_signature(fn, name: str) -> None:
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+
+
+def _entry(stem: str):
+    """The C entry point ``<stem>_launch`` of ``csrc/<stem>.cu`` (built on
+    first use)."""
+    from . import build
+
+    name = f"{stem}_launch"
+    fn = getattr(build.load(stem), name)
+    if fn.argtypes is None:
+        set_signature(fn, name)
+    return fn
 
 
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:
@@ -38,94 +77,208 @@ def _operands(desc_a, desc_b, metric):
         return desc_a.to(torch.bfloat16), desc_b.to(torch.bfloat16)
     if metric == "hamming":
         return unpack_bits(desc_a), unpack_bits(desc_b)
-    raise ValueError(f"top2 batch: unsupported metric {metric!r}")
+    raise ValueError(f"top2: unsupported metric {metric!r}")
 
 
-def top2_batch_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
-                     valid_b: torch.Tensor, metric: str = "l2"):
-    """Plain PyTorch version of the kernel: (d1 [B,N] f32, idx1 [B,N] i32,
-    d2 [B,N] f32).  Operands rounded to bf16 and upcast, f32 product and
-    norms, masked columns at BIG, first-index argmin, d2 with only the
-    argmin column masked."""
-    a, b = _operands(desc_a, desc_b, metric)
-    a, b = a.float(), b.float()
-    ab = torch.matmul(a, b.transpose(1, 2))                  # [B,N,M]
-    a2 = (a * a).sum(-1)                                     # [N]
-    b2 = (b * b).sum(-1)                                     # [B,M]
-    d = torch.clamp_min(a2[None, :, None] + b2[:, None, :] - 2.0 * ab, 0.0)
-    d = torch.where(valid_b[:, None, :], d, torch.full_like(d, BIG))
-    if d.shape[-1] == 0:
-        B, N = d.shape[:2]
+def _masked_top2(d: torch.Tensor, valid: torch.Tensor):
+    """[B,N,M] distances, [B,M] column mask → (d1, idx1 int32, d2) [B,N]:
+    masked columns at BIG, first-index argmin, d2 with only the argmin
+    column masked; no columns gives d1 = d2 = BIG, idx1 = 0."""
+    B, N, M = d.shape
+    if M == 0:
         full = torch.full((B, N), BIG, dtype=torch.float32, device=d.device)
         return full, torch.zeros((B, N), dtype=torch.int32,
                                  device=d.device), full.clone()
+    d = torch.where(valid[:, None, :], d, torch.full_like(d, BIG))
     idx1 = torch.argmin(d, dim=-1)                           # first minimum
     d1 = torch.gather(d, -1, idx1[..., None])[..., 0]
     d2 = d.scatter(-1, idx1[..., None], BIG).amin(-1)
     return d1, idx1.to(torch.int32), d2
 
 
-def _lib():
-    from . import build
-
-    lib = build.load("top2_batch")
-    if lib.top2_batch_launch.argtypes is None:
-        set_signature(lib.top2_batch_launch)
-    return lib
+def _check_lpb(lanes_per_block: int) -> int:
+    lpb = int(lanes_per_block)
+    if lpb < 1:
+        raise ValueError(f"lanes_per_block must be >= 1, got {lpb}")
+    return lpb
 
 
-def set_signature(fn) -> None:
-    """ctypes signature of ``top2_batch_launch``: every pointer and the
-    stream as c_void_p (a bare Python int would be cut to 32 bits), sizes as
-    c_int, cudaError_t returned as c_int."""
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
-    fn.restype = ctypes.c_int
+def top2_batch_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                     valid_b: torch.Tensor, metric: str = "l2",
+                     lanes_per_block: int = 1):
+    """Plain PyTorch version of ``top2_batch``: (d1 [B,N] f32, idx1 [B,N]
+    i32, d2 [B,N] f32).  Operands rounded to bf16 and upcast, f32 product
+    and norms.  ``lanes_per_block`` changes how the kernel schedules lanes,
+    not what it computes, so it is only checked here."""
+    _check_lpb(lanes_per_block)
+    a, b = _operands(desc_a, desc_b, metric)
+    a, b = a.float(), b.float()
+    ab = torch.matmul(a, b.transpose(1, 2))                  # [B,N,M]
+    a2 = (a * a).sum(-1)                                     # [N]
+    b2 = (b * b).sum(-1)                                     # [B,M]
+    d = torch.clamp_min(a2[None, :, None] + b2[:, None, :] - 2.0 * ab, 0.0)
+    return _masked_top2(d, valid_b)
+
+
+def top2_pair_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                    valid_b: torch.Tensor, metric: str = "l2"):
+    """Plain PyTorch version of ``top2_pair``: ``top2_batch_plain`` on one
+    candidate set → (d1 [N], idx1 [N] i32, d2 [N])."""
+    return tuple(x[0] for x in top2_batch_plain(desc_a, desc_b[None],
+                                                valid_b[None], metric))
+
+
+def top2_l1_plain(desc_a: torch.Tensor, desc_b: torch.Tensor,
+                  valid_b: torch.Tensor):
+    """Plain PyTorch version of ``top2_l1``: (d1 [Bt,N], idx1 [Bt,N] i32,
+    d2 [Bt,N]).  f32 |a_k − b_k| added over k = 0..D−1 in order, the TPU
+    kernel's arithmetic, so it equals the kernel bit for bit."""
+    a, b = desc_a.float(), desc_b.float()
+    d = torch.zeros((b.shape[0], a.shape[0], b.shape[1]), dtype=torch.float32,
+                    device=a.device)
+    for k in range(a.shape[1]):
+        d.add_((a[None, :, None, k] - b[:, None, :, k]).abs())
+    return _masked_top2(d, valid_b)
+
+
+def _check_inputs(name, dev, desc_a, desc_b, valid_b, b_dims):
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if desc_b.device != dev or valid_b.device != dev:
+        raise ValueError(f"{name}: all inputs must be on one device")
+    if desc_a.dim() != 2 or desc_b.dim() != b_dims or \
+            valid_b.dim() != b_dims - 1:
+        raise ValueError(f"{name}: expected desc_a [N,D], desc_b with "
+                         f"{b_dims} dims and its column mask")
+    if valid_b.dtype != torch.bool:
+        raise TypeError(f"valid_b must be bool, got {valid_b.dtype}")
+    if desc_a.shape[-1] != desc_b.shape[-1] or \
+            tuple(valid_b.shape) != tuple(desc_b.shape[:-1]):
+        raise ValueError(f"{name}: shape mismatch a {tuple(desc_a.shape)} "
+                         f"b {tuple(desc_b.shape)} "
+                         f"mask {tuple(valid_b.shape)}")
+    if desc_a.shape[-1] < 1:
+        raise ValueError(f"{name}: descriptors must have D >= 1")
+
+
+def _launch(name, fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
 
 
 def top2_batch(desc_a: torch.Tensor, desc_b: torch.Tensor,
-               valid_b: torch.Tensor, metric: str = "l2"):
+               valid_b: torch.Tensor, metric: str = "l2",
+               lanes_per_block: int = 1):
     """Fused 2-NN of desc_a [N,D] against desc_b [B,M,D] with column mask
     valid_b [B,M] → (d1 [B,N], idx1 [B,N] int32, d2 [B,N]).  Squared L2 on
-    bf16-rounded operands; metric "hamming" takes int32 bit words [.., 8].
+    bf16-rounded operands, any D; metric "hamming" takes int32 bit words.
+    ``lanes_per_block`` lanes share one block's staged query tile (the
+    result does not depend on it).
 
     A CPU tensor takes ``top2_batch_plain``; a CUDA tensor launches the
-    kernel on the current stream (no synchronisation) and counts the
-    launch in ``top2_batch.launches``."""
+    kernel on the current stream (no synchronisation) and counts the launch
+    in ``top2_batch.launches`` (and, with lanes_per_block > 1, in
+    ``top2_batch.multi_lane_launches``)."""
+    lpb = _check_lpb(lanes_per_block)
     dev = desc_a.device
     if dev.type == "cpu":
-        return top2_batch_plain(desc_a, desc_b, valid_b, metric)
-    if dev.type != "cuda":
-        raise ValueError(f"top2_batch: unsupported device {dev}")
-    if desc_b.device != dev or valid_b.device != dev:
-        raise ValueError("top2_batch: all inputs must be on one device")
-    if desc_a.dim() != 2 or desc_b.dim() != 3 or valid_b.dim() != 2:
-        raise ValueError("top2_batch: expected desc_a [N,D], desc_b [B,M,D], "
-                         "valid_b [B,M]")
-    if valid_b.dtype != torch.bool:
-        raise TypeError(f"valid_b must be bool, got {valid_b.dtype}")
+        return top2_batch_plain(desc_a, desc_b, valid_b, metric, lpb)
+    _check_inputs("top2_batch", dev, desc_a, desc_b, valid_b, 3)
     a, b = _operands(desc_a, desc_b, metric)
     a, b = a.contiguous(), b.contiguous()
     N, D = a.shape
-    B, M, Db = b.shape
-    if Db != D or tuple(valid_b.shape) != (B, M):
-        raise ValueError(f"top2_batch: shape mismatch a {tuple(a.shape)} "
-                         f"b {tuple(b.shape)} mask {tuple(valid_b.shape)}")
-    if not 1 <= D <= MAX_D:
-        raise ValueError(f"top2_batch: D={D} outside 1..{MAX_D}")
+    B, M, _ = b.shape
     mask = valid_b.contiguous().view(torch.uint8)
     d1 = torch.empty((B, N), dtype=torch.float32, device=dev)
     i1 = torch.empty((B, N), dtype=torch.int32, device=dev)
     d2 = torch.empty((B, N), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().top2_batch_launch(
-        a.data_ptr(), b.data_ptr(), mask.data_ptr(), d1.data_ptr(),
-        i1.data_ptr(), d2.data_ptr(), N, M, D, B, stream)
-    if err != 0:
-        raise RuntimeError(f"top2_batch_launch failed: cudaError {err}")
+    _launch("top2_batch_launch", _entry("top2_batch"),
+            a.data_ptr(), b.data_ptr(), mask.data_ptr(), d1.data_ptr(),
+            i1.data_ptr(), d2.data_ptr(), N, M, D, B, lpb,
+            torch.cuda.current_stream(dev).cuda_stream)
     top2_batch.launches += 1
+    if lpb > 1:
+        top2_batch.multi_lane_launches += 1
     return d1, i1, d2
 
 
 top2_batch.launches = 0
+top2_batch.multi_lane_launches = 0
+
+
+def pair_splits(N: int, M: int, sms: int) -> tuple[int, int]:
+    """(S, cols_per_split) for ``top2_pair``: about four blocks per SM over
+    the row tiles × column ranges, each range a multiple of the 32-column
+    tile, S ranges covering all M columns."""
+    row_tiles = -(-max(N, 1) // PAIR_ROWS)
+    want = max(1, -(-4 * sms // row_tiles))
+    per = -(-max(M, 1) // want)
+    per = -(-per // PAIR_COLS) * PAIR_COLS
+    return -(-max(M, 1) // per), per
+
+
+def top2_pair(desc_a: torch.Tensor, desc_b: torch.Tensor,
+              valid_b: torch.Tensor, metric: str = "l2"):
+    """Fused 2-NN of desc_a [N,D] against one candidate set desc_b [M,D]
+    with column mask valid_b [M] → (d1 [N], idx1 [N] int32, d2 [N]); the
+    function of ``top2_batch`` at B = 1, with the column axis split across
+    blocks so one pair fills the card.
+
+    A CPU tensor takes ``top2_pair_plain``; a CUDA tensor launches the
+    kernel's two passes on the current stream and counts one launch in
+    ``top2_pair.launches``."""
+    dev = desc_a.device
+    if dev.type == "cpu":
+        return top2_pair_plain(desc_a, desc_b, valid_b, metric)
+    _check_inputs("top2_pair", dev, desc_a, desc_b, valid_b, 2)
+    a, b = _operands(desc_a, desc_b, metric)
+    a, b = a.contiguous(), b.contiguous()
+    N, D = a.shape
+    M = b.shape[0]
+    S, per = pair_splits(
+        N, M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    mask = valid_b.contiguous().view(torch.uint8)
+    out = [torch.empty(n, dtype=t, device=dev) for n in (N, S * N)
+           for t in (torch.float32, torch.int32, torch.float32)]
+    _launch("top2_pair_launch", _entry("top2_pair"),
+            a.data_ptr(), b.data_ptr(), mask.data_ptr(),
+            *(x.data_ptr() for x in out), N, M, D, S, per,
+            torch.cuda.current_stream(dev).cuda_stream)
+    top2_pair.launches += 1
+    return out[0], out[1], out[2]
+
+
+top2_pair.launches = 0
+
+
+def top2_l1(desc_a: torch.Tensor, desc_b: torch.Tensor,
+            valid_b: torch.Tensor):
+    """Fused L1 2-NN of desc_a [N,D] against Bt candidate sets desc_b
+    [Bt,M,D] with column mask valid_b [Bt,M] → (d1 [Bt,N], idx1 [Bt,N]
+    int32, d2 [Bt,N]); f32 operands, any D.
+
+    A CPU tensor takes ``top2_l1_plain``; a CUDA tensor launches the kernel
+    on the current stream (no synchronisation) and counts the launch in
+    ``top2_l1.launches``."""
+    dev = desc_a.device
+    if dev.type == "cpu":
+        return top2_l1_plain(desc_a, desc_b, valid_b)
+    _check_inputs("top2_l1", dev, desc_a, desc_b, valid_b, 3)
+    a = desc_a.float().contiguous()
+    b = desc_b.float().contiguous()
+    N, D = a.shape
+    Bt, M, _ = b.shape
+    mask = valid_b.contiguous().view(torch.uint8)
+    d1 = torch.empty((Bt, N), dtype=torch.float32, device=dev)
+    i1 = torch.empty((Bt, N), dtype=torch.int32, device=dev)
+    d2 = torch.empty((Bt, N), dtype=torch.float32, device=dev)
+    _launch("top2_l1_launch", _entry("top2_l1"),
+            a.data_ptr(), b.data_ptr(), mask.data_ptr(), d1.data_ptr(),
+            i1.data_ptr(), d2.data_ptr(), N, M, D, Bt,
+            torch.cuda.current_stream(dev).cuda_stream)
+    top2_l1.launches += 1
+    return d1, i1, d2
+
+
+top2_l1.launches = 0

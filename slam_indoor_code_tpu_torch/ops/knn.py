@@ -3,9 +3,10 @@ package's ops/knn.py).
 
 Dispatch mirrors ``_pallas_enabled`` by device: a CPU tensor takes the
 float32 dense branch (the counterpart of JAX on the CPU), a CUDA tensor the
-hand-written kernel (ops/cuda_kernels.py) for L2 and Hamming.  L1's kernel
-(the per-pair TPU kernel ``top2_pallas``/``_l1_kernel``) is not ported yet,
-so L1 on CUDA raises.
+hand-written kernels (ops/cuda_kernels.py): ``match_batch`` launches
+``top2_batch`` (L2, Hamming) or ``top2_l1`` once for all B candidates;
+``match_pair`` launches ``top2_pair`` (L2, Hamming) or ``top2_l1`` on one
+candidate, as the JAX package's ``match_pair`` calls ``top2_pallas``.
 
 Metrics: 'l2' (squared; compare ratio²), 'l1', 'hamming' (packed bit words
 held as an int32 view — torch has no uint32 ``>>`` on the CPU).
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_kernels import BIG, top2_batch, unpack_bits
+from .cuda_kernels import BIG, top2_batch, top2_l1, top2_pair, unpack_bits
 
 
 def l2_distance_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,17 +77,34 @@ def _ratio_mask(d1, d2, ratio: float, metric: str) -> torch.Tensor:
     return d1 < r * d2
 
 
+def _result(d1, idx1, d2, valid_a, ratio: float, metric: str):
+    is_match = _ratio_mask(d1, d2, ratio, metric) & valid_a & (d1 < BIG / 2)
+    return {
+        "train_idx": idx1.long(),
+        "is_match": is_match,
+        "distance": d1,
+        "num_matches": is_match.sum(-1),
+    }
+
+
 def match_pair(desc_a, valid_a, desc_b, valid_b, ratio: float = 0.7,
                metric: str = "l2"):
-    """2-NN + ratio match of frame A against frame B (``match_batch`` on
-    one candidate frame).
+    """2-NN + ratio match of frame A's descriptors [N,D] against frame B's
+    [M,D].
 
     Returns dict: train_idx [N] int64, is_match [N] bool, distance [N],
     num_matches."""
-    res = match_batch(desc_a, valid_a, desc_b[None], valid_b[None],
-                      torch.ones(1, dtype=torch.bool, device=desc_a.device),
-                      ratio, metric)
-    return {k: v[0] for k, v in res.items()}
+    if desc_a.device.type == "cuda":
+        if metric == "l1":
+            d1, idx1, d2 = (x[0] for x in top2_l1(desc_a, desc_b[None],
+                                                  valid_b[None]))
+        else:
+            d1, idx1, d2 = top2_pair(desc_a, desc_b, valid_b, metric)
+    else:
+        d = distance_matrix(desc_a, desc_b, metric)
+        d = torch.where(valid_b[None, :], d, torch.full_like(d, BIG))
+        d1, idx1, d2 = _top2(d)
+    return _result(d1, idx1, d2, valid_a, ratio, metric)
 
 
 def match_batch(desc_prev, valid_prev, desc_batch, valid_batch, frame_mask,
@@ -97,10 +115,10 @@ def match_batch(desc_prev, valid_prev, desc_batch, valid_batch, frame_mask,
     is_match [B,N], distance [B,N], num_matches [B]."""
     if desc_prev.device.type == "cuda":
         if metric == "l1":
-            raise NotImplementedError(
-                "L1 matching on CUDA needs the per-pair top-2 kernel "
-                "(ROADMAP queue 2: top2_pallas/_l1_kernel)")
-        d1, idx1, d2 = top2_batch(desc_prev, desc_batch, valid_batch, metric)
+            d1, idx1, d2 = top2_l1(desc_prev, desc_batch, valid_batch)
+        else:
+            d1, idx1, d2 = top2_batch(desc_prev, desc_batch, valid_batch,
+                                      metric)
     else:
         if metric == "l1":
             d = torch.stack([l1_distance(desc_prev, db) for db in desc_batch])
@@ -108,11 +126,5 @@ def match_batch(desc_prev, valid_prev, desc_batch, valid_batch, frame_mask,
             d = distance_matrix(desc_prev[None], desc_batch, metric)
         d = torch.where(valid_batch[:, None, :], d, torch.full_like(d, BIG))
         d1, idx1, d2 = _top2(d)
-    is_match = (_ratio_mask(d1, d2, ratio, metric) & valid_prev[None, :]
-                & (d1 < BIG / 2) & frame_mask[:, None])
-    return {
-        "train_idx": idx1.long(),
-        "is_match": is_match,
-        "distance": d1,
-        "num_matches": is_match.sum(-1),
-    }
+    return _result(d1, idx1, d2, valid_prev[None, :] & frame_mask[:, None],
+                   ratio, metric)

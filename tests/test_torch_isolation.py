@@ -1,6 +1,7 @@
 """The port stands alone: every module of slam_indoor_code_tpu_torch imports
-with ``jax`` and ``slam_indoor_code_tpu`` blocked, and no port source (nor
-the card scripts chip_smoke.py and profile_main.py) imports OpenCV or JAX."""
+with ``jax`` and ``slam_indoor_code_tpu`` blocked, no port source (nor
+the card scripts chip_smoke.py and profile_main.py) imports OpenCV or JAX,
+and every kernel source builds with plain nvcc: no PyTorch headers."""
 
 import os
 import pathlib
@@ -44,4 +45,12 @@ def test_no_port_source_imports(pattern):
             if rx.search(p.read_text())]
     hits += [p.name for p in (ROOT / "chip_smoke.py", ROOT / "profile_main.py")
              if rx.search(p.read_text())]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("src", sorted(
+    p.name for p in (PKG / "csrc").iterdir() if p.suffix in (".cu", ".cuh")))
+def test_kernel_sources_include_no_pytorch_headers(src):
+    text = (PKG / "csrc" / src).read_text()
+    hits = re.findall(r'#include\s*[<"](torch|ATen|c10|pybind11)/', text)
     assert not hits, hits

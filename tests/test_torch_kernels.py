@@ -91,7 +91,15 @@ def test_unpack_bits_little_endian():
     assert on == [0, 32 + 31, 64 + 1, 64 + 2]
 
 
-def test_ctypes_signature_takes_pointer_width_args():
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.mark.parametrize("name,want", [
+    ("top2_batch_launch", [_P] * 6 + [_I] * 5 + [_P]),
+    ("top2_pair_launch", [_P] * 9 + [_I] * 5 + [_P]),
+    ("top2_l1_launch", [_P] * 6 + [_I] * 4 + [_P]),
+])
+def test_ctypes_signature_takes_pointer_width_args(name, want):
     """Every pointer and the stream are c_void_p: a bare Python int would be
     passed as a 32-bit int and cut a device pointer."""
 
@@ -99,9 +107,8 @@ def test_ctypes_signature_takes_pointer_width_args():
         return 0
 
     proto = ctypes.CFUNCTYPE(ctypes.c_int)(launch)
-    ck.set_signature(proto)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    assert list(proto.argtypes) == [p, p, p, p, p, p, i, i, i, i, p]
+    ck.set_signature(proto, name)
+    assert list(proto.argtypes) == want
     assert proto.restype is ctypes.c_int
 
 
