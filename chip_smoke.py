@@ -8,9 +8,12 @@ Phases, each followed by one flushed line with the elapsed seconds:
 1. card     — name and power limit (nvidia-smi); fails without CUDA.
 2. build    — every kernel source of the port, one nvcc per source, all
               started together; prints nvcc's register/shared-memory/spill
-              report.
+              report, and counts the tensor-core (HMMA) instructions that
+              ``cuobjdump -sass`` shows in the L2/Hamming tile of both
+              libraries that carry it (fails on none).
 3. kernels  — each kernel's wrapper against its plain PyTorch version on
-              the card, at the main path's shapes and at ragged/edge shapes,
+              the card, at the main path's shapes and at ragged/edge shapes
+              (and ``top2_batch`` with metric "hamming" at ORB's shapes),
               with the tolerances stated below; CUDA-event times of both
               (warm-up, then the median of 20) beside the bound and beside
               the two-call library yardstick (cdist + topk).
@@ -28,6 +31,9 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rendered frames: one ``top2_pair`` launch, the same matches as
               ``match_pair`` on CPU copies up to the rows the L2 tolerance
               leaves open.
+7. repro    — phases 4 and 5 once more in the same process: each second
+              run must give the first run's cameras, map size, poses and
+              map points bit for bit.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and prints
@@ -128,7 +134,42 @@ def build():
     return time.perf_counter() - t
 
 
-def time_ms(fn, reps: int = 20) -> float:
+def tensor_core_instructions() -> dict:
+    """HMMA instructions in top2_l2_kernel of the two libraries that carry
+    the L2/Hamming tile, from ``cuobjdump -sass`` (beside nvcc).  Fails
+    where there are none: the tile's product must run on the tensor
+    cores."""
+    from pathlib import Path
+
+    from slam_indoor_code_tpu_torch.ops import build as kb
+
+    tool = Path(kb.nvcc_path()).parent / "cuobjdump"
+    found = {}
+    for stem in ("top2_batch", "top2_pair"):
+        res = subprocess.run([str(tool), "-sass", str(kb.library_path(stem))],
+                             capture_output=True, text=True, timeout=120)
+        if res.returncode != 0:
+            fail(f"cuobjdump -sass {stem}: rc={res.returncode} "
+                 f"{res.stderr.strip()[:300]}")
+        n, inside = 0, False
+        for ln in res.stdout.splitlines():
+            if "Function :" in ln:
+                inside = "top2_l2_kernel" in ln
+            elif inside and "HMMA" in ln:
+                n += 1
+        if n == 0:
+            fail(f"{stem}: no HMMA instruction in top2_l2_kernel")
+        found[stem] = n
+    print(f"  sass: HMMA instructions in top2_l2_kernel {json.dumps(found)}",
+          flush=True)
+    return found
+
+
+def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
+    calls, per call.  With inner = 1 the time includes the host's launch
+    latency (the device waits for it); with more calls it hides behind the
+    device's work where that is longer."""
     import torch
 
     for _ in range(3):
@@ -139,10 +180,11 @@ def time_ms(fn, reps: int = 20) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -276,7 +318,10 @@ def bound(flops, peak, nbytes):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def row(name, source, replaces, err, ms, plain_ms, bnd, two_call_ms):
+def row(name, source, replaces, err, fn, plain_ms, bnd, two_call_ms):
+    """A kernel's JSON row; ``fn`` calls its wrapper, timed once per event
+    pair (``ms``, comparable with earlier PRs) and as 10 back-to-back calls
+    (``back_to_back_ms``, closer to the device time of one launch)."""
     return {
         "name": name,
         "route": "cuda",
@@ -284,7 +329,8 @@ def row(name, source, replaces, err, ms, plain_ms, bnd, two_call_ms):
         "replaces": f"slam_indoor_code_tpu/ops/pallas_kernels.py:{replaces}",
         "launches": None,
         "max_abs_err": err,
-        "ms": ms,
+        "ms": time_ms(fn),
+        "back_to_back_ms": time_ms(fn, inner=10),
         "plain_ms": plain_ms,
         "bound_ms": bnd[0],
         "bound_by": bnd[1],
@@ -348,12 +394,32 @@ def kernels():
     lib_ms = time_ms(lambda: library_top2(A, Bt, V, 2.0))
     rows["top2_batch"] = row(
         "top2_batch", "top2_batch.cu", 225, err,
-        time_ms(lambda: ck.top2_batch(A, Bt, V)), plain_ms, bnd, lib_ms)
+        lambda: ck.top2_batch(A, Bt, V), plain_ms, bnd, lib_ms)
     for lpb in (2, 4):
         rows[f"lpb{lpb}"] = row(
             f"top2_batch(lanes_per_block={lpb})", "top2_batch.cu", 253, 0.0,
-            time_ms(lambda: ck.top2_batch(A, Bt, V, lanes_per_block=lpb)),
+            lambda: ck.top2_batch(A, Bt, V, lanes_per_block=lpb),
             plain_ms, bnd, lib_ms)
+
+    # top2_batch with metric="hamming" at ORB's shapes: 2048 x 2048
+    # descriptors of 8 words (256 bits, unpacked to 0/1 bf16 by the
+    # wrapper), 16 candidate frames, one lane all masked; exact.  The
+    # two-call yardstick is cdist(p=0) on the unpacked bits, then topk.
+    ah, bh, vh = make_case(rng, N, M, 8, B, hamming=True, all_masked_lane=5)
+    oargs = on_card(ah, bh, vh)
+    ko = host(ck.top2_batch(*oargs, metric="hamming"))
+    hold_exact(ko, host(ck.top2_batch_plain(*oargs, metric="hamming")),
+               "top2_batch hamming at ORB's shapes")
+    hold_edges(ko, vh, "top2_batch hamming at ORB's shapes", 5)
+    bits_a = ck.unpack_bits(oargs[0]).float()
+    bits_b = ck.unpack_bits(oargs[1]).float()
+    rows["hamming"] = row(
+        "top2_batch(metric=hamming)", "top2_batch.cu", 225, 0.0,
+        lambda: ck.top2_batch(*oargs, metric="hamming"),
+        time_ms(lambda: ck.top2_batch_plain(*oargs, metric="hamming")),
+        bound(2.0 * B * N * M * 256, PEAK_BF16_FLOPS,
+              4 * N * 8 + 4 * B * M * 8 + B * M + 3 * 4 * B * N),
+        time_ms(lambda: library_top2(bits_a, bits_b, oargs[2], 0.0)))
 
     # top2_pair: L2 at 2048x2048x128 (lane 0 of the main case) and ragged;
     # Hamming at 300x257x8 words, exact
@@ -371,7 +437,7 @@ def kernels():
                "top2_pair hamming")
     rows["top2_pair"] = row(
         "top2_pair", "top2_pair.cu", 57, perr,
-        time_ms(lambda: ck.top2_pair(*pargs)),
+        lambda: ck.top2_pair(*pargs),
         time_ms(lambda: ck.top2_pair_plain(*pargs)),
         bound(2.0 * N * M * D, PEAK_BF16_FLOPS,
               4 * (N + M) * D + M + 3 * 4 * N),
@@ -391,7 +457,7 @@ def kernels():
     terms = float(B) * N * M * D
     rows["top2_l1"] = row(
         "top2_l1", "top2_l1.cu", 86, lerr,
-        time_ms(lambda: ck.top2_l1(A, Bt, V)),
+        lambda: ck.top2_l1(A, Bt, V),
         time_ms(lambda: ck.top2_l1_plain(A, Bt, V)),
         # subtract + add (|.| is an operand modifier) per term, each at half
         # the FMA-counted f32 peak
@@ -436,6 +502,7 @@ def reset_counts():
     for fn in (ck.top2_batch, ck.top2_pair, ck.top2_l1):
         fn.launches = 0
     ck.top2_batch.multi_lane_launches = 0
+    ck.top2_batch.hamming_launches = 0
 
 
 def counts():
@@ -443,11 +510,14 @@ def counts():
 
     return {"top2_batch": ck.top2_batch.launches,
             "lpb": ck.top2_batch.multi_lane_launches,
+            "hamming": ck.top2_batch.hamming_launches,
             "top2_pair": ck.top2_pair.launches,
             "top2_l1": ck.top2_l1.launches}
 
 
-def main_path(card_line: str, scene, frames):
+def main_path(card_line: str, scene, frames, what: str = "main path"):
+    """``slam_main`` on CUDA with the headline configuration → (launch
+    counts of the run, its GlobalData)."""
     import torch
 
     from slam_indoor_code_tpu_torch.app import slam_main
@@ -475,19 +545,19 @@ def main_path(card_line: str, scene, frames):
             DeviceEngine.__init__ = orig_init
         with open(f"{out}/poses.txt") as f:
             n_logged = sum(1 for _ in f)
-    n_cams, ate_pct = trajectory_ok("main path", scene, gd)
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
     if n_logged < n_cams:
         fail(f"poses.txt has {n_logged} rows for {n_cams} cameras")
-    on_cuda("main path", engines[0])
+    on_cuda(what, engines[0])
     # one launch per tracked frame; the bootstrap pair shares one
     if n["top2_batch"] < n_cams - 1:
         fail(f"top2_batch launched {n['top2_batch']} times for {n_cams} "
              "cameras")
-    print(f"main path: cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}%"
+    print(f"{what}: cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}%"
           f" of extent  map {len(gd.points)} points  wall {wall:.3f} s  "
           f"{N_FRAMES / wall:.3f} frames/s  launches {json.dumps(n)}  "
           f"[{card_line}]", flush=True)
-    return n
+    return n, gd
 
 
 def run_engine(scene, frames, metric: str):
@@ -520,8 +590,9 @@ def run_engine(scene, frames, metric: str):
     return gd, engine
 
 
-def l1_path(card_line: str, scene, frames):
-    """The L1 matching path: run_engine with metric="l1"."""
+def l1_path(card_line: str, scene, frames, what: str = "l1 path"):
+    """The L1 matching path: run_engine with metric="l1" → (launch counts,
+    GlobalData)."""
     import torch
 
     torch.cuda.synchronize()
@@ -533,17 +604,37 @@ def l1_path(card_line: str, scene, frames):
     n = counts()
     if engine.cfg.metric != "l1":
         fail("the engine did not take metric='l1'")
-    n_cams, ate_pct = trajectory_ok("l1 path", scene, gd)
-    on_cuda("l1 path", engine)
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
     if n["top2_l1"] < n_cams - 1:
         fail(f"top2_l1 launched {n['top2_l1']} times for {n_cams} cameras")
     if n["top2_batch"] != 0:
         fail(f"the L1 path launched top2_batch {n['top2_batch']} times")
-    print(f"l1 path: cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
+    print(f"{what}: cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
           f"extent  map {len(gd.points)} points  wall {wall:.3f} s  "
           f"{N_FRAMES / wall:.3f} frames/s  launches {json.dumps(n)}  "
           f"[{card_line}]", flush=True)
-    return n
+    return n, gd
+
+
+def same_run(what: str, first, second) -> None:
+    """Two runs of one path on the same frames and seed must agree bit for
+    bit: the same cameras (source frame ids), map size, poses and map
+    points."""
+    import numpy as np
+
+    fields = {"cameras": (np.asarray(first.frame_ids),
+                          np.asarray(second.frame_ids)),
+              "map size": (len(first.points), len(second.points)),
+              "rotations": (first.rotations, second.rotations),
+              "positions": (first.positions, second.positions),
+              "map points": (first.points, second.points)}
+    for name, (x, y) in fields.items():
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            fail(f"{what}: {name} differ between two runs in one process")
+    print(f"repro {what}: two runs equal bit for bit: cameras "
+          f"{len(first.rotations)}, map {len(first.points)} points",
+          flush=True)
 
 
 def pair_entry(card_line: str, frames):
@@ -611,7 +702,8 @@ def main() -> None:
     phase("card", device=repr(name))
     try:
         secs = build()
-        phase("build", nvcc_s=f"{secs:.2f}")
+        hmma = tensor_core_instructions()
+        phase("build", nvcc_s=f"{secs:.2f}", hmma=json.dumps(hmma))
         rows = kernels()
         phase("kernels", **{r["name"].replace(" ", ""): (
             f"{r['ms']:.4f}ms(plain={r['plain_ms']:.4f},"
@@ -619,17 +711,23 @@ def main() -> None:
             for r in rows.values()})
         scene, frames = headline_scene()
         phase("render", frames=N_FRAMES)
-        n = main_path(card_line, scene, frames)
+        n, gd_l2 = main_path(card_line, scene, frames)
         rows["top2_batch"]["launches"] = n["top2_batch"]
         for lpb in (2, 4):
             rows[f"lpb{lpb}"]["launches"] = n["lpb"]
+        rows["hamming"]["launches"] = n["hamming"]
         phase("main", top2_batch_launches=n["top2_batch"])
-        n = l1_path(card_line, scene, frames)
+        n, gd_l1 = l1_path(card_line, scene, frames)
         rows["top2_l1"]["launches"] = n["top2_l1"]
         phase("l1", top2_l1_launches=n["top2_l1"])
         n = pair_entry(card_line, frames)
         rows["top2_pair"]["launches"] = n["top2_pair"]
         phase("pair", top2_pair_launches=n["top2_pair"])
+        _, again = main_path(card_line, scene, frames, "main path, run 2")
+        same_run("main path", gd_l2, again)
+        _, again = l1_path(card_line, scene, frames, "l1 path, run 2")
+        same_run("l1 path", gd_l1, again)
+        phase("repro", runs=4)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run

@@ -4,9 +4,13 @@ relaunches with the last good pose carried over, and sub-map results are
 concatenated.  Writes the reference-format poses/rotations/points/colors/
 main/time.txt logs to cfg.outputDataDir.
 
+The camera comes from the config's OpenCV-XML ``calibrationPath`` (K, and
+with ``useUndistortion`` the distortion coefficients DC), as in the JAX
+package.
+
 Not ported yet (ROADMAP): the classic host conductor
 (``tpu.device_runtime=false``), the final global BA, checkpoint/resume,
-calibration, file-path media and OpenCV-XML calibration files.
+calibration and file-path media.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from . import resolve_device
 from .config import Config
 from .io.logs import GlobalData, LogStreams, load_global_data_from_logs
 from .io.media import ArraySource
+from .io.xmlio import load_matrix_from_xml
 from .utils.timer import ChronoTimer
 
 
@@ -29,6 +34,30 @@ def make_media(cfg: Config, frames=None):
     if hasattr(frames, "next_frame"):
         return frames
     return ArraySource(frames)
+
+
+def load_calibration(cfg: Config) -> tuple[np.ndarray, np.ndarray]:
+    """K and distortion coefficients from the configured XML
+    (defineCalibrationMatrix, cameraCalibration.cpp:34-37 +
+    defineDistortionCoeffs, mainCycleInternals.cpp:68-75); DC is zeros when
+    the file has none."""
+    K = load_matrix_from_xml(cfg.calibrationPath, "K")
+    try:
+        dc = load_matrix_from_xml(cfg.calibrationPath, "DC").reshape(-1)
+    except KeyError:
+        dc = np.zeros(5)
+    return K.astype(np.float64), dc.astype(np.float64)
+
+
+def _load_dist(cfg: Config):
+    """DC coefficients for useUndistortion (mainCycleInternals.cpp:68-75);
+    None when disabled or the calibration has no DC entry."""
+    if not (cfg.useUndistortion and cfg.calibrationPath):
+        return None
+    try:
+        return load_matrix_from_xml(cfg.calibrationPath, "DC").reshape(-1)
+    except Exception:
+        return None
 
 
 def _check_supported(cfg: Config) -> None:
@@ -46,8 +75,10 @@ def _check_supported(cfg: Config) -> None:
 def slam_main(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
               device=None) -> GlobalData:
     """Run the full SLAM pipeline with restart-on-track-loss on ``device``
-    (None = CUDA; raises without a GPU).  Returns the accumulated GlobalData
-    (with ``frame_ids``) and writes the reference-format txt logs."""
+    (None = CUDA; raises without a GPU).  With ``useUndistortion`` the
+    keypoints are undistorted with the DC of ``calibrationPath``.  Returns
+    the accumulated GlobalData (with ``frame_ids``) and writes the
+    reference-format txt logs."""
     _check_supported(cfg)
     return _slam_main_device(cfg, K, frames=frames, seed=seed, device=device)
 
@@ -65,7 +96,7 @@ def _slam_main_device(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
             make_media(cfg, frames), K, EngineConfig.from_config(cfg),
             batch_size=cfg.framesBatchSize,
             required_extracted=cfg.requiredExtractedPointsCount,
-            logs=logs, seed=seed, device=device)
+            logs=logs, seed=seed, dist=_load_dist(cfg), device=device)
         global_data = GlobalData()
         init_R, init_t = np.eye(3), np.zeros(3)
         while True:
@@ -93,14 +124,13 @@ def _slam_main_device(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
 
 def run_from_config(cfg: Config, frames=None, K: np.ndarray | None = None,
                     device=None) -> GlobalData:
-    """Top-level dispatch: ``onlyViz`` reloads the logs; otherwise SLAM.
-    The calibration comes as ``K`` (reading OpenCV-XML calibration files is
-    not ported yet)."""
+    """Top-level dispatch (main, src/main.cpp:28-74): ``onlyViz`` reloads
+    the logs; otherwise SLAM, with K from ``calibrationPath`` unless the
+    caller passes one."""
     if cfg.calibrate:
         raise NotImplementedError("calibration is not ported yet")
     if cfg.onlyViz:
         return load_global_data_from_logs(cfg.outputDataDir)
     if K is None:
-        raise NotImplementedError(
-            "reading the calibration XML is not ported yet: pass K")
+        K, _dc = load_calibration(cfg)
     return slam_main(cfg, K, frames=frames, device=device)

@@ -9,10 +9,9 @@
 // What bounds it at the main path's shapes (N = M = 2048, D = 128, B = 16):
 // 2*B*N*M*D = 17.2 GFLOP -> 17 us at 989 TFLOP/s bf16 dense on the tensor
 // cores, against 8.4 MB of bf16 B (+0.5 MB A) -> 2.6 us at 3.35 TB/s, so it is
-// bound by operations.  This design does nothing about that yet: it runs on
-// the CUDA cores in f32 FMA (67 TFLOP/s peak, so >= 0.26 ms), with operands
-// staged through shared memory.  mma.sync / wgmma tiles, TMA and a
-// persistent schedule are later work.
+// bound by operations.  The tile loop runs the product on the tensor cores
+// (mma.sync, bf16 in, f32 sums); its top-2 epilogue, about 9 CUDA-core
+// instructions for each of the 67 M distances, costs about as much again.
 //
 // Grid (ceil(N / 128), ceil(B / lpb)): a block stages its 128 query rows
 // once and scans lanes y*lpb .. y*lpb+lpb-1 against them, so the query tile

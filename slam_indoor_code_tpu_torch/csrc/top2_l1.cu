@@ -29,12 +29,14 @@
 // the last chunk each thread folds its 8 columns, in increasing order, into
 // a running top-2 per row with a strict '<' (the lowest column wins a
 // tie).  At the end the 16 threads that share a row merge their partial
-// top-2s by (distance, column) through warp shuffles, which gives the same
-// answer as one scan of all columns in order.  The [N, M] distance matrix
+// top-2s by (distance, column) through warp shuffles (top2_merge.cuh), which
+// gives the same answer as one scan of all columns in order.  The [N, M] distance matrix
 // never reaches device memory.  Ragged N, M and D are handled here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "top2_merge.cuh"
 
 namespace {
 
@@ -44,31 +46,6 @@ constexpr int DK = 32;         // dimensions per shared-memory chunk
 constexpr int LD = TR + 4;     // padded k-major row (keeps float4 alignment)
 constexpr int THREADS = 256;   // 16 x 16, each an 8x8 register tile
 constexpr float BIG = 3.0e38f;
-
-__device__ __forceinline__ void fold(float d, int col, float& d1, int& i1,
-                                     float& d2) {
-  if (d < d1) {
-    d2 = d1;
-    d1 = d;
-    i1 = col;
-  } else if (d < d2) {
-    d2 = d;
-  }
-}
-
-// Merge another partial top-2 over a disjoint column set into (d1, i1, d2):
-// the smaller (distance, column) pair wins; d2 is the second smallest of
-// the union.
-__device__ __forceinline__ void merge(float& d1, int& i1, float& d2, float e1,
-                                      int j1, float e2) {
-  const float lo2 = fminf(d2, e2);
-  const float hi1 = fmaxf(d1, e1);
-  if (e1 < d1 || (e1 == d1 && j1 < i1)) {
-    d1 = e1;
-    i1 = j1;
-  }
-  d2 = fminf(lo2, hi1);
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
 top2_l1_kernel(const float* __restrict__ a,        // [N, D]
@@ -143,7 +120,7 @@ top2_l1_kernel(const float* __restrict__ a,        // [N, D]
       if (col < M) {
 #pragma unroll
         for (int i = 0; i < 8; ++i)
-          fold(ok ? acc[i][j] : BIG, col, d1[i], i1[i], d2[i]);
+          top2_fold(ok ? acc[i][j] : BIG, col, d1[i], i1[i], d2[i]);
       }
     }
   }
@@ -156,7 +133,7 @@ top2_l1_kernel(const float* __restrict__ a,        // [N, D]
       const float e1 = __shfl_xor_sync(0xffffffffu, d1[i], off);
       const int j1 = __shfl_xor_sync(0xffffffffu, i1[i], off);
       const float e2 = __shfl_xor_sync(0xffffffffu, d2[i], off);
-      merge(d1[i], i1[i], d2[i], e1, j1, e2);
+      top2_merge(d1[i], i1[i], d2[i], e1, j1, e2);
     }
   }
   if (tx == 0) {

@@ -10,15 +10,15 @@
 // What bounds it at 2048 x 2048 x 128: 2*N*M*D = 1.07 GFLOP -> 1.1 us at
 // 989 TFLOP/s bf16 on the tensor cores, against 2 MB of f32 operands
 // (0.6 us at 3.35 TB/s): bound by operations, and at that size by the two
-// launches' fixed cost in practice.  Like top2_batch it runs on the CUDA
-// cores (>= 16 us at the f32 FMA peak).
+// launches' fixed cost in practice.  Its product runs on the tensor cores
+// like top2_batch's.
 //
 // Design: pass 1 splits the column axis into S ranges of `cols_per_split`
-// columns (a multiple of 32) and gives each (row tile, range) its own block,
-// which writes a partial (d1, idx1, d2) per row to scratch [S, N].  Pass 2
-// merges the S partials of a row in range order with _merge_top2's rule —
-// the new minimum must be strictly smaller, so the lowest column still wins
-// a tie; d2 = min(d2, e2, max(d1, e1)) keeps a duplicate minimum as d2.
+// columns (a multiple of the 128-column tile) and gives each (row tile,
+// range) its own block, which writes a partial (d1, idx1, d2) per row to
+// scratch [S, N].  Pass 2 merges the S partials of a row in range order
+// with _merge_top2's rule (top2_merge.cuh): the lowest column still wins a
+// tie, and d2 = min(d2, e2, max(d1, e1)) keeps a duplicate minimum as d2.
 
 #include "top2_l2.cuh"
 
@@ -37,13 +37,7 @@ __global__ void top2_pair_merge(const float* __restrict__ pd1,   // [S, N]
   int i1 = pi1[n];
   for (int s = 1; s < S; ++s) {
     const size_t o = (size_t)s * N + n;
-    const float e1 = pd1[o], e2 = pd2[o];
-    const float nd2 = fminf(fminf(d2, e2), fmaxf(d1, e1));
-    if (e1 < d1) {
-      d1 = e1;
-      i1 = pi1[o];
-    }
-    d2 = nd2;
+    top2_merge(d1, i1, d2, pd1[o], pi1[o], pd2[o]);
   }
   d1_out[n] = d1;
   i1_out[n] = i1;

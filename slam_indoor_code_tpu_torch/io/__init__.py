@@ -1,5 +1,6 @@
-"""Host-side IO: reference-format txt logs and the in-memory frame source.
-(File-path media and OpenCV-XML calibration are not part of this port yet.)"""
+"""Host-side IO: reference-format txt logs, OpenCV-XML calibration files and
+the in-memory frame source.  (File-path media is not part of this port
+yet.)"""
 
 from .logs import (
     GlobalData,
@@ -9,6 +10,11 @@ from .logs import (
     write_matrix,
 )
 from .media import ArraySource
+from .xmlio import (
+    load_matrix_from_xml,
+    save_calib_parameters_to_xml,
+    save_matrix_to_xml,
+)
 
 __all__ = [
     "ArraySource",
@@ -16,5 +22,8 @@ __all__ = [
     "LogStreams",
     "format_matrix",
     "load_global_data_from_logs",
+    "load_matrix_from_xml",
+    "save_calib_parameters_to_xml",
+    "save_matrix_to_xml",
     "write_matrix",
 ]

@@ -40,7 +40,7 @@ SIGNATURES = {
 }
 
 PAIR_ROWS = 128      # query rows per block of top2_pair (csrc/top2_l2.cuh)
-PAIR_COLS = 32       # its column tile: a split is a multiple of it
+PAIR_COLS = 128      # its column tile: a split is a multiple of it
 
 
 def set_signature(fn, name: str) -> None:
@@ -179,7 +179,8 @@ def top2_batch(desc_a: torch.Tensor, desc_b: torch.Tensor,
     A CPU tensor takes ``top2_batch_plain``; a CUDA tensor launches the
     kernel on the current stream (no synchronisation) and counts the launch
     in ``top2_batch.launches`` (and, with lanes_per_block > 1, in
-    ``top2_batch.multi_lane_launches``)."""
+    ``top2_batch.multi_lane_launches``; with metric "hamming", in
+    ``top2_batch.hamming_launches``)."""
     lpb = _check_lpb(lanes_per_block)
     dev = desc_a.device
     if dev.type == "cpu":
@@ -200,19 +201,23 @@ def top2_batch(desc_a: torch.Tensor, desc_b: torch.Tensor,
     top2_batch.launches += 1
     if lpb > 1:
         top2_batch.multi_lane_launches += 1
+    if metric == "hamming":
+        top2_batch.hamming_launches += 1
     return d1, i1, d2
 
 
 top2_batch.launches = 0
 top2_batch.multi_lane_launches = 0
+top2_batch.hamming_launches = 0
 
 
 def pair_splits(N: int, M: int, sms: int) -> tuple[int, int]:
-    """(S, cols_per_split) for ``top2_pair``: about four blocks per SM over
-    the row tiles × column ranges, each range a multiple of the 32-column
-    tile, S ranges covering all M columns."""
+    """(S, cols_per_split) for ``top2_pair``: about one block per SM over
+    the row tiles × column ranges, each range a multiple of the 128-column
+    tile, S ranges covering all M columns.  2048 × 2048 on 132 SMs gives 8
+    ranges of two tiles (128 blocks)."""
     row_tiles = -(-max(N, 1) // PAIR_ROWS)
-    want = max(1, -(-4 * sms // row_tiles))
+    want = max(1, -(-sms // row_tiles))
     per = -(-max(M, 1) // want)
     per = -(-per // PAIR_COLS) * PAIR_COLS
     return -(-max(M, 1) // per), per

@@ -6,10 +6,11 @@ What differs from the JAX code, and why:
 
 * JAX ``.at[i].set(v, mode="drop")`` silently drops out-of-range rows and
   JAX gathers clamp; torch raises on both.  Drops are explicit here: small
-  per-frame arrays scatter into one spare row that is cut off again
-  (``_scatter_drop``); the map arena, too large to copy, sends dropped rows
-  to a row outside the appended range with that row's own value
-  (``_append_points``).  Gathers that could run past an arena are clamped.
+  per-frame arrays gather each row's last writer (``_scatter_drop``, so a
+  repeated index resolves as JAX on the CPU resolves it, on every device);
+  the map arena, too large to copy, sends dropped rows to a row outside the
+  appended range with that row's own value (``_append_points``).  Gathers
+  that could run past an arena are clamped.
 * Where the JAX steps donated the state, these functions update the
   TrackerState in place and return it.
 * ``lax.scan`` in ``advance_window`` is a Python loop that reads one flag
@@ -65,12 +66,18 @@ def _frontend_cfg(cfg: EngineConfig) -> fe.FrontendConfig:
 def _scatter_drop(base: torch.Tensor, idx: torch.Tensor,
                   val: torch.Tensor) -> torch.Tensor:
     """``base.at[idx].set(val, mode="drop")`` for a small array: rows with
-    idx == len(base) land in a spare row that is cut off.  Duplicate
-    indices keep one of their values, as in JAX."""
+    idx == len(base) are dropped, and of repeated indices the last write
+    wins (JAX's rule on the CPU).  An index_put would leave the winner of a
+    repeated index to the device's thread order; here each row's winner is
+    the largest position that writes it (a max, which does not depend on
+    order), and the result is a gather of the winners."""
     n = base.shape[0]
-    ext = torch.cat([base, base[:1]])
-    ext[idx] = val
-    return ext[:n]
+    idx = idx.long()
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    win = torch.full((n + 1,), -1, dtype=torch.long, device=idx.device)
+    win = win.scatter_reduce(0, idx, pos, "amax")[:n]
+    hit = (win >= 0).reshape((n,) + (1,) * (base.dim() - 1))
+    return torch.where(hit, val[win.clamp(min=0)].to(base.dtype), base)
 
 
 def _row(x: torch.Tensor, i) -> torch.Tensor:

@@ -5,8 +5,9 @@ solver/ba.py — see there for the reference citations).
 Observations live in a fixed [F,K] slot grid (frame × keypoint slot, with a
 mask); the per-observation residual Jacobians come from ``torch.func``
 (``vmap`` of ``jacfwd``, as the JAX code vmaps ``jax.jacfwd``); the normal
-equations are assembled with ``index_add_`` (``segment_sum`` there) into
-dense per-point blocks, and the reduced camera system is solved densely.
+equations are assembled with a fixed-order segment sum (``segment_sum``
+there) into dense per-point blocks, and the reduced camera system is
+solved densely.
 ``lax.while_loop`` becomes a Python loop with the same accept/reject and
 stop rules; it reads one flag per iteration from the device.
 """
@@ -94,8 +95,13 @@ class BAConfig:
 
 
 def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Rows of ``x`` summed by segment id into [n, ...], in a fixed order.
+    ``index_add_`` adds with float atomics on CUDA, in an order that changes
+    from run to run; an accumulating ``index_put_`` sorts the ids (stably)
+    and adds each segment's rows in that order, so a run repeats bit for
+    bit."""
     out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, ids, x)
+    return out.index_put_((ids,), x, accumulate=True)
 
 
 def bundle_adjust_window(cfg: BAConfig, K4, cams, points, uv, point_idx,

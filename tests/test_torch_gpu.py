@@ -190,3 +190,77 @@ def test_match_batch_l1_launches_the_kernel_on_card(cuda_device):
     same = got["is_match"].cpu().numpy() == want["is_match"].numpy()
     assert np.all(same | open_rows)
     assert int(want["num_matches"][0]) > 50
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric_case", ["batch", "pair"])
+def test_hamming_exact_at_orb_shapes_on_card(cuda_device, metric_case):
+    """ORB's shapes: 2048 × 2048 descriptors of 8 words (D = 256 bits
+    unpacked), 16 candidate frames.  Sums of 0/1 products up to 256 are
+    exact in f32, so the tensor-core tile equals the plain version."""
+    rng = np.random.default_rng(13)
+    a = rng.integers(0, 2**32, (2048, 8), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2**32, (16, 2048, 8), dtype=np.uint64).astype(
+        np.uint32)
+    b[0, 1024] = b[0, 3]
+    a[0] = b[0, 3]
+    vb = rng.random((16, 2048)) >= 0.1
+    vb[0, [3, 1024]] = True
+    vb[5] = False
+    ta = torch.from_numpy(a.view(np.int32)).to(cuda_device)
+    tb = torch.from_numpy(b.view(np.int32)).to(cuda_device)
+    tv = torch.from_numpy(vb).to(cuda_device)
+    if metric_case == "pair":
+        tb, tv = tb[0].contiguous(), tv[0].contiguous()
+        got = ck.top2_pair(ta, tb, tv, metric="hamming")
+        want = ck.top2_pair_plain(ta, tb, tv, metric="hamming")
+    else:
+        got = ck.top2_batch(ta, tb, tv, metric="hamming")
+        want = ck.top2_batch_plain(ta, tb, tv, metric="hamming")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    d1, i1, d2 = (x.cpu().numpy().reshape(-1, 2048) for x in got)
+    assert i1[0, 0] == 3 and d1[0, 0] == d2[0, 0] == 0.0
+    if metric_case == "batch":
+        assert np.all(d1[5] == np.float32(3e38)) and np.all(i1[5] == 0)
+
+
+@pytest.mark.gpu
+def test_segment_sum_repeats_bitwise_on_card(cuda_device):
+    """The BA's normal-equation sums: 20 runs over ids with many repeats
+    give the same bits (index_add_'s float atomics did not)."""
+    from slam_indoor_code_tpu_torch.solver.ba import _segment_sum
+
+    g = torch.Generator().manual_seed(14)
+    ids = torch.randint(0, 50, (16384,), generator=g).to(cuda_device)
+    ids[:4000] = 0                       # masked observations land on 0
+    x = torch.randn(16384, 120, generator=g).to(cuda_device)
+    x[:4000] = 0.0
+    ref = _segment_sum(x, ids, 64)
+    for _ in range(20):
+        assert torch.equal(_segment_sum(x, ids, 64), ref)
+    np.testing.assert_allclose(
+        ref.cpu().numpy(), _segment_sum(x.cpu(), ids.cpu(), 64).numpy(),
+        rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [None, 6])
+def test_scatter_drop_repeats_bitwise_on_card(cuda_device, width):
+    """Repeated and dropped indices: 20 runs give the same bits, and the
+    CPU's (and JAX's) last-write-wins result."""
+    from slam_indoor_code_tpu_torch.runtime.steps import _scatter_drop
+
+    g = torch.Generator().manual_seed(15)
+    n = 2048
+    idx = torch.randint(0, n + 1, (n,), generator=g)
+    idx[:1024] = torch.randint(0, 64, (1024,), generator=g)
+    shape = (n,) if width is None else (n, width)
+    val = torch.randn(shape, generator=g)
+    base = torch.randn(shape, generator=g)
+    want = _scatter_drop(base, idx, val)
+    args = [t.to(cuda_device) for t in (base, idx, val)]
+    ref = _scatter_drop(*args)
+    for _ in range(20):
+        assert torch.equal(_scatter_drop(*args), ref)
+    assert torch.equal(ref.cpu(), want)
