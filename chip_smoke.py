@@ -27,13 +27,27 @@ Phases, each followed by one flushed line with the elapsed seconds:
               with ``EngineConfig.metric="l1"`` (the reference CUDA
               backend's NORM_L1 matcher): every scan step through
               ``top2_l1``, none through ``top2_batch``.
-6. pair     — ``knn.match_pair`` on CUDA with the SIFT descriptors of two
+6. orb      — ``slam_main`` with only ``useFM-ORB`` set: ORB descriptors
+              (int32 bit words), every scan step through ``top2_batch`` with
+              metric "hamming".
+7. global   — the headline with ``tpu.global_ba`` (8 LM iterations of 12
+              CG steps, the config's defaults): the final global BA's RMSE
+              before and after, whether it was accepted, its solve time, and
+              the ATE before and after it.
+8. resume   — the headline with ``tpu.checkpoint_path``/``checkpoint_every``
+              crashes after its first snapshot; a second ``slam_main`` with
+              ``tpu.resume_path`` continues it, and must give phase 4's
+              cameras, poses and map bit for bit.
+9. pair     — ``knn.match_pair`` on CUDA with the SIFT descriptors of two
               rendered frames: one ``top2_pair`` launch, the same matches as
               ``match_pair`` on CPU copies up to the rows the L2 tolerance
               leaves open.
-7. repro    — phases 4 and 5 once more in the same process: each second
+10. repro   — phases 4, 5 and 6 once more in the same process: each second
               run must give the first run's cameras, map size, poses and
               map points bit for bit.
+
+No path may call a kernel's plain version on the card (each phase counts
+those calls and fails on any).
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero and prints
@@ -44,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -60,9 +75,9 @@ PEAK_BYTES = 3.35e12
 BIG = 3.0e38
 
 # Headline configuration (the JAX package's bench.py, pinned to device
-# ingest) and its synthetic scene.  The L1 path is held to the same limits:
-# the JAX package's L1 engine on these 32 frames (CPU run,
-# scripts/jax_l1_headline_cpu.py) tracks 32/32 frames well inside them.
+# ingest) and its synthetic scene.  Every path is held to the same limits:
+# the JAX package's L1, L2 and ORB engines on these 32 frames (CPU runs,
+# scripts/headline_cpu.py) track 32/32 frames well inside them.
 N_FRAMES = 32
 MIN_CAMERAS = 24
 ATE_MAX_FRAC = 0.05
@@ -85,6 +100,13 @@ def headline_config(out_dir: str):
         tpu=TpuConfig(max_keypoints=2048, ransac_iters=1024,
                       pnp_ransac_iters=64, window_points=4096,
                       ba_max_iters=10, global_ba=False, ingest="device"))
+
+
+def orb_config(out_dir: str):
+    """The headline configuration with only ``useFM-ORB`` set: ORB
+    descriptors and Hamming 2-NN."""
+    return dataclasses.replace(headline_config(out_dir), useFM_SIFT_BF=False,
+                               useFM_SIFT_FLANN=False, useFM_ORB=True)
 
 
 def headline_scene(n_frames: int = N_FRAMES):
@@ -469,31 +491,61 @@ def kernels():
 
 # ------------------------------------------------------------- main paths
 
-def trajectory_ok(what, scene, gd):
-    """Cameras, finite poses and points, ATE against ground truth."""
+def rel_ate_pct(scene, rotations, positions, frame_ids) -> float:
+    """ATE against ground truth (Sim(3)-aligned, paired by source frame
+    id) as % of the trajectory extent."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.metrics import absolute_trajectory_error
     from slam_indoor_code_tpu_torch.metrics.ate import camera_centers
 
+    est = camera_centers(rotations, positions)
+    gt = scene.centers()[np.asarray(frame_ids, np.int64)]
+    return 100 * absolute_trajectory_error(est, gt) / float(
+        np.linalg.norm(gt.max(0) - gt.min(0)))
+
+
+def trajectory_ok(what, scene, gd):
+    """Cameras, finite poses and points, ATE against ground truth."""
+    import numpy as np
+
     n_cams = len(gd.rotations)
     if n_cams < MIN_CAMERAS:
         fail(f"{what}: only {n_cams}/{N_FRAMES} frames became cameras")
-    est = camera_centers(gd.rotations, gd.positions)
-    if not np.all(np.isfinite(est)) or not np.all(np.isfinite(gd.points)):
+    if not all(np.all(np.isfinite(x)) for x in (gd.rotations, gd.positions,
+                                                 gd.points)):
         fail(f"{what}: non-finite poses or map points")
-    gt = scene.centers()[np.asarray(gd.frame_ids, np.int64)]
-    ate = absolute_trajectory_error(est, gt)
-    extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
-    if not ate < ATE_MAX_FRAC * extent:
-        fail(f"{what}: ATE {ate:.4f} >= {ATE_MAX_FRAC} of extent {extent:.3f}")
-    return n_cams, 100 * ate / extent
+    ate_pct = rel_ate_pct(scene, gd.rotations, gd.positions, gd.frame_ids)
+    if not ate_pct < 100 * ATE_MAX_FRAC:
+        fail(f"{what}: ATE {ate_pct:.4f}% >= {100 * ATE_MAX_FRAC}% of extent")
+    return n_cams, ate_pct
 
 
 def on_cuda(what, engine):
     for name, t in engine.state.tensors().items():
         if t.device.type != "cuda":
             fail(f"{what}: TrackerState.{name} is on {t.device}")
+
+
+PLAIN = ("top2_batch_plain", "top2_pair_plain", "top2_l1_plain")
+PLAIN_CALLS = {"n": 0}
+
+
+def count_plain_calls() -> None:
+    """Wrap each kernel's plain version so that a call counts in
+    PLAIN_CALLS: a path on the card must never reach one.  The kernel
+    phase's comparisons call them directly and are not counted (they run
+    before this is installed)."""
+    from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
+
+    for name in PLAIN:
+        fn = getattr(ck, name)
+
+        def counted(*a, _fn=fn, **kw):
+            PLAIN_CALLS["n"] += 1
+            return _fn(*a, **kw)
+
+        setattr(ck, name, counted)
 
 
 def reset_counts():
@@ -503,6 +555,7 @@ def reset_counts():
         fn.launches = 0
     ck.top2_batch.multi_lane_launches = 0
     ck.top2_batch.hamming_launches = 0
+    PLAIN_CALLS["n"] = 0
 
 
 def counts():
@@ -512,12 +565,14 @@ def counts():
             "lpb": ck.top2_batch.multi_lane_launches,
             "hamming": ck.top2_batch.hamming_launches,
             "top2_pair": ck.top2_pair.launches,
-            "top2_l1": ck.top2_l1.launches}
+            "top2_l1": ck.top2_l1.launches,
+            "plain": PLAIN_CALLS["n"]}
 
 
-def main_path(card_line: str, scene, frames, what: str = "main path"):
-    """``slam_main`` on CUDA with the headline configuration → (launch
-    counts of the run, its GlobalData)."""
+def slam_run(cfg, scene, frames):
+    """``slam_main(cfg)`` on CUDA, launch counts set to 0 just before and
+    read just after → (counts, GlobalData, wall seconds, the engine, lines
+    of poses.txt)."""
     import torch
 
     from slam_indoor_code_tpu_torch.app import slam_main
@@ -530,34 +585,192 @@ def main_path(card_line: str, scene, frames, what: str = "main path"):
         orig_init(self, *a, **kw)
         engines.append(self)
 
-    with tempfile.TemporaryDirectory() as out:
-        cfg = headline_config(out)
-        DeviceEngine.__init__ = spy_init
-        try:
-            torch.cuda.synchronize()
-            reset_counts()
-            t = time.perf_counter()
-            gd = slam_main(cfg, scene.K, frames=frames, seed=0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            n = counts()
-        finally:
-            DeviceEngine.__init__ = orig_init
-        with open(f"{out}/poses.txt") as f:
-            n_logged = sum(1 for _ in f)
-    n_cams, ate_pct = trajectory_ok(what, scene, gd)
-    if n_logged < n_cams:
-        fail(f"poses.txt has {n_logged} rows for {n_cams} cameras")
-    on_cuda(what, engines[0])
-    # one launch per tracked frame; the bootstrap pair shares one
-    if n["top2_batch"] < n_cams - 1:
-        fail(f"top2_batch launched {n['top2_batch']} times for {n_cams} "
-             "cameras")
+    DeviceEngine.__init__ = spy_init
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        gd = slam_main(cfg, scene.K, frames=frames, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = counts()
+    finally:
+        DeviceEngine.__init__ = orig_init
+    with open(f"{cfg.outputDataDir}/poses.txt") as f:
+        n_logged = sum(1 for _ in f)
+    if n["plain"]:
+        fail(f"a kernel's plain version was called {n['plain']} times on "
+             "the card")
+    return n, gd, wall, engines[0], n_logged
+
+
+def report(what, n_cams, ate_pct, gd, wall, n, card_line):
     print(f"{what}: cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}%"
           f" of extent  map {len(gd.points)} points  wall {wall:.3f} s  "
           f"{N_FRAMES / wall:.3f} frames/s  launches {json.dumps(n)}  "
           f"[{card_line}]", flush=True)
+
+
+def main_path(card_line: str, scene, frames, what: str = "main path"):
+    """``slam_main`` on CUDA with the headline configuration → (launch
+    counts of the run, its GlobalData)."""
+    with tempfile.TemporaryDirectory() as out:
+        n, gd, wall, engine, n_logged = slam_run(headline_config(out), scene,
+                                                 frames)
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    if n_logged < n_cams:
+        fail(f"poses.txt has {n_logged} rows for {n_cams} cameras")
+    on_cuda(what, engine)
+    # one launch per tracked frame; the bootstrap pair shares one
+    if n["top2_batch"] < n_cams - 1:
+        fail(f"top2_batch launched {n['top2_batch']} times for {n_cams} "
+             "cameras")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
     return n, gd
+
+
+def orb_path(card_line: str, scene, frames, what: str = "orb path"):
+    """``slam_main`` with only ``useFM-ORB`` set → (launch counts,
+    GlobalData): every scan step through the Hamming ``top2_batch``."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as out:
+        n, gd, wall, engine, _ = slam_run(orb_config(out), scene, frames)
+    if (engine.cfg.descriptor, engine.cfg.metric) != ("orb", "hamming"):
+        fail(f"{what}: the engine took {engine.cfg.descriptor}/"
+             f"{engine.cfg.metric}, not orb/hamming")
+    if engine.state.ring_desc.dtype != torch.int32 or tuple(
+            engine.state.ring_desc.shape[-1:]) != (8,):
+        fail(f"{what}: descriptors {engine.state.ring_desc.dtype} "
+             f"{tuple(engine.state.ring_desc.shape)}, not int32 [..,8]")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
+    if n["hamming"] < n_cams - 1:
+        fail(f"{what}: the Hamming top2_batch launched {n['hamming']} times "
+             f"for {n_cams} cameras")
+    if n["top2_batch"] != n["hamming"] or n["top2_l1"] or n["top2_pair"]:
+        fail(f"{what}: launched another kernel than the Hamming top2_batch: "
+             f"{n}")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
+    return n, gd
+
+
+def global_path(card_line: str, scene, frames, gd_main):
+    """The headline with ``tpu.global_ba`` → (launch counts, the solve's
+    numbers).  The windowed trajectory handed to the refinement is phase
+    4's (collecting the observations changes nothing), which is checked."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from slam_indoor_code_tpu_torch import app
+    from slam_indoor_code_tpu_torch.solver import global_ba
+
+    rec = {}
+    orig_refine = app._global_refine
+    orig_solve = global_ba.global_bundle_adjust
+
+    def spy_refine(engine, gd, logs, cfg):
+        rec["before"] = rel_ate_pct(scene, gd.rotations, gd.positions,
+                                    gd.frame_ids)
+        rec["same_windowed"] = (
+            np.array_equal(gd.rotations, gd_main.rotations)
+            and np.array_equal(gd.positions, gd_main.positions))
+        out = orig_refine(engine, gd, logs, cfg)
+        rec["accepted"] = out is not None
+        return out
+
+    def spy_solve(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig_solve(*a, **kw)
+        torch.cuda.synchronize()
+        rec["solve_s"] = time.perf_counter() - t
+        rec["info"] = {k: float(v) for k, v in res[2].items()}
+        rec["obs"] = int(a[4].shape[0])
+        rec["cams"] = int(a[2].shape[0])
+        return res
+
+    app._global_refine, global_ba.global_bundle_adjust = spy_refine, spy_solve
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            cfg = headline_config(out)
+            cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+                cfg.tpu, global_ba=True))
+            n, gd, wall, engine, _ = slam_run(cfg, scene, frames)
+            with open(f"{out}/main.txt") as f:
+                logged = "Global Bundle Adjustment statistics" in f.read()
+    finally:
+        app._global_refine, global_ba.global_bundle_adjust = (orig_refine,
+                                                              orig_solve)
+    if "info" not in rec or not logged:
+        fail("global: the final global BA did not run")
+    info = rec["info"]
+    if not math.isfinite(info["final_rmse"]):
+        fail(f"global: final RMSE {info['final_rmse']}")
+    n_cams, ate_pct = trajectory_ok("global", scene, gd)
+    on_cuda("global", engine)
+    print(f"global: cameras {n_cams}/{N_FRAMES}  RMSE "
+          f"{info['initial_rmse']:.6f} -> {info['final_rmse']:.6f} px over {int(info['num_residuals'])}"
+          f" residuals ({rec['obs']} padded, {rec['cams']} camera slots), "
+          f"{info['num_iters']:.0f} LM iterations, "
+          f"{'accepted' if rec['accepted'] else 'rejected'}  solve "
+          f"{rec['solve_s']:.3f} s  ATE {rec['before']:.4f}% -> "
+          f"{ate_pct:.4f}% of extent  windowed trajectory equals the main "
+          f"path's: {rec['same_windowed']}  wall {wall:.3f} s  "
+          f"[{card_line}]", flush=True)
+    return n, rec
+
+
+def resume_path(card_line: str, scene, frames, gd_main):
+    """The headline with ``tpu.checkpoint_path`` and ``checkpoint_every``
+    = 16 crashes in the first window after its first snapshot; a second
+    ``slam_main`` with ``tpu.resume_path`` continues it and must equal phase
+    4's run bit for bit.  At 32 frames the engine has read every frame of
+    its media before its first snapshot (ingest prefetches up to ~48), so
+    the crash is raised in the next ``advance_window`` instead of by the
+    media.  → launch counts of the resumed run."""
+    from slam_indoor_code_tpu_torch.app import slam_main
+    from slam_indoor_code_tpu_torch.runtime import checkpoint_next_fid, steps
+
+    with tempfile.TemporaryDirectory() as out:
+        ck = os.path.join(out, "run.npz")
+        cfg = headline_config(os.path.join(out, "killed"))
+        cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+            cfg.tpu, checkpoint_path=ck, checkpoint_every=16))
+        orig = steps.advance_window
+
+        def crashing(*a, **kw):
+            if os.path.exists(ck):
+                raise RuntimeError("simulated crash")
+            return orig(*a, **kw)
+
+        steps.advance_window = crashing
+        try:
+            slam_main(cfg, scene.K, frames=frames, seed=0)
+            fail("resume: the run did not crash after a snapshot")
+        except RuntimeError as e:
+            if "simulated crash" not in str(e):
+                raise
+        finally:
+            steps.advance_window = orig
+        next_fid = checkpoint_next_fid(ck)
+        size_mb = os.path.getsize(ck) / 1e6
+        cfg = headline_config(os.path.join(out, "resumed"))
+        cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+            cfg.tpu, resume_path=ck))
+        n, gd, wall, engine, _ = slam_run(cfg, scene, frames)
+        with open(os.path.join(out, "resumed", "main.txt")) as f:
+            if "Resumed from" not in f.read():
+                fail("resume: main.txt has no 'Resumed from' line")
+    on_cuda("resume", engine)
+    same_run("resume (resumed vs uninterrupted)", gd_main, gd)
+    print(f"resume: crashed after a snapshot at source frame {next_fid - 1} "
+          f"({size_mb:.1f} MB npz); the resumed run ({wall:.3f} s, launches "
+          f"{json.dumps(n)}) equals the uninterrupted one  [{card_line}]",
+          flush=True)
+    return n
 
 
 def run_engine(scene, frames, metric: str):
@@ -631,8 +844,8 @@ def same_run(what: str, first, second) -> None:
               "map points": (first.points, second.points)}
     for name, (x, y) in fields.items():
         if not np.array_equal(np.asarray(x), np.asarray(y)):
-            fail(f"{what}: {name} differ between two runs in one process")
-    print(f"repro {what}: two runs equal bit for bit: cameras "
+            fail(f"{what}: {name} differ between two runs")
+    print(f"repro {what}: the two runs equal bit for bit: cameras "
           f"{len(first.rotations)}, map {len(first.points)} points",
           flush=True)
 
@@ -711,15 +924,23 @@ def main() -> None:
             for r in rows.values()})
         scene, frames = headline_scene()
         phase("render", frames=N_FRAMES)
+        count_plain_calls()
         n, gd_l2 = main_path(card_line, scene, frames)
         rows["top2_batch"]["launches"] = n["top2_batch"]
         for lpb in (2, 4):
             rows[f"lpb{lpb}"]["launches"] = n["lpb"]
-        rows["hamming"]["launches"] = n["hamming"]
         phase("main", top2_batch_launches=n["top2_batch"])
         n, gd_l1 = l1_path(card_line, scene, frames)
         rows["top2_l1"]["launches"] = n["top2_l1"]
         phase("l1", top2_l1_launches=n["top2_l1"])
+        n, gd_orb = orb_path(card_line, scene, frames)
+        rows["hamming"]["launches"] = n["hamming"]
+        phase("orb", hamming_launches=n["hamming"])
+        n, rec = global_path(card_line, scene, frames, gd_l2)
+        phase("global", top2_batch_launches=n["top2_batch"],
+              solve_s=f"{rec['solve_s']:.3f}")
+        n = resume_path(card_line, scene, frames, gd_l2)
+        phase("resume", top2_batch_launches=n["top2_batch"])
         n = pair_entry(card_line, frames)
         rows["top2_pair"]["launches"] = n["top2_pair"]
         phase("pair", top2_pair_launches=n["top2_pair"])
@@ -727,7 +948,9 @@ def main() -> None:
         same_run("main path", gd_l2, again)
         _, again = l1_path(card_line, scene, frames, "l1 path, run 2")
         same_run("l1 path", gd_l1, again)
-        phase("repro", runs=4)
+        _, again = orb_path(card_line, scene, frames, "orb path, run 2")
+        same_run("orb path", gd_orb, again)
+        phase("repro", runs=6)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run

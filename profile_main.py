@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on the card.
 
-    python3 profile_main.py [l2|l1|tile]
+    python3 profile_main.py [l2|l1|orb|tile]
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
 port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
-``EngineConfig.metric="l1"``, chip_smoke.run_engine) twice unprofiled —
+``EngineConfig.metric="l1"``, chip_smoke.run_engine; with ``orb``: with only
+``useFM-ORB`` set, chip_smoke.orb_config) twice unprofiled —
 cold, then warm — and once under ``torch.profiler``.  Prints the card, the
 profiled run's wall time, the share of that wall time in which the device
 ran any kernel, the host and device time of each step span
 ("steps.<name>", see runtime/steps.py) and the kernels with the most device
-time.  Writes the full table to chiprun_out/profile_main[_l1].txt.
+time.  Writes the full table to chiprun_out/profile_main[_l1|_orb].txt.
 
 With ``tile``: where the time of the L2/Hamming tile (csrc/top2_l2.cuh)
 goes at the main path's shapes.  Builds copies of ``top2_batch`` with one
@@ -152,14 +153,15 @@ def main() -> None:
     metric = sys.argv[1] if len(sys.argv) > 1 else "l2"
     if metric == "tile":
         return tile_parts()
-    if metric not in ("l2", "l1"):
-        raise SystemExit(f"mode must be l2, l1 or tile, got {metric!r}")
+    if metric not in ("l2", "l1", "orb"):
+        raise SystemExit(f"mode must be l2, l1, orb or tile, got {metric!r}")
     _, card_line = chip_smoke.card()
     build.build_all()
     scene, frames = chip_smoke.headline_scene()
     walls = []
     with tempfile.TemporaryDirectory() as out:
-        cfg = chip_smoke.headline_config(out)
+        cfg = (chip_smoke.orb_config if metric == "orb"
+               else chip_smoke.headline_config)(out)
 
         def run():
             if metric == "l1":
@@ -211,7 +213,7 @@ def main() -> None:
     table = avg.table(sort_by="self_device_time_total", row_limit=25)
     print(table, flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    suffix = "_l1" if metric == "l1" else ""
+    suffix = "" if metric == "l2" else f"_{metric}"
     with open(f"chiprun_out/profile_main{suffix}.txt", "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=200))
 

@@ -6,16 +6,19 @@ main/time.txt logs to cfg.outputDataDir.
 
 The camera comes from the config's OpenCV-XML ``calibrationPath`` (K, and
 with ``useUndistortion`` the distortion coefficients DC), as in the JAX
-package.
+package.  ``tpu.global_ba`` adds the final full-trajectory BA
+(``_global_refine``); ``tpu.checkpoint_path``/``checkpoint_every`` snapshot
+the run and ``tpu.resume_path`` continues one (runtime/checkpoint.py).
 
 Not ported yet (ROADMAP): the classic host conductor
-(``tpu.device_runtime=false``), the final global BA, checkpoint/resume,
-calibration and file-path media.
+(``tpu.device_runtime=false``), ``tpu.profile_dir``, calibration and
+file-path media.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import resolve_device
 from .config import Config
@@ -64,10 +67,6 @@ def _check_supported(cfg: Config) -> None:
     if not cfg.tpu.device_runtime:
         raise NotImplementedError("tpu.device_runtime=false (the classic host "
                                   "conductor) is not ported yet")
-    if cfg.useBundleAdjustment and cfg.tpu.global_ba:
-        raise NotImplementedError("tpu.global_ba is not ported yet")
-    if cfg.tpu.checkpoint_path or cfg.tpu.resume_path:
-        raise NotImplementedError("checkpoint/resume is not ported yet")
     if cfg.tpu.profile_dir:
         raise NotImplementedError("tpu.profile_dir is not ported yet")
 
@@ -83,6 +82,113 @@ def slam_main(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
     return _slam_main_device(cfg, K, frames=frames, seed=seed, device=device)
 
 
+def _global_refine(engine, gd: GlobalData, logs, cfg: Config):
+    """Final full-trajectory BA over every flushed camera and its windows'
+    observations (solver/global_ba.py, matrix-free LM-PCG).  Updates ``gd``
+    poses in place and returns the refined landmark table, or None when
+    there is too little to refine or the refinement does not lower the
+    reprojection RMSE."""
+    from .geometry.rotations import matrix_to_rodrigues, rodrigues_to_matrix
+    from .solver.global_ba import GlobalBAConfig, global_bundle_adjust
+
+    obs = engine.global_observations()
+    N = len(gd.rotations)
+    if not obs or N < 12:
+        return None
+    # -1 placeholder frame ids must not key the camera map: duplicate keys
+    # would attach another window's observations to one camera
+    fid2idx = {int(f): i for i, f in enumerate(gd.frame_ids) if int(f) >= 0}
+    rows, uv_l, pid_l = [], [], []
+    for xy, corr, ids in obs:
+        for r_i, fid in enumerate(ids):
+            ci = fid2idx.get(int(fid), -1)
+            if ci < 0:
+                continue
+            sel = np.flatnonzero(corr[r_i] >= 0)
+            rows.append(np.full(len(sel), ci, np.int64))
+            uv_l.append(xy[r_i][sel])
+            pid_l.append(corr[r_i][sel])
+    if not rows:
+        return None
+    ci = np.concatenate(rows)
+    uv = np.concatenate(uv_l).astype(np.float32)
+    pid = np.concatenate(pid_l).astype(np.int64)
+    O = len(ci)
+    padn = -(-O // 4096) * 4096 - O     # bucketed, as the JAX package pads
+    uv = np.concatenate([uv, np.zeros((padn, 2), np.float32)])
+    ci = np.concatenate([ci, np.zeros(padn, np.int64)])
+    pid = np.concatenate([pid, np.zeros(padn, np.int64)])
+    mask = np.concatenate([np.ones(O, bool), np.zeros(padn, bool)])
+
+    Npad = -(-N // 16) * 16
+    cams6 = np.zeros((Npad, 6), np.float32)
+    cams6[:N, :3] = matrix_to_rodrigues(torch.from_numpy(
+        np.asarray(gd.rotations[:N], np.float64))).numpy()
+    cams6[:N, 3:] = np.asarray(gd.positions[:N])
+
+    loss, param = cfg.ba_loss
+    gcfg = GlobalBAConfig(loss=loss, loss_param=float(param),
+                          max_iters=cfg.tpu.global_ba_iters,
+                          cg_iters=cfg.tpu.global_ba_cg_iters)
+    t0 = ChronoTimer()
+    # solve over the live landmarks only (a bucketed slice of the arena):
+    # every per-point vector and segment sum scales with the point table
+    n_pts = int(engine.state.map_count)
+    Pcap = max(-(-n_pts // 4096) * 4096, 4096)
+    dev = engine.device
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    camsf, ptsf, info = global_bundle_adjust(
+        gcfg, engine.state.K4, put(cams6), engine.state.map_points[:Pcap],
+        put(uv), put(ci), put(pid), put(mask))
+    camsf = camsf.cpu().numpy().astype(np.float64)
+    ptsf = ptsf[:n_pts].cpu().numpy().astype(np.float64)
+    rmse0 = float(info["initial_rmse"])
+    rmse1 = float(info["final_rmse"])
+    logs.main.write(
+        "Global Bundle Adjustment statistics (approximated RMSE):\n"
+        f" #residuals: {int(info['num_residuals'])}\n"
+        f" #cameras: {N}\n"
+        f" Initial RMSE: {rmse0:.6f}\n"
+        f" Final RMSE: {rmse1:.6f}\n")
+    t0.print_start_delta("Global bundle adjustment: ", logs.time)
+    # the LM loop accepts only cost decreases, but a degenerate observation
+    # record can leave the RMSE flat while the gauge slides: keep the
+    # windowed trajectory unless the refinement lowered the RMSE
+    if not np.isfinite(rmse1) or rmse1 >= rmse0:
+        logs.main.write("Global BA rejected (no RMSE improvement)\n")
+        return None
+    Rs = rodrigues_to_matrix(torch.from_numpy(camsf[:N, :3])).numpy()
+    for i in range(N):
+        gd.rotations[i] = Rs[i]
+        gd.positions[i] = camsf[i, 3:]
+    return ptsf
+
+
+def _resume(cfg: Config, engine, media, global_data: GlobalData,
+            logs: LogStreams) -> None:
+    """Restore ``engine`` from ``tpu.resume_path``: skip the media the
+    snapshot consumed (frames after its cursor re-pull deterministically)
+    and re-emit its flushed trajectory, so the resumed run's output is the
+    whole run's."""
+    from .runtime import checkpoint_next_fid, load_checkpoint
+
+    load_checkpoint(cfg.tpu.resume_path, engine)
+    for _ in range(checkpoint_next_fid(cfg.tpu.resume_path)):
+        media.next_frame()
+    if engine.flushed_R:
+        global_data.append_cameras(
+            np.stack(engine.flushed_R), np.stack(engine.flushed_t),
+            list(engine.flushed_ids))
+        for R, t in zip(engine.flushed_R, engine.flushed_t):
+            logs.write_pose(np.asarray(R, np.float64).reshape(3, 3),
+                            np.asarray(t, np.float64).reshape(3))
+    logs.main.write(f"Resumed from {cfg.tpu.resume_path} at "
+                    f"{engine.frames_accepted} frames\n")
+
+
 def _slam_main_device(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
                       device=None) -> GlobalData:
     """slam_main on the device-resident runtime (runtime/engine.py)."""
@@ -92,16 +198,25 @@ def _slam_main_device(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
     device = resolve_device(device)       # raises before any file is opened
     logs = LogStreams(cfg.outputDataDir)
     try:
+        media = make_media(cfg, frames)
+        use_global_ba = cfg.useBundleAdjustment and cfg.tpu.global_ba
         engine = DeviceEngine(
-            make_media(cfg, frames), K, EngineConfig.from_config(cfg),
+            media, K, EngineConfig.from_config(cfg),
             batch_size=cfg.framesBatchSize,
             required_extracted=cfg.requiredExtractedPointsCount,
-            logs=logs, seed=seed, dist=_load_dist(cfg), device=device)
+            logs=logs, seed=seed, dist=_load_dist(cfg), device=device,
+            checkpoint_path=cfg.tpu.checkpoint_path or None,
+            checkpoint_every=cfg.tpu.checkpoint_every,
+            collect_global_obs=use_global_ba)
         global_data = GlobalData()
+        resume = bool(cfg.tpu.resume_path)
+        if resume:
+            _resume(cfg, engine, media, global_data, logs)
         init_R, init_t = np.eye(3), np.zeros(3)
         while True:
             logs.main.write("Launching main cycle...\n")
-            result = engine.run(init_R, init_t)
+            result = engine.run(init_R, init_t, resume=resume)
+            resume = False
             global_data.extend(result["global_data"])
             if (result["status"] != "interrupted"
                     or result["last_pose"] is None):
@@ -109,7 +224,12 @@ def _slam_main_device(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
             init_R, init_t = result["last_pose"]
             if engine.media_exhausted:
                 break
+        refined_pts = None
+        if use_global_ba:
+            refined_pts = _global_refine(engine, global_data, logs, cfg)
         pts, cols = engine.snapshot_map()
+        if refined_pts is not None and len(refined_pts) == len(pts):
+            pts = refined_pts
         global_data.points = pts
         global_data.colors = cols.astype(np.float64)
         logs.write_map(pts, cols)

@@ -1,5 +1,5 @@
-"""The feature frontend, device half: gray → FAST → SIFT → colours, and the
-previous-frame-vs-batch 2-NN match (counterpart of the JAX package's
+"""The feature frontend, device half: gray → FAST → SIFT or ORB → colours,
+and the previous-frame-vs-batch 2-NN match (counterpart of the JAX package's
 models/frontend.py).  The OpenCV host frontend (host ingest) is not part of
 this port yet (ROADMAP)."""
 
@@ -10,7 +10,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import fast, image, knn, sift
+from ..ops import fast, image, knn, orb, sift
 
 
 @dataclass(frozen=True)
@@ -19,7 +19,7 @@ class FrontendConfig:
 
     max_keypoints: int = 2048
     threshold: float = 20.0
-    descriptor: str = "sift"   # 'sift' ('orb' is not ported yet)
+    descriptor: str = "sift"   # 'sift' | 'orb'
     ratio: float = 0.7
     metric: str = "l2"         # 'l2' | 'l1' | 'hamming'
     descriptor_downscale: int = 1
@@ -51,9 +51,8 @@ def pack_frames(frames, color_downscale: int = 4):
 
 
 def _describe(cfg: FrontendConfig, gray, xy, valid):
-    if cfg.descriptor != "sift":
-        raise NotImplementedError(
-            f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP: ORB)")
+    if cfg.descriptor == "orb":
+        return orb.describe(gray, xy, valid)
     return sift.describe(gray, xy, valid, downscale=cfg.descriptor_downscale,
                          nearest=cfg.sift_nearest)
 
@@ -64,7 +63,8 @@ def extract_and_describe_gray_batch(cfg: FrontendConfig,
                                     color_downscale: int = 4):
     """[C,H,W] u8 gray + [C,h,w,3] u8 colour plane → batched keypoints,
     descriptors and colours: dict xy [C,K,2], valid [C,K], score [C,K],
-    desc [C,K,128], colors [C,K,3] u8, num_corners [C]."""
+    desc [C,K,128] f32 (SIFT) or [C,K,8] int32 bit words (ORB), colors
+    [C,K,3] u8, num_corners [C]."""
     gray = gray_u8.to(torch.float32)
     det = fast.detect_batch(gray, cfg.threshold, cfg.max_keypoints)
     desc = torch.stack([

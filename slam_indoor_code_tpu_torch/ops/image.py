@@ -52,6 +52,25 @@ def sobel_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return dx, dy
 
 
+def separable_conv(img: torch.Tensor, kx, ky) -> torch.Tensor:
+    """'Same' correlation with the separable kernel ky⊗kx on [...,H,W]: two
+    1-D passes with edge padding, shifted planes added in the JAX code's
+    order."""
+    kx = np.asarray(kx, np.float32)
+    ky = np.asarray(ky, np.float32)
+    return _conv1d_edge(_conv1d_edge(img, kx, (len(kx) - 1) // 2, -1),
+                        ky, (len(ky) - 1) // 2, -2)
+
+
+def nearest_sample(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour sample of [H,W] at xy [...,2] with edge clamping
+    (round half to even, as ``jnp.round``)."""
+    H, W = img.shape
+    xi = torch.clamp(torch.round(xy[..., 0]).long(), 0, W - 1)
+    yi = torch.clamp(torch.round(xy[..., 1]).long(), 0, H - 1)
+    return img[yi, xi]
+
+
 def sample_maps(maps_hwc: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Nearest-sample a channel stack [H,W,C] at xy [...,2] → [...,C]."""
     H, W, _ = maps_hwc.shape

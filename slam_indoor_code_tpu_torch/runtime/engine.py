@@ -8,9 +8,15 @@ and resets the window, its stats read at the next flush.  Ring-slot
 management mirrors the reference's batch semantics (fill to
 framesBatchSize, consume head..good, carry the tail).
 
+With ``collect_global_obs`` each flushed window's observations are kept
+for the final global BA (app._global_refine); with ``checkpoint_path`` and
+``checkpoint_every`` the engine snapshots itself at window boundaries
+(runtime/checkpoint.py), and ``run(resume=True)`` continues a restored
+engine without a new bootstrap.
+
 Not ported yet (ROADMAP): host ingest and the streaming loop (both need
 OpenCV on the host; the adaptive FAST threshold acts on host ingest only),
-checkpoint/resume, global BA, meshes, per-frame telemetry.
+meshes, per-frame telemetry.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from .. import resolve_device
 from ..io.logs import GlobalData, LogStreams
 from ..utils.timer import ChronoTimer
 from . import steps
+from .checkpoint import save_checkpoint
 from .state import EngineConfig, init_state
 
 FRAME_NOT_FOUND = -2
@@ -47,7 +54,10 @@ class DeviceEngine:
     def __init__(self, media, K: np.ndarray, cfg: EngineConfig,
                  batch_size: int, required_extracted: int,
                  logs: LogStreams | None = None, seed: int = 0,
-                 dist: np.ndarray | None = None, device=None):
+                 dist: np.ndarray | None = None, device=None,
+                 checkpoint_path: str | None = None,
+                 checkpoint_every: int = 0,
+                 collect_global_obs: bool = False):
         self.device = resolve_device(device)
         self.media = media
         if cfg.mesh_shape:
@@ -87,6 +97,22 @@ class DeviceEngine:
         self._prev_fid = -1
         self._win_ids: list[int] = []
         self._ba_pending = None
+        # the FAST threshold: constant under device ingest, saved so the
+        # checkpoint layout stays the JAX package's (v5)
+        self._fast_threshold = float(cfg.threshold)
+        # periodic snapshots at window boundaries, every `checkpoint_every`
+        # accepted frames
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = int(checkpoint_every)
+        self._last_checkpoint_at = 0
+        # final global BA: each flushed window's (xy, corr, frame ids)
+        self.collect_global_obs = collect_global_obs
+        self._global_obs: list = []
+        # the flushed (post-BA) trajectory over the engine's life: what a
+        # checkpoint keeps so a resumed run re-emits the whole trajectory
+        self.flushed_R: list = []
+        self.flushed_t: list = []
+        self.flushed_ids: list = []
 
     # ------------------------------------------------------------- plumbing
     def _log_pose(self, R: np.ndarray, t: np.ndarray):
@@ -296,6 +322,9 @@ class DeviceEngine:
         for i in range(fill):
             fid = ids[i] if i < len(ids) else -1
             gd.append_cameras(Rmats[i][None], cams[i, 3:][None], [fid])
+            self.flushed_R.append(Rmats[i])
+            self.flushed_t.append(cams[i, 3:])
+            self.flushed_ids.append(fid)
 
     def _collect_ba(self, gd: GlobalData, timer: ChronoTimer):
         """Read + log the previously launched ba_step."""
@@ -312,6 +341,12 @@ class DeviceEngine:
         self._collect_ba(gd, timer)
         if self._win_fill == 0:
             return
+        if self.collect_global_obs:
+            # copies: the scan steps write the window rows in place
+            fill = self._win_fill
+            self._global_obs.append((self.state.win_xy[:fill].clone(),
+                                     self.state.win_corr[:fill].clone(),
+                                     list(self._win_ids)))
         if self.cfg.use_ba and self._win_fill >= 2:
             self.state, out = steps.ba_step(self.cfg, self.state,
                                             self._win_fill)
@@ -323,21 +358,42 @@ class DeviceEngine:
                 fid = self._win_ids[i] if i < len(self._win_ids) else -1
                 gd.append_cameras(np.asarray(R)[None], np.asarray(t)[None],
                                   [fid])
+                self.flushed_R.append(np.asarray(R, np.float64))
+                self.flushed_t.append(np.asarray(t, np.float64))
+                self.flushed_ids.append(fid)
         self._win_fill = 0
         self._win_ids = []
 
-    def run(self, init_R=None, init_t=None) -> dict:
+    def _maybe_checkpoint(self, gd: GlobalData, timer: ChronoTimer):
+        """Snapshot at a window boundary (right after a flush: the window is
+        empty and consumption stands at a clean frame-id cursor).  The
+        flushed window's BA is collected first, so the snapshot's flushed
+        trajectory covers every accepted frame."""
+        if (self.checkpoint_path and self.checkpoint_every > 0
+                and self.frames_accepted - self._last_checkpoint_at
+                >= self.checkpoint_every):
+            self._collect_ba(gd, timer)
+            save_checkpoint(self.checkpoint_path, self)
+            self._last_checkpoint_at = self.frames_accepted
+            if self.logs:
+                self.logs.main.write(
+                    f"Checkpoint saved at {self.frames_accepted} frames\n")
+
+    def run(self, init_R=None, init_t=None, resume: bool = False) -> dict:
         """Main loop: bootstrap, then window after window of
         ``advance_window`` + BA flush until the media is over or tracking
-        is lost."""
+        is lost.  ``resume=True`` continues a ``load_checkpoint``ed engine:
+        the bootstrap is skipped (the restored previous frame and pose
+        anchor tracking) and the restored trajectory is kept."""
         timer = ChronoTimer()
         init_R = np.eye(3) if init_R is None else init_R
         init_t = np.zeros(3) if init_t is None else init_t
         gd = GlobalData()
-        self.trajectory_R, self.trajectory_t = [], []
-        if not self._bootstrap(init_R, init_t):
-            return {"status": "no_data", "global_data": gd,
-                    "frames_accepted": 0, "last_pose": None}
+        if not (resume and self.frames_accepted > 0):
+            self.trajectory_R, self.trajectory_t = [], []
+            if not self._bootstrap(init_R, init_t):
+                return {"status": "no_data", "global_data": gd,
+                        "frames_accepted": 0, "last_pose": None}
         status = "interrupted"
         B = self.batch_size + max(self.cfg.fill_chunk, self.cfg.window)
         T = self.cfg.window
@@ -348,6 +404,7 @@ class DeviceEngine:
                 break
             if self._win_fill >= self.cfg.window:
                 self._flush_window(gd, timer)
+                self._maybe_checkpoint(gd, timer)
             queue = np.zeros(B, np.int64)
             nq = min(len(self.batch), B)
             queue[:nq] = self.batch[:nq]
@@ -414,6 +471,12 @@ class DeviceEngine:
         return {"status": status, "global_data": gd,
                 "frames_accepted": self.frames_accepted,
                 "last_pose": last_pose}
+
+    def global_observations(self):
+        """Every flushed window's (xy [f,K,2], corr [f,K], frame ids) on the
+        host: the observation record of the final global BA."""
+        return [(xy.cpu().numpy(), corr.cpu().numpy(), ids)
+                for xy, corr, ids in self._global_obs]
 
     # ----------------------------------------------------------- final data
     def snapshot_map(self) -> tuple[np.ndarray, np.ndarray]:

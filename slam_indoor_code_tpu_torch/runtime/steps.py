@@ -251,6 +251,12 @@ def _top2_masked(d, allowed):
     return bestc, d1, d2
 
 
+def _row_hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-row Hamming distance of int32 bit words [K,W] × [K,W] → [K]
+    float32: the popcount of the xor, as the JAX code takes it."""
+    return knn.unpack_bits(a ^ b).float().sum(-1)
+
+
 def _ratio2(cfg):
     return cfg.ratio * cfg.ratio if cfg.metric == "l2" else cfg.ratio
 
@@ -468,9 +474,7 @@ def _track_core(cfg: EngineConfig, state: TrackerState, slot, train, mask,
                                              torch.zeros_like(neg))]
         feat = new_desc[train_s]
         if cfg.metric == "hamming":
-            good_d = torch.diagonal(knn.hamming_distance(feat[:, None],
-                                                         lm_desc[:, None]),
-                                    dim1=-2, dim2=-1)[:, 0]
+            good_d = _row_hamming(feat, lm_desc)
         elif cfg.metric == "l1":
             good_d = (feat.float() - lm_desc.float()).abs().sum(-1)
         else:

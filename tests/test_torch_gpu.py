@@ -264,3 +264,110 @@ def test_scatter_drop_repeats_bitwise_on_card(cuda_device, width):
     for _ in range(20):
         assert torch.equal(_scatter_drop(*args), ref)
     assert torch.equal(ref.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_orb_describe_on_card_equals_cpu(cuda_device):
+    """ORB on the card against the same function on the CPU, on a rendered
+    frame's FAST keypoints: angles within 1e-4 rad, ≥ 99.5 % of the bits
+    equal (the card's cos/sin/atan2 may differ in the last ulp and move a
+    pattern point across a rounding tie), invalid rows all zero."""
+    from slam_indoor_code_tpu_torch.ops import fast, image, orb
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    scene = make_scene(n_points=1500, n_frames=2, image_size=(1080, 1920),
+                       seed=7, baseline=0.25, kind="hallway")
+    gray = image.rgb_to_gray(torch.from_numpy(scene.render(0)))
+    det = fast.detect(gray, 20.0, 2048)
+    assert int(det["valid"].sum()) > 1000
+    want = orb.describe(gray, det["xy"], det["valid"])
+    got = orb.describe(*(t.to(cuda_device) for t in (gray, det["xy"],
+                                                     det["valid"])))
+    assert got["desc"].dtype == torch.int32
+    assert got["desc"].device.type == cuda_device.type
+    v = det["valid"].numpy()
+    d_ang = np.abs(np.angle(np.exp(1j * (got["angle"].cpu().numpy()
+                                         - want["angle"].numpy()))))
+    assert d_ang[v].max() < 1e-4
+    gb = np.unpackbits(got["desc"].cpu().numpy()[v].view(np.uint8))
+    wb = np.unpackbits(want["desc"].numpy()[v].view(np.uint8))
+    assert (gb == wb).mean() >= 0.995
+    assert (got["desc"].cpu().numpy()[~v] == 0).all()
+
+
+@pytest.mark.gpu
+def test_match_batch_hamming_on_orb_words_launches_the_kernel(cuda_device):
+    """knn.match_batch with metric "hamming" on ORB words of rendered frames
+    launches the Hamming top2_batch once (never top2_l1 or top2_pair) and
+    equals the CPU path exactly (0/1 sums are exact in f32, and both keep
+    the lowest column of a tie)."""
+    from slam_indoor_code_tpu_torch.ops import fast, image, knn, orb
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    scene = make_scene(n_points=700, n_frames=5, seed=5, baseline=0.3)
+    descs, valids = [], []
+    for i in range(5):
+        g = image.rgb_to_gray(torch.from_numpy(scene.render(i)))
+        det = fast.detect(g, 20.0, 512)
+        d = orb.describe(g, det["xy"], det["valid"])
+        descs.append(d["desc"])
+        valids.append(d["valid"])
+    a, va = descs[0], valids[0]
+    b, vb = torch.stack(descs[1:]), torch.stack(valids[1:])
+    fm = torch.tensor([True, True, True, False])
+    before = (ck.top2_batch.launches, ck.top2_batch.hamming_launches,
+              ck.top2_l1.launches, ck.top2_pair.launches)
+    got = knn.match_batch(*(t.to(cuda_device) for t in (a, va, b, vb, fm)),
+                          ratio=0.8, metric="hamming")
+    assert (ck.top2_batch.launches, ck.top2_batch.hamming_launches,
+            ck.top2_l1.launches, ck.top2_pair.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    want = knn.match_batch(a, va, b, vb, fm, ratio=0.8, metric="hamming")
+    for k in ("train_idx", "is_match", "distance", "num_matches"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert int(want["num_matches"][0]) > 50
+
+
+@pytest.mark.gpu
+def test_global_bundle_adjust_repeats_bitwise_on_card(cuda_device):
+    """The final global BA on the card: two solves give the same bits (every
+    segment sum is the fixed-order one), camera 0 stays fixed, and the
+    cameras agree with the CPU solve within 1e-3."""
+    from slam_indoor_code_tpu_torch.geometry.rotations import \
+        matrix_to_rodrigues
+    from slam_indoor_code_tpu_torch.solver.global_ba import (
+        GlobalBAConfig, global_bundle_adjust)
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    N, P = 24, 800
+    sc = make_scene(n_points=P, n_frames=N, seed=3, baseline=0.3,
+                    kind="hallway")
+    rng = np.random.default_rng(0)
+    uv, ci, pi = [], [], []
+    for f in range(N):
+        uvf, vis = sc.project(f, noise=0.4, rng=rng)
+        ids = np.flatnonzero(vis)[:400]
+        uv.append(uvf[ids])
+        ci.append(np.full(len(ids), f))
+        pi.append(ids)
+    uv = torch.from_numpy(np.concatenate(uv).astype(np.float32))
+    ci = torch.from_numpy(np.concatenate(ci))
+    pi = torch.from_numpy(np.concatenate(pi))
+    mask = torch.ones(len(uv), dtype=torch.bool)
+    aa = matrix_to_rodrigues(torch.from_numpy(sc.rotations)).float()
+    drift = torch.from_numpy(rng.normal(0, 0.01, (N, 6))).float()
+    cams = torch.cat([aa, torch.from_numpy(sc.translations).float()], 1)
+    cams = cams + drift * (torch.arange(N)[:, None] > 0)
+    pts = torch.from_numpy(sc.points.astype(np.float32)
+                           + rng.normal(0, 0.05, (P, 3)).astype(np.float32))
+    K4 = torch.tensor([sc.K[0, 0], sc.K[1, 1], sc.K[0, 2], sc.K[1, 2]],
+                      dtype=torch.float32)
+    cfg = GlobalBAConfig(max_iters=10, cg_iters=16)
+    args = [t.to(cuda_device) for t in (K4, cams, pts, uv, ci, pi, mask)]
+    c1, p1, i1 = global_bundle_adjust(cfg, *args)
+    c2, p2, _ = global_bundle_adjust(cfg, *args)
+    assert torch.equal(c1, c2) and torch.equal(p1, p2)
+    assert torch.equal(c1[0].cpu(), cams[0])
+    cc, _, ic = global_bundle_adjust(cfg, K4, cams, pts, uv, ci, pi, mask)
+    np.testing.assert_allclose(c1.cpu().numpy(), cc.numpy(), atol=1e-3)
+    assert float(i1["final_rmse"]) < float(i1["initial_rmse"])
