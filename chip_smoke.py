@@ -38,13 +38,23 @@ Phases, each followed by one flushed line with the elapsed seconds:
               crashes after its first snapshot; a second ``slam_main`` with
               ``tpu.resume_path`` continues it, and must give phase 4's
               cameras, poses and map bit for bit.
-9. pair     — ``knn.match_pair`` on CUDA with the SIFT descriptors of two
+9. stream   — the headline with ``tpu.ingest="host"``,
+              ``host_descriptor="same"`` and ``streaming`` (the pooled gray
+              at d=2, the JAX default): FAST on the host in the packer
+              threads, ``steps.advance_stream`` on the card.  Checks cameras,
+              ATE and state placement as phase 4 does, and that
+              ``top2_batch`` ran once per active scan step plus once per
+              bootstrap ``match_select``, and no other kernel ran; prints
+              the wall, frames/s, the host ingest ms per frame and the
+              number of ``advance_stream`` calls.
+10. pair    — ``knn.match_pair`` on CUDA with the SIFT descriptors of two
               rendered frames: one ``top2_pair`` launch, the same matches as
               ``match_pair`` on CPU copies up to the rows the L2 tolerance
               leaves open.
-10. repro   — phases 4, 5 and 6 once more in the same process: each second
-              run must give the first run's cameras, map size, poses and
-              map points bit for bit.
+11. repro   — phases 4, 5, 6 and 9 once more in the same process: each
+              second run must give the first run's cameras, map size, poses
+              and map points bit for bit (the second stream run is the warm
+              one).
 
 No path may call a kernel's plain version on the card (each phase counts
 those calls and fails on any).
@@ -56,6 +66,7 @@ no result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -107,6 +118,16 @@ def orb_config(out_dir: str):
     descriptors and Hamming 2-NN."""
     return dataclasses.replace(headline_config(out_dir), useFM_SIFT_BF=False,
                                useFM_SIFT_FLANN=False, useFM_ORB=True)
+
+
+def stream_config(out_dir: str):
+    """The headline configuration under host ingest: FAST on the host,
+    the pooled gray (d=2) uploaded, "same" descriptors on the device, the
+    streaming loop."""
+    cfg = headline_config(out_dir)
+    return dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, ingest="host", host_descriptor="same", streaming=True,
+        ingest_downscale=2))
 
 
 def headline_scene(n_frames: int = N_FRAMES):
@@ -773,6 +794,67 @@ def resume_path(card_line: str, scene, frames, gd_main):
     return n
 
 
+@contextlib.contextmanager
+def timed_host_ingest():
+    """Time every ``host_detect_pack`` call (the host ingest, run in the
+    engine's packer threads) while the block runs → {"s": seconds summed
+    over the calls, "frames": frames packed}."""
+    import threading
+
+    from slam_indoor_code_tpu_torch.models import frontend
+
+    spent = {"s": 0.0, "frames": 0}
+    lock = threading.Lock()
+    orig = frontend.host_detect_pack
+
+    def timed(chunk, *a, **kw):
+        t = time.perf_counter()
+        out = orig(chunk, *a, **kw)
+        with lock:
+            spent["s"] += time.perf_counter() - t
+            spent["frames"] += len(chunk)
+        return out
+
+    frontend.host_detect_pack = timed
+    try:
+        yield spent
+    finally:
+        frontend.host_detect_pack = orig
+
+
+def stream_path(card_line: str, scene, frames, what: str = "stream path"):
+    """``slam_main`` with ``stream_config`` → (launch counts, GlobalData):
+    every active scan step and each bootstrap ``match_select`` through
+    ``top2_batch``, nothing else; the host ingest timed per frame."""
+    with timed_host_ingest() as spent, \
+            tempfile.TemporaryDirectory() as out:
+        n, gd, wall, engine, _ = slam_run(stream_config(out), scene, frames)
+    cfg = engine.cfg
+    if not (engine._will_stream and cfg.ingest_mode == "host"
+            and cfg.host_desc == "same" and cfg.ingest_downscale == 2):
+        fail(f"{what}: the engine took ingest {cfg.ingest_mode}, "
+             f"host_desc {cfg.host_desc}, d={cfg.ingest_downscale}, "
+             f"streaming {engine._will_stream}")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
+    want = engine.stream_steps + engine.match_select_calls
+    if n["top2_batch"] != want or engine.stream_steps == 0:
+        fail(f"{what}: top2_batch launched {n['top2_batch']} times for "
+             f"{engine.stream_steps} active scan steps and "
+             f"{engine.match_select_calls} bootstrap matches")
+    if n["top2_l1"] or n["top2_pair"] or n["hamming"]:
+        fail(f"{what}: launched another kernel than the L2 top2_batch: {n}")
+    ingest_ms = 1e3 * spent["s"] / max(spent["frames"], 1)
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
+    print(f"{what}: host ingest {ingest_ms:.3f} ms per frame "
+          f"({spent['frames']} frames packed on {os.cpu_count()} cores), "
+          f"{engine.stream_calls} advance_stream calls, "
+          f"{engine.stream_steps} active scan steps, "
+          f"{engine.match_select_calls} bootstrap match_select  "
+          f"[{card_line}]", flush=True)
+    return n, gd
+
+
 def run_engine(scene, frames, metric: str):
     """``DeviceEngine.run`` on CUDA with the headline configuration and
     ``EngineConfig.metric`` set, restarted on track loss as slam_main does
@@ -927,6 +1009,9 @@ def main() -> None:
         count_plain_calls()
         n, gd_l2 = main_path(card_line, scene, frames)
         rows["top2_batch"]["launches"] = n["top2_batch"]
+        # top2_batch's launches on each path that runs it
+        by_path = {"main": n["top2_batch"]}
+        rows["top2_batch"]["launches_by_path"] = by_path
         for lpb in (2, 4):
             rows[f"lpb{lpb}"]["launches"] = n["lpb"]
         phase("main", top2_batch_launches=n["top2_batch"])
@@ -935,12 +1020,18 @@ def main() -> None:
         phase("l1", top2_l1_launches=n["top2_l1"])
         n, gd_orb = orb_path(card_line, scene, frames)
         rows["hamming"]["launches"] = n["hamming"]
+        by_path["orb (hamming)"] = n["hamming"]
         phase("orb", hamming_launches=n["hamming"])
         n, rec = global_path(card_line, scene, frames, gd_l2)
+        by_path["global"] = n["top2_batch"]
         phase("global", top2_batch_launches=n["top2_batch"],
               solve_s=f"{rec['solve_s']:.3f}")
         n = resume_path(card_line, scene, frames, gd_l2)
+        by_path["resume"] = n["top2_batch"]
         phase("resume", top2_batch_launches=n["top2_batch"])
+        n, gd_stream = stream_path(card_line, scene, frames)
+        by_path["stream"] = n["top2_batch"]
+        phase("stream", top2_batch_launches=n["top2_batch"])
         n = pair_entry(card_line, frames)
         rows["top2_pair"]["launches"] = n["top2_pair"]
         phase("pair", top2_pair_launches=n["top2_pair"])
@@ -950,7 +1041,9 @@ def main() -> None:
         same_run("l1 path", gd_l1, again)
         _, again = orb_path(card_line, scene, frames, "orb path, run 2")
         same_run("orb path", gd_orb, again)
-        phase("repro", runs=6)
+        _, again = stream_path(card_line, scene, frames, "stream path, run 2")
+        same_run("stream path", gd_stream, again)
+        phase("repro", runs=8)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on the card.
 
-    python3 profile_main.py [l2|l1|orb|tile]
+    python3 profile_main.py [l2|l1|orb|stream|tile]
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
 port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
 ``EngineConfig.metric="l1"``, chip_smoke.run_engine; with ``orb``: with only
-``useFM-ORB`` set, chip_smoke.orb_config) twice unprofiled —
+``useFM-ORB`` set, chip_smoke.orb_config; with ``stream``: host ingest and
+the streaming loop, chip_smoke.stream_config) twice unprofiled —
 cold, then warm — and once under ``torch.profiler``.  Prints the card, the
 profiled run's wall time, the share of that wall time in which the device
 ran any kernel, the host and device time of each step span
 ("steps.<name>", see runtime/steps.py) and the kernels with the most device
-time.  Writes the full table to chiprun_out/profile_main[_l1|_orb].txt.
+time; with ``stream`` also the host ingest of each run, timed around every
+``host_detect_pack`` call in the packer threads (chip_smoke.
+timed_host_ingest; the profiler records no op of those threads).  Writes
+the full table to chiprun_out/profile_main[_l1|_orb|_stream].txt.
 
 With ``tile``: where the time of the L2/Hamming tile (csrc/top2_l2.cuh)
 goes at the main path's shapes.  Builds copies of ``top2_batch`` with one
@@ -153,20 +157,27 @@ def main() -> None:
     metric = sys.argv[1] if len(sys.argv) > 1 else "l2"
     if metric == "tile":
         return tile_parts()
-    if metric not in ("l2", "l1", "orb"):
-        raise SystemExit(f"mode must be l2, l1, orb or tile, got {metric!r}")
+    if metric not in ("l2", "l1", "orb", "stream"):
+        raise SystemExit(f"mode must be l2, l1, orb, stream or tile, got "
+                         f"{metric!r}")
     _, card_line = chip_smoke.card()
     build.build_all()
     scene, frames = chip_smoke.headline_scene()
     walls = []
     with tempfile.TemporaryDirectory() as out:
-        cfg = (chip_smoke.orb_config if metric == "orb"
-               else chip_smoke.headline_config)(out)
+        cfg = {"orb": chip_smoke.orb_config,
+               "stream": chip_smoke.stream_config}.get(
+                   metric, chip_smoke.headline_config)(out)
+
+        ingest = []          # (seconds, frames) of host ingest per run
 
         def run():
             if metric == "l1":
                 return chip_smoke.run_engine(scene, frames, "l1")[0]
-            return slam_main(cfg, scene.K, frames=frames)
+            with chip_smoke.timed_host_ingest() as spent:
+                gd = slam_main(cfg, scene.K, frames=frames)
+            ingest.append((spent["s"], spent["frames"]))
+            return gd
 
         for _ in range(2):                   # cold (first) run, then warm
             t = time.perf_counter()
@@ -210,6 +221,12 @@ def main() -> None:
           "directly inside (innermost span) / calls")
     for k, (host, calls, _) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
         print(f"  {k:28s} {host:10.1f} {kernels_in[k]:10.1f} {calls:6d}")
+    if metric == "stream":
+        for name, (s, n) in zip(("cold", "warm", "profiled"), ingest):
+            print(f"[{card_line}] host ingest, {name} run: {1e3 * s:.1f} ms "
+                  f"in the packer threads for {n} frames, "
+                  f"{1e3 * s / max(n, 1):.3f} ms per frame, "
+                  f"{os.cpu_count()} cores", flush=True)
     table = avg.table(sort_by="self_device_time_total", row_limit=25)
     print(table, flush=True)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -3,12 +3,16 @@ configuration that chip_smoke.py drives the port with on the card (the
 bench.py headline: FHD, SIFT, ratio 0.8, 2048 keypoints, batch 16, Huber BA
 every 8 frames, device ingest) over the seed-7 synthetic hallway, with L2
 or L1 matching of the SIFT descriptors, or with ORB and Hamming matching
-(only ``useFM-ORB`` set, chip_smoke.py's ORB phase).  It tells what the
+(only ``useFM-ORB`` set, chip_smoke.py's ORB phase).  ``--ingest host``
+detects on the host instead and runs the streaming loop with
+``host_descriptor="same"`` and the pooled gray of ``--downscale`` (2, the
+JAX default; chip_smoke.py's stream phase).  It tells what the
 port gives on the CPU from what it gives on the card, and both from the JAX
 package.
 
     python scripts/headline_cpu.py torch l1     # the port, device="cpu"
     JAX_PLATFORMS=cpu python scripts/headline_cpu.py jax l2 --seed 1
+    python scripts/headline_cpu.py torch l2 --ingest host --downscale 2
 
 ``--seed`` seeds the RANSAC draws (the engine's generator or PRNG key; the
 frames stay the seed-7 scene).  Prints one line: package, metric, seed,
@@ -59,6 +63,9 @@ def main() -> None:
     ap.add_argument("package", choices=("jax", "torch"))
     ap.add_argument("metric", choices=("l1", "l2", "orb"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ingest", choices=("device", "host"), default="device")
+    ap.add_argument("--downscale", type=int, default=2,
+                    help="pooled-gray factor under host ingest")
     args = ap.parse_args()
     app, config, EngineConfig, make_scene, ate_fn, centers = _modules(
         args.package)
@@ -85,7 +92,9 @@ def main() -> None:
             tpu=config.TpuConfig(max_keypoints=2048, ransac_iters=1024,
                                  pnp_ransac_iters=64, window_points=4096,
                                  ba_max_iters=10, global_ba=False,
-                                 ingest="device"))
+                                 ingest=args.ingest, host_descriptor="same",
+                                 streaming=True,
+                                 ingest_downscale=args.downscale))
         t = time.perf_counter()
         gd = app.slam_main(cfg, scene.K, frames=frames, seed=args.seed, **kw)
         wall = time.perf_counter() - t
@@ -93,7 +102,10 @@ def main() -> None:
     gt = scene.centers()[np.asarray(gd.frame_ids, np.int64)]
     ate = ate_fn(est, gt)
     extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
-    print(f"{args.package} {args.metric} seed {args.seed} cpu: cameras "
+    ingest = ("device" if args.ingest == "device"
+              else f"host d={args.downscale} streaming")
+    print(f"{args.package} {args.metric} seed {args.seed} {ingest} cpu: "
+          f"cameras "
           f"{len(est)}/{n_frames}  ATE {100 * ate / extent:.4f}% of extent"
           f"  map {len(gd.points)} points  wall {wall:.1f} s", flush=True)
 

@@ -9,10 +9,13 @@ with ``useUndistortion`` the distortion coefficients DC), as in the JAX
 package.  ``tpu.global_ba`` adds the final full-trajectory BA
 (``_global_refine``); ``tpu.checkpoint_path``/``checkpoint_every`` snapshot
 the run and ``tpu.resume_path`` continues one (runtime/checkpoint.py).
+``tpu.ingest="host"`` detects on the host and, with ``tpu.streaming``, runs
+the engine's streaming loop, whose restarts hand the device queue the host
+batch again.
 
-Not ported yet (ROADMAP): the classic host conductor
-(``tpu.device_runtime=false``), ``tpu.profile_dir``, calibration and
-file-path media.
+Not ported yet (ROADMAP): the host ORB descriptor modes, the classic host
+conductor (``tpu.device_runtime=false``), ``tpu.profile_dir``, calibration
+and file-path media.
 """
 
 from __future__ import annotations
@@ -185,6 +188,14 @@ def _resume(cfg: Config, engine, media, global_data: GlobalData,
         for R, t in zip(engine.flushed_R, engine.flushed_t):
             logs.write_pose(np.asarray(R, np.float64).reshape(3, 3),
                             np.asarray(t, np.float64).reshape(3))
+    # a streaming snapshot may hold accepted frames of a window that has
+    # not flushed yet: their poses were logged at acceptance, so they are
+    # logged again (a classic snapshot follows a flush and holds none)
+    n_open = engine._win_fill
+    for R, t in zip(engine.trajectory_R[len(engine.trajectory_R) - n_open:],
+                    engine.trajectory_t[len(engine.trajectory_t) - n_open:]):
+        logs.write_pose(np.asarray(R, np.float64).reshape(3, 3),
+                        np.asarray(t, np.float64).reshape(3))
     logs.main.write(f"Resumed from {cfg.tpu.resume_path} at "
                     f"{engine.frames_accepted} frames\n")
 

@@ -2,6 +2,8 @@
 (counterpart of the JAX package's ops/fast.py): 16 ring comparisons as
 shifted planes, contiguous-arc tests as windowed reductions, OpenCV-style
 score, 3×3 non-max suppression with a raster tiebreak, then a fixed top-K.
+``raw_corners`` is the same arc test run sparsely on the host, for host
+ingest (OpenCV's FAST-9/16 corner list without its non-max suppression).
 
 ``jax.lax.top_k`` breaks ties toward the lower index; ``torch.topk`` promises
 no order among ties (and on CUDA it has none), so the top-K here is a stable
@@ -125,3 +127,74 @@ def detect(gray: torch.Tensor, threshold: float = 20.0,
     """FAST keypoints of one [H,W] frame (``detect_batch`` on one lane)."""
     res = detect_batch(gray[None], threshold, max_keypoints, nms)
     return {k: v[0] for k, v in res.items()}
+
+
+def arc_scores(g16: np.ndarray, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
+    """FAST-9/16 arc scores [N] int16 of an int16 plane at positions at least
+    ``BORDER`` pixels inside it: the largest t with 9 contiguous ring pixels
+    all brighter than centre + t or all darker than centre − t, less one
+    (the dense ``fast_score_map``'s score, which is > threshold exactly
+    where the arc test passes at that threshold)."""
+    W = g16.shape[1]
+    flat = ys * W + xs
+    gr = g16.reshape(-1)
+    ring = (RING_OFFSETS[:, 1].astype(np.int64) * W
+            + RING_OFFSETS[:, 0].astype(np.int64))
+    d = gr[flat[:, None] + ring[None, :]] - gr[flat][:, None]    # [N,16]
+    doubled = np.concatenate([d, d[:, : ARC_LEN - 1]], axis=1)
+
+    def win9(x, op):
+        # extremum over 9 consecutive entries by doubling: 4 passes
+        w2 = op(x[:, :-1], x[:, 1:])
+        w4 = op(w2[:, :-2], w2[:, 2:])
+        w8 = op(w4[:, :-4], w4[:, 4:])
+        return op(w8[:, :16], x[:, 8:])
+
+    bright = win9(doubled, np.minimum).max(-1)
+    dark = -win9(doubled, np.maximum).min(-1)
+    return np.maximum(bright, dark)
+
+
+def raw_corners(gray, threshold):
+    """OpenCV's raw FAST-9/16 corners (``FastFeatureDetector`` TYPE_9_16,
+    no non-max suppression) of one u8 gray frame [H,W] (numpy or a CPU
+    tensor): (xs [N] i64, ys [N] i64, score [N] int16) in raster order, the
+    order OpenCV lists them in.  The arc test is ``fast_score_map``'s at the
+    integer threshold OpenCV takes, with its border of 3.
+
+    A 9-pixel arc of the 16-ring covers two compass points (ring 0, 4, 8,
+    12) four apart, so a pixel whose compass points pass no such pair
+    cannot be a corner; the exact arc test runs only on the pixels that
+    pass (a few percent of a frame), which keeps this on the host's
+    budget."""
+    if isinstance(gray, torch.Tensor):
+        gray = gray.cpu().numpy()
+    g = np.ascontiguousarray(gray).astype(np.int16)
+    H, W = g.shape
+    t = int(threshold)
+    if H <= 2 * BORDER or W <= 2 * BORDER:
+        e = np.zeros(0, np.int64)
+        return e, e, np.zeros(0, np.int16)
+    c = g[BORDER:H - BORDER, BORDER:W - BORDER]
+
+    def ring(k):
+        dx, dy = (int(v) for v in RING_OFFSETS[k])
+        return g[BORDER + dy:H - BORDER + dy, BORDER + dx:W - BORDER + dx]
+
+    hi = c + t
+    lo = c - t
+    p0, p4, p8, p12 = (ring(k) for k in (0, 4, 8, 12))
+    # a pair four apart passes: (b0&b4)|(b4&b8)|(b8&b12)|(b12&b0)
+    # = (b0|b8)&(b4|b12), for the bright and the dark test
+    cand = (p0 > hi) | (p8 > hi)
+    cand &= (p4 > hi) | (p12 > hi)
+    dark = (p0 < lo) | (p8 < lo)
+    dark &= (p4 < lo) | (p12 < lo)
+    cand |= dark
+    Wc = W - 2 * BORDER
+    flat = np.flatnonzero(cand)
+    ys = flat // Wc + BORDER
+    xs = flat % Wc + BORDER
+    score = arc_scores(g, ys, xs)
+    keep = score > t
+    return xs[keep], ys[keep], score[keep]

@@ -1,27 +1,44 @@
-"""Host conductor for the device-resident runtime, classic per-window loop
-with device ingest (counterpart of the JAX package's runtime/engine.py).
+"""Host conductor for the device-resident runtime (counterpart of the JAX
+package's runtime/engine.py).
 
 Python owns control flow and ring-slot bookkeeping; every tensor lives on
-the device.  One ``advance_window`` call tracks up to a BA window of frames
-and returns one small status tensor the host reads; ``ba_step`` then solves
-and resets the window, its stats read at the next flush.  Ring-slot
-management mirrors the reference's batch semantics (fill to
-framesBatchSize, consume head..good, carry the tail).
+the device.  Two steady-state loops:
+
+* **Streaming** (``run_streaming``; host-ingest configs with
+  ``streaming``): the candidate queue and its cursors live on the device
+  (``steps.queue_append`` / ``steps.advance_stream``, which also solves the
+  windowed BA on the step that fills the window), and the host processes
+  each call's status rows up to two calls late, from pinned copies that an
+  event says have landed.
+* **Classic** (device ingest, or streaming off): one ``advance_window``
+  call tracks up to a BA window of frames and returns one small status
+  tensor the host reads; ``ba_step`` then solves and resets the window,
+  its stats read at the next flush.
+
+Frames are packed on three packer threads and their payloads uploaded
+from there, in chunk order.  Under host ingest the packer detects on the
+host (``frontend.host_detect_pack``) with the FAST threshold captured on
+the main thread when the chunk is staged, and ``_adapt_threshold`` lowers
+it on feature-sparse stretches.  Ring-slot management mirrors the
+reference's batch semantics (fill to framesBatchSize, consume head..good,
+carry the tail).
 
 With ``collect_global_obs`` each flushed window's observations are kept
 for the final global BA (app._global_refine); with ``checkpoint_path`` and
 ``checkpoint_every`` the engine snapshots itself at window boundaries
-(runtime/checkpoint.py), and ``run(resume=True)`` continues a restored
-engine without a new bootstrap.
+(runtime/checkpoint.py; the streaming loop drains every call in flight
+first), and ``run(resume=True)`` continues a restored engine without a new
+bootstrap.
 
-Not ported yet (ROADMAP): host ingest and the streaming loop (both need
-OpenCV on the host; the adaptive FAST threshold acts on host ingest only),
+Not ported yet (ROADMAP): the host ORB descriptor modes ("orb", "hybrid"),
 meshes, per-frame telemetry.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -35,19 +52,96 @@ from .state import EngineConfig, init_state
 
 FRAME_NOT_FOUND = -2
 
+_LINK_BW_MBPS: dict = {}
 
-def resolve_ingest(mode: str) -> str:
-    """Resolve the ingest policy.  "auto" is "device": on a PCIe-attached
-    GPU the full-gray upload is cheap, which is what the JAX package's
-    bandwidth probe concludes there.  "host" needs the OpenCV host
-    frontend, which is not ported yet."""
-    if mode in ("auto", "device"):
-        return "device"
-    if mode == "host":
-        raise NotImplementedError(
-            "ingest='host' needs the OpenCV host frontend and the streaming "
-            "loop, not ported yet (ROADMAP: host ingest and streaming)")
+
+def measured_link_bandwidth_mbps(device) -> float:
+    """Host→device transfer rate in MB/s, measured once per process and
+    device: a 4 MB random probe (random, so a compressing transport cannot
+    flatter it) uploaded, reduced on the device and the sum read back."""
+    device = torch.device(device)
+    key = str(device)
+    if key not in _LINK_BW_MBPS:
+        rng = np.random.default_rng(0)
+        warm = torch.from_numpy(rng.integers(0, 255, (1 << 20,), np.uint8))
+        probe = torch.from_numpy(rng.integers(0, 255, (4 << 20,), np.uint8))
+        int(warm.to(device).sum())
+        t0 = time.perf_counter()
+        int(probe.to(device).sum())
+        dt = max(time.perf_counter() - t0, 1e-6)
+        _LINK_BW_MBPS[key] = 4.0 / dt
+    return _LINK_BW_MBPS[key]
+
+
+def resolve_ingest(mode: str, device) -> str:
+    """Resolve the ingest policy: "auto" detects on the host (upload the
+    pooled gray and the keypoints) when the link to ``device`` runs below
+    400 MB/s, and keeps the all-device frontend (upload the full gray)
+    when it is PCIe-class, as on a card.  A CPU device has no link to
+    cross: "device"."""
+    if mode in ("device", "host"):
+        return mode
+    if mode == "auto":
+        if torch.device(device).type == "cpu":
+            return "device"
+        return ("host" if measured_link_bandwidth_mbps(device) < 400.0
+                else "device")
     raise ValueError(f"unknown ingest mode {mode!r}")
+
+
+def resolve_host_desc(cfg: EngineConfig) -> EngineConfig:
+    """The JAX engine's host-descriptor rules: "auto" is "hybrid" (SIFT) or
+    "orb" (ORB) under host ingest and "same" under device ingest; device
+    ingest always describes on the device ("same"); an ORB config takes
+    "orb" for "hybrid"; "orb" matches by Hamming.  Host ingest with "orb"
+    or "hybrid" raises: both need OpenCV's ORB pattern, which is not in
+    this repository, and running them as "same" would be another result."""
+    hd = cfg.host_desc
+    if hd == "auto":
+        if cfg.ingest_mode == "host":
+            hd = "orb" if cfg.descriptor == "orb" else "hybrid"
+        else:
+            hd = "same"
+    if cfg.ingest_mode != "host":
+        hd = "same"
+    if cfg.descriptor == "orb" and hd == "hybrid":
+        hd = "orb"
+    cfg = dataclasses.replace(cfg, host_desc=hd)
+    if hd == "orb":
+        cfg = dataclasses.replace(cfg, metric="hamming")
+    if hd != "same":
+        raise NotImplementedError(
+            f"host ingest with host_descriptor {hd!r} needs OpenCV's ORB "
+            "pattern (its learned 256 test pairs), which is not in this "
+            "repository: set tpu.host_descriptor to \"same\" or tpu.ingest "
+            "to \"device\"")
+    return cfg
+
+
+class _Download:
+    """A device→host copy in flight: pinned host buffers filled with
+    non-blocking copies and an event recorded after them on the current
+    stream (on the CPU, the tensors themselves)."""
+
+    def __init__(self, tensors):
+        self._event = None
+        if tensors[0].device.type == "cuda":
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def done(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def result(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
 
 
 class DeviceEngine:
@@ -66,7 +160,13 @@ class DeviceEngine:
         if cfg.per_frame_telemetry:
             raise NotImplementedError("per_frame_telemetry is not ported yet")
         cfg = dataclasses.replace(cfg, ingest_mode=resolve_ingest(
-            cfg.ingest_mode), host_desc="same")
+            cfg.ingest_mode, self.device))
+        cfg = resolve_host_desc(cfg)
+        if cfg.ingest_mode == "host" and cfg.ingest_downscale > 1 \
+                and 2.0 * float(K[0, 2]) < 1024.0:
+            # pooling exists to cut FHD upload bytes; below ~1024 px width
+            # the descriptor-fidelity loss dominates (cx ≈ width/2 proxy)
+            cfg = dataclasses.replace(cfg, ingest_downscale=1)
         if cfg.rebind_cap > 0:
             # rebind_radius is given in FHD-equivalent pixels: resolve to
             # actual pixels (cx ≈ width/2), floored at 1.5 px
@@ -76,6 +176,14 @@ class DeviceEngine:
         if scale_w > 1.0:
             cfg = dataclasses.replace(
                 cfg, reproj_gate_px=cfg.reproj_gate_px * scale_w)
+        # window <= 2 runs the classic loop: the bootstrap pair fills the
+        # window, and advance_stream flushes only inside a step
+        self._will_stream = (cfg.streaming and cfg.ingest_mode == "host"
+                             and cfg.window > 2)
+        if self._will_stream:
+            # slots free only when their call's rows are processed, up to
+            # two calls late: ring headroom beyond the classic bound
+            cfg = dataclasses.replace(cfg, ring=cfg.ring + 24)
         self.cfg = cfg
         self.batch_size = batch_size
         self.required_extracted = required_extracted
@@ -85,8 +193,15 @@ class DeviceEngine:
         self.gen.manual_seed(seed)
         self._free = list(range(cfg.ring))
         self.batch: list[int] = []      # ring slots in batch order (head first)
-        self._staged: list = []         # packed chunks: (slots, n, gray, small)
+        self._staged: list = []         # packer futures of (slots, n, payload)
         self._pending: list = []        # dispatched ingests: (slots, n, counts)
+        # three packer threads: a chunk packs (numpy releases the GIL) while
+        # two earlier chunks upload; futures pop FIFO, so chunk order holds
+        self._packer = ThreadPoolExecutor(max_workers=3)
+        # the stream the engine's kernels run on: uploads from the packer
+        # threads go into it
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self._media_over = False
         self._win_fill = 0
         self.trajectory_R: list[np.ndarray] = []
@@ -97,9 +212,12 @@ class DeviceEngine:
         self._prev_fid = -1
         self._win_ids: list[int] = []
         self._ba_pending = None
-        # the FAST threshold: constant under device ingest, saved so the
-        # checkpoint layout stays the JAX package's (v5)
+        # the live host FAST threshold (host ingest; _adapt_threshold).
+        # Chunks capture it when staged, on the main thread, so which chunk
+        # gets which threshold follows the collected counts only; the
+        # checkpoint keeps it (v5)
         self._fast_threshold = float(cfg.threshold)
+        self._fast_floor = max(5.0, float(cfg.threshold) / 4.0)
         # periodic snapshots at window boundaries, every `checkpoint_every`
         # accepted frames
         self.checkpoint_path = checkpoint_path
@@ -113,6 +231,22 @@ class DeviceEngine:
         self.flushed_R: list = []
         self.flushed_t: list = []
         self.flushed_ids: list = []
+        # streaming cursors (run_streaming): the queue and its cursors stay
+        # on the device; q_len reaches the host only in the status rows
+        self._q_dev = None            # [ring] slot queue
+        self._qhead_dev = None
+        self._qlen_dev = None
+        self._winfill_dev = None
+        self._dead_dev = None
+        self._inflight: list = []     # _Download of each call's outputs
+        self._adm_total = 0           # frames appended to the device queue
+        self._cons_known = 0          # frames consumed per processed rows
+        self._stream_depth = 2        # most uncollected advance_stream calls
+        # statistics: advance_stream calls, the scan steps they ran and the
+        # bootstrap's match_select calls (one top2_batch launch each)
+        self.stream_calls = 0
+        self.stream_steps = 0
+        self.match_select_calls = 0
 
     # ------------------------------------------------------------- plumbing
     def _log_pose(self, R: np.ndarray, t: np.ndarray):
@@ -132,11 +266,19 @@ class DeviceEngine:
         return torch.as_tensor(a).to(self.device)
 
     # ------------------------------------------------------------------ fill
-    def _stage_chunk(self) -> bool:
-        """Decode and pack the next chunk and start its upload; reserves
-        ring slots immediately.  Returns False when no frame was staged."""
-        from ..models.frontend import pack_frames
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """Upload from a packer thread into the engine's stream: pinned, so
+        the copy is asynchronous and the buffer is held until it lands."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self._stream is None:
+            return t.to(self.device)
+        with torch.cuda.stream(self._stream):
+            return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _stage_chunk(self) -> bool:
+        """Read the next chunk and hand its packing and upload to a packer
+        thread; reserves ring slots immediately.  Returns False when no
+        frame was staged."""
         C = self.cfg.fill_chunk
         if self._media_over or len(self._free) < C:
             return False
@@ -156,18 +298,44 @@ class DeviceEngine:
         for i in range(n):
             self._slot_frame[int(slots[i])] = self._frame_counter + i
         self._frame_counter += n
-        gray, small = pack_frames(chunk, self.cfg.color_downscale)
-        self._staged.append((slots, n, self._dev(gray), self._dev(small)))
+        thr = self._fast_threshold     # captured here, on the main thread
+
+        def pack_and_put():
+            from ..models.frontend import host_detect_pack, pack_frames
+
+            if self.cfg.ingest_mode == "host":
+                p = host_detect_pack(chunk, thr, self.cfg.max_keypoints,
+                                     self.cfg.ingest_downscale,
+                                     host_desc=self.cfg.host_desc)
+                return slots, n, (self._put(p["gray_small"]),
+                                  self._put(p["xy"]), self._put(p["valid"]),
+                                  self._put(p["colors"]), p["counts"])
+            gray, small = pack_frames(chunk, self.cfg.color_downscale)
+            return slots, n, (self._put(gray), self._put(small))
+
+        self._staged.append(self._packer.submit(pack_and_put))
         return True
+
+    def _dispatch_host_payload(self, slots, payload) -> np.ndarray:
+        """Dispatch the device half of a host-ingest chunk; returns its
+        host-side corner counts."""
+        gray_small, xy, valid, colors, counts = payload
+        self.state = steps.ingest_host(self.cfg, self.state, gray_small, xy,
+                                       valid, colors, self._dev(slots))
+        return counts
 
     def _dispatch_ingest(self) -> bool:
         """Launch ingest for the oldest staged chunk; its corner counts are
-        read later (``_collect_ingest``)."""
+        read later (``_collect_ingest``; host ingest has them on the host)."""
         if not self._staged:
             return False
-        slots, n, gray, small = self._staged.pop(0)
-        self.state, counts = steps.ingest(self.cfg, self.state, gray, small,
-                                          self._dev(slots))
+        slots, n, payload = self._staged.pop(0).result()
+        if self.cfg.ingest_mode == "host":
+            counts = self._dispatch_host_payload(slots, payload)
+        else:
+            gray, small = payload
+            self.state, counts = steps.ingest(self.cfg, self.state, gray,
+                                              small, self._dev(slots))
         self._pending.append((slots, n, counts))
         return True
 
@@ -176,7 +344,10 @@ class DeviceEngine:
         if not self._pending:
             return False
         slots, n, counts = self._pending.pop(0)
-        counts = counts.cpu().numpy()[:n]
+        if isinstance(counts, torch.Tensor):
+            counts = counts.cpu().numpy()
+        counts = np.asarray(counts)[:n]
+        self._adapt_threshold(counts)
         for i in range(n):
             if counts[i] >= self.required_extracted:
                 self.batch.append(int(slots[i]))
@@ -191,6 +362,34 @@ class DeviceEngine:
                            if c >= self.required_extracted)
                 + f"\nBatch size: {len(self.batch)}\n")
         return True
+
+    def _adapt_threshold(self, counts: np.ndarray) -> None:
+        """Adaptive extraction gate (host ingest): when a chunk's post-NMS
+        corner counts sag below ``required_extracted``, lower the FAST
+        threshold for later chunks (by 3/4, down to the floor of 1/4 of the
+        configured value); raise it back, never above the configured value,
+        once the median is above 4× the requirement.  Every change is logged
+        to main.txt; a healthy scene trips neither edge."""
+        if (not self.cfg.adaptive_threshold or self.cfg.ingest_mode != "host"
+                or len(counts) == 0):
+            return
+        med = float(np.median(counts))
+        thr = self._fast_threshold
+        if med < self.required_extracted and thr > self._fast_floor:
+            new = max(self._fast_floor, round(thr * 0.75))
+        elif (med > 4.0 * self.required_extracted
+              and thr < self.cfg.threshold):
+            new = min(float(self.cfg.threshold), round(thr / 0.75))
+        else:
+            return
+        if new == thr:
+            return
+        self._fast_threshold = new
+        if self.logs:
+            self.logs.main.write(
+                f"Adaptive FAST threshold: {thr:g} -> {new:g} "
+                f"(median corners {med:g} vs required "
+                f"{self.required_extracted})\n")
 
     def fill(self, target: int | None = None) -> None:
         t0 = ChronoTimer()
@@ -256,6 +455,7 @@ class DeviceEngine:
         mask[:n] = True
         train_all, mask_all, info, counts = steps.match_select(
             self.cfg, self.state, self._dev(order), self._dev(mask))
+        self.match_select_calls += 1
         info = info.cpu().numpy()
         if self.logs:
             cc = counts.cpu().numpy()[:n]
@@ -267,8 +467,11 @@ class DeviceEngine:
     def _bootstrap(self, init_R, init_t) -> bool:
         if not self._find_first_good_frame(init_R, init_t):
             return False
+        # streaming: the first-pair search scans one reference batch; the
+        # steady loop tops the queue up while the bootstrap math runs
+        boot_target = self.batch_size if self._will_stream else None
         while True:
-            self.fill()
+            self.fill(target=boot_target)
             if not self.batch:
                 return False
             train_all, mask_all, found, pos = self._match_select()
@@ -379,12 +582,285 @@ class DeviceEngine:
                 self.logs.main.write(
                     f"Checkpoint saved at {self.frames_accepted} frames\n")
 
+    # ------------------------------------------------------ streaming loop
+    def _dispatch_stream_ingest(self, force: bool = False) -> bool:
+        """Pop the oldest staged chunk once its pack is done (or wait for it
+        with ``force``), dispatch its ingest and the device-queue append,
+        and admit its frames on the host (host ingest counts on the host)."""
+        if not self._staged:
+            return False
+        if not force and not self._staged[0].done():
+            return False
+        t0 = ChronoTimer()
+        slots, n, payload = self._staged.pop(0).result()
+        counts = np.asarray(self._dispatch_host_payload(slots, payload))
+        C = len(slots)
+        admit = np.zeros(C, bool)
+        admit[:n] = counts[:n] >= self.required_extracted
+        self._q_dev, self._qlen_dev = steps.queue_append(
+            self._q_dev, self._qhead_dev, self._qlen_dev, self._dev(slots),
+            self._dev(admit))
+        for i in range(C):
+            s = int(slots[i])
+            if admit[i]:
+                self.batch.append(s)
+                self._adm_total += 1
+            else:
+                self._free.append(s)
+        if self.logs:
+            self.logs.main.write(
+                "Features count in frames added to batch: "
+                + " ".join(str(int(c)) for c in counts[:n]
+                           if c >= self.required_extracted)
+                + f"\nBatch size: {len(self.batch)}\n")
+            t0.print_start_delta("MS for batch's filling: ", self.logs.time)
+        return True
+
+    def _fill_streaming(self) -> bool:
+        """Stage chunks within the admission budget and dispatch the oldest
+        whose pack is done.  Staged plus admitted frames may run (batch_size
+        + T) + T·depth + 3·chunk ahead of the processed consumption: the
+        dispatch rule needs batch_size + T queued beyond the T·depth frames
+        the calls in flight may consume, and up to three chunks sit staged.
+        Beyond that staging stops, so an interrupt wastes little upload and a
+        snapshot does not lag the media cursor by dozens of frames."""
+        progressed = False
+        T = self.cfg.window
+        C = self.cfg.fill_chunk
+        lookahead = (self._adm_total - self._cons_known
+                     + C * len(self._staged))
+        limit = (self.batch_size + T) + T * self._stream_depth + 3 * C
+        while (lookahead < limit and len(self._staged) < 3
+               and self._stage_chunk()):
+            progressed = True
+            lookahead += C
+        if self._dispatch_stream_ingest():
+            progressed = True
+        return progressed
+
+    def _init_device_queue(self) -> None:
+        """The host batch mirror becomes the device queue (after each
+        bootstrap; later admissions go through queue_append)."""
+        q = np.zeros(self.cfg.ring, np.int64)
+        q[: len(self.batch)] = self.batch
+        self._q_dev = self._dev(q)
+        self._qhead_dev = self._dev(np.int64(0))
+        self._qlen_dev = self._dev(np.int64(len(self.batch)))
+        self._winfill_dev = self._dev(np.int64(self._win_fill))
+        self._dead_dev = self._dev(np.bool_(False))
+        self._adm_total = len(self.batch)
+        self._cons_known = 0
+        self._inflight = []
+
+    def _dispatch_advance_stream(self, tail: bool = False) -> None:
+        (self.state, self._qhead_dev, self._qlen_dev, self._winfill_dev,
+         self._dead_dev, packed, ba_vec, obs_xy, obs_corr) = \
+            steps.advance_stream(
+                self.cfg, self.state, self._q_dev, self._qhead_dev,
+                self._qlen_dev, self._winfill_dev, self._dead_dev, self.gen,
+                self.cfg.window, visible=self.batch_size,
+                collect_obs=self.collect_global_obs, tail=tail)
+        self._inflight.append(_Download((packed, ba_vec, obs_xy, obs_corr)))
+        self.stream_calls += 1
+
+    def _finalize_stream_window(self, ba_vec, obs, gd: GlobalData,
+                                timer: ChronoTimer):
+        """One in-scan window flush: BA stats lines and the flushed
+        (post-BA) cameras of the F frames at the head of ``_win_ids``."""
+        F = self.cfg.window
+        ids = list(self._win_ids[:F])
+        if self.collect_global_obs and obs is not None:
+            self._global_obs.append((torch.from_numpy(obs[0]),
+                                     torch.from_numpy(obs[1]), ids))
+        if self.cfg.use_ba:
+            self._log_append_ba(np.asarray(ba_vec, np.float64), F, ids, gd,
+                                timer)
+        else:
+            for i, (R, t) in enumerate(zip(self.trajectory_R[-F:],
+                                           self.trajectory_t[-F:])):
+                fid = ids[i] if i < len(ids) else -1
+                gd.append_cameras(np.asarray(R)[None], np.asarray(t)[None],
+                                  [fid])
+                self.flushed_R.append(np.asarray(R, np.float64))
+                self.flushed_t.append(np.asarray(t, np.float64))
+                self.flushed_ids.append(fid)
+        self._win_ids = self._win_ids[F:]
+
+    def _collect_process(self, gd: GlobalData, timer: ChronoTimer):
+        """Collect the oldest call in flight and process its status rows
+        (trajectory, logs, window flushes, slot frees).  Returns a stop
+        status, or None to go on."""
+        if not self._inflight:
+            return None
+        packed, ba_vec, obs_xy, obs_corr = self._inflight.pop(0).result()
+        T = packed.shape[0]
+        win_ms = 0.0
+        n_active = int((packed[:, 0] > 0.5).sum())
+        self.stream_steps += n_active
+        if self.logs and n_active:
+            # one call tracks several frames: its collect interval is
+            # shared equally over the steps that scanned (time.txt format)
+            win_ms = timer.last_point_delta_ms() / max(n_active, 1)
+            timer.update_last_point()
+        obs = (obs_xy, obs_corr) if (self.collect_global_obs
+                                     and obs_xy.size) else None
+        for t in range(T):
+            row = packed[t]
+            if row[0] < 0.5:          # idle: queue below the floor, or dead
+                break
+            if self.logs:
+                idx = int(row[2]) if row[1] > 0.5 else FRAME_NOT_FOUND
+                self.logs.time.write(
+                    f"Matching time for index {idx} : {win_ms:.0f}\n")
+            if row[1] < 0.5:
+                if self.logs:
+                    self.logs.main.write(
+                        "No good frames in batch. Interrupt video "
+                        "processing\n")
+                return "interrupted"
+            good = int(row[2])
+            if self.logs and good > 0:
+                # head candidates with fewer matches than the chosen frame
+                # are consumed unused (batch.cpp:93-98)
+                for i in range(good):
+                    sfid = self._slot_frame.get(self.batch[i], -1)
+                    if self.cfg.use_first_fit:
+                        why = (f"matched {int(row[24 + i])}; first-fit rule "
+                               f"chose index {good}")
+                    else:
+                        why = (f"matched {int(row[24 + i])} < best "
+                               f"{int(row[3])} at index {good}")
+                    self.logs.main.write(
+                        f"Skipped candidate at batch index {i} (frame "
+                        f"{sfid}): {why}\n")
+            slot = self._consume_through(good)
+            fid = self._slot_frame.get(slot, -1)
+            self._release(slot)
+            self._cons_known += good + 1
+            ok, n_corr, n_inl, n_new, n_matches, R, tv = self._unpack(
+                row[4:21])
+            if not ok:
+                if self.logs:
+                    self.logs.main.write(
+                        "Not enough corresponding points for solvePnP "
+                        "RANSAC\n")
+                return "interrupted"
+            if self.logs:
+                self.logs.main.write(
+                    f"Batch index: {good}; matched {int(row[3])}\n"
+                    f"Used in solvePnP: {n_corr}\n")
+            self._log_pose(R, tv)
+            self.trajectory_R.append(R)
+            self.trajectory_t.append(tv)
+            self._win_ids.append(fid)
+            self._prev_fid = fid
+            self._win_fill = int(row[21])
+            self.frames_accepted += 1
+            if row[23] > 0.5:         # the window flushed on this step
+                self._finalize_stream_window(ba_vec, obs, gd, timer)
+        return None
+
+    def _maybe_stream_checkpoint(self, gd: GlobalData, timer: ChronoTimer):
+        """A snapshot in the streaming loop: drain every call in flight, so
+        the host knows what the device did, then save (any drained point
+        resumes: the media re-pulls everything not consumed).  Returns a stop
+        status met while draining, else None."""
+        if not (self.checkpoint_path and self.checkpoint_every > 0
+                and self.frames_accepted - self._last_checkpoint_at
+                >= self.checkpoint_every):
+            return None
+        while self._inflight:
+            s = self._collect_process(gd, timer)
+            if s is not None:
+                return s
+        save_checkpoint(self.checkpoint_path, self)
+        self._last_checkpoint_at = self.frames_accepted
+        if self.logs:
+            self.logs.main.write(
+                f"Checkpoint saved at {self.frames_accepted} frames\n")
+        return None
+
+    def run_streaming(self, init_R=None, init_t=None,
+                      resume: bool = False) -> dict:
+        """Streaming main loop: bootstrap, hand the queue to the device,
+        then dispatch ``advance_stream`` whenever batch_size + T frames are
+        surely queued beyond what the calls in flight may consume (or, at
+        the tail, any), collecting each call's rows up to two calls late."""
+        timer = ChronoTimer()
+        init_R = np.eye(3) if init_R is None else init_R
+        init_t = np.zeros(3) if init_t is None else init_t
+        gd = GlobalData()
+        if not (resume and self.frames_accepted > 0):
+            self.trajectory_R, self.trajectory_t = [], []
+            if not self._bootstrap(init_R, init_t):
+                return {"status": "no_data", "global_data": gd,
+                        "frames_accepted": 0, "last_pose": None}
+        # settle the bootstrap's classic prefetches, then hand the queue
+        # to the device
+        while self._staged or self._pending:
+            if not self._pending:
+                self._dispatch_ingest()
+            self._collect_ingest()
+        self._init_device_queue()
+        T = self.cfg.window
+        need = self.batch_size + T
+        status = None
+        while status is None:
+            while (status is None and self._inflight
+                   and self._inflight[0].done()):
+                status = self._collect_process(gd, timer)
+            if status is not None:
+                break
+            status = self._maybe_stream_checkpoint(gd, timer)
+            if status is not None:
+                break
+            self._fill_streaming()
+            q_min = (self._adm_total - self._cons_known
+                     - T * len(self._inflight))
+            tail_ok = (self._media_over and not self._staged
+                       and not self._pending and q_min > 0)
+            if q_min >= need or tail_ok:
+                self._dispatch_advance_stream(tail=tail_ok)
+                if len(self._inflight) > self._stream_depth:
+                    status = self._collect_process(gd, timer)
+                continue
+            if self._inflight:
+                status = self._collect_process(gd, timer)
+                continue
+            if self._staged:
+                self._dispatch_stream_ingest(force=True)
+                continue
+            if self._media_over:
+                status = "video_over"
+                break
+            # nothing staged, in flight or consumable and the media not
+            # over: the ring is full (cannot happen with the sized ring)
+            status = "interrupted"
+        # drain the calls in flight (their rows may hold accepted frames
+        # and flushes issued before the stop)
+        while self._inflight:
+            s2 = self._collect_process(gd, timer)
+            status = s2 if status in (None, "video_over") and s2 else status
+        # the last partial window flushes through the classic path
+        self._flush_window(gd, timer)
+        self._collect_ba(gd, timer)
+        last_pose = None
+        if len(self.trajectory_R):
+            last_pose = (self.trajectory_R[-1], self.trajectory_t[-1])
+        return {"status": status or "video_over", "global_data": gd,
+                "frames_accepted": self.frames_accepted,
+                "last_pose": last_pose}
+
+    # ------------------------------------------------------- classic loop
     def run(self, init_R=None, init_t=None, resume: bool = False) -> dict:
         """Main loop: bootstrap, then window after window of
         ``advance_window`` + BA flush until the media is over or tracking
-        is lost.  ``resume=True`` continues a ``load_checkpoint``ed engine:
-        the bootstrap is skipped (the restored previous frame and pose
-        anchor tracking) and the restored trajectory is kept."""
+        is lost; host-ingest configs with ``streaming`` go to
+        ``run_streaming``.  ``resume=True`` continues a ``load_checkpoint``ed
+        engine: the bootstrap is skipped (the restored previous frame and
+        pose anchor tracking) and the restored trajectory is kept."""
+        if self._will_stream:
+            return self.run_streaming(init_R, init_t, resume)
         timer = ChronoTimer()
         init_R = np.eye(3) if init_R is None else init_R
         init_t = np.zeros(3) if init_t is None else init_t

@@ -1,6 +1,6 @@
-"""Step functions over the device-resident TrackerState, device-ingest
-subset (counterpart of the JAX package's runtime/steps.py; the pipeline
-semantics and the reference citations are documented there).
+"""Step functions over the device-resident TrackerState (counterpart of the
+JAX package's runtime/steps.py; the pipeline semantics and the reference
+citations are documented there).
 
 What differs from the JAX code, and why:
 
@@ -13,9 +13,11 @@ What differs from the JAX code, and why:
   that could run past an arena are clamped.
 * Where the JAX steps donated the state, these functions update the
   TrackerState in place and return it.
-* ``lax.scan`` in ``advance_window`` is a Python loop that reads one flag
-  per step from the device, so steps after the loop went idle are skipped
-  instead of run as no-ops.
+* ``lax.scan`` in ``advance_window`` and ``advance_stream`` is a Python
+  loop that reads one small flag tensor per step from the device, so steps
+  after the loop went idle are skipped instead of run as no-ops, and the
+  in-scan BA flush runs only on the step that fills the window (JAX
+  decides it on the device with ``lax.cond``).
 * RANSAC draws come from a ``torch.Generator`` on the state's device.
 
 Each public step and the match/track halves of a scan step carry a
@@ -110,7 +112,12 @@ def ingest(cfg: EngineConfig, state: TrackerState, gray_u8: torch.Tensor,
     [C,h,w,3] u8) into ring slots [C].  Returns (state, num_corners [C])."""
     res = fe.extract_and_describe_gray_batch(
         _frontend_cfg(cfg), gray_u8, rgb_small, cfg.color_downscale)
-    xy = res["xy"]
+    state = _write_ring(cfg, state, slots, res["xy"], res["valid"],
+                        res["desc"], res["colors"])
+    return state, res["num_corners"]
+
+
+def _write_ring(cfg, state, slots, xy, valid, desc, colors):
     if cfg.use_undistortion:
         from ..geometry.projection import undistort_points
 
@@ -118,10 +125,25 @@ def ingest(cfg: EngineConfig, state: TrackerState, gray_u8: torch.Tensor,
         xy = torch.stack([undistort_points(K, state.dist, u) for u in xy])
     slots = slots.long()
     state.ring_xy[slots] = xy
-    state.ring_valid[slots] = res["valid"]
-    state.ring_desc[slots] = res["desc"].to(state.ring_desc.dtype)
-    state.ring_colors[slots] = res["colors"].to(torch.float32)
-    return state, res["num_corners"]
+    state.ring_valid[slots] = valid
+    state.ring_desc[slots] = desc.to(state.ring_desc.dtype)
+    state.ring_colors[slots] = colors.to(torch.float32)
+    return state
+
+
+@_span
+def ingest_host(cfg: EngineConfig, state: TrackerState,
+                gray_small: torch.Tensor, xy: torch.Tensor,
+                valid: torch.Tensor, colors: torch.Tensor,
+                slots: torch.Tensor) -> TrackerState:
+    """Device half of host ingest (``frontend.host_detect_pack``): describe
+    the host-detected keypoints from the pooled gray plane and write them
+    into ring slots [C].  Describe samples the distorted image, so only the
+    stored coordinates are undistorted.  Nothing is read back: the
+    extraction gate ran on the host."""
+    desc = fe.describe_packed_batch(_frontend_cfg(cfg), gray_small, xy,
+                                    valid, cfg.ingest_downscale)
+    return _write_ring(cfg, state, slots, xy, valid, desc, colors)
 
 
 # ------------------------------------------------------------- set prev
@@ -536,6 +558,11 @@ def _track_core(cfg: EngineConfig, state: TrackerState, slot, train, mask,
 
 
 # ----------------------------------------------------------------- BA step
+def ba_packed_len(cfg: EngineConfig) -> int:
+    """Length of the packed BA stats/poses vector (see _ba_core)."""
+    return 4 + cfg.window * 6 + cfg.window * 9
+
+
 @_span
 def _ba_core(cfg: EngineConfig, state: TrackerState, win_fill: int):
     """Windowed BA over the device-resident window + map arena; writes the
@@ -650,3 +677,117 @@ def advance_window(cfg: EngineConfig, state: TrackerState, queue, q_head,
                                      torch.zeros_like(counts[0])).float()]),
             out, win_pos.float()[None]])
     return state, packed, q_head, q_len
+
+
+# ------------------------------------------------------- streaming runtime
+def queue_append(queue: torch.Tensor, q_head: torch.Tensor,
+                 q_len: torch.Tensor, slots: torch.Tensor,
+                 admit: torch.Tensor):
+    """Append the admitted ring slots to the device candidate queue
+    (circular; entries past its end are dropped).  Returns (queue, q_len);
+    device program order makes them visible to every later
+    ``advance_stream``."""
+    Q = queue.shape[0]
+    admit = admit.to(torch.bool)
+    off = torch.cumsum(admit.long(), 0) - 1
+    pos = (q_head + q_len + off) % Q
+    idx = torch.where(admit, pos, torch.full_like(pos, Q))
+    queue = _scatter_drop(queue, idx, slots.to(queue.dtype))
+    return queue, q_len + admit.sum()
+
+
+@_span
+def advance_stream(cfg: EngineConfig, state: TrackerState, queue, q_head,
+                   q_len, win_fill, dead, gen=None, t_steps: int = 8,
+                   visible: int = 0, collect_obs: bool = False,
+                   tail: bool = False):
+    """Streaming window advance: up to ``t_steps`` tracked frames and the
+    windowed-BA flush in one call, with the queue cursors on the device.
+
+    A step runs only with a full ``visible`` candidate window (any queued
+    frame once ``tail``: the media is over and every chunk admitted), so
+    what a step sees does not depend on how far ingest has run ahead.  An
+    idle step does nothing and draws nothing; ``q_len`` cannot grow inside
+    a call, so once a step idles the rest do too.  Only a step that ran and
+    failed sets ``dead``.  Each step reads one small flag tensor (whether
+    it filled the window, whether the next step runs) and solves the BA on
+    the step that fills the window.  Requires t_steps ≤ window, so at most
+    one window boundary is crossed per call.
+
+    Returns (state, q_head, q_len, win_fill, dead, packed [t_steps, 24 +
+    visible], ba_vec [ba_packed_len], obs_xy [F,K,2], obs_corr [F,K]) with
+    packed[t] = [active, found, good_pos, count_good, out(17), win_pos
+    after, q_len after, ba_fired, match counts of the visible window]; rows
+    of idle steps are 0.  ``ba_vec`` is the flushed window's BA vector
+    (zeros without a flush); ``obs_xy``/``obs_corr`` its pre-solve
+    observations, filled only with ``collect_obs``."""
+    if t_steps > cfg.window:
+        raise ValueError("advance_stream: t_steps must be <= window")
+    dev = state.K4.device
+    Q = queue.shape[0]
+    F = cfg.window
+    Qv = min(visible, Q) if visible > 0 else Q
+    iota_q = torch.arange(Qv, device=dev)
+    q_head = torch.as_tensor(q_head, device=dev).long()
+    q_len = torch.as_tensor(q_len, device=dev).long()
+    win_pos = torch.as_tensor(win_fill, device=dev).long()
+    alive = ~torch.as_tensor(dead, device=dev).bool()
+    floor = 1 if tail else Qv
+    n_counts = Qv if visible > 0 else 0
+    packed = torch.zeros((t_steps, 24 + n_counts), dtype=torch.float32,
+                         device=dev)
+    ba_out = torch.zeros((ba_packed_len(cfg),), dtype=torch.float32,
+                         device=dev)
+    if collect_obs:
+        obs_xy = torch.zeros((F, cfg.max_keypoints, 2), device=dev)
+        obs_corr = torch.full((F, cfg.max_keypoints), -1, dtype=torch.long,
+                              device=dev)
+    else:
+        obs_xy = torch.zeros((0,), device=dev)
+        obs_corr = torch.full((0,), -1, dtype=torch.long, device=dev)
+    go = bool(alive & (q_len >= floor) & (win_pos < F))
+    for step in range(t_steps):
+        if not go:
+            break
+        order = queue[(q_head + iota_q) % Q].long()
+        order_mask = iota_q < torch.clamp(q_len, max=Qv)
+        res, counts = _match_order(cfg, state, order, order_mask)
+        eligible = (iota_q >= cfg.skip_from_head) & order_mask & (
+            counts >= cfg.required_matched)
+        found = eligible.any()
+        good = torch.where(found, _select_good(cfg, eligible, counts, iota_q),
+                           torch.zeros_like(q_len))
+        mask = _row(res["is_match"], good) & found
+        state, out = _track_core(cfg, state, _row(order, good),
+                                 _row(res["train_idx"], good), mask,
+                                 win_pos, gen)
+        accept = found & (out[0] > 0.5)
+        q_head = torch.where(found, (q_head + good + 1) % Q, q_head)
+        q_len = torch.where(found, q_len - good - 1, q_len)
+        win_pos = torch.where(accept, win_pos + 1, win_pos)
+        alive = alive & accept
+        full = accept & (win_pos >= F)
+        win_pos = torch.where(full, torch.zeros_like(win_pos), win_pos)
+        flags = torch.stack([full, alive & (q_len >= floor) & (win_pos < F)])
+        packed[step] = torch.cat([
+            torch.stack([torch.ones((), device=dev), found.float(),
+                         good.float(),
+                         torch.where(found, _row(counts, good),
+                                     torch.zeros_like(counts[0])).float()]),
+            out,
+            torch.stack([win_pos.float(), q_len.float(), full.float()]),
+            counts[:n_counts].float()])
+        fired, go = flags.tolist()        # one host read per step
+        if fired:
+            # the window-full flush (the classic loop's separate ba_step)
+            if collect_obs:
+                obs_xy = state.win_xy.clone()
+                obs_corr = torch.where(state.win_used[:, None],
+                                       state.win_corr,
+                                       torch.full_like(state.win_corr, -1))
+            if cfg.use_ba:
+                state, ba_out = _ba_core(cfg, state, F)
+            else:
+                _win_reset(state)
+    return (state, q_head, q_len, win_pos, ~alive, packed, ba_out, obs_xy,
+            obs_corr)

@@ -371,3 +371,73 @@ def test_global_bundle_adjust_repeats_bitwise_on_card(cuda_device):
     cc, _, ic = global_bundle_adjust(cfg, K4, cams, pts, uv, ci, pi, mask)
     np.testing.assert_allclose(c1.cpu().numpy(), cc.numpy(), atol=1e-3)
     assert float(i1["final_rmse"]) < float(i1["initial_rmse"])
+
+
+@pytest.mark.gpu
+def test_streaming_path_repeats_bitwise_on_card(cuda_device, tmp_path):
+    """Host ingest and the streaming loop on the card at rt_scene's size
+    (480x640, 14 frames; tests/test_torch_streaming.py's configuration): two
+    runs give the same cameras, poses and map bit for bit, every scan step
+    and the bootstrap match through top2_batch, and no other kernel runs."""
+    from slam_indoor_code_tpu_torch.app import slam_main
+    from slam_indoor_code_tpu_torch.config import Config, TpuConfig
+    from slam_indoor_code_tpu_torch.runtime import DeviceEngine
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    sc = make_scene(n_points=700, n_frames=14, seed=5, baseline=0.3)
+    frames = [sc.render(i) for i in range(14)]
+    engines = []
+    orig = DeviceEngine.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        engines.append(self)
+
+    runs = []
+    DeviceEngine.__init__ = spy
+    try:
+        for i in range(2):
+            cfg = Config(
+                usePhotosCycle=True, outputDataDir=str(tmp_path / str(i)),
+                requiredExtractedPointsCount=80,
+                featureExtractingThreshold=20, framesBatchSize=6,
+                requiredMatchedPointsCount=30, knnMatcherDistance=0.8,
+                RPDistanceThreshold=500.0, useBundleAdjustment=True,
+                BAMaxFramesCnt=4, BAUseHuberLossFunction=True,
+                BAHuberLossFunctionParameter=2.0,
+                tpu=TpuConfig(max_keypoints=512, ransac_iters=256,
+                              pnp_ransac_iters=128, window_points=4096,
+                              ba_max_iters=12, ingest="host",
+                              host_descriptor="same", streaming=True))
+            before = (ck.top2_batch.launches, ck.top2_l1.launches,
+                      ck.top2_pair.launches)
+            gd = slam_main(cfg, sc.K, frames=frames, seed=0)
+            torch.cuda.synchronize()
+            eng = engines[-1]
+            n = ck.top2_batch.launches - before[0]
+            assert eng._will_stream and eng.stream_calls > 0
+            assert n == eng.stream_steps + eng.match_select_calls
+            assert (ck.top2_l1.launches, ck.top2_pair.launches) == before[1:]
+            runs.append(gd)
+    finally:
+        DeviceEngine.__init__ = orig
+    a, b = runs
+    assert len(a.rotations) >= 10
+    np.testing.assert_array_equal(a.frame_ids, b.frame_ids)
+    for x, y in ((a.rotations, b.rotations), (a.positions, b.positions),
+                 (a.points, b.points)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert all(t.device.type == "cuda"
+               for t in engines[-1].state.tensors().values())
+
+
+@pytest.mark.gpu
+def test_auto_ingest_resolves_to_device_on_card(cuda_device):
+    """On a PCIe-attached card the probe reads well above 400 MB/s, so
+    ingest="auto" keeps the all-device frontend, as the JAX package's rule
+    concludes there."""
+    from slam_indoor_code_tpu_torch.runtime.engine import (
+        measured_link_bandwidth_mbps, resolve_ingest)
+
+    assert measured_link_bandwidth_mbps(cuda_device) > 400.0
+    assert resolve_ingest("auto", cuda_device) == "device"

@@ -152,6 +152,7 @@ def test_entry_points_default_to_cuda():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         tapp.slam_main(_cfg(tconfig, "unused"), np.eye(3), frames=[])
-    assert resolve_ingest("auto") == "device"
-    with pytest.raises(NotImplementedError, match="host"):
-        resolve_ingest("host")
+    assert resolve_ingest("auto", "cpu") == "device"
+    assert resolve_ingest("host", "cpu") == "host"
+    with pytest.raises(ValueError, match="ingest mode"):
+        resolve_ingest("disk", "cpu")
