@@ -51,10 +51,27 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rendered frames: one ``top2_pair`` launch, the same matches as
               ``match_pair`` on CPU copies up to the rows the L2 tolerance
               leaves open.
-11. repro   — phases 4, 5, 6 and 9 once more in the same process: each
+11. classic — ``slam_main`` with ``tpu.device_runtime=false``: the classic
+              host conductor (pipeline/) on the headline configuration, one
+              ``top2_batch`` launch per matched ``find_good_frame`` scan
+              (B = the batch's length, 1..16), the descriptors on the card,
+              no other kernel; cameras and ATE as phase 4.
+12. telemetry — the headline with ``per_frame_telemetry``: one step per
+              ``advance_window`` call, one "Matching time for index" line
+              in time.txt per scan step, one ``top2_batch`` launch per scan
+              step (and per bootstrap ``match_select``); prints whether it
+              equals phase 4 bit for bit and where the two part.
+13. cli     — the 32 frames written as PNG files (numpy + zlib), K as XML,
+              the configuration as JSON, then ``python3 -m
+              slam_indoor_code_tpu_torch cfg.json --profile DIR`` as a
+              subprocess: exit 0, the "map points" line, the six logs
+              reloaded with its cameras at ATE < 5 %, a trace in DIR that
+              names ``top2_l2_kernel`` and ``steps.`` spans; prints the
+              photo decode ms per frame and which decoder ran.
+14. repro   — phases 4, 5, 6, 9 and 11 once more in the same process: each
               second run must give the first run's cameras, map size, poses
-              and map points bit for bit (the second stream run is the warm
-              one).
+              and map points bit for bit (the second stream and classic runs
+              are the warm ones).
 
 No path may call a kernel's plain version on the card (each phase counts
 those calls and fails on any).
@@ -592,21 +609,27 @@ def counts():
 
 def slam_run(cfg, scene, frames):
     """``slam_main(cfg)`` on CUDA, launch counts set to 0 just before and
-    read just after → (counts, GlobalData, wall seconds, the engine, lines
-    of poses.txt)."""
+    read just after → (counts, GlobalData, wall seconds, the runtime (the
+    DeviceEngine, or the classic conductor's MainCycle), what the run
+    logged: {"poses": the text of poses.txt, "picks": the chosen batch
+    index of each scan step in time.txt}."""
     import torch
 
     from slam_indoor_code_tpu_torch.app import slam_main
+    from slam_indoor_code_tpu_torch.pipeline import MainCycle
     from slam_indoor_code_tpu_torch.runtime import DeviceEngine
 
-    engines = []
-    orig_init = DeviceEngine.__init__
+    runtimes = []
+    origs = {cls: cls.__init__ for cls in (DeviceEngine, MainCycle)}
 
-    def spy_init(self, *a, **kw):   # keep a handle on the engine's state
-        orig_init(self, *a, **kw)
-        engines.append(self)
+    def spying(orig_init):
+        def spy_init(self, *a, **kw):   # keep a handle on the runtime
+            orig_init(self, *a, **kw)
+            runtimes.append(self)
+        return spy_init
 
-    DeviceEngine.__init__ = spy_init
+    for cls, orig in origs.items():
+        cls.__init__ = spying(orig)
     try:
         torch.cuda.synchronize()
         reset_counts()
@@ -616,13 +639,17 @@ def slam_run(cfg, scene, frames):
         wall = time.perf_counter() - t
         n = counts()
     finally:
-        DeviceEngine.__init__ = orig_init
+        for cls, orig in origs.items():
+            cls.__init__ = orig
     with open(f"{cfg.outputDataDir}/poses.txt") as f:
-        n_logged = sum(1 for _ in f)
+        poses_text = f.read()
+    with open(f"{cfg.outputDataDir}/time.txt") as f:
+        picks = [int(ln.split()[4]) for ln in f
+                 if ln.startswith("Matching time for index")]
     if n["plain"]:
         fail(f"a kernel's plain version was called {n['plain']} times on "
              "the card")
-    return n, gd, wall, engines[0], n_logged
+    return n, gd, wall, runtimes[0], {"poses": poses_text, "picks": picks}
 
 
 def report(what, n_cams, ate_pct, gd, wall, n, card_line):
@@ -634,11 +661,12 @@ def report(what, n_cams, ate_pct, gd, wall, n, card_line):
 
 def main_path(card_line: str, scene, frames, what: str = "main path"):
     """``slam_main`` on CUDA with the headline configuration → (launch
-    counts of the run, its GlobalData)."""
+    counts of the run, its GlobalData, what it logged: see slam_run)."""
     with tempfile.TemporaryDirectory() as out:
-        n, gd, wall, engine, n_logged = slam_run(headline_config(out), scene,
-                                                 frames)
+        n, gd, wall, engine, logged = slam_run(headline_config(out), scene,
+                                               frames)
     n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    n_logged = logged["poses"].count("\n")
     if n_logged < n_cams:
         fail(f"poses.txt has {n_logged} rows for {n_cams} cameras")
     on_cuda(what, engine)
@@ -647,7 +675,7 @@ def main_path(card_line: str, scene, frames, what: str = "main path"):
         fail(f"top2_batch launched {n['top2_batch']} times for {n_cams} "
              "cameras")
     report(what, n_cams, ate_pct, gd, wall, n, card_line)
-    return n, gd
+    return n, gd, logged
 
 
 def orb_path(card_line: str, scene, frames, what: str = "orb path"):
@@ -992,6 +1020,244 @@ def pair_entry(card_line: str, frames):
     return n
 
 
+def classic_config(out_dir: str):
+    """The headline configuration on the classic host conductor
+    (``tpu.device_runtime=false``)."""
+    cfg = headline_config(out_dir)
+    return dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, device_runtime=False))
+
+
+def classic_path(card_line: str, scene, frames, what: str = "classic path"):
+    """``slam_main`` with ``classic_config`` → (launch counts, GlobalData):
+    one ``top2_batch`` launch per ``find_good_frame`` scan that matched,
+    the descriptors on the card, no other kernel."""
+    from slam_indoor_code_tpu_torch.models import frontend
+    from slam_indoor_code_tpu_torch.pipeline import MainCycle
+
+    devices = set()
+    orig = frontend.match_against_batch
+
+    def spy(fcfg, desc_prev, valid_prev, desc_batch, *a, **kw):
+        devices.add((desc_prev.device.type, desc_batch.device.type))
+        return orig(fcfg, desc_prev, valid_prev, desc_batch, *a, **kw)
+
+    frontend.match_against_batch = spy
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            n, gd, wall, cycle, _ = slam_run(classic_config(out), scene,
+                                             frames)
+    finally:
+        frontend.match_against_batch = orig
+    if not isinstance(cycle, MainCycle):
+        fail(f"{what}: slam_main did not take the classic conductor")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    if devices != {("cuda", "cuda")}:
+        fail(f"{what}: descriptors matched on {sorted(devices)}")
+    scans = cycle.scheduler.scans
+    if n["top2_batch"] != scans or scans == 0:
+        fail(f"{what}: top2_batch launched {n['top2_batch']} times for "
+             f"{scans} matched find_good_frame scans")
+    if n["top2_l1"] or n["top2_pair"] or n["hamming"] or n["lpb"]:
+        fail(f"{what}: launched another kernel than the L2 top2_batch: {n}")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
+    print(f"{what}: {scans} find_good_frame scans, one top2_batch launch "
+          f"each  [{card_line}]", flush=True)
+    return n, gd
+
+
+def first_divergence(a, b):
+    """The first camera at which two runs part (a different source frame or
+    pose, bit for bit), None where they are equal throughout."""
+    import numpy as np
+
+    n = min(len(a.rotations), len(b.rotations))
+    for i in range(n):
+        if (a.frame_ids[i] != b.frame_ids[i]
+                or not np.array_equal(a.rotations[i], b.rotations[i])
+                or not np.array_equal(a.positions[i], b.positions[i])):
+            return i
+    if len(a.rotations) != len(b.rotations):
+        return n
+    return None
+
+
+def telemetry_path(card_line: str, scene, frames, gd_l2, logged_l2):
+    """The headline with ``per_frame_telemetry``: the device runtime's
+    classic loop one step per call, one "Matching time for index" line per
+    scan step in time.txt, one ``top2_batch`` launch per scan step (and per
+    bootstrap ``match_select``).  Prints whether it equals the fused L2
+    run bit for bit and, if not, where the two part → launch counts."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as out:
+        cfg = headline_config(out)
+        cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+            cfg.tpu, per_frame_telemetry=True))
+        n, gd, wall, engine, logged = slam_run(cfg, scene, frames)
+    picks, picks_l2 = logged["picks"], logged_l2["picks"]
+    what = "telemetry"
+    if engine._will_stream or not engine.cfg.per_frame_telemetry:
+        fail(f"{what}: the engine did not take the one-step classic loop")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
+    if len(picks) < n_cams - 2:
+        fail(f"{what}: {len(picks)} 'Matching time for index' lines for "
+             f"{n_cams} cameras")
+    if n["top2_batch"] != len(picks) + engine.match_select_calls:
+        fail(f"{what}: top2_batch launched {n['top2_batch']} times for "
+             f"{len(picks)} scan steps and {engine.match_select_calls} "
+             "bootstrap matches")
+    if n["top2_l1"] or n["top2_pair"] or n["hamming"] or n["lpb"]:
+        fail(f"{what}: launched another kernel than the L2 top2_batch: {n}")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
+    part = first_divergence(gd_l2, gd)
+    same_map = (len(gd.points) == len(gd_l2.points)
+                and np.array_equal(gd.points, gd_l2.points))
+    step = next((i for i, (x, y) in enumerate(zip(picks_l2, picks))
+                 if x != y), None)
+    if step is None and len(picks) != len(picks_l2):
+        step = min(len(picks), len(picks_l2))
+    print(f"{what}: {len(picks)} per-step time.txt lines; equals the fused "
+          f"L2 run bit for bit: cameras and poses "
+          f"{part is None}, map {same_map}; first camera that differs: "
+          f"{part}; first scan step whose chosen index differs: {step} "
+          f"(fused {picks_l2[step:step + 3] if step is not None else '-'}, "
+          f"per-frame {picks[step:step + 3] if step is not None else '-'})"
+          f"  [{card_line}]", flush=True)
+    return n
+
+
+def write_png(path: str, rgb) -> None:
+    """An 8-bit RGB PNG of ``rgb`` [H,W,3] u8, every row filtered Up, with
+    numpy and zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    rows = np.ascontiguousarray(rgb).reshape(h, w * 3)
+    up = rows.copy()
+    up[1:] -= rows[:-1]
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], 1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def cli_path(card_line: str, scene, frames, gd_l2, logged_l2):
+    """The reference binary's contract: the 32 frames as PNG files, K as
+    OpenCV XML, the headline configuration as JSON (three decode workers),
+    then ``python3 -m slam_indoor_code_tpu_torch cfg.json --profile DIR``
+    as a subprocess.  It must exit 0 and print the "map points" line; its
+    six logs must reload with its cameras at ATE < 5 % (poses.txt holds
+    each frame's pose as accepted, before the windowed BA moves it); DIR
+    must hold a trace naming ``top2_l2_kernel`` and ``steps.`` spans.
+    Prints whether its poses.txt equals phase 4's byte for byte (the same
+    frames, K and seed) and times the photo decode per frame in this
+    process."""
+    import glob
+    import re
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.config import dump_config
+    from slam_indoor_code_tpu_torch.io import native
+    from slam_indoor_code_tpu_torch.io.logs import load_global_data_from_logs
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as root:
+        photos, out, prof = (os.path.join(root, d)
+                             for d in ("photos", "out", "prof"))
+        for d in (photos, out):
+            os.makedirs(d)
+        t = time.perf_counter()
+        for i, f in enumerate(frames):
+            write_png(os.path.join(photos, f"frame_{i}.png"), f)
+        write_s = time.perf_counter() - t
+        save_matrix_to_xml(os.path.join(root, "cam.xml"), scene.K, "K")
+        cfg = dataclasses.replace(
+            headline_config(out), threadsCount=3,
+            photosPathPattern=os.path.join(photos, "*.png"),
+            calibrationPath=os.path.join(root, "cam.xml"))
+        cfg_path = os.path.join(root, "cfg.json")
+        with open(cfg_path, "w") as f:
+            f.write(dump_config(cfg))
+
+        decoder = "native (libjpeg/libpng)"
+        if not native.available():
+            why = [ln for ln in native.build_error().splitlines()
+                   if "error" in ln] or ["?"]
+            decoder = (f"numpy PNG reader (io/png.py); the native build "
+                       f"failed: {why[0].strip()[:120]}")
+        t = time.perf_counter()
+        src = MediaSource(photos_pattern=cfg.photosPathPattern, threads=3)
+        decoded = list(src)
+        decode_ms = 1e3 * (time.perf_counter() - t) / max(len(decoded), 1)
+        if len(decoded) != len(frames) or not all(
+                np.array_equal(a, b) for a, b in zip(decoded, frames)):
+            fail("cli: the decoded photos differ from the rendered frames")
+
+        env = dict(os.environ, PYTHONPATH=repo)
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "slam_indoor_code_tpu_torch", cfg_path,
+             "--profile", prof], capture_output=True, text=True,
+            timeout=600, cwd=repo, env=env)
+        run_s = time.perf_counter() - t
+        if r.returncode != 0:
+            fail(f"cli: exit {r.returncode}: {r.stderr[-2000:]}")
+        m = re.search(r"map points: (\d+); cameras: (\d+)", r.stdout)
+        if m is None:
+            fail(f"cli: no 'map points' line in {r.stdout[-500:]!r}")
+        n_pts, n_cams = int(m.group(1)), int(m.group(2))
+        for name in ("poses", "rotations", "points", "colors", "main",
+                     "time"):
+            if not os.path.getsize(os.path.join(out, f"{name}.txt")):
+                fail(f"cli: {name}.txt is empty")
+        gd = load_global_data_from_logs(out)
+        with open(os.path.join(out, "poses.txt")) as f:
+            same = f.read() == logged_l2["poses"]
+        traces = glob.glob(os.path.join(prof, "*.json"))
+        text = "".join(open(p).read() for p in traces)
+        trace_mb = sum(os.path.getsize(p) for p in traces) / 1e6
+    if len(gd.rotations) != n_cams or len(gd.points) != n_pts:
+        fail(f"cli: the logs reload {len(gd.rotations)} cameras and "
+             f"{len(gd.points)} points, the run printed {n_cams} and {n_pts}")
+    if n_cams < MIN_CAMERAS:
+        fail(f"cli: only {n_cams}/{N_FRAMES} frames became cameras")
+    if n_cams == N_FRAMES:
+        fids = np.arange(N_FRAMES)
+    elif n_cams == len(gd_l2.rotations):
+        fids = gd_l2.frame_ids
+    else:
+        fail(f"cli: {n_cams} cameras cannot be paired with ground truth")
+    ate_pct = rel_ate_pct(scene, gd.rotations, gd.positions, fids)
+    if not ate_pct < 100 * ATE_MAX_FRAC:
+        fail(f"cli: ATE {ate_pct:.4f}% >= {100 * ATE_MAX_FRAC}% of extent")
+    if "top2_l2_kernel" not in text or "steps." not in text:
+        fail(f"cli: the trace in {len(traces)} file(s) names "
+             f"top2_l2_kernel: {'top2_l2_kernel' in text}, steps. spans: "
+             f"{'steps.' in text}")
+    print(f"cli: exit 0, cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
+          f"extent (logs reloaded)  map {n_pts} points  subprocess "
+          f"{run_s:.3f} s (profiled)  trace {trace_mb:.1f} MB in "
+          f"{len(traces)} file(s) names top2_l2_kernel and steps. spans  "
+          f"poses.txt equals the main path's byte for byte: {same}  decode "
+          f"{decode_ms:.3f} ms per frame (3 workers, {os.cpu_count()} cores; "
+          f"{decoder}); PNG writing {1e3 * write_s / len(frames):.1f} ms per "
+          f"frame  [{card_line}]", flush=True)
+
+
 def main() -> None:
     name, card_line = card()
     phase("card", device=repr(name))
@@ -1007,7 +1273,7 @@ def main() -> None:
         scene, frames = headline_scene()
         phase("render", frames=N_FRAMES)
         count_plain_calls()
-        n, gd_l2 = main_path(card_line, scene, frames)
+        n, gd_l2, logged_l2 = main_path(card_line, scene, frames)
         rows["top2_batch"]["launches"] = n["top2_batch"]
         # top2_batch's launches on each path that runs it
         by_path = {"main": n["top2_batch"]}
@@ -1035,15 +1301,26 @@ def main() -> None:
         n = pair_entry(card_line, frames)
         rows["top2_pair"]["launches"] = n["top2_pair"]
         phase("pair", top2_pair_launches=n["top2_pair"])
-        _, again = main_path(card_line, scene, frames, "main path, run 2")
+        n, gd_classic = classic_path(card_line, scene, frames)
+        by_path["classic"] = n["top2_batch"]
+        phase("classic", top2_batch_launches=n["top2_batch"])
+        n = telemetry_path(card_line, scene, frames, gd_l2, logged_l2)
+        by_path["telemetry"] = n["top2_batch"]
+        phase("telemetry", top2_batch_launches=n["top2_batch"])
+        cli_path(card_line, scene, frames, gd_l2, logged_l2)
+        phase("cli")
+        _, again, _ = main_path(card_line, scene, frames, "main path, run 2")
         same_run("main path", gd_l2, again)
+        _, again = classic_path(card_line, scene, frames,
+                                "classic path, run 2")
+        same_run("classic path", gd_classic, again)
         _, again = l1_path(card_line, scene, frames, "l1 path, run 2")
         same_run("l1 path", gd_l1, again)
         _, again = orb_path(card_line, scene, frames, "orb path, run 2")
         same_run("orb path", gd_orb, again)
         _, again = stream_path(card_line, scene, frames, "stream path, run 2")
         same_run("stream path", gd_stream, again)
-        phase("repro", runs=8)
+        phase("repro", runs=10)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run

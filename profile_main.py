@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on the card.
 
-    python3 profile_main.py [l2|l1|orb|stream|tile]
+    python3 profile_main.py [l2|l1|orb|stream|classic|tile|diverge]
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
 port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
 ``EngineConfig.metric="l1"``, chip_smoke.run_engine; with ``orb``: with only
 ``useFM-ORB`` set, chip_smoke.orb_config; with ``stream``: host ingest and
-the streaming loop, chip_smoke.stream_config) twice unprofiled —
+the streaming loop, chip_smoke.stream_config; with ``classic``: the classic
+host conductor, chip_smoke.classic_config) twice unprofiled —
 cold, then warm — and once under ``torch.profiler``.  Prints the card, the
 profiled run's wall time, the share of that wall time in which the device
-ran any kernel, the host and device time of each step span
-("steps.<name>", see runtime/steps.py) and the kernels with the most device
-time; with ``stream`` also the host ingest of each run, timed around every
-``host_detect_pack`` call in the packer threads (chip_smoke.
-timed_host_ingest; the profiler records no op of those threads).  Writes
-the full table to chiprun_out/profile_main[_l1|_orb|_stream].txt.
+ran any kernel, the host and device time of each span ("steps.<name>", see
+runtime/steps.py; "pipeline.<name>" on the classic conductor, see
+pipeline/) and the kernels with the most device time; with ``stream`` also
+the host ingest of each run, timed around every ``host_detect_pack`` call
+in the packer threads (chip_smoke.timed_host_ingest; the profiler records
+no op of those threads).  Writes the full table to
+chiprun_out/profile_main[_l1|_orb|_stream|_classic].txt.
+
+With ``diverge``: the stream configuration once on CUDA and once on the
+CPU (same frames, seed 0), every ``advance_stream`` step's row recorded
+(flags, chosen index, the match counts of its candidates); prints the first
+active step whose match counts differ and the first whose flags or chosen
+index differ, the two count vectors there, the largest descriptor
+difference between the two devices at that step, and the counts that the
+CPU's f32 matcher and the kernel's bf16 plain version give on the card's
+descriptors (which tells the descriptor's rounding from the matcher's).
 
 With ``tile``: where the time of the L2/Hamming tile (csrc/top2_l2.cuh)
 goes at the main path's shapes.  Builds copies of ``top2_batch`` with one
@@ -150,6 +161,102 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
+def _stream_steps(device: str, scene, frames) -> list:
+    """The stream configuration through ``slam_main`` on ``device`` →
+    per active ``advance_stream`` step: (row [found, good_pos, count_good],
+    counts of the visible window, the descriptors it matched: prev [K,D],
+    candidates [B,K,D], valid masks), all on the host."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.app import slam_main
+    from slam_indoor_code_tpu_torch.runtime import steps
+
+    rec, seen = [], []
+    orig_adv, orig_match = steps.advance_stream, steps._match_order
+
+    def adv(cfg, *a, **kw):
+        out = orig_adv(cfg, *a, **kw)
+        packed = out[5].cpu().numpy()
+        for row in packed:
+            if row[0] > 0.5:
+                rec.append((row[1:4].copy(), row[24:].copy()))
+        return out
+
+    def match(cfg, state, order, order_mask):
+        seen.append(tuple(x.cpu().numpy() for x in (
+            state.prev_desc, state.prev_valid, state.ring_desc[order],
+            state.ring_valid[order], order_mask)))
+        return orig_match(cfg, state, order, order_mask)
+
+    steps.advance_stream, steps._match_order = adv, match
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            gd = slam_main(chip_smoke.stream_config(out), scene.K,
+                           frames=frames, seed=0, device=device)
+    finally:
+        steps.advance_stream, steps._match_order = orig_adv, orig_match
+    # the bootstrap's match_select comes first in ``seen``
+    descs = seen[len(seen) - len(rec):]
+    print(f"{device}: {len(gd.rotations)} cameras, {len(rec)} active steps",
+          flush=True)
+    return [(r, c, d) for (r, c), d in zip(rec, descs)], np.asarray(
+        gd.frame_ids)
+
+
+def diverge() -> None:
+    """See the module docstring (``diverge``)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.ops import build, knn
+    from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
+
+    _, card_line = chip_smoke.card()
+    build.build_all()
+    scene, frames = chip_smoke.headline_scene()
+    card, fid_card = _stream_steps("cuda", scene, frames)
+    cpu, fid_cpu = _stream_steps("cpu", scene, frames)
+    print(f"[{card_line}] cameras: card {fid_card.tolist()}, cpu "
+          f"{fid_cpu.tolist()}", flush=True)
+    first_count = next((k for k, (a, b) in enumerate(zip(card, cpu))
+                        if not np.array_equal(a[1], b[1])), None)
+    print(f"first active step whose match counts differ: {first_count}",
+          flush=True)
+    for k, ((rc, cc, dc), (rp, cp, dp)) in enumerate(zip(card, cpu)):
+        if np.array_equal(rc[:2], rp[:2]):
+            continue
+        print(f"first active step whose flags or chosen index differ: {k}; "
+              f"[found, good_pos, count_good] card {rc.tolist()}, cpu "
+              f"{rp.tolist()}", flush=True)
+        print(f"  match counts of the visible window: card "
+              f"{cc.astype(int).tolist()}, cpu {cp.astype(int).tolist()}",
+              flush=True)
+        same_masks = all(np.array_equal(x, y) for x, y in
+                         zip((dc[1], dc[3], dc[4]), (dp[1], dp[3], dp[4])))
+        print(f"  descriptors: max |card - cpu| prev "
+              f"{np.abs(dc[0] - dp[0]).max():.3g}, candidates "
+              f"{np.abs(dc[2] - dp[2]).max():.3g}; valid masks equal: "
+              f"{same_masks}", flush=True)
+        t = [torch.from_numpy(x) for x in dc]
+        res = knn.match_batch(*t, ratio=0.8, metric="l2")
+        d1, i1, d2 = ck.top2_batch_plain(t[0], t[2], t[3])
+        bf16 = knn._result(d1, i1, d2, t[1][None, :] & t[4][:, None], 0.8,
+                           "l2")
+        print(f"  on the card's descriptors, on the CPU: the f32 matcher "
+              f"{res['num_matches'].numpy().tolist()}, the kernel's bf16 "
+              f"plain version {bf16['num_matches'].numpy().tolist()}  "
+              f"[{card_line}]", flush=True)
+        return
+    n = min(len(card), len(cpu))
+    print(f"no flags or chosen index differ over the first {n} active "
+          f"steps; active steps: card {len(card)}, cpu {len(cpu)}  "
+          f"[{card_line}]", flush=True)
+    for name, rows in (("card", card), ("cpu", cpu)):
+        for k in range(max(n - 1, 0), len(rows)):
+            print(f"  {name} step {k}: [found, good_pos, count_good] "
+                  f"{rows[k][0].tolist()}, counts "
+                  f"{rows[k][1].astype(int).tolist()}", flush=True)
+
+
 def main() -> None:
     from slam_indoor_code_tpu_torch.app import slam_main
     from slam_indoor_code_tpu_torch.ops import build
@@ -157,16 +264,19 @@ def main() -> None:
     metric = sys.argv[1] if len(sys.argv) > 1 else "l2"
     if metric == "tile":
         return tile_parts()
-    if metric not in ("l2", "l1", "orb", "stream"):
-        raise SystemExit(f"mode must be l2, l1, orb, stream or tile, got "
-                         f"{metric!r}")
+    if metric == "diverge":
+        return diverge()
+    if metric not in ("l2", "l1", "orb", "stream", "classic"):
+        raise SystemExit(f"mode must be l2, l1, orb, stream, classic, tile "
+                         f"or diverge, got {metric!r}")
     _, card_line = chip_smoke.card()
     build.build_all()
     scene, frames = chip_smoke.headline_scene()
     walls = []
     with tempfile.TemporaryDirectory() as out:
         cfg = {"orb": chip_smoke.orb_config,
-               "stream": chip_smoke.stream_config}.get(
+               "stream": chip_smoke.stream_config,
+               "classic": chip_smoke.classic_config}.get(
                    metric, chip_smoke.headline_config)(out)
 
         ingest = []          # (seconds, frames) of host ingest per run
@@ -202,9 +312,10 @@ def main() -> None:
     avg = prof.key_averages()
     # each span appears twice: its host range and its range on the device
     # timeline; the kernels it launched are summed under self device time
+    prefixes = ("steps.", "pipeline.")
     spans: dict[str, list] = {}
     for e in avg:
-        if e.key.startswith("steps."):
+        if e.key.startswith(prefixes):
             row = spans.setdefault(e.key, [0.0, 0, 0.0])
             row[0] = max(row[0], e.cpu_time_total / 1e3)
             row[1] = max(row[1], e.count)
@@ -213,11 +324,11 @@ def main() -> None:
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
         p = e.cpu_parent
-        while p is not None and not p.name.startswith("steps."):
+        while p is not None and not p.name.startswith(prefixes):
             p = p.cpu_parent
         if p is not None:
             kernels_in[p.name] += sum(k.duration for k in e.kernels) / 1e3
-    print("step spans: host ms (span wall on the host) / kernel ms launched "
+    print("spans: host ms (span wall on the host) / kernel ms launched "
           "directly inside (innermost span) / calls")
     for k, (host, calls, _) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
         print(f"  {k:28s} {host:10.1f} {kernels_in[k]:10.1f} {calls:6d}")

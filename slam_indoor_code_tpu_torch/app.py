@@ -1,24 +1,31 @@
 """Application driver (counterpart of the JAX package's app.py): the SLAM
-restart loop over the device-resident engine — when a cycle loses track it
-relaunches with the last good pose carried over, and sub-map results are
-concatenated.  Writes the reference-format poses/rotations/points/colors/
-main/time.txt logs to cfg.outputDataDir.
+restart loop — when a cycle loses track it relaunches with the last good
+pose carried over, and sub-map results are concatenated.  Writes the
+reference-format poses/rotations/points/colors/main/time.txt logs to
+cfg.outputDataDir.
 
-The camera comes from the config's OpenCV-XML ``calibrationPath`` (K, and
-with ``useUndistortion`` the distortion coefficients DC), as in the JAX
-package.  ``tpu.global_ba`` adds the final full-trajectory BA
-(``_global_refine``); ``tpu.checkpoint_path``/``checkpoint_every`` snapshot
-the run and ``tpu.resume_path`` continues one (runtime/checkpoint.py).
+Two execution paths with the same semantics: the device-resident engine
+(runtime/engine.py, the default) and, with ``tpu.device_runtime=false``,
+the classic host conductor (pipeline/main_cycle.py, the readable one).
+Media comes from the config's photo glob (io/media.py) unless frames are
+passed in memory; the camera from its OpenCV-XML ``calibrationPath`` (K,
+and with ``useUndistortion`` the distortion coefficients DC).
+``tpu.global_ba`` adds the final full-trajectory BA (``_global_refine``);
+``tpu.checkpoint_path``/``checkpoint_every`` snapshot the run and
+``tpu.resume_path`` continues one (runtime/checkpoint.py);
 ``tpu.ingest="host"`` detects on the host and, with ``tpu.streaming``, runs
-the engine's streaming loop, whose restarts hand the device queue the host
-batch again.
+the engine's streaming loop; ``tpu.profile_dir`` writes a ``torch.profiler``
+trace of the device runtime's run there.
 
-Not ported yet (ROADMAP): the host ORB descriptor modes, the classic host
-conductor (``tpu.device_runtime=false``), ``tpu.profile_dir``, calibration
-and file-path media.
+Not ported yet (ROADMAP): calibration, video media and the host ORB
+descriptor modes.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+import time
 
 import numpy as np
 import torch
@@ -26,20 +33,22 @@ import torch
 from . import resolve_device
 from .config import Config
 from .io.logs import GlobalData, LogStreams, load_global_data_from_logs
-from .io.media import ArraySource
+from .io.media import ArraySource, MediaSource
 from .io.xmlio import load_matrix_from_xml
 from .utils.timer import ChronoTimer
 
 
 def make_media(cfg: Config, frames=None):
-    """In-memory frames (a list/array, or any object with ``next_frame``)."""
-    if frames is None:
-        raise NotImplementedError(
-            "file-path media (photo globs, video) is not ported yet: pass "
-            "frames in memory")
-    if hasattr(frames, "next_frame"):
-        return frames
-    return ArraySource(frames)
+    """In-memory frames (a list/array, or any object with ``next_frame``),
+    else the config's photo glob decoded by ``threadsCount`` workers."""
+    if frames is not None:
+        if hasattr(frames, "next_frame"):
+            return frames
+        return ArraySource(frames)
+    return MediaSource(photos_pattern=cfg.photosPathPattern,
+                       video_path=cfg.videoSourcePath,
+                       use_photos=cfg.usePhotosCycle,
+                       threads=max(1, cfg.threadsCount))
 
 
 def load_calibration(cfg: Config) -> tuple[np.ndarray, np.ndarray]:
@@ -66,23 +75,97 @@ def _load_dist(cfg: Config):
         return None
 
 
-def _check_supported(cfg: Config) -> None:
-    if not cfg.tpu.device_runtime:
-        raise NotImplementedError("tpu.device_runtime=false (the classic host "
-                                  "conductor) is not ported yet")
-    if cfg.tpu.profile_dir:
-        raise NotImplementedError("tpu.profile_dir is not ported yet")
-
-
 def slam_main(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
               device=None) -> GlobalData:
     """Run the full SLAM pipeline with restart-on-track-loss on ``device``
     (None = CUDA; raises without a GPU).  With ``useUndistortion`` the
     keypoints are undistorted with the DC of ``calibrationPath``.  Returns
-    the accumulated GlobalData (with ``frame_ids``) and writes the
-    reference-format txt logs."""
-    _check_supported(cfg)
-    return _slam_main_device(cfg, K, frames=frames, seed=seed, device=device)
+    the accumulated GlobalData (the device runtime's with ``frame_ids``)
+    and writes the reference-format txt logs.
+
+    ``tpu.device_runtime=false`` runs the classic host conductor; the
+    device runtime is the default."""
+    if cfg.tpu.device_runtime:
+        return _slam_main_device(cfg, K, frames=frames, seed=seed,
+                                 device=device)
+    return _slam_main_classic(cfg, K, frames=frames, seed=seed, device=device)
+
+
+def _slam_main_classic(cfg: Config, K: np.ndarray, frames=None,
+                       seed: int = 0, device=None) -> GlobalData:
+    """slam_main on the classic host conductor (pipeline/main_cycle.py).
+    ``tpu.profile_dir`` is not traced here, as in the JAX package."""
+    from .models import frontend as fe
+    from .pipeline import CycleSettings, MainCycle, MapArena
+    from .solver.ba import WindowedBA
+
+    timer = ChronoTimer()
+    device = resolve_device(device)       # raises before any file is opened
+    logs = LogStreams(cfg.outputDataDir)
+    try:
+        media = make_media(cfg, frames)
+        arena = MapArena(cfg.tpu.max_map_points)
+        ba_fn = None
+        if cfg.useBundleAdjustment:
+            loss, param = cfg.ba_loss
+            ba_fn = WindowedBA(
+                loss=loss, loss_param=param, max_iters=cfg.tpu.ba_max_iters,
+                window=cfg.BAMaxFramesCnt,
+                window_points=cfg.tpu.window_points, report=logs.main,
+                adjust_intrinsics=cfg.tpu.ba_adjust_intrinsics,
+                device=device)
+        global_data = GlobalData()
+        cycle = MainCycle(media, K, CycleSettings.from_config(cfg),
+                          fe.frontend_config_from(cfg), arena, logs=logs,
+                          ba_fn=ba_fn, seed=seed, dist=_load_dist(cfg),
+                          device=device)
+        init_R, init_t = np.eye(3), np.zeros(3)
+        while True:
+            logs.main.write("Launching main cycle...\n")
+            result = cycle.run(init_R, init_t)
+            global_data.extend(result["global_data"])
+            if (result["status"] != "interrupted"
+                    or result["last_frame"] is None):
+                break
+            # restart with pose carry-over (defineCameraPosition,
+            # mainCycleInternals.cpp:122-133)
+            init_R = result["last_frame"].rotation
+            init_t = result["last_frame"].motion
+            if cycle.scheduler.media_exhausted:
+                break
+        pts, cols = arena.snapshot()
+        global_data.points = pts
+        global_data.colors = cols.astype(np.float64)
+        logs.write_map(pts, cols)
+        if global_data.empty:
+            logs.main.write(
+                "Couldn't process image sequence. Too little data.\n")
+        timer.print_start_delta("Whole time: ", logs.time)
+    finally:
+        logs.close()
+    return global_data
+
+
+@contextlib.contextmanager
+def _device_trace(profile_dir: str, logs: LogStreams, device):
+    """``tpu.profile_dir``: a ``torch.profiler`` trace (host ops and, on
+    CUDA, the kernels) of the block, written to ``profile_dir`` as a
+    Chrome-trace JSON (Perfetto, chrome://tracing).  The ``steps.*`` spans
+    of runtime/steps.py name the work in it."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    logs.main.write(f"Profiling device trace to {profile_dir}\n")
+    with profile(activities=acts) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"trace_{os.getpid()}_{int(time.time())}.json"))
 
 
 def _global_refine(engine, gd: GlobalData, logs, cfg: Config):
@@ -224,21 +307,22 @@ def _slam_main_device(cfg: Config, K: np.ndarray, frames=None, seed: int = 0,
         if resume:
             _resume(cfg, engine, media, global_data, logs)
         init_R, init_t = np.eye(3), np.zeros(3)
-        while True:
-            logs.main.write("Launching main cycle...\n")
-            result = engine.run(init_R, init_t, resume=resume)
-            resume = False
-            global_data.extend(result["global_data"])
-            if (result["status"] != "interrupted"
-                    or result["last_pose"] is None):
-                break
-            init_R, init_t = result["last_pose"]
-            if engine.media_exhausted:
-                break
-        refined_pts = None
-        if use_global_ba:
-            refined_pts = _global_refine(engine, global_data, logs, cfg)
-        pts, cols = engine.snapshot_map()
+        with _device_trace(cfg.tpu.profile_dir, logs, device):
+            while True:
+                logs.main.write("Launching main cycle...\n")
+                result = engine.run(init_R, init_t, resume=resume)
+                resume = False
+                global_data.extend(result["global_data"])
+                if (result["status"] != "interrupted"
+                        or result["last_pose"] is None):
+                    break
+                init_R, init_t = result["last_pose"]
+                if engine.media_exhausted:
+                    break
+            refined_pts = None
+            if use_global_ba:
+                refined_pts = _global_refine(engine, global_data, logs, cfg)
+            pts, cols = engine.snapshot_map()
         if refined_pts is not None and len(refined_pts) == len(pts):
             pts = refined_pts
         global_data.points = pts
@@ -259,7 +343,9 @@ def run_from_config(cfg: Config, frames=None, K: np.ndarray | None = None,
     the logs; otherwise SLAM, with K from ``calibrationPath`` unless the
     caller passes one."""
     if cfg.calibrate:
-        raise NotImplementedError("calibration is not ported yet")
+        raise NotImplementedError(
+            "calibration (the chessboard calibration of calibration/) is not "
+            "ported yet: it needs OpenCV's chessboard detector")
     if cfg.onlyViz:
         return load_global_data_from_logs(cfg.outputDataDir)
     if K is None:

@@ -4,9 +4,12 @@ fixed-shape, mask-aware, float32 tensor functions."""
 from .essential import estimate_transformation, find_essential_ransac, recover_pose
 from .pnp import solve_pnp_ransac
 from .projection import (
+    camera_depths,
     denormalize,
+    homogeneous,
     normalize_pixels,
     project,
+    projection_matrix,
     undistort_points,
 )
 from .rotations import matrix_to_rodrigues, project_to_so3, rodrigues_to_matrix, skew
@@ -20,14 +23,17 @@ def compose_with_world(R_w, t_w, R_rel, t_rel):
 
 
 __all__ = [
+    "camera_depths",
     "compose_with_world",
     "denormalize",
     "estimate_transformation",
     "find_essential_ransac",
+    "homogeneous",
     "matrix_to_rodrigues",
     "normalize_pixels",
     "project",
     "project_to_so3",
+    "projection_matrix",
     "reconstruct",
     "recover_pose",
     "rodrigues_to_matrix",

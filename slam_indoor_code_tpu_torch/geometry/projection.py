@@ -14,6 +14,21 @@ def project(K, R, t, X):
     return uvw[..., :2] / torch.clamp_min(uvw[..., 2:3], 1e-12)
 
 
+def camera_depths(R, t, X):
+    """z-coordinate of world points X [...,N,3] in the camera frame."""
+    return (X @ R.transpose(-1, -2) + t[..., None, :])[..., 2]
+
+
+def homogeneous(x):
+    """[...,D] → [...,D+1] with an appended 1."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def projection_matrix(K, R, t):
+    """P = K [R|t], shape [...,3,4]."""
+    return K @ torch.cat([R, t[..., :, None]], dim=-1)
+
+
 def normalize_pixels(K, uv):
     """Pixel coords → K-normalized image coords (zero-skew K)."""
     fx, fy = K[0, 0], K[1, 1]

@@ -1,6 +1,6 @@
-"""Host-side IO: reference-format txt logs, OpenCV-XML calibration files and
-the in-memory frame source.  (File-path media is not part of this port
-yet.)"""
+"""Host-side IO: reference-format txt logs, OpenCV-XML calibration files,
+photo-glob media (native or numpy decoding) and the in-memory frame
+source."""
 
 from .logs import (
     GlobalData,
@@ -9,7 +9,7 @@ from .logs import (
     load_global_data_from_logs,
     write_matrix,
 )
-from .media import ArraySource
+from .media import ArraySource, MediaSource, natural_sort_paths
 from .xmlio import (
     load_matrix_from_xml,
     save_calib_parameters_to_xml,
@@ -20,9 +20,11 @@ __all__ = [
     "ArraySource",
     "GlobalData",
     "LogStreams",
+    "MediaSource",
     "format_matrix",
     "load_global_data_from_logs",
     "load_matrix_from_xml",
+    "natural_sort_paths",
     "save_calib_parameters_to_xml",
     "save_matrix_to_xml",
     "write_matrix",

@@ -3,7 +3,8 @@ previous-frame-vs-batch 2-NN match (counterpart of the JAX package's
 models/frontend.py).
 
 Two ingest halves.  Device ingest uploads the full gray plane and detects
-on the device (``extract_and_describe_gray_batch``).  Host ingest detects on
+on the device (``extract_and_describe_gray_batch``; the classic conductor,
+pipeline/, uploads the RGB frames instead: ``extract_and_describe_batch``).  Host ingest detects on
 the host (``host_detect_pack``) and uploads a pooled gray plane with the
 keypoints; the device then only describes (``describe_packed_batch``).  The
 JAX package's host half calls OpenCV; here it is numpy, equal to OpenCV
@@ -213,6 +214,45 @@ def _describe(cfg: FrontendConfig, gray, xy, valid):
         return orb.describe(gray, xy, valid)
     return sift.describe(gray, xy, valid, downscale=cfg.descriptor_downscale,
                          nearest=cfg.sift_nearest)
+
+
+def extract_and_describe_batch(cfg: FrontendConfig, rgb_batch: torch.Tensor):
+    """[B,H,W,3] u8 RGB frames → batched keypoints, descriptors and colours
+    (the float BT.601 gray of ``image.rgb_to_gray``, FAST, then SIFT or ORB
+    per frame): dict xy [B,K,2], valid [B,K], score [B,K], desc [B,K,D],
+    colors [B,K,3] u8, num_corners [B].  Everything stays on the frames'
+    device."""
+    gray = image.rgb_to_gray(rgb_batch)
+    det = fast.detect_batch(gray, cfg.threshold, cfg.max_keypoints)
+    desc = torch.stack([
+        _describe(cfg, gray[i], det["xy"][i], det["valid"][i])["desc"]
+        for i in range(gray.shape[0])])
+    colors = torch.stack([
+        image.extract_patch_colors(rgb_batch[i], det["xy"][i])
+        for i in range(gray.shape[0])])
+    return {
+        "xy": det["xy"],
+        "valid": det["valid"],
+        "score": det["score"],
+        "desc": desc,
+        "colors": colors,
+        "num_corners": det["num_corners"],
+    }
+
+
+def extract_and_describe(cfg: FrontendConfig, rgb: torch.Tensor):
+    """One frame [H,W,3] u8 → keypoints + descriptors + colours (the
+    batch version on one lane): xy [K,2], valid [K], score [K], desc
+    [K,D], colors [K,3], num_corners."""
+    res = extract_and_describe_batch(cfg, rgb[None])
+    return {k: v[0] for k, v in res.items()}
+
+
+def detect_only_batch(cfg: FrontendConfig, rgb_batch: torch.Tensor):
+    """[B,H,W,3] → FAST corner counts and keypoints (the batch-fill gate,
+    requiredExtractedPointsCount)."""
+    return fast.detect_batch(image.rgb_to_gray(rgb_batch), cfg.threshold,
+                             cfg.max_keypoints, True)
 
 
 def extract_and_describe_gray_batch(cfg: FrontendConfig,

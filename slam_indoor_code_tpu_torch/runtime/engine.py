@@ -13,7 +13,9 @@ the device.  Two steady-state loops:
 * **Classic** (device ingest, or streaming off): one ``advance_window``
   call tracks up to a BA window of frames and returns one small status
   tensor the host reads; ``ba_step`` then solves and resets the window,
-  its stats read at the next flush.
+  its stats read at the next flush.  With ``per_frame_telemetry`` each call
+  tracks one frame, so time.txt's "Matching time for index N" lines are
+  each one step's own wall time.
 
 Frames are packed on three packer threads and their payloads uploaded
 from there, in chunk order.  Under host ingest the packer detects on the
@@ -30,8 +32,8 @@ for the final global BA (app._global_refine); with ``checkpoint_path`` and
 first), and ``run(resume=True)`` continues a restored engine without a new
 bootstrap.
 
-Not ported yet (ROADMAP): the host ORB descriptor modes ("orb", "hybrid"),
-meshes, per-frame telemetry.
+Not ported yet (ROADMAP): the host ORB descriptor modes ("orb", "hybrid")
+and meshes (``mesh_shape``).
 """
 
 from __future__ import annotations
@@ -157,8 +159,6 @@ class DeviceEngine:
         if cfg.mesh_shape:
             raise NotImplementedError("mesh_shape: distribution is not "
                                       "ported yet (ROADMAP)")
-        if cfg.per_frame_telemetry:
-            raise NotImplementedError("per_frame_telemetry is not ported yet")
         cfg = dataclasses.replace(cfg, ingest_mode=resolve_ingest(
             cfg.ingest_mode, self.device))
         cfg = resolve_host_desc(cfg)
@@ -177,9 +177,11 @@ class DeviceEngine:
             cfg = dataclasses.replace(
                 cfg, reproj_gate_px=cfg.reproj_gate_px * scale_w)
         # window <= 2 runs the classic loop: the bootstrap pair fills the
-        # window, and advance_stream flushes only inside a step
+        # window, and advance_stream flushes only inside a step; per-frame
+        # telemetry times each step, so it never streams
         self._will_stream = (cfg.streaming and cfg.ingest_mode == "host"
-                             and cfg.window > 2)
+                             and cfg.window > 2
+                             and not cfg.per_frame_telemetry)
         if self._will_stream:
             # slots free only when their call's rows are processed, up to
             # two calls late: ring headroom beyond the classic bound
@@ -872,7 +874,9 @@ class DeviceEngine:
                         "frames_accepted": 0, "last_pose": None}
         status = "interrupted"
         B = self.batch_size + max(self.cfg.fill_chunk, self.cfg.window)
-        T = self.cfg.window
+        # per-frame telemetry runs one step per call, so each "Matching time
+        # for index N" line below is that step's own wall time
+        T = 1 if self.cfg.per_frame_telemetry else self.cfg.window
         while True:
             self.fill()
             if not self.batch:
@@ -889,7 +893,7 @@ class DeviceEngine:
                 self.cfg, self.state, self._dev(queue), 0, nq,
                 self._win_fill, self.gen, T, visible=self.batch_size)
             packed = packed.cpu().numpy()
-            # one call tracks the whole window, so its wall time is shared
+            # one call tracks up to T steps, so its wall time is shared
             # equally over the steps that scanned (time.txt format parity)
             win_ms = t_adv.start_delta_ms()
             n_active = int((packed[:, 0] > 0.5).sum())

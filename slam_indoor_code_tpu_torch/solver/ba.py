@@ -10,12 +10,14 @@ there) into dense per-point blocks, and the reduced camera system is
 solved densely.
 ``lax.while_loop`` becomes a Python loop with the same accept/reject and
 stop rules; it reads one flag per iteration from the device.
+``WindowedBA`` is the classic conductor's host adapter into the solve.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -256,3 +258,105 @@ def bundle_adjust_window(cfg: BAConfig, K4, cams, points, uv, point_idx,
         "final_rmse": torch.sqrt(cost / num_res),
     }
     return K4, cams, pointsf, info
+
+
+# -------------------------------------------------------------- host wrapper
+class WindowedBA:
+    """Host adapter of the classic conductor (pipeline/main_cycle.py): packs
+    a window of TemporalFrameData and the map arena into the fixed-shape
+    ``bundle_adjust_window`` on ``device`` and writes K, the poses and the
+    points back in place — the reference's ``bundleAdjustment(
+    calibrationMatrix, frames, globalData)`` contract.  A window with more
+    than ``window_points`` points keeps the most observed ones."""
+
+    def __init__(self, loss: str = "trivial", loss_param: float = 1.0,
+                 max_iters: int = 25, window: int = 8,
+                 window_points: int = 1 << 14, report=None,
+                 adjust_intrinsics: bool = False, device=None):
+        from .. import resolve_device
+
+        self.cfg = BAConfig(loss=loss, loss_param=float(loss_param),
+                            max_iters=int(max_iters),
+                            fix_intrinsics=not adjust_intrinsics)
+        self.window = int(window)
+        self.window_points = int(window_points)
+        self.report = report
+        self.device = resolve_device(device)
+
+    @torch.profiler.record_function("pipeline.windowed_ba")
+    def __call__(self, K_host: np.ndarray, frames: list, arena) -> np.ndarray:
+        from ..geometry.rotations import matrix_to_rodrigues
+
+        F = self.window
+        n = len(frames)
+        if n < 2:
+            return K_host
+        Kslots = frames[0].xy.shape[0]
+
+        uv = np.zeros((F, Kslots, 2), np.float32)
+        corr = np.full((F, Kslots), -1, np.int64)
+        for i, fd in enumerate(frames[:F]):
+            uv[i] = fd.xy
+            corr[i] = fd.correspond
+        obs_mask = corr >= 0
+
+        uids = np.unique(corr[obs_mask])
+        if len(uids) == 0:
+            return K_host
+        if len(uids) > self.window_points:
+            # keep the most observed points (silent truncation skews BA)
+            cnt = np.zeros(len(uids), np.int64)
+            pos = np.searchsorted(uids, corr[obs_mask])
+            np.add.at(cnt, pos, 1)
+            keep = np.argsort(-cnt)[: self.window_points]
+            uids = np.sort(uids[keep])
+            obs_mask &= np.isin(corr, uids)
+        P = self.window_points
+        uids_pad = np.concatenate([uids, np.zeros(P - len(uids), np.int64)])
+        point_mask = np.zeros(P, bool)
+        point_mask[: len(uids)] = True
+
+        local = np.searchsorted(uids, np.where(obs_mask, corr, uids[0]))
+        local = np.where(obs_mask, local, 0).astype(np.int64)
+
+        cams = np.zeros((F, 6), np.float32)
+        m = min(n, F)
+        cams[:m, :3] = matrix_to_rodrigues(torch.from_numpy(np.stack(
+            [fd.rotation for fd in frames[:F]]).astype(np.float32))).numpy()
+        for i, fd in enumerate(frames[:F]):
+            cams[i, 3:] = fd.motion
+        K4 = np.array([K_host[0, 0], K_host[1, 1], K_host[0, 2],
+                       K_host[1, 2]], np.float32)
+        pts = arena.points[uids_pad].astype(np.float32)
+
+        def put(a):
+            return torch.from_numpy(a).to(self.device)
+
+        K4f, camsf, ptsf, info = bundle_adjust_window(
+            self.cfg, put(K4), put(cams), put(pts), put(uv), put(local),
+            put(obs_mask), put(point_mask))
+
+        # write back: K, poses, points (convertDataFromBA,
+        # bundleAdjustment.cpp:176-201, and the in-place map update)
+        K_new = K_host.copy()
+        K4f = K4f.cpu().numpy().astype(np.float64)
+        K_new[0, 0], K_new[1, 1] = K4f[0], K4f[1]
+        K_new[0, 2], K_new[1, 2] = K4f[2], K4f[3]
+        Rs = rodrigues_to_matrix(camsf[:m, :3]).cpu().numpy().astype(
+            np.float64)
+        camsf = camsf.cpu().numpy().astype(np.float64)
+        for i, fd in enumerate(frames[:F]):
+            fd.rotation = Rs[i]
+            fd.motion = camsf[i, 3:]
+        arena.points[uids] = ptsf[: len(uids)].cpu().numpy().astype(
+            np.float64)
+
+        if self.report is not None:
+            self.report.write(
+                "Bundle Adjustment statistics (approximated RMSE):\n"
+                f" #residuals: {int(info['num_residuals'])}\n"
+                f" Initial RMSE: {float(info['initial_rmse']):.6f}\n"
+                f" Final RMSE: {float(info['final_rmse']):.6f}\n"
+            )
+            self.report.flush()
+        return K_new

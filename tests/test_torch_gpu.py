@@ -441,3 +441,154 @@ def test_auto_ingest_resolves_to_device_on_card(cuda_device):
 
     assert measured_link_bandwidth_mbps(cuda_device) > 400.0
     assert resolve_ingest("auto", cuda_device) == "device"
+
+
+def _small_config(out, **over):
+    """tests/test_pipeline.py's configuration (rt_scene's 480x640)."""
+    from slam_indoor_code_tpu_torch.config import Config, TpuConfig
+
+    base = dict(usePhotosCycle=True, outputDataDir=str(out),
+                requiredExtractedPointsCount=80,
+                featureExtractingThreshold=20, framesBatchSize=6,
+                requiredMatchedPointsCount=30, knnMatcherDistance=0.8,
+                RPDistanceThreshold=500.0, useBundleAdjustment=True,
+                BAMaxFramesCnt=6, BAUseHuberLossFunction=True,
+                BAHuberLossFunctionParameter=2.0,
+                tpu=TpuConfig(max_keypoints=512, ransac_iters=256,
+                              pnp_ransac_iters=128, window_points=4096,
+                              ba_max_iters=12))
+    base.update(over)
+    return Config(**base)
+
+
+def _write_png(path, rgb):
+    """An 8-bit RGB PNG, rows filtered Sub and Up in turn (numpy + zlib)."""
+    import struct
+    import zlib
+
+    h, w, _ = rgb.shape
+    rows = rgb.reshape(h, w * 3)
+    filt = rows.copy()
+    filt[1::2, 3:] -= rows[1::2, :-3]          # Sub on odd rows
+    filt[2::2] -= rows[1:-1:2]                 # Up on even rows after 0
+    kinds = np.where(np.arange(h) % 2 == 1, 1, 2).astype(np.uint8)
+    kinds[0] = 0
+    raw = np.concatenate([kinds[:, None], filt], 1).tobytes()
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.gpu
+def test_classic_conductor_launches_top2_batch_per_scan_on_card(
+        cuda_device, tmp_path):
+    """``tpu.device_runtime=false`` on the card: one top2_batch launch per
+    find_good_frame scan that matched, the descriptors on the card, no
+    other kernel; the cameras carry their source frame ids."""
+    import dataclasses
+
+    from slam_indoor_code_tpu_torch.app import slam_main
+    from slam_indoor_code_tpu_torch.pipeline import MainCycle
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    sc = make_scene(n_points=700, n_frames=12, seed=5, baseline=0.3)
+    frames = [sc.render(i) for i in range(12)]
+    cfg = _small_config(tmp_path)
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, device_runtime=False))
+    cycles = []
+    orig = MainCycle.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        cycles.append(self)
+
+    before = (ck.top2_batch.launches, ck.top2_l1.launches,
+              ck.top2_pair.launches)
+    MainCycle.__init__ = spy
+    try:
+        gd = slam_main(cfg, sc.K, frames=frames, seed=0)
+    finally:
+        MainCycle.__init__ = orig
+    torch.cuda.synchronize()
+    sched = cycles[0].scheduler
+    assert sched.scans > 0
+    assert ck.top2_batch.launches - before[0] == sched.scans
+    assert (ck.top2_l1.launches, ck.top2_pair.launches) == before[1:]
+    assert cycles[0].K.device.type == "cuda"
+    assert len(gd.rotations) >= 10
+    assert list(gd.frame_ids) == sorted(set(int(f) for f in gd.frame_ids))
+
+
+@pytest.mark.gpu
+def test_media_source_decodes_on_card_machine(cuda_device, tmp_path):
+    """Photo media decodes on the card's machine (natively where libpng
+    builds, else with the port's PNG reader) to the frames written; without
+    the native decoder a JPEG raises and names libjpeg."""
+    from slam_indoor_code_tpu_torch.io import native
+    from slam_indoor_code_tpu_torch.io.media import MediaSource, _imread_rgb
+
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (60, 80, 3), dtype=np.uint8)
+              for _ in range(11)]
+    for i, f in enumerate(frames):
+        _write_png(str(tmp_path / f"img{i}.png"), f)
+    src = MediaSource(photos_pattern=str(tmp_path / "*.png"), threads=3)
+    got = list(src)
+    assert len(got) == len(frames)
+    for a, b in zip(got, frames):        # img2 before img10: natural order
+        np.testing.assert_array_equal(a, b)
+    if not native.available():
+        (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+        with pytest.raises(RuntimeError, match="libjpeg"):
+            _imread_rgb(str(tmp_path / "x.jpg"))
+
+
+@pytest.mark.gpu
+def test_cli_defaults_to_cuda_on_card(cuda_device, tmp_path):
+    """``python -m slam_indoor_code_tpu_torch cfg.json`` (no --device) runs
+    the device runtime on the card and prints the map points line."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from slam_indoor_code_tpu_torch import cli
+    from slam_indoor_code_tpu_torch.config import dump_config
+    from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
+    from slam_indoor_code_tpu_torch.runtime import DeviceEngine
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    sc = make_scene(n_points=700, n_frames=10, seed=5, baseline=0.3)
+    (tmp_path / "photos").mkdir()
+    for i in range(10):
+        _write_png(str(tmp_path / "photos" / f"frame_{i:03d}.png"),
+                   sc.render(i))
+    save_matrix_to_xml(str(tmp_path / "cam.xml"), sc.K, "K")
+    cfg = dataclasses.replace(
+        _small_config(tmp_path / "out", BAMaxFramesCnt=8),
+        photosPathPattern=str(tmp_path / "photos" / "*.png"),
+        calibrationPath=str(tmp_path / "cam.xml"))
+    (tmp_path / "out").mkdir()
+    (tmp_path / "cfg.json").write_text(dump_config(cfg))
+    devices = []
+    orig = DeviceEngine.__init__
+
+    def spy(self, *a, **kw):
+        orig(self, *a, **kw)
+        devices.append(self.device)
+
+    DeviceEngine.__init__ = spy
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(tmp_path / "cfg.json")])
+    finally:
+        DeviceEngine.__init__ = orig
+    assert rc == 0 and "map points:" in buf.getvalue()
+    assert [d.type for d in devices] == ["cuda"]
