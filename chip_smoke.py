@@ -68,7 +68,31 @@ Phases, each followed by one flushed line with the elapsed seconds:
               reloaded with its cameras at ATE < 5 %, a trace in DIR that
               names ``top2_l2_kernel`` and ``steps.`` spans; prints the
               photo decode ms per frame and which decoder ran.
-14. repro   — phases 4, 5, 6, 9 and 11 once more in the same process: each
+14. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+              the 7x7 board through the headline's FHD K (distortion, 0.1 px
+              noise, from a seed): fx and fy within 1 % of the truth, rms
+              < 0.3 px, K within 2e-3 relative of the port's CPU result on
+              the same views; the XML written and reloaded; the solve's
+              seconds.
+15. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+              FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
+              unsplit call's match counts exactly with 8 ``top2_batch``
+              launches per call; ``ShardedBA`` at the headline's BA shape
+              (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
+              held to ``bundle_adjust_window`` with tests/test_parallel.py's
+              rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
+16. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+              on one card it must equal phase 4 bit for bit.
+17. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+              (the headline scene and the same hallway from seed 8), one
+              thread and CUDA stream each: each equals its own solo run bit
+              for bit; prints the parallel wall beside the two solo walls.
+18. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+              ranks on cuda:0; NCCL where each has a card) solve
+              ``ShardedBA`` across the process boundary at the headline's
+              BA shape: final cost within 1e-3 relative and cameras within
+              5e-4 of a one-process solve.
+19. repro   — phases 4, 5, 6, 9 and 11 once more in the same process: each
               second run must give the first run's cameras, map size, poses
               and map points bit for bit (the second stream and classic runs
               are the warm ones).
@@ -147,12 +171,12 @@ def stream_config(out_dir: str):
         ingest_downscale=2))
 
 
-def headline_scene(n_frames: int = N_FRAMES):
+def headline_scene(n_frames: int = N_FRAMES, seed: int = 7):
     """The benchmark's synthetic FHD hallway (seed 7) and its frames."""
     from slam_indoor_code_tpu_torch.testing import make_scene
 
     scene = make_scene(n_points=1500, n_frames=n_frames,
-                       image_size=(1080, 1920), seed=7, baseline=0.25,
+                       image_size=(1080, 1920), seed=seed, baseline=0.25,
                        kind="hallway")
     return scene, [scene.render(i) for i in range(n_frames)]
 
@@ -940,7 +964,7 @@ def l1_path(card_line: str, scene, frames, what: str = "l1 path"):
     return n, gd
 
 
-def same_run(what: str, first, second) -> None:
+def same_run(what: str, first, second, tag: str = "repro") -> None:
     """Two runs of one path on the same frames and seed must agree bit for
     bit: the same cameras (source frame ids), map size, poses and map
     points."""
@@ -955,7 +979,7 @@ def same_run(what: str, first, second) -> None:
     for name, (x, y) in fields.items():
         if not np.array_equal(np.asarray(x), np.asarray(y)):
             fail(f"{what}: {name} differ between two runs")
-    print(f"repro {what}: the two runs equal bit for bit: cameras "
+    print(f"{tag} {what}: the two runs equal bit for bit: cameras "
           f"{len(first.rotations)}, map {len(first.points)} points",
           flush=True)
 
@@ -1128,30 +1152,6 @@ def telemetry_path(card_line: str, scene, frames, gd_l2, logged_l2):
     return n
 
 
-def write_png(path: str, rgb) -> None:
-    """An 8-bit RGB PNG of ``rgb`` [H,W,3] u8, every row filtered Up, with
-    numpy and zlib."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    h, w, _ = rgb.shape
-    rows = np.ascontiguousarray(rgb).reshape(h, w * 3)
-    up = rows.copy()
-    up[1:] -= rows[:-1]
-    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], 1).tobytes()
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
-
-
 def cli_path(card_line: str, scene, frames, gd_l2, logged_l2):
     """The reference binary's contract: the 32 frames as PNG files, K as
     OpenCV XML, the headline configuration as JSON (three decode workers),
@@ -1172,6 +1172,7 @@ def cli_path(card_line: str, scene, frames, gd_l2, logged_l2):
     from slam_indoor_code_tpu_torch.io import native
     from slam_indoor_code_tpu_torch.io.logs import load_global_data_from_logs
     from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.io.png import write_png
     from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1257,6 +1258,342 @@ def cli_path(card_line: str, scene, frames, gd_l2, logged_l2):
           f"{decoder}); PNG writing {1e3 * write_s / len(frames):.1f} ms per "
           f"frame  [{card_line}]", flush=True)
 
+# ------------------------------------------------------- distribution slice
+
+def sync_time(fn):
+    """(fn(), seconds) with the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def board_views(K, n_views: int, seed: int = 3):
+    """``n_views`` views of the 7x7 chessboard through K with distortion
+    (0.08, -0.15, 0.001, -0.0005, 0) and 0.1 px noise, from a seed."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.calibration import make_object_points
+
+    rng = np.random.default_rng(seed)
+    obj = make_object_points()
+    k1, k2, p1, p2, k3 = 0.08, -0.15, 0.001, -0.0005, 0.0
+    views = []
+    for _ in range(n_views):
+        aa = rng.normal(0, 0.3, 3)
+        th = np.linalg.norm(aa)
+        k = aa / th
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                       [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+        t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                      rng.uniform(400, 700)])
+        Xc = obj @ R.T + t
+        x, y = Xc[:, 0] / Xc[:, 2], Xc[:, 1] / Xc[:, 2]
+        r2 = x * x + y * y
+        rad = 1 + k1 * r2 + k2 * r2 ** 2 + k3 * r2 ** 3
+        xd = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        yd = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        uv = np.stack([K[0, 0] * xd + K[0, 2], K[1, 1] * yd + K[1, 2]], 1)
+        views.append(uv + rng.normal(0, 0.1, uv.shape))
+    return obj, views
+
+
+def calibrate_phase(card_line: str, scene):
+    """``calibrate_camera`` on CUDA over 20 synthetic views of the board
+    through the headline's FHD K: fx and fy within 1 %, rms < 0.3 px, K
+    within 2e-3 relative of the port's CPU result on the same views; the
+    XML written and reloaded."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.calibration import calibrate_camera
+    from slam_indoor_code_tpu_torch.io.xmlio import (
+        load_matrix_from_xml, save_calib_parameters_to_xml)
+
+    obj, views = board_views(scene.K, 20)
+    (K, dist, rvecs, tvecs, rms), secs = sync_time(
+        lambda: calibrate_camera(obj, views, device="cuda"))
+    t = time.perf_counter()
+    Kc, _, _, _, rms_c = calibrate_camera(obj, views, device="cpu")
+    cpu_s = time.perf_counter() - t
+    for i, name in ((0, "fx"), (1, "fy")):
+        err = abs(K[i, i] - scene.K[i, i]) / scene.K[i, i]
+        if not err < 0.01:
+            fail(f"calibrate: {name} {K[i, i]:.3f} is {100 * err:.3f}% from "
+                 f"the truth {scene.K[i, i]:.3f}")
+    if not rms < 0.3:
+        fail(f"calibrate: rms {rms:.4f} px >= 0.3")
+    rel = float(np.abs(K - Kc).max() / np.abs(Kc).max())
+    if not rel < 2e-3:
+        fail(f"calibrate: K on the card is {rel:.3g} (relative) from the "
+             "CPU's")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cam.xml")
+        save_calib_parameters_to_xml(path, K, dist.reshape(1, 5), rvecs,
+                                     tvecs)
+        if not (np.allclose(load_matrix_from_xml(path, "K"), K, atol=1e-6)
+                and load_matrix_from_xml(path, "R").shape == (20, 3)):
+            fail("calibrate: the XML does not reload K and the 20 views")
+    print(f"calibrate: 20 views at FHD, fx {K[0, 0]:.4f} fy {K[1, 1]:.4f} "
+          f"(truth {scene.K[0, 0]:.1f}), cx {K[0, 2]:.4f} cy {K[1, 2]:.4f}, "
+          f"k1 {dist[0]:.5f} k2 {dist[1]:.5f}, rms {rms:.5f} px (CPU "
+          f"{rms_c:.5f}); K vs CPU max rel {rel:.3g}; solve {secs:.4f} s on "
+          f"the card, {cpu_s:.4f} s on the CPU ({os.cpu_count()} cores); XML "
+          f"reloaded  [{card_line}]", flush=True)
+    return secs
+
+
+def ba_window_problem(scene, F: int = 8, slots: int = 2048,
+                      points: int = 4096, seed: int = 77):
+    """The headline's BA window shape from its scene: F frames of ``slots``
+    keypoint slots over a ``points`` table whose first rows are the scene's
+    landmarks; each frame observes the landmarks it sees (0.3 px noise),
+    the poses after the first are perturbed by 0.02 and the points by 0.05
+    (tests/test_parallel.py's problem at this size)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.geometry.rotations import \
+        matrix_to_rodrigues
+
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_real = min(len(scene.points), points)
+    K4 = np.array([scene.K[0, 0], scene.K[1, 1], scene.K[0, 2],
+                   scene.K[1, 2]], np.float32)
+    uv = np.zeros((F, slots, 2), np.float32)
+    idx = np.zeros((F, slots), np.int32)
+    mask = np.zeros((F, slots), bool)
+    cams = np.zeros((F, 6), np.float32)
+    for f in range(F):
+        uvf, vis = scene.project(f, noise=0.3, rng=rng)
+        seen = np.flatnonzero(vis[:n_real])[:slots]
+        uv[f, :len(seen)] = uvf[seen]
+        idx[f, :len(seen)] = seen
+        mask[f, :len(seen)] = True
+        aa = matrix_to_rodrigues(torch.from_numpy(
+            scene.rotations[f].astype(np.float32))).numpy()
+        cams[f, :3] = aa + (rng.normal(0, 0.02, 3) if f else 0)
+        cams[f, 3:] = scene.translations[f] + (rng.normal(0, 0.02, 3)
+                                               if f else 0)
+    pts = np.zeros((points, 3), np.float32)
+    pts[:n_real] = scene.points[:n_real] + rng.normal(0, 0.05, (n_real, 3))
+    pmask = np.zeros(points, bool)
+    pmask[:n_real] = True
+    return K4, cams, pts, uv, idx, mask, pmask
+
+
+def shard_phase(card_line: str, scene, frames):
+    """Eight virtual shards on cuda:0.  ``ShardedFrontend`` on 16 FHD
+    frames (two a shard), SIFT/L2 and ORB/Hamming: the unsplit call's match
+    counts exactly, 8 ``top2_batch`` launches per call.  ``ShardedBA`` at
+    the headline's BA shape (8 frames, 4096 window points, Huber 2, 10 LM
+    iterations) held to ``bundle_adjust_window`` with
+    tests/test_parallel.py's rule → ({path: launches}, BA seconds)."""
+    import numpy as np
+    import torch
+
+    from slam_indoor_code_tpu_torch.models import frontend as fe
+    from slam_indoor_code_tpu_torch.parallel import (ShardedBA,
+                                                     ShardedFrontend,
+                                                     make_mesh)
+    from slam_indoor_code_tpu_torch.solver.ba import (BAConfig,
+                                                      bundle_adjust_window)
+
+    cuda0 = torch.device("cuda", 0)
+    mesh = make_mesh((8,), ("batch",), devices=[cuda0] * 8)
+    rgb = torch.from_numpy(np.stack(frames[1:17])).to(cuda0)
+    launches = {}
+    for path, desc, metric in (("shard", "sift", "l2"),
+                               ("shard (hamming)", "orb", "hamming")):
+        fcfg = fe.FrontendConfig(max_keypoints=2048, threshold=20.0,
+                                 descriptor=desc, ratio=0.8, metric=metric)
+        sf = ShardedFrontend(mesh, fcfg)
+        cand = sf.extract_and_describe_batch(rgb)
+        prev = fe.extract_and_describe(fcfg, torch.from_numpy(
+            frames[0]).to(cuda0))
+        fmask = torch.ones(16, dtype=torch.bool, device=cuda0)
+        torch.cuda.synchronize()
+        reset_counts()
+        m_sh, sh_s = sync_time(lambda: sf.match_against_batch(
+            prev["desc"], prev["valid"], cand["desc"], cand["valid"], fmask))
+        n = counts()
+        m_ref, ref_s = sync_time(lambda: fe.match_against_batch(
+            fcfg, prev["desc"], prev["valid"], cand["desc"], cand["valid"],
+            fmask))
+        if n["top2_batch"] != 8 or n["plain"]:
+            fail(f"{path}: {n['top2_batch']} top2_batch launches for 8 "
+                 f"shards ({n})")
+        if metric == "hamming" and n["hamming"] != 8:
+            fail(f"{path}: {n['hamming']} Hamming launches for 8 shards")
+        got = m_sh["num_matches"].cpu().numpy()
+        want = m_ref["num_matches"].cpu().numpy()
+        if not np.array_equal(got, want):
+            fail(f"{path}: sharded match counts {got.tolist()} differ from "
+                 f"the unsplit call's {want.tolist()}")
+        if not int(got[0]) > 100:
+            fail(f"{path}: only {int(got[0])} matches on the next frame")
+        launches[path] = n["top2_batch"]
+        print(f"{path}: ShardedFrontend ({desc}/{metric}) on 8 virtual "
+              f"shards of cuda:0, B=16 FHD frames: counts equal the unsplit "
+              f"call's exactly {got.tolist()}; 8 top2_batch launches; "
+              f"sharded match {1e3 * sh_s:.3f} ms, unsplit "
+              f"{1e3 * ref_s:.3f} ms (host clock, synchronised)  "
+              f"[{card_line}]", flush=True)
+
+    prob = ba_window_problem(scene)
+    cfg = BAConfig(loss="huber", loss_param=2.0, max_iters=10)
+    dev_args = [torch.from_numpy(a).to(cuda0) for a in prob]
+    (_, cams_s, pts_s, info), single_s = sync_time(
+        lambda: bundle_adjust_window(cfg, *dev_args))
+    res, sharded_s = sync_time(
+        lambda: ShardedBA(mesh, cfg, window=8).solve(*prob))
+    cams_s = cams_s.cpu().numpy()
+    pts_s = pts_s.cpu().numpy()
+    fc = float(info["final_cost"])
+    real = prob[6]
+    dcam = float(np.abs(res.cams - cams_s).max())
+    dpt = np.linalg.norm(res.points[real] - pts_s[real], axis=1)
+    if not (dcam < 5e-3 and res.final_cost < 0.2 * res.initial_cost
+            and abs(res.final_cost - fc) / fc < 0.05
+            and float(np.abs(res.points[real] - pts_s[real]).max()) < 0.15
+            and float(np.median(dpt)) < 0.05):
+        fail(f"shard BA: cams max|d| {dcam:.3g}, cost {res.initial_cost:.3f}"
+             f" -> {res.final_cost:.3f} vs single {fc:.3f}, points max|d| "
+             f"{float(np.abs(res.points[real] - pts_s[real]).max()):.3g} "
+             f"median {float(np.median(dpt)):.3g}")
+    print(f"shard BA: ShardedBA on 8 virtual shards of cuda:0, 8 frames x "
+          f"2048 slots, {int(real.sum())} of 4096 window points, Huber 2, "
+          f"10 LM iterations: cost {res.initial_cost:.3f} -> "
+          f"{res.final_cost:.3f} (bundle_adjust_window {fc:.3f}, "
+          f"{info['num_iters']} iterations), cams max|d| {dcam:.3g}, points "
+          f"median |d| {float(np.median(dpt)):.3g}; solve {sharded_s:.4f} s "
+          f"sharded, {single_s:.4f} s single  [{card_line}]", flush=True)
+    return launches, sharded_s
+
+
+def mesh_phase(card_line: str, scene, frames, gd_l2):
+    """``slam_main`` on the headline with ``mesh_shape=(cards,)``: on one
+    card it must equal the L2 main path bit for bit → launch counts."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as out:
+        cfg = headline_config(out)
+        cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+            cfg.tpu, mesh_shape=(n_cards,)))
+        n, gd, wall, engine, _ = slam_run(cfg, scene, frames)
+    what = "mesh"
+    if engine.mesh is None or engine.mesh.size != n_cards:
+        fail(f"{what}: the engine built the mesh {engine.mesh}")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
+    if n["top2_l1"] or n["top2_pair"] or n["hamming"] or n["lpb"]:
+        fail(f"{what}: launched another kernel than the L2 top2_batch: {n}")
+    report(f"{what} ({n_cards} card(s))", n_cams, ate_pct, gd, wall, n,
+           card_line)
+    if n_cards == 1:
+        same_run("mesh (1 card) and the L2 main path", gd_l2, gd,
+                 tag="mesh:")
+    return n
+
+
+def sequences_phase(card_line: str, scene, frames, gd_l2):
+    """``run_sequences_parallel`` on two 32-frame FHD sequences (the
+    headline scene, and the same hallway from scene seed 8; RANSAC seed 0
+    both), each thread on a CUDA stream of its own: each equals its own
+    solo run (``slam_main`` on the default stream) bit for bit; the
+    parallel wall beside the sum of the two solo walls, taken warm just
+    before it → launch counts of the parallel run."""
+    import torch
+
+    from slam_indoor_code_tpu_torch.app import run_sequences_parallel
+
+    scene2, frames2 = headline_scene(seed=8)
+    solos, walls = [], []
+    for sc, fr in ((scene, frames), (scene2, frames2)):
+        with tempfile.TemporaryDirectory() as out:
+            _, gd, wall, _, _ = slam_run(headline_config(out), sc, fr)
+        solos.append(gd)
+        walls.append(wall)
+    same_run("solo headline (warm) and the L2 main path", gd_l2, solos[0],
+             tag="sequences:")
+    with tempfile.TemporaryDirectory() as o0, \
+            tempfile.TemporaryDirectory() as o1:
+        cfgs = [headline_config(o0), headline_config(o1)]
+        torch.cuda.synchronize()
+        reset_counts()
+        out, wall = sync_time(lambda: run_sequences_parallel(
+            cfgs, [scene.K, scene2.K], [frames, frames2], seeds=[0, 0]))
+        n = counts()
+    if n["plain"] or n["top2_l1"] or n["top2_pair"] or n["hamming"]:
+        fail(f"sequences: launched another kernel than top2_batch: {n}")
+    for i, (sc, gd, solo) in enumerate(zip((scene, scene2), out, solos)):
+        n_cams, ate_pct = trajectory_ok(f"sequence {i}", sc, gd)
+        same_run(f"sequence {i} and its solo run", solo, gd,
+                 tag="sequences:")
+        print(f"sequences: sequence {i} cameras {n_cams}/{N_FRAMES} ATE "
+              f"{ate_pct:.4f}% of extent", flush=True)
+    if n["top2_batch"] < len(out[0].rotations) + len(out[1].rotations) - 2:
+        fail(f"sequences: {n['top2_batch']} top2_batch launches for "
+             f"{len(out[0].rotations)} + {len(out[1].rotations)} cameras")
+    print(f"sequences: two 32-frame FHD sequences on "
+          f"{torch.cuda.device_count()} card(s), one thread and CUDA stream "
+          f"each: wall {wall:.3f} s against the solo walls {walls[0]:.3f} + "
+          f"{walls[1]:.3f} = {sum(walls):.3f} s (ratio "
+          f"{wall / sum(walls):.3f}); launches {json.dumps(n)}  "
+          f"[{card_line}]", flush=True)
+    return n, wall, walls
+
+
+def distributed_phase(card_line: str):
+    """Two worker processes (``parallel/worker.py ba``) run
+    ``ShardedBA.solve_multiprocess`` across the process boundary on the
+    card at the headline's BA shape (gloo with both ranks on cuda:0 on one
+    card, NCCL where each rank has its own): final cost within 1e-3
+    relative and cameras within 5e-4 of the one-process solve, checked by
+    each worker → the workers' lines."""
+    import re
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "slam_indoor_code_tpu_torch.parallel.worker",
+         "ba", f"127.0.0.1:{port}", "2", str(r), "--device", "cuda",
+         "--frames", "8", "--slots", "2048", "--points", "4096"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=repo, env=env) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, _ = p.communicate()
+        outs.append(out)
+    wall = time.perf_counter() - t
+    lines = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        m = re.search(r"^proc \d .*cross-process BA cost.* OK$", out, re.M)
+        if p.returncode != 0 or m is None:
+            fail(f"distributed: rank {r} exit {p.returncode}:\n"
+                 f"{out[-2500:]}")
+        lines.append(m.group(0))
+    for ln in lines:
+        print(f"distributed: {ln}  [{card_line}]", flush=True)
+    print(f"distributed: two processes, {wall:.3f} s from spawn to exit",
+          flush=True)
+    return lines
+
 
 def main() -> None:
     name, card_line = card()
@@ -1309,6 +1646,23 @@ def main() -> None:
         phase("telemetry", top2_batch_launches=n["top2_batch"])
         cli_path(card_line, scene, frames, gd_l2, logged_l2)
         phase("cli")
+        calib_s = calibrate_phase(card_line, scene)
+        phase("calibrate", solve_s=f"{calib_s:.4f}")
+        shard_launches, shard_ba_s = shard_phase(card_line, scene, frames)
+        by_path.update(shard_launches)
+        phase("shard", top2_batch_launches=json.dumps(shard_launches),
+              ba_s=f"{shard_ba_s:.4f}")
+        n = mesh_phase(card_line, scene, frames, gd_l2)
+        by_path["mesh"] = n["top2_batch"]
+        phase("mesh", top2_batch_launches=n["top2_batch"])
+        n, seq_wall, solo_walls = sequences_phase(card_line, scene, frames,
+                                                  gd_l2)
+        by_path["sequences"] = n["top2_batch"]
+        phase("sequences", top2_batch_launches=n["top2_batch"],
+              wall_s=f"{seq_wall:.3f}",
+              solo_s=f"{solo_walls[0]:.3f}+{solo_walls[1]:.3f}")
+        distributed_phase(card_line)
+        phase("distributed")
         _, again, _ = main_path(card_line, scene, frames, "main path, run 2")
         same_run("main path", gd_l2, again)
         _, again = classic_path(card_line, scene, frames,

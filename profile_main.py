@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on the card.
 
-    python3 profile_main.py [l2|l1|orb|stream|classic|tile|diverge]
+    python3 profile_main.py [l2|l1|orb|stream|classic|tile|diverge|sequences]
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
 port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
@@ -34,6 +34,15 @@ part of the tile taken out at a time (the epilogue, the tensor-core
 products, the candidate loads, then all three), launches each through its C
 entry point on bf16 operands and prints its time beside the whole kernel's.
 The results of the reduced builds are wrong; only their times are read.
+
+With ``sequences``: where the wall of ``app.run_sequences_parallel`` goes
+on one card (chip_smoke.py's sequences phase: the headline scene and the
+same hallway from scene seed 8).  Times each sequence solo (warm, twice),
+then the two at once three ways: as they are; with Python's thread switch
+interval at 0.5 ms instead of 5 ms (a thread that waited on the card takes
+the interpreter back sooner); and with the Jacobian lock
+(utils/autodiff.py) timed, to give the seconds the threads waited on it.
+Each parallel result must equal its solo run bit for bit.
 """
 
 from __future__ import annotations
@@ -257,6 +266,81 @@ def diverge() -> None:
                   f"{rows[k][1].astype(int).tolist()}", flush=True)
 
 
+def sequences() -> None:
+    import threading
+
+    from slam_indoor_code_tpu_torch.app import (run_sequences_parallel,
+                                                slam_main)
+    from slam_indoor_code_tpu_torch.ops import build
+    from slam_indoor_code_tpu_torch.utils import autodiff
+
+    _, card_line = chip_smoke.card()
+    build.build_all()
+    runs = [chip_smoke.headline_scene(), chip_smoke.headline_scene(seed=8)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    solos, walls = [], []
+    for sc, fr in runs:
+        for _ in range(2):                   # the second run is the warm one
+            with tempfile.TemporaryDirectory() as out:
+                gd, wall = timed(lambda: slam_main(
+                    chip_smoke.headline_config(out), sc.K, frames=fr))
+        solos.append(gd)
+        walls.append(wall)
+    print(f"[{card_line}] solo walls (warm): {walls[0]:.3f} + "
+          f"{walls[1]:.3f} = {sum(walls):.3f} s", flush=True)
+
+    class TimedLock:
+        def __init__(self, lock):
+            self.lock, self.waited, self.n = lock, 0.0, 0
+
+        def __enter__(self):
+            t = time.perf_counter()
+            self.lock.acquire()
+            self.waited += time.perf_counter() - t
+            self.n += 1
+
+        def __exit__(self, *exc):
+            self.lock.release()
+
+    def parallel(label):
+        with tempfile.TemporaryDirectory() as o0, \
+                tempfile.TemporaryDirectory() as o1:
+            cfgs = [chip_smoke.headline_config(o) for o in (o0, o1)]
+            out, wall = timed(lambda: run_sequences_parallel(
+                cfgs, [sc.K for sc, _ in runs], [fr for _, fr in runs],
+                seeds=[0, 0]))
+        for i, (gd, solo) in enumerate(zip(out, solos)):
+            chip_smoke.same_run(f"sequence {i} ({label})", solo, gd,
+                                tag="sequences:")
+        print(f"[{card_line}] parallel, {label}: wall {wall:.3f} s (ratio "
+              f"{wall / sum(walls):.3f} of the solo walls)", flush=True)
+        return wall
+
+    parallel("as is")
+    default = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        parallel("switch interval 0.5 ms")
+    finally:
+        sys.setswitchinterval(default)
+    plain = autodiff._LOCK
+    autodiff._LOCK = TimedLock(threading.RLock())
+    try:
+        parallel("Jacobian lock timed")
+        lock = autodiff._LOCK
+        print(f"[{card_line}] Jacobian lock: {lock.n} acquisitions, "
+              f"{lock.waited:.3f} s waited in all", flush=True)
+    finally:
+        autodiff._LOCK = plain
+
+
 def main() -> None:
     from slam_indoor_code_tpu_torch.app import slam_main
     from slam_indoor_code_tpu_torch.ops import build
@@ -266,9 +350,11 @@ def main() -> None:
         return tile_parts()
     if metric == "diverge":
         return diverge()
+    if metric == "sequences":
+        return sequences()
     if metric not in ("l2", "l1", "orb", "stream", "classic"):
-        raise SystemExit(f"mode must be l2, l1, orb, stream, classic, tile "
-                         f"or diverge, got {metric!r}")
+        raise SystemExit(f"mode must be l2, l1, orb, stream, classic, tile, "
+                         f"diverge or sequences, got {metric!r}")
     _, card_line = chip_smoke.card()
     build.build_all()
     scene, frames = chip_smoke.headline_scene()

@@ -2,13 +2,14 @@
 S 6-point DLT hypotheses as one batched [S,12,12] nullspace problem, every
 hypothesis scored against all N correspondences at once, then masked
 Gauss–Newton on the winner's inliers in two LO rounds.  The Jacobian of the
-refine comes from ``torch.func.jacfwd`` (``jax.jacfwd`` in the reference)."""
+refine comes from ``torch.func.jacfwd`` (``jax.jacfwd`` in the reference),
+taken under utils/autodiff.py's lock."""
 
 from __future__ import annotations
 
 import torch
-from torch.func import jacfwd
 
+from ..utils.autodiff import jacfwd
 from .projection import denormalize, normalize_pixels
 from .ransac import sample_indices
 from .rotations import matrix_to_rodrigues, rodrigues_to_matrix

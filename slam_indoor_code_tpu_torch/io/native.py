@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -23,6 +24,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = _PKG_DIR / "native" / "slamio.cpp"
 LIBRARY = _PKG_DIR / "_build" / "libslamio.so"
 _state: dict = {"lib": None, "error": None}
+_LOCK = threading.Lock()     # threads of run_sequences_parallel build once
 
 
 def _build() -> None:
@@ -45,6 +47,11 @@ def _build() -> None:
 def load() -> ctypes.CDLL:
     """The decoder library, built on first use; raises with the compiler's
     message when it cannot be built (and on every later call)."""
+    with _LOCK:
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     if _state["lib"] is not None:
         return _state["lib"]
     if _state["error"] is not None:

@@ -1,9 +1,10 @@
-"""A small PNG reader in numpy and the standard library's ``zlib``: the
-decoder of photo media where the native one (io/native.py, libpng and
-libjpeg) cannot be built.  8-bit gray, gray+alpha, RGB and RGBA,
+"""A small PNG reader and writer in numpy and the standard library's
+``zlib``: the decoder of photo media where the native one (io/native.py,
+libpng and libjpeg) cannot be built.  8-bit gray, gray+alpha, RGB and RGBA,
 non-interlaced, all five row filters; anything else raises ``ValueError``.
 Rows filtered None, Sub or Up are undone with numpy, Average and Paeth rows
-byte by byte (they depend on the byte to their left)."""
+byte by byte (they depend on the byte to their left).  ``write_png``
+writes 8-bit RGB, every row filtered Up."""
 
 from __future__ import annotations
 
@@ -99,3 +100,22 @@ def read_png(path: str) -> np.ndarray:
     if ch <= 2:
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write ``rgb`` [H,W,3] uint8 as an 8-bit RGB PNG, every row filtered
+    Up (``read_png`` reads it back exactly)."""
+    h, w, _ = rgb.shape
+    rows = np.ascontiguousarray(rgb, dtype=np.uint8).reshape(h, w * 3)
+    up = rows.copy()
+    up[1:] -= rows[:-1]
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], 1).tobytes()
+    with open(path, "wb") as f:
+        f.write(SIGNATURE
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(raw, 1)) + _chunk(b"IEND", b""))

@@ -8,7 +8,8 @@ all of them start together; ``csrc/*.cuh`` are headers they share.  Outputs
 go to ``_build/`` inside the package (ignored by git); a library newer than
 its source and the headers is reused.  Nothing is
 built at import time — only on the first launch on a CUDA tensor, or when a
-caller asks (``build_all``).
+caller asks (``build_all``).  ``load`` holds a lock, so threads that launch
+at once build and load each library once.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -27,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -84,13 +87,14 @@ def build_all(force: bool = False) -> dict[str, dict]:
 
 def load(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (built if stale)."""
-    lib = _LOADED.get(stem)
-    if lib is None:
-        src = CSRC_DIR / f"{stem}.cu"
-        if not src.exists():
-            raise FileNotFoundError(src)
-        if _stale(src):
-            build_all()
-        lib = ctypes.CDLL(str(library_path(stem)))
-        _LOADED[stem] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(stem)
+        if lib is None:
+            src = CSRC_DIR / f"{stem}.cu"
+            if not src.exists():
+                raise FileNotFoundError(src)
+            if _stale(src):
+                build_all()
+            lib = ctypes.CDLL(str(library_path(stem)))
+            _LOADED[stem] = lib
+        return lib

@@ -15,12 +15,14 @@ with its plain PyTorch version beside it:
 The plain versions are the CPU path and the kernels' oracles on the card.
 A wrapper takes its plain version only for a tensor on the CPU; on a CUDA
 tensor it launches the kernel or raises — there is no fallback.  Each
-wrapper counts its launches in ``<wrapper>.launches``.
+wrapper counts its launches in ``<wrapper>.launches``, under a lock: the
+sequences of ``app.run_sequences_parallel`` launch from several threads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -41,6 +43,16 @@ SIGNATURES = {
 
 PAIR_ROWS = 128      # query rows per block of top2_pair (csrc/top2_l2.cuh)
 PAIR_COLS = 128      # its column tile: a split is a multiple of it
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(fn, *names: str) -> None:
+    """Add one to each named launch counter of the wrapper ``fn``."""
+    with _COUNT_LOCK:
+        for name in names:
+            setattr(fn, name, getattr(fn, name) + 1)
 
 
 def set_signature(fn, name: str) -> None:
@@ -198,11 +210,9 @@ def top2_batch(desc_a: torch.Tensor, desc_b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), mask.data_ptr(), d1.data_ptr(),
             i1.data_ptr(), d2.data_ptr(), N, M, D, B, lpb,
             torch.cuda.current_stream(dev).cuda_stream)
-    top2_batch.launches += 1
-    if lpb > 1:
-        top2_batch.multi_lane_launches += 1
-    if metric == "hamming":
-        top2_batch.hamming_launches += 1
+    _count(top2_batch, "launches",
+           *(["multi_lane_launches"] if lpb > 1 else []),
+           *(["hamming_launches"] if metric == "hamming" else []))
     return d1, i1, d2
 
 
@@ -250,7 +260,7 @@ def top2_pair(desc_a: torch.Tensor, desc_b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), mask.data_ptr(),
             *(x.data_ptr() for x in out), N, M, D, S, per,
             torch.cuda.current_stream(dev).cuda_stream)
-    top2_pair.launches += 1
+    _count(top2_pair, "launches")
     return out[0], out[1], out[2]
 
 
@@ -282,7 +292,7 @@ def top2_l1(desc_a: torch.Tensor, desc_b: torch.Tensor,
             a.data_ptr(), b.data_ptr(), mask.data_ptr(), d1.data_ptr(),
             i1.data_ptr(), d2.data_ptr(), N, M, D, Bt,
             torch.cuda.current_stream(dev).cuda_stream)
-    top2_l1.launches += 1
+    _count(top2_l1, "launches")
     return d1, i1, d2
 
 

@@ -32,13 +32,22 @@ for the final global BA (app._global_refine); with ``checkpoint_path`` and
 first), and ``run(resume=True)`` continues a restored engine without a new
 bootstrap.
 
-Not ported yet (ROADMAP): the host ORB descriptor modes ("orb", "hybrid")
-and meshes (``mesh_shape``).
+With ``mesh_shape`` (n,) the engine builds an n-shard mesh
+(parallel/mesh.py): n distinct cards on CUDA, n virtual shards on the CPU,
+and under a process group the shards of every process.  It hands the mesh
+to the step functions, which split ingest's chunk axis, the candidates of
+every match (one ``top2_batch`` launch per shard) and the windowed BA's
+observations over it; the state and the payload uploads stay on the first
+device, and every process of a group holds the whole state.  Streaming is
+off under a mesh, as in the JAX package.
+
+Not ported yet (ROADMAP): the host ORB descriptor modes ("orb", "hybrid").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -122,18 +131,21 @@ def resolve_host_desc(cfg: EngineConfig) -> EngineConfig:
 
 class _Download:
     """A device→host copy in flight: pinned host buffers filled with
-    non-blocking copies and an event recorded after them on the current
+    non-blocking copies on the calling thread's current stream (the
+    engine's: each sequence of ``app.run_sequences_parallel`` runs on a
+    stream of its own) and an event recorded after them on that same
     stream (on the CPU, the tensors themselves)."""
 
     def __init__(self, tensors):
         self._event = None
         if tensors[0].device.type == "cuda":
+            stream = torch.cuda.current_stream(tensors[0].device)
             self._host = [torch.empty(t.shape, dtype=t.dtype,
                                       pin_memory=True) for t in tensors]
             for h, t in zip(self._host, tensors):
                 h.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(stream)
         else:
             self._host = list(tensors)
 
@@ -156,9 +168,6 @@ class DeviceEngine:
                  collect_global_obs: bool = False):
         self.device = resolve_device(device)
         self.media = media
-        if cfg.mesh_shape:
-            raise NotImplementedError("mesh_shape: distribution is not "
-                                      "ported yet (ROADMAP)")
         cfg = dataclasses.replace(cfg, ingest_mode=resolve_ingest(
             cfg.ingest_mode, self.device))
         cfg = resolve_host_desc(cfg)
@@ -178,15 +187,18 @@ class DeviceEngine:
                 cfg, reproj_gate_px=cfg.reproj_gate_px * scale_w)
         # window <= 2 runs the classic loop: the bootstrap pair fills the
         # window, and advance_stream flushes only inside a step; per-frame
-        # telemetry times each step, so it never streams
+        # telemetry times each step, and a mesh splits the classic steps,
+        # so neither streams
         self._will_stream = (cfg.streaming and cfg.ingest_mode == "host"
                              and cfg.window > 2
+                             and not cfg.mesh_shape
                              and not cfg.per_frame_telemetry)
         if self._will_stream:
             # slots free only when their call's rows are processed, up to
             # two calls late: ring headroom beyond the classic bound
             cfg = dataclasses.replace(cfg, ring=cfg.ring + 24)
         self.cfg = cfg
+        self.mesh = self._make_mesh(cfg.mesh_shape)
         self.batch_size = batch_size
         self.required_extracted = required_extracted
         self.logs = logs
@@ -251,6 +263,24 @@ class DeviceEngine:
         self.match_select_calls = 0
 
     # ------------------------------------------------------------- plumbing
+    def _make_mesh(self, mesh_shape):
+        """The engine's one-axis mesh of prod(mesh_shape) shards (None for
+        ``()``): on CUDA the cards from the engine's own on, raising when
+        there are fewer than the mesh needs; on the CPU, virtual shards."""
+        if not mesh_shape:
+            return None
+        from ..parallel.mesh import make_mesh
+
+        n = math.prod(mesh_shape)
+        if self.device.type == "cuda":
+            first = (self.device.index if self.device.index is not None
+                     else torch.cuda.current_device())
+            devices = [torch.device("cuda", i)
+                       for i in range(first, torch.cuda.device_count())]
+        else:
+            devices = [self.device] * n
+        return make_mesh((n,), ("batch",), devices=devices)
+
     def _log_pose(self, R: np.ndarray, t: np.ndarray):
         if self.logs:
             self.logs.write_pose(np.asarray(R, np.float64).reshape(3, 3),
@@ -323,7 +353,8 @@ class DeviceEngine:
         host-side corner counts."""
         gray_small, xy, valid, colors, counts = payload
         self.state = steps.ingest_host(self.cfg, self.state, gray_small, xy,
-                                       valid, colors, self._dev(slots))
+                                       valid, colors, self._dev(slots),
+                                       self.mesh)
         return counts
 
     def _dispatch_ingest(self) -> bool:
@@ -337,7 +368,8 @@ class DeviceEngine:
         else:
             gray, small = payload
             self.state, counts = steps.ingest(self.cfg, self.state, gray,
-                                              small, self._dev(slots))
+                                              small, self._dev(slots),
+                                              self.mesh)
         self._pending.append((slots, n, counts))
         return True
 
@@ -456,7 +488,8 @@ class DeviceEngine:
         order[:n] = self.batch[:n]
         mask[:n] = True
         train_all, mask_all, info, counts = steps.match_select(
-            self.cfg, self.state, self._dev(order), self._dev(mask))
+            self.cfg, self.state, self._dev(order), self._dev(mask),
+            self.mesh)
         self.match_select_calls += 1
         info = info.cpu().numpy()
         if self.logs:
@@ -554,7 +587,7 @@ class DeviceEngine:
                                      list(self._win_ids)))
         if self.cfg.use_ba and self._win_fill >= 2:
             self.state, out = steps.ba_step(self.cfg, self.state,
-                                            self._win_fill)
+                                            self._win_fill, self.mesh)
             self._ba_pending = (out, self._win_fill, list(self._win_ids))
         else:
             for i, (R, t) in enumerate(zip(
@@ -891,7 +924,8 @@ class DeviceEngine:
             t_adv = ChronoTimer()
             self.state, packed, _qh, _ql = steps.advance_window(
                 self.cfg, self.state, self._dev(queue), 0, nq,
-                self._win_fill, self.gen, T, visible=self.batch_size)
+                self._win_fill, self.gen, T, visible=self.batch_size,
+                mesh=self.mesh)
             packed = packed.cpu().numpy()
             # one call tracks up to T steps, so its wall time is shared
             # equally over the steps that scanned (time.txt format parity)

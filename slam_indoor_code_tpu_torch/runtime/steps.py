@@ -19,6 +19,13 @@ What differs from the JAX code, and why:
   in-scan BA flush runs only on the step that fills the window (JAX
   decides it on the device with ``lax.cond``).
 * RANSAC draws come from a ``torch.Generator`` on the state's device.
+* Under a mesh (``tpu.mesh_shape``) the JAX steps constrain their fan-out
+  intermediates to a module-global mesh and XLA partitions them.  Here the
+  engine passes its ``parallel.mesh.Mesh`` into the steps, which split the
+  same axes explicitly (``mesh.map_batch``): the chunk axis of ingest, the
+  candidate axis of the match (one ``top2_batch`` launch per shard) and,
+  in the windowed BA, the observation axis.  No mesh (the default) or a
+  mesh of one device leaves every step as it was.
 
 Each public step and the match/track halves of a scan step carry a
 ``torch.profiler.record_function`` span ("steps.<name>"), so a profile of
@@ -38,6 +45,7 @@ from ..geometry.rotations import matrix_to_rodrigues, rodrigues_to_matrix
 from ..geometry.triangulate import triangulate_midpoint_anchored
 from ..models import frontend as fe
 from ..ops import knn
+from ..parallel.mesh import map_batch
 from ..solver.ba import BAConfig, bundle_adjust_window
 from .state import EngineConfig, TrackerState
 
@@ -107,11 +115,13 @@ def _select_good(cfg: EngineConfig, eligible, counts, pos):
 # ---------------------------------------------------------------- ingest
 @_span
 def ingest(cfg: EngineConfig, state: TrackerState, gray_u8: torch.Tensor,
-           rgb_small: torch.Tensor, slots: torch.Tensor):
+           rgb_small: torch.Tensor, slots: torch.Tensor, mesh=None):
     """Extract+describe a packed chunk (gray [C,H,W] u8 + colour plane
-    [C,h,w,3] u8) into ring slots [C].  Returns (state, num_corners [C])."""
-    res = fe.extract_and_describe_gray_batch(
-        _frontend_cfg(cfg), gray_u8, rgb_small, cfg.color_downscale)
+    [C,h,w,3] u8) into ring slots [C], the chunk split over ``mesh``.
+    Returns (state, num_corners [C])."""
+    fcfg = _frontend_cfg(cfg)
+    res = map_batch(mesh, lambda g, c: fe.extract_and_describe_gray_batch(
+        fcfg, g, c, cfg.color_downscale), (gray_u8, rgb_small))
     state = _write_ring(cfg, state, slots, res["xy"], res["valid"],
                         res["desc"], res["colors"])
     return state, res["num_corners"]
@@ -135,14 +145,15 @@ def _write_ring(cfg, state, slots, xy, valid, desc, colors):
 def ingest_host(cfg: EngineConfig, state: TrackerState,
                 gray_small: torch.Tensor, xy: torch.Tensor,
                 valid: torch.Tensor, colors: torch.Tensor,
-                slots: torch.Tensor) -> TrackerState:
+                slots: torch.Tensor, mesh=None) -> TrackerState:
     """Device half of host ingest (``frontend.host_detect_pack``): describe
     the host-detected keypoints from the pooled gray plane and write them
     into ring slots [C].  Describe samples the distorted image, so only the
     stored coordinates are undistorted.  Nothing is read back: the
-    extraction gate ran on the host."""
-    desc = fe.describe_packed_batch(_frontend_cfg(cfg), gray_small, xy,
-                                    valid, cfg.ingest_downscale)
+    extraction gate ran on the host.  The chunk is split over ``mesh``."""
+    fcfg = _frontend_cfg(cfg)
+    desc = map_batch(mesh, lambda g, x, v: fe.describe_packed_batch(
+        fcfg, g, x, v, cfg.ingest_downscale), (gray_small, xy, valid))
     return _write_ring(cfg, state, slots, xy, valid, desc, colors)
 
 
@@ -167,19 +178,24 @@ def set_prev_from_slot(cfg: EngineConfig, state: TrackerState, slot, R, t):
 
 # ----------------------------------------------------------- match+select
 @_span
-def _match_order(cfg, state, order, order_mask):
-    res = fe.match_against_batch(
-        _frontend_cfg(cfg), state.prev_desc, state.prev_valid,
-        state.ring_desc[order], state.ring_valid[order], order_mask)
+def _match_order(cfg, state, order, order_mask, mesh=None):
+    """The prev frame against the ring slots in ``order``, the candidates
+    split over ``mesh`` (one ``top2_batch`` launch per shard on CUDA)."""
+    fcfg = _frontend_cfg(cfg)
+    res = map_batch(mesh, lambda dp, vp, db, vb, fm: fe.match_against_batch(
+        fcfg, dp, vp, db, vb, fm), (state.ring_desc[order],
+                                    state.ring_valid[order], order_mask),
+        (state.prev_desc, state.prev_valid))
     return res, res["num_matches"]
 
 
 @_span
-def match_select(cfg: EngineConfig, state: TrackerState, order, order_mask):
+def match_select(cfg: EngineConfig, state: TrackerState, order, order_mask,
+                 mesh=None):
     """Match the prev frame against the ring slots in ``order`` [B] (head
     first) and apply the good-frame rule.  Returns (train_all [B,K],
     mask_all [B,K], info = [found, good_pos, count_of_good], counts [B])."""
-    res, counts = _match_order(cfg, state, order, order_mask)
+    res, counts = _match_order(cfg, state, order, order_mask, mesh)
     pos = torch.arange(counts.shape[0], device=counts.device)
     eligible = (pos >= cfg.skip_from_head) & order_mask & (
         counts >= cfg.required_matched)
@@ -564,7 +580,8 @@ def ba_packed_len(cfg: EngineConfig) -> int:
 
 
 @_span
-def _ba_core(cfg: EngineConfig, state: TrackerState, win_fill: int):
+def _ba_core(cfg: EngineConfig, state: TrackerState, win_fill: int,
+             mesh=None):
     """Windowed BA over the device-resident window + map arena; writes the
     adjusted intrinsics, points and prev pose back and resets the window.
     Returns (state, packed = [rmse0, rmse1, num_res, n_iters, cams (F*6),
@@ -596,7 +613,7 @@ def _ba_core(cfg: EngineConfig, state: TrackerState, win_fill: int):
     pfree = ids_safe >= state.win_map_base if cfg.ba_freeze_old else None
     K4f, camsf, ptsf, info = bundle_adjust_window(
         bacfg, state.K4, state.win_cams, pts, state.win_xy, local, obs_mask,
-        pmask, pfree)
+        pmask, pfree, mesh=mesh)
 
     state.map_points[uids[pmask]] = ptsf[pmask]
     last = max(int(win_fill) - 1, 0)
@@ -613,9 +630,11 @@ def _ba_core(cfg: EngineConfig, state: TrackerState, win_fill: int):
     return state, packed
 
 
-def ba_step(cfg: EngineConfig, state: TrackerState, win_fill: int):
-    """Standalone windowed-BA dispatch (classic loop + final flush)."""
-    return _ba_core(cfg, state, win_fill)
+def ba_step(cfg: EngineConfig, state: TrackerState, win_fill: int,
+            mesh=None):
+    """Standalone windowed-BA dispatch (classic loop + final flush), the
+    observation axis split over ``mesh``."""
+    return _ba_core(cfg, state, win_fill, mesh)
 
 
 def _win_reset(state: TrackerState) -> TrackerState:
@@ -630,7 +649,7 @@ def _win_reset(state: TrackerState) -> TrackerState:
 @_span
 def advance_window(cfg: EngineConfig, state: TrackerState, queue, q_head,
                    q_len, win_fill, gen=None, t_steps: int = 8,
-                   visible: int = 0):
+                   visible: int = 0, mesh=None):
     """Process up to ``t_steps`` frames: each step matches the previous
     frame against the first ``visible`` unconsumed queue entries, applies
     the good-frame rule and tracks the winner.  The loop stops once a frame
@@ -638,7 +657,8 @@ def advance_window(cfg: EngineConfig, state: TrackerState, queue, q_head,
 
     Returns (state, packed [t_steps, 22], q_head, q_len) with packed[t] =
     [stepped, found, good_pos, count_good, ok, n_corr, n_inl, n_new,
-     n_matches, R(9), t(3), win_pos]; rows after the loop stopped are 0."""
+     n_matches, R(9), t(3), win_pos]; rows after the loop stopped are 0.
+    Each step's candidates are split over ``mesh``."""
     dev = state.K4.device
     queue = torch.as_tensor(queue, device=dev).long()
     Q = queue.shape[0]
@@ -655,7 +675,7 @@ def advance_window(cfg: EngineConfig, state: TrackerState, queue, q_head,
             break
         order = queue[(q_head + iota_q) % Q]
         order_mask = iota_q < torch.clamp(q_len, max=Qv)
-        res, counts = _match_order(cfg, state, order, order_mask)
+        res, counts = _match_order(cfg, state, order, order_mask, mesh)
         eligible = (iota_q >= cfg.skip_from_head) & order_mask & (
             counts >= cfg.required_matched)
         found = eligible.any()

@@ -19,9 +19,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.func import jacfwd, vmap
+from torch.func import vmap
 
 from ..geometry.rotations import rodrigues_to_matrix
+from ..utils.autodiff import jacfwd
 
 
 def loss_rho_and_weight(s: torch.Tensor, kind: str, a: float):
@@ -106,12 +107,33 @@ def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_put_((ids,), x, accumulate=True)
 
 
+def _obs_shards(mesh, arrays: tuple) -> list[tuple]:
+    """The observation arrays cut into this process's shards of ``mesh``
+    (zero rows pad the axis; a padded observation is masked), each on its
+    shard's device; without a mesh, or on one device, the arrays as they
+    are."""
+    if mesh is None or mesh.size == 1:
+        return [arrays]
+    from ..parallel.mesh import batch_sharding   # parallel/ imports solver/
+
+    return list(zip(*(batch_sharding(mesh, a) for a in arrays)))
+
+
 def bundle_adjust_window(cfg: BAConfig, K4, cams, points, uv, point_idx,
-                         obs_mask, point_mask, point_free=None):
+                         obs_mask, point_mask, point_free=None, mesh=None):
     """One windowed BA solve.  K4 [4], cams [F,6] (angle-axis + t),
     points [P,3], uv [F,K,2], point_idx [F,K], obs_mask [F,K], point_mask
     [P], point_free [P] (None = all real points free).  Returns (K4', cams',
-    points', info dict)."""
+    points', info dict).
+
+    With a ``mesh`` (parallel/mesh.py) the observation axis is split over
+    its shards, as the JAX package's ``shard_obs`` splits it: each shard
+    computes its residuals, Jacobians, partial normal equations and
+    partial cost on its device, and the partial sums are added in shard
+    order on the first device (across processes, then all-reduced).  On a
+    mesh of one device the arithmetic is the unsharded one."""
+    from ..parallel.mesh import reduce_sum
+
     dev, dt = uv.device, uv.dtype
     F, Kslots = uv.shape[0], uv.shape[1]
     P = points.shape[0]
@@ -151,16 +173,6 @@ def bundle_adjust_window(cfg: BAConfig, K4, cams, points, uv, point_idx,
     P = Pc
     pid_safe = torch.where(m_obs, loc, torch.zeros_like(loc))
 
-    def p13_of(K4, cams, points):
-        return torch.cat([K4.expand(O, 4), cams[f_of_obs], points[pid_safe]],
-                         dim=1)
-
-    def cost_only(K4, cams, points):
-        r = _residuals(p13_of(K4, cams, points), uv_flat)
-        rho, _ = loss_rho_and_weight((r * r).sum(-1), cfg.loss,
-                                     cfg.loss_param)
-        return torch.where(m_obs, rho, torch.zeros_like(rho)).sum()
-
     eyeF = torch.eye(F, dtype=dt, device=dev)
     if cfg.gauge_frame0:
         frame0_free = torch.zeros((), dtype=torch.bool, device=dev)
@@ -175,31 +187,59 @@ def bundle_adjust_window(cfg: BAConfig, K4, cams, points, uv, point_idx,
     free_p = point_free[pid_safe].to(dt)[:, None, None]
     no_obs_base = ~point_mask | ~point_free
     eye3 = torch.eye(3, dtype=dt, device=dev)
+    shards = _obs_shards(mesh, (f_of_obs, uv_flat, pid_safe, m_obs, free_p))
 
-    def lm_step(K4, cams, points, lam):
-        p13 = p13_of(K4, cams, points)
-        r = _residuals(p13, uv_flat)                      # [O,2]
-        J = _jacobians(p13, uv_flat)                      # [O,2,13]
+    def cost_part(K4, cams, points, f_o, uv_o, pid_o, m_o, _free_o):
+        p13 = torch.cat([K4.expand(uv_o.shape[0], 4), cams[f_o],
+                         points[pid_o]], dim=1)
+        r = _residuals(p13, uv_o)
+        rho, _ = loss_rho_and_weight((r * r).sum(-1), cfg.loss,
+                                     cfg.loss_param)
+        return torch.where(m_o, rho, torch.zeros_like(rho)).sum()
+
+    def normal_part(K4, cams, points, f_o, uv_o, pid_o, m_o, free_o):
+        """One shard's Hcc, b_c and per-point GP, V, b_p."""
+        O_d = uv_o.shape[0]
+        p13 = torch.cat([K4.expand(O_d, 4), cams[f_o], points[pid_o]],
+                        dim=1)
+        r = _residuals(p13, uv_o)                          # [O,2]
+        J = _jacobians(p13, uv_o)                          # [O,2,13]
         _, w = loss_rho_and_weight((r * r).sum(-1), cfg.loss, cfg.loss_param)
-        w = torch.where(m_obs, w, torch.zeros_like(w))
+        w = torch.where(m_o, w, torch.zeros_like(w))
         J_K = J[:, :, 0:4]
         J_c = J[:, :, 4:10]
-        J_p = J[:, :, 10:13] * free_p
+        J_p = J[:, :, 10:13] * free_o
         if cfg.fix_intrinsics:
             J_K = J_K * 0.0
-        fhot = eyeF[f_of_obs]
+        fhot = eyeF.to(uv_o.device)[f_o]
         a = torch.cat([J_K, torch.einsum("of,oij->oifj", fhot, J_c)
-                       .reshape(O, 2, 6 * F)], dim=2)    # [O,2,D]
+                       .reshape(O_d, 2, 6 * F)], dim=2)  # [O,2,D]
         ws = w[:, None, None]
         Hcc = torch.einsum("oid,oie->de", a * ws, a)
         b_c = torch.einsum("oid,oi->d", a * ws, r)
         GP = _segment_sum(torch.einsum("oid,oie->ode", a * ws, J_p)
-                          .reshape(O, D * 3), pid_safe, P).reshape(P, D, 3)
+                          .reshape(O_d, D * 3), pid_o, P).reshape(P, D, 3)
         V = _segment_sum(torch.einsum("oid,oie->ode", J_p * ws, J_p)
-                         .reshape(O, 9), pid_safe, P).reshape(P, 3, 3)
+                         .reshape(O_d, 9), pid_o, P).reshape(P, 3, 3)
         b_p = _segment_sum(torch.einsum("oid,oi->od", J_p * ws, r),
-                           pid_safe, P)
+                           pid_o, P)
+        return Hcc, b_c, GP, V, b_p
 
+    def over_shards(fn, K4, cams, points):
+        """``fn`` on every observation shard, its results summed on the
+        first device in shard order (as they are, with one shard)."""
+        outs = [fn(K4.to(sh[0].device), cams.to(sh[0].device),
+                   points.to(sh[0].device), *sh) for sh in shards]
+        if not isinstance(outs[0], tuple):
+            return reduce_sum(mesh, outs)
+        return tuple(reduce_sum(mesh, [o[i] for o in outs])
+                     for i in range(len(outs[0])))
+
+    def cost_only(K4, cams, points):
+        return over_shards(cost_part, K4, cams, points)
+
+    def lm_step(K4, cams, points, lam):
+        Hcc, b_c, GP, V, b_p = over_shards(normal_part, K4, cams, points)
         lamV = lam * torch.clamp_min(torch.diagonal(V, dim1=1, dim2=2), 1e-9)
         Vd = V + torch.diag_embed(lamV)
         no_obs = no_obs_base | (Vd.abs().sum((1, 2)) < 1e-12)

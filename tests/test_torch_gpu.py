@@ -592,3 +592,128 @@ def test_cli_defaults_to_cuda_on_card(cuda_device, tmp_path):
         DeviceEngine.__init__ = orig
     assert rc == 0 and "map points:" in buf.getvalue()
     assert [d.type for d in devices] == ["cuda"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("descriptor,metric", [("sift", "l2"),
+                                               ("orb", "hamming")])
+def test_sharded_frontend_counts_on_card(cuda_device, descriptor, metric):
+    """ShardedFrontend on 8 shards of one card (B = 16, two frames a
+    shard): the unsplit call's match counts exactly, one top2_batch launch
+    per shard."""
+    from slam_indoor_code_tpu_torch.models import frontend as fe
+    from slam_indoor_code_tpu_torch.parallel import ShardedFrontend, make_mesh
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    sc = make_scene(n_points=500, n_frames=16, seed=3)
+    fcfg = fe.FrontendConfig(max_keypoints=512, threshold=20.0,
+                             descriptor=descriptor, ratio=0.8, metric=metric)
+    rgb = torch.from_numpy(np.stack([sc.render(i) for i in range(16)])).cuda()
+    mesh = make_mesh((8,), ("batch",), devices=[torch.device("cuda", 0)] * 8)
+    sf = ShardedFrontend(mesh, fcfg)
+    res = sf.extract_and_describe_batch(rgb)
+    ref = fe.extract_and_describe_batch(fcfg, rgb)
+    assert torch.equal(res["valid"], ref["valid"])
+    prev = fe.extract_and_describe(fcfg, rgb[0])
+    mask = torch.ones(16, dtype=torch.bool, device="cuda")
+    before = ck.top2_batch.launches
+    m_sh = sf.match_against_batch(prev["desc"], prev["valid"], res["desc"],
+                                  res["valid"], mask)
+    assert ck.top2_batch.launches - before == 8
+    m_ref = fe.match_against_batch(fcfg, prev["desc"], prev["valid"],
+                                   res["desc"], res["valid"], mask)
+    assert torch.equal(m_sh["num_matches"], m_ref["num_matches"])
+    assert int(m_sh["num_matches"][1]) > 50
+
+
+@pytest.mark.gpu
+def test_sharded_ba_on_card_equals_one_shard(cuda_device):
+    """ShardedBA over 8 shards of one card against the one-shard solve:
+    final cost within 1e-3 relative, cameras within 5e-4."""
+    from slam_indoor_code_tpu_torch.parallel import ShardedBA, make_mesh
+    from slam_indoor_code_tpu_torch.parallel.worker import build_ba_problem
+    from slam_indoor_code_tpu_torch.solver.ba import BAConfig
+
+    prob = build_ba_problem(F=8, Kslots=512, Pn=1024)
+    cfg = BAConfig(loss="huber", loss_param=2.0, max_iters=8,
+                   fix_intrinsics=True)
+    dev = torch.device("cuda", 0)
+    eight = ShardedBA(make_mesh((8,), devices=[dev] * 8), cfg,
+                      window=8).solve(*prob)
+    one = ShardedBA(make_mesh((1,), devices=[dev]), cfg, window=8).solve(*prob)
+    assert eight.final_cost < eight.initial_cost
+    assert abs(eight.final_cost - one.final_cost) / one.final_cost < 1e-3
+    np.testing.assert_allclose(eight.cams, one.cams, atol=5e-4)
+
+
+@pytest.mark.gpu
+def test_calibrate_on_card_matches_cpu(cuda_device):
+    """calibrate_camera on the card against the CPU on the same views: K
+    within 2e-3 relative, rms within 0.01 px."""
+    from slam_indoor_code_tpu_torch.calibration import (calibrate_camera,
+                                                        make_object_points)
+
+    rng = np.random.default_rng(9)
+    K_gt = np.array([[900.0, 0, 330.0], [0, 910.0, 250.0], [0, 0, 1.0]])
+    obj = make_object_points()
+    views = []
+    for _ in range(8):
+        aa = rng.normal(0, 0.3, 3)
+        R = torch.linalg.matrix_exp(torch.tensor(
+            [[0, -aa[2], aa[1]], [aa[2], 0, -aa[0]], [-aa[1], aa[0], 0]],
+            dtype=torch.float64)).numpy()
+        t = np.array([rng.uniform(-40, 40), rng.uniform(-40, 40),
+                      rng.uniform(320, 520)])
+        Xc = obj @ R.T + t
+        uv = (Xc @ K_gt.T)[:, :2] / Xc[:, 2:]
+        views.append(uv + rng.normal(0, 0.1, uv.shape))
+    Kc, _, _, _, rms_c = calibrate_camera(obj, views, device="cuda")
+    Kp, _, _, _, rms_p = calibrate_camera(obj, views, device="cpu")
+    np.testing.assert_allclose(Kc, Kp, rtol=2e-3, atol=0)
+    assert abs(rms_c - rms_p) < 0.01
+    assert abs(Kc[0, 0] - 900.0) / 900.0 < 0.01
+
+
+@pytest.mark.gpu
+def test_engine_mesh_needs_distinct_cards(cuda_device):
+    from slam_indoor_code_tpu_torch.io.media import ArraySource
+    from slam_indoor_code_tpu_torch.runtime import DeviceEngine, EngineConfig
+
+    n = torch.cuda.device_count() + 1
+    cfg = EngineConfig(max_keypoints=128, window_points=256, mesh_shape=(n,))
+    K = np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]])
+    with pytest.raises(ValueError, match=f"needs {n} devices, have {n - 1}"):
+        DeviceEngine(ArraySource([np.zeros((480, 640, 3), np.uint8)]), K,
+                     cfg, batch_size=4, required_extracted=10)
+
+
+@pytest.mark.gpu
+def test_sequences_on_card_equal_solo_runs(cuda_device, tmp_path):
+    """Two small sequences at once on the card(s), each on a stream of its
+    own: each equals its solo run bit for bit."""
+    from slam_indoor_code_tpu_torch.app import (run_sequences_parallel,
+                                                slam_main)
+    from slam_indoor_code_tpu_torch.config import Config, TpuConfig
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    def cfg(sub):
+        return Config(
+            usePhotosCycle=True, outputDataDir=str(tmp_path / sub),
+            requiredExtractedPointsCount=40, featureExtractingThreshold=15,
+            framesBatchSize=5, requiredMatchedPointsCount=20,
+            knnMatcherDistance=0.85, RPDistanceThreshold=500.0,
+            tpu=TpuConfig(max_keypoints=256, ransac_iters=128,
+                          pnp_ransac_iters=64, window_points=1024))
+
+    scenes = [make_scene(500, 10, seed=s, baseline=0.3, kind="hallway",
+                         image_size=(240, 320)) for s in (1, 2)]
+    frames = [[sc.render(j) for j in range(10)] for sc in scenes]
+    out = run_sequences_parallel([cfg("a"), cfg("b")],
+                                 [sc.K for sc in scenes], frames)
+    for i, (sc, gd) in enumerate(zip(scenes, out)):
+        solo = slam_main(cfg(f"solo{i}"), sc.K, frames=frames[i], seed=i)
+        assert len(gd.rotations) >= 6
+        np.testing.assert_array_equal(gd.frame_ids, solo.frame_ids)
+        np.testing.assert_array_equal(np.asarray(gd.rotations),
+                                      np.asarray(solo.rotations))
+        np.testing.assert_array_equal(gd.points, solo.points)
