@@ -13,7 +13,8 @@ Phases, each followed by one flushed line with the elapsed seconds:
               libraries that carry it (fails on none).
 3. kernels  — each kernel's wrapper against its plain PyTorch version on
               the card, at the main path's shapes and at ragged/edge shapes
-              (and ``top2_batch`` with metric "hamming" at ORB's shapes),
+              (and ``top2_batch`` with metric "hamming" at ORB's shapes, and
+              at D=384 at FHD and at the 4K point, held lane by lane),
               with the tolerances stated below; CUDA-event times of both
               (warm-up, then the median of 20) beside the bound and beside
               the two-call library yardstick (cdist + topk).
@@ -47,55 +48,81 @@ Phases, each followed by one flushed line with the elapsed seconds:
               bootstrap ``match_select``, and no other kernel ran; prints
               the wall, frames/s, the host ingest ms per frame and the
               number of ``advance_stream`` calls.
-10. pair    — ``knn.match_pair`` on CUDA with the SIFT descriptors of two
+10. hybrid  — the stream phase's configuration with the JAX default host
+              descriptor, "auto": it must resolve to "hybrid" (pooled SIFT
+              from the d=2 gray beside the host's full-resolution ORB bits,
+              α = 0.08, D = 384); cameras and ATE as phase 4, one L2
+              ``top2_batch`` launch per active scan step and bootstrap
+              match, and a ring slot whose last 256 columns equal α times
+              the uploaded bits; ``top2_batch`` then held to its plain
+              version on the ring's own descriptors; prints the host ingest
+              per frame (gray, FAST, ORB, pooling) and the tracking per
+              frame.
+11. hostorb — ``useFM-ORB`` under host ingest with "auto": it must resolve to
+              "orb" (the host's ORB words matched by Hamming), pack and
+              upload no gray plane, track as phase 4 and launch the
+              Hamming ``top2_batch`` once per active scan step and bootstrap
+              match; the kernel is timed and held exactly on the ring's
+              host words (a kernel row of its own).
+12. pair    — ``knn.match_pair`` on CUDA with the SIFT descriptors of two
               rendered frames: one ``top2_pair`` launch, the same matches as
               ``match_pair`` on CPU copies up to the rows the L2 tolerance
               leaves open.
-11. classic — ``slam_main`` with ``tpu.device_runtime=false``: the classic
+13. classic — ``slam_main`` with ``tpu.device_runtime=false``: the classic
               host conductor (pipeline/) on the headline configuration, one
               ``top2_batch`` launch per matched ``find_good_frame`` scan
               (B = the batch's length, 1..16), the descriptors on the card,
               no other kernel; cameras and ATE as phase 4.
-12. telemetry — the headline with ``per_frame_telemetry``: one step per
+14. telemetry — the headline with ``per_frame_telemetry``: one step per
               ``advance_window`` call, one "Matching time for index" line
               in time.txt per scan step, one ``top2_batch`` launch per scan
               step (and per bootstrap ``match_select``); prints whether it
               equals phase 4 bit for bit and where the two part.
-13. cli     — the 32 frames written as PNG files (numpy + zlib), K as XML,
+15. cli     — the 32 frames written as PNG files (numpy + zlib), K as XML,
               the configuration as JSON, then ``python3 -m
               slam_indoor_code_tpu_torch cfg.json --profile DIR`` as a
               subprocess: exit 0, the "map points" line, the six logs
               reloaded with its cameras at ATE < 5 %, a trace in DIR that
               names ``top2_l2_kernel`` and ``steps.`` spans; prints the
               photo decode ms per frame and which decoder ran.
-14. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+16. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
               the same views; the XML written and reloaded; the solve's
               seconds.
-15. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+17. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-16. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+18. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-17. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+19. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-18. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+20. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-19. repro   — phases 4, 5, 6, 9 and 11 once more in the same process: each
-              second run must give the first run's cameras, map size, poses
-              and map points bit for bit (the second stream and classic runs
-              are the warm ones).
+21. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+              keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
+              hybrid at α = 0.15, the global BA, ratio 0.70) under host
+              ingest on 16 frames (two BA windows; cut from 48): at least
+              12/16 cameras at ATE < 5 %, one L2 ``top2_batch`` launch per
+              active scan step and bootstrap match; prints the host ingest
+              per frame and its parts, the tracking per frame, the kernel's
+              time per call at [10240,384] x [16,10240,384], the ring's size
+              and the peak device memory; ``top2_batch`` then held to its
+              plain version, lane by lane, on the 4K ring.
+22. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+              each second run must give the first run's cameras, map size,
+              poses and map points bit for bit (the second stream, classic
+              and hybrid runs are the warm ones).
 
 No path may call a kernel's plain version on the card (each phase counts
 those calls and fails on any).
@@ -169,6 +196,60 @@ def stream_config(out_dir: str):
     return dataclasses.replace(cfg, tpu=dataclasses.replace(
         cfg.tpu, ingest="host", host_descriptor="same", streaming=True,
         ingest_downscale=2))
+
+
+def hybrid_config(out_dir: str):
+    """``stream_config`` with the JAX package's default host descriptor,
+    "auto": under host ingest a SIFT configuration takes "hybrid" (pooled
+    SIFT from the d=2 gray beside the host's full-resolution ORB bits,
+    α = 0.08, one 384-dim L2 descriptor)."""
+    cfg = stream_config(out_dir)
+    return dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, host_descriptor="auto", hybrid_alpha=0.08))
+
+
+def hostorb_config(out_dir: str):
+    """``orb_config`` under host ingest with host descriptor "auto", which
+    an ORB configuration takes as "orb": the host's ORB bits are the
+    descriptors, matched by Hamming; no gray plane is uploaded."""
+    cfg = orb_config(out_dir)
+    return dataclasses.replace(cfg, tpu=dataclasses.replace(
+        cfg.tpu, ingest="host", host_descriptor="auto", streaming=True,
+        ingest_downscale=2))
+
+
+# The JAX package's 4K operating point (bench.py config #4) on its
+# slow-link path, cut from 48 frames to 16 (two BA windows); widths uncut.
+N_FRAMES_4K = 16
+MIN_CAMERAS_4K = 12
+
+
+def fourk_config(out_dir: str):
+    """bench.py's config #4: 2160x3840, 10,240 keypoints, 8,192 window
+    points, 256 PnP hypotheses, the pooled gray at d=4 with hybrid
+    descriptors at α = 0.15, the final global BA, ratio 0.70, 500 required
+    matches, 1000 required corners; host ingest pinned (the path the JAX
+    4K point ran on its slow link), the streaming loop."""
+    cfg = headline_config(out_dir)
+    return dataclasses.replace(
+        cfg, requiredMatchedPointsCount=500,
+        requiredExtractedPointsCount=1000, knnMatcherDistance=0.70,
+        tpu=dataclasses.replace(
+            cfg.tpu, max_keypoints=10240, window_points=8192,
+            pnp_ransac_iters=256, ingest="host", host_descriptor="auto",
+            ingest_downscale=4, hybrid_alpha=0.15, global_ba=True,
+            streaming=True))
+
+
+def fourk_scene(n_frames: int = N_FRAMES_4K):
+    """bench.py's 4K scene: the hallway at 2160x3840, 4000 points, seed
+    13."""
+    from slam_indoor_code_tpu_torch.testing import make_scene
+
+    scene = make_scene(n_points=4000, n_frames=n_frames,
+                       image_size=(2160, 3840), seed=13, baseline=0.25,
+                       kind="hallway")
+    return scene, [scene.render(i) for i in range(n_frames)]
 
 
 def headline_scene(n_frames: int = N_FRAMES, seed: int = 7):
@@ -548,7 +629,54 @@ def kernels():
         bound(2.0 * terms, PEAK_FP32_FLOPS / 2.0,
               4 * N * D + 4 * B * M * D + B * M + 3 * 4 * B * N),
         time_ms(lambda: library_top2(A, Bt, V, 1.0)))
+
+    # top2_batch at the hybrid descriptor's D=384 (pooled SIFT ⊕ α·bits):
+    # FHD's 2048 keypoints and bench.py's 4K point's 10240, 16 candidate
+    # frames; the plain version and the two-call yardstick run lane by lane
+    # (at 4K a [16,10240,10240] f32 distance block is 6.7 GB)
+    for key, n_ in (("d384", N), ("d384_4k", 10240)):
+        a3, b3, vb3 = make_case(rng, n_, n_, 384, B)
+        args3 = on_card(a3, b3, vb3)
+        k3 = host(ck.top2_batch(*args3))
+        err3 = hold_l2(k3, host(plain_by_lane(*args3)), a3, b3,
+                       f"top2_batch {n_}x{n_}x384 B={B}")
+        hold_edges(k3, vb3, f"top2_batch {n_}x{n_}x384")
+        rows[key] = row(
+            f"top2_batch(D=384, N=M={n_})", "top2_batch.cu", 225, err3,
+            lambda: ck.top2_batch(*args3),
+            time_ms(lambda: plain_by_lane(*args3)),
+            bound(2.0 * B * n_ * n_ * 384, PEAK_BF16_FLOPS,
+                  4 * n_ * 384 + 4 * B * n_ * 384 + B * n_ + 3 * 4 * B * n_),
+            time_ms(lambda: library_by_lane(*args3, 2.0)))
+        del a3, b3, args3
     return rows
+
+
+def library_by_lane(A, Bt, V, p):
+    """``library_top2`` one candidate lane at a time (see plain_by_lane)."""
+    return [library_top2(A, Bt[i:i + 1], V[i:i + 1], p)
+            for i in range(Bt.shape[0])]
+
+
+def host_words_row(engine):
+    """``top2_batch`` with metric "hamming" on the host's ORB words as the
+    hostorb path left them in its ring (ring_operands), held exactly to its
+    plain version, as a kernel row."""
+    from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
+
+    A, Bt, V = ring_operands(engine)
+    k = host(ck.top2_batch(A, Bt, V, metric="hamming"))
+    hold_exact(k, host(ck.top2_batch_plain(A, Bt, V, metric="hamming")),
+               "top2_batch hamming on host ORB words")
+    N, (B, M) = A.shape[0], V.shape
+    bits_a, bits_b = ck.unpack_bits(A).float(), ck.unpack_bits(Bt).float()
+    return row(
+        "top2_batch(metric=hamming, host ORB words)", "top2_batch.cu", 225,
+        0.0, lambda: ck.top2_batch(A, Bt, V, metric="hamming"),
+        time_ms(lambda: ck.top2_batch_plain(A, Bt, V, metric="hamming")),
+        bound(2.0 * B * N * M * 256, PEAK_BF16_FLOPS,
+              4 * N * 8 + 4 * B * M * 8 + B * M + 3 * 4 * B * N),
+        time_ms(lambda: library_top2(bits_a, bits_b, V, 0.0)))
 
 
 # ------------------------------------------------------------- main paths
@@ -567,13 +695,14 @@ def rel_ate_pct(scene, rotations, positions, frame_ids) -> float:
         np.linalg.norm(gt.max(0) - gt.min(0)))
 
 
-def trajectory_ok(what, scene, gd):
+def trajectory_ok(what, scene, gd, n_frames: int = N_FRAMES,
+                  min_cameras: int = MIN_CAMERAS):
     """Cameras, finite poses and points, ATE against ground truth."""
     import numpy as np
 
     n_cams = len(gd.rotations)
-    if n_cams < MIN_CAMERAS:
-        fail(f"{what}: only {n_cams}/{N_FRAMES} frames became cameras")
+    if n_cams < min_cameras:
+        fail(f"{what}: only {n_cams}/{n_frames} frames became cameras")
     if not all(np.all(np.isfinite(x)) for x in (gd.rotations, gd.positions,
                                                  gd.points)):
         fail(f"{what}: non-finite poses or map points")
@@ -676,10 +805,11 @@ def slam_run(cfg, scene, frames):
     return n, gd, wall, runtimes[0], {"poses": poses_text, "picks": picks}
 
 
-def report(what, n_cams, ate_pct, gd, wall, n, card_line):
-    print(f"{what}: cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}%"
+def report(what, n_cams, ate_pct, gd, wall, n, card_line,
+           n_frames: int = N_FRAMES):
+    print(f"{what}: cameras {n_cams}/{n_frames}  ATE {ate_pct:.4f}%"
           f" of extent  map {len(gd.points)} points  wall {wall:.3f} s  "
-          f"{N_FRAMES / wall:.3f} frames/s  launches {json.dumps(n)}  "
+          f"{n_frames / wall:.3f} frames/s  launches {json.dumps(n)}  "
           f"[{card_line}]", flush=True)
 
 
@@ -849,29 +979,82 @@ def resume_path(card_line: str, scene, frames, gd_main):
 @contextlib.contextmanager
 def timed_host_ingest():
     """Time every ``host_detect_pack`` call (the host ingest, run in the
-    engine's packer threads) while the block runs → {"s": seconds summed
-    over the calls, "frames": frames packed}."""
+    engine's packer threads) while the block runs, and inside it the gray
+    conversion, FAST, the ORB bits and the pooling → {"s": seconds summed
+    over the calls, "frames": frames packed, "parts": {part: seconds},
+    "gray_planes": chunks that returned a gray plane}."""
     import threading
 
     from slam_indoor_code_tpu_torch.models import frontend
 
-    spent = {"s": 0.0, "frames": 0}
+    spent = {"s": 0.0, "frames": 0, "gray_planes": 0,
+             "parts": {"gray": 0.0, "fast": 0.0, "orb": 0.0, "pool": 0.0}}
     lock = threading.Lock()
-    orig = frontend.host_detect_pack
+    names = {"gray": "host_gray", "fast": "_host_detect_frame",
+             "orb": "host_orb_bits", "pool": "area_downscale"}
+    origs = {attr: getattr(frontend, attr)
+             for attr in ("host_detect_pack", *names.values())}
 
     def timed(chunk, *a, **kw):
         t = time.perf_counter()
-        out = orig(chunk, *a, **kw)
+        out = origs["host_detect_pack"](chunk, *a, **kw)
         with lock:
             spent["s"] += time.perf_counter() - t
             spent["frames"] += len(chunk)
+            spent["gray_planes"] += "gray_small" in out
         return out
 
+    def timed_part(part, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            with lock:
+                spent["parts"][part] += time.perf_counter() - t
+            return out
+        return run
+
     frontend.host_detect_pack = timed
+    for part, attr in names.items():
+        setattr(frontend, attr, timed_part(part, origs[attr]))
     try:
         yield spent
     finally:
-        frontend.host_detect_pack = orig
+        for attr, fn in origs.items():
+            setattr(frontend, attr, fn)
+
+
+@contextlib.contextmanager
+def timed_tracking():
+    """Time every ``steps.advance_stream`` call on the main thread (the
+    streaming loop's scan steps and in-scan BA; its host reads make the
+    call wait for the card) → {"s": seconds, "calls": calls}."""
+    from slam_indoor_code_tpu_torch.runtime import steps
+
+    spent = {"s": 0.0, "calls": 0}
+    orig = steps.advance_stream
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        spent["s"] += time.perf_counter() - t
+        spent["calls"] += 1
+        return out
+
+    steps.advance_stream = timed
+    try:
+        yield spent
+    finally:
+        steps.advance_stream = orig
+
+
+def ingest_line(spent, n_frames: int) -> str:
+    """Host ingest ms per frame and its parts, from timed_host_ingest."""
+    f = max(spent["frames"], 1)
+    parts = ", ".join(f"{k} {1e3 * v / f:.3f}"
+                      for k, v in spent["parts"].items())
+    return (f"host ingest {1e3 * spent['s'] / f:.3f} ms per frame ({parts}; "
+            f"{spent['frames']} frames packed for {n_frames} on "
+            f"{os.cpu_count()} cores)")
 
 
 def stream_path(card_line: str, scene, frames, what: str = "stream path"):
@@ -889,22 +1072,243 @@ def stream_path(card_line: str, scene, frames, what: str = "stream path"):
              f"streaming {engine._will_stream}")
     n_cams, ate_pct = trajectory_ok(what, scene, gd)
     on_cuda(what, engine)
-    want = engine.stream_steps + engine.match_select_calls
-    if n["top2_batch"] != want or engine.stream_steps == 0:
-        fail(f"{what}: top2_batch launched {n['top2_batch']} times for "
-             f"{engine.stream_steps} active scan steps and "
-             f"{engine.match_select_calls} bootstrap matches")
-    if n["top2_l1"] or n["top2_pair"] or n["hamming"]:
-        fail(f"{what}: launched another kernel than the L2 top2_batch: {n}")
-    ingest_ms = 1e3 * spent["s"] / max(spent["frames"], 1)
+    hold_stream_launches(what, n, engine, "l2")
     report(what, n_cams, ate_pct, gd, wall, n, card_line)
-    print(f"{what}: host ingest {ingest_ms:.3f} ms per frame "
-          f"({spent['frames']} frames packed on {os.cpu_count()} cores), "
+    print(f"{what}: {ingest_line(spent, N_FRAMES)}, "
           f"{engine.stream_calls} advance_stream calls, "
           f"{engine.stream_steps} active scan steps, "
           f"{engine.match_select_calls} bootstrap match_select  "
           f"[{card_line}]", flush=True)
     return n, gd
+
+
+def plain_by_lane(A, Bt, V, metric: str = "l2"):
+    """``top2_batch_plain`` one candidate lane at a time, concatenated: the
+    plain version holds [1,N,M] f32 distances at once instead of [B,N,M]
+    (6.7 GB at the 4K shape)."""
+    import torch
+
+    from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
+
+    outs = [ck.top2_batch_plain(A, Bt[i:i + 1], V[i:i + 1], metric)
+            for i in range(Bt.shape[0])]
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def ring_operands(engine, lanes: int = 16):
+    """The ring of a finished run as the path hands it to ``top2_batch``:
+    the slot of the earliest frame still held as the query, the next
+    ``lanes`` frames' slots as the candidates, their validity as the column
+    mask → (A [K,D], Bt [lanes,K,D], V [lanes,K]) on the card."""
+    import torch
+
+    by_frame = sorted(engine._slot_frame.items(), key=lambda kv: kv[1])
+    idx = torch.tensor([slot for slot, _ in by_frame[:lanes + 1]],
+                       device=engine.state.ring_desc.device)
+    st = engine.state
+    return (st.ring_desc[idx[0]].contiguous(),
+            st.ring_desc[idx[1:]].contiguous(),
+            st.ring_valid[idx[1:]].contiguous())
+
+
+def hold_on_ring(engine, metric: str, what: str) -> float:
+    """``top2_batch`` on the ring's own descriptors (ring_operands) against
+    its plain version, lane by lane: Hamming exact, L2 by ``hold_l2``.
+    Returns max |Δ|."""
+    from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
+
+    A, Bt, V = ring_operands(engine)
+    k = host(ck.top2_batch(A, Bt, V, metric=metric))
+    p = host(plain_by_lane(A, Bt, V, metric))
+    if metric == "hamming":
+        hold_exact(k, p, what)
+        return 0.0
+    return hold_l2(k, p, host((A,))[0], host((Bt,))[0], what)
+
+
+@contextlib.contextmanager
+def host_desc_calls():
+    """Count the calls of the three host-ingest steps while the block runs
+    → {"same": n, "hybrid": n, "orb": n, "ring": ...}; the first
+    ``ingest_host_hybrid`` call also records one ring slot it wrote in
+    "ring": {"slot", "equal" (its last 256 columns equal α × the uploaded
+    bits, MSB first), "rows" (rows with a bit set), "sift_rows" (rows with
+    a SIFT value)}."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.runtime import steps
+
+    calls = {"same": 0, "hybrid": 0, "orb": 0, "ring": {}}
+    names = {"same": "ingest_host", "hybrid": "ingest_host_hybrid",
+             "orb": "ingest_host_desc"}
+    origs = {k: getattr(steps, v) for k, v in names.items()}
+
+    def counted(kind):
+        def run(cfg, state, *a, **kw):
+            state = origs[kind](cfg, state, *a, **kw)
+            calls[kind] += 1
+            if kind == "hybrid" and not calls["ring"]:
+                desc_bits, slots = a[1], a[5]
+                slot = int(slots[0])
+                bits = np.unpackbits(desc_bits[0].cpu().numpy(), axis=-1,
+                                     bitorder="big")
+                got = state.ring_desc[slot].cpu().numpy()
+                calls["ring"] = {
+                    "slot": slot,
+                    "equal": bool(np.array_equal(
+                        got[:, 128:], np.float32(cfg.hybrid_alpha) * bits)),
+                    "rows": int(bits.any(-1).sum()),
+                    "sift_rows": int((got[:, :128] != 0).any(-1).sum())}
+            return state
+        return run
+
+    for kind, name in names.items():
+        setattr(steps, name, counted(kind))
+    try:
+        yield calls
+    finally:
+        for kind, name in names.items():
+            setattr(steps, name, origs[kind])
+
+
+def host_desc_run(cfg_fn, scene, frames):
+    """``slam_run`` of ``cfg_fn`` with the host ingest, its parts, the
+    tracking calls, the host-ingest steps and the peak device memory
+    recorded → (counts, GlobalData, wall, engine, ingest, tracking, step
+    calls, peak bytes)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    with host_desc_calls() as calls, timed_host_ingest() as spent, \
+            timed_tracking() as trk, tempfile.TemporaryDirectory() as out:
+        n, gd, wall, engine, _ = slam_run(cfg_fn(out), scene, frames)
+    peak = torch.cuda.max_memory_allocated()
+    return n, gd, wall, engine, spent, trk, calls, peak
+
+
+def hold_stream_launches(what, n, engine, metric: str):
+    """One ``top2_batch`` launch per active scan step and per bootstrap
+    ``match_select``, all with ``metric``, and no other kernel."""
+    want = engine.stream_steps + engine.match_select_calls
+    if n["top2_batch"] != want or engine.stream_steps == 0:
+        fail(f"{what}: top2_batch launched {n['top2_batch']} times for "
+             f"{engine.stream_steps} active scan steps and "
+             f"{engine.match_select_calls} bootstrap matches")
+    n_metric = n["top2_batch"] if metric == "l2" else n["hamming"]
+    if (n_metric != n["top2_batch"] or n["top2_l1"] or n["top2_pair"]
+            or (metric == "l2" and n["hamming"])):
+        fail(f"{what}: launched another kernel than the {metric} "
+             f"top2_batch: {n}")
+
+
+def hybrid_path(card_line: str, scene, frames, what: str = "hybrid path"):
+    """``slam_main`` with ``hybrid_config`` (host descriptor "auto" under
+    host ingest) → (launch counts, GlobalData, engine): it must resolve to
+    "hybrid" with 384-dim descriptors, track as the other paths do, launch
+    the L2 ``top2_batch`` once per active scan step and bootstrap match, and
+    write α × the host's bits into the last 256 columns of a ring slot."""
+    n, gd, wall, engine, spent, trk, calls, _ = host_desc_run(
+        hybrid_config, scene, frames)
+    cfg = engine.cfg
+    if not (engine._will_stream and cfg.ingest_mode == "host"
+            and cfg.host_desc == "hybrid" and cfg.desc_dim == 384
+            and cfg.metric == "l2" and cfg.ingest_downscale == 2
+            and tuple(engine.state.ring_desc.shape[-1:]) == (384,)):
+        fail(f"{what}: the engine took ingest {cfg.ingest_mode}, host_desc "
+             f"{cfg.host_desc}, D={cfg.desc_dim}, metric {cfg.metric}, "
+             f"d={cfg.ingest_downscale}, streaming {engine._will_stream}")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
+    hold_stream_launches(what, n, engine, "l2")
+    ring = calls["ring"]
+    if calls["same"] or calls["orb"] or not calls["hybrid"]:
+        fail(f"{what}: host-ingest steps {calls}")
+    if not (ring.get("equal") and ring["rows"] > 100
+            and ring["sift_rows"] > 100):
+        fail(f"{what}: ring slot {ring}: the last 256 columns are not "
+             "α × the host's bits")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
+    print(f"{what}: {ingest_line(spent, N_FRAMES)}; tracking "
+          f"{1e3 * trk['s'] / N_FRAMES:.3f} ms per frame in "
+          f"{trk['calls']} advance_stream calls; ring slot {ring['slot']}: "
+          f"columns 128..383 equal {cfg.hybrid_alpha} x the uploaded bits on"
+          f" {ring['rows']} rows  [{card_line}]", flush=True)
+    return n, gd, engine
+
+
+def hostorb_path(card_line: str, scene, frames, what: str = "hostorb path"):
+    """``slam_main`` with ``hostorb_config`` (ORB, host descriptor "auto"
+    under host ingest) → (launch counts, GlobalData, engine): it must
+    resolve to "orb", upload no gray plane (no chunk packs one, only
+    ``ingest_host_desc`` runs), track as the other paths do and launch the
+    Hamming ``top2_batch`` once per active scan step and bootstrap
+    match."""
+    import torch
+
+    n, gd, wall, engine, spent, trk, calls, _ = host_desc_run(
+        hostorb_config, scene, frames)
+    cfg = engine.cfg
+    if not (engine._will_stream and cfg.ingest_mode == "host"
+            and cfg.host_desc == "orb" and cfg.metric == "hamming"):
+        fail(f"{what}: the engine took ingest {cfg.ingest_mode}, host_desc "
+             f"{cfg.host_desc}, metric {cfg.metric}, streaming "
+             f"{engine._will_stream}")
+    if engine.state.ring_desc.dtype != torch.int32 or tuple(
+            engine.state.ring_desc.shape[-1:]) != (8,):
+        fail(f"{what}: descriptors {engine.state.ring_desc.dtype} "
+             f"{tuple(engine.state.ring_desc.shape)}, not int32 [..,8]")
+    if spent["gray_planes"] or calls["same"] or calls["hybrid"] or \
+            not calls["orb"]:
+        fail(f"{what}: a gray plane was packed or described: "
+             f"{spent['gray_planes']} chunks with a gray plane, steps "
+             f"{calls}")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd)
+    on_cuda(what, engine)
+    hold_stream_launches(what, n, engine, "hamming")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line)
+    print(f"{what}: {ingest_line(spent, N_FRAMES)}; tracking "
+          f"{1e3 * trk['s'] / N_FRAMES:.3f} ms per frame in "
+          f"{trk['calls']} advance_stream calls; no gray plane packed or "
+          f"uploaded, {calls['orb']} ingest_host_desc calls  "
+          f"[{card_line}]", flush=True)
+    return n, gd, engine
+
+
+def fourk_path(card_line: str, scene, frames, kernel_ms: float,
+               bound_ms: float):
+    """``slam_main`` with ``fourk_config`` on the 4K scene → (launch
+    counts, GlobalData, engine): hybrid descriptors at 10,240 keypoints,
+    at least 12/16 cameras at ATE < 5 %; prints the host ingest per frame
+    and its parts beside the tracking per frame, the ring's size and the
+    peak device memory, and the kernel's time per call at this shape."""
+    what = "4k path"
+    n, gd, wall, engine, spent, trk, calls, peak = host_desc_run(
+        fourk_config, scene, frames)
+    cfg = engine.cfg
+    if not (engine._will_stream and cfg.host_desc == "hybrid"
+            and cfg.desc_dim == 384 and cfg.ingest_downscale == 4
+            and cfg.max_keypoints == 10240 and cfg.hybrid_alpha == 0.15):
+        fail(f"{what}: the engine took host_desc {cfg.host_desc}, D="
+             f"{cfg.desc_dim}, d={cfg.ingest_downscale}, K="
+             f"{cfg.max_keypoints}, α={cfg.hybrid_alpha}, streaming "
+             f"{engine._will_stream}")
+    n_cams, ate_pct = trajectory_ok(what, scene, gd, N_FRAMES_4K,
+                                    MIN_CAMERAS_4K)
+    on_cuda(what, engine)
+    hold_stream_launches(what, n, engine, "l2")
+    if not calls["ring"].get("equal"):
+        fail(f"{what}: ring slot {calls['ring']}: the last 256 columns are "
+             "not α × the host's bits")
+    ring_mb = engine.state.ring_desc.numel() * 4 / 1e6
+    report(what, n_cams, ate_pct, gd, wall, n, card_line, N_FRAMES_4K)
+    print(f"{what}: {ingest_line(spent, N_FRAMES_4K)}; tracking "
+          f"{1e3 * trk['s'] / N_FRAMES_4K:.3f} ms per frame in "
+          f"{trk['calls']} advance_stream calls; top2_batch "
+          f"{kernel_ms:.4f} ms per call at [10240,384] x [16,10240,384] "
+          f"(bound {bound_ms:.4f} ms); ring {tuple(engine.state.ring_desc.shape)}"
+          f" {ring_mb:.1f} MB; peak device memory {peak / 1e9:.3f} GB  "
+          f"[{card_line}]", flush=True)
+    return n, gd, engine
 
 
 def run_engine(scene, frames, metric: str):
@@ -1635,6 +2039,18 @@ def main() -> None:
         n, gd_stream = stream_path(card_line, scene, frames)
         by_path["stream"] = n["top2_batch"]
         phase("stream", top2_batch_launches=n["top2_batch"])
+        n, gd_hybrid, engine = hybrid_path(card_line, scene, frames)
+        rows["d384"]["launches"] = n["top2_batch"]
+        by_path["hybrid (D=384)"] = n["top2_batch"]
+        err = hold_on_ring(engine, "l2", "top2_batch on the hybrid ring")
+        phase("hybrid", top2_batch_launches=n["top2_batch"],
+              ring_max_abs_err=f"{err:.3g}")
+        n, _, engine = hostorb_path(card_line, scene, frames)
+        rows["host_words"] = host_words_row(engine)
+        rows["host_words"]["launches"] = n["hamming"]
+        by_path["hostorb (hamming)"] = n["hamming"]
+        del engine
+        phase("hostorb", hamming_launches=n["hamming"])
         n = pair_entry(card_line, frames)
         rows["top2_pair"]["launches"] = n["top2_pair"]
         phase("pair", top2_pair_launches=n["top2_pair"])
@@ -1663,6 +2079,16 @@ def main() -> None:
               solo_s=f"{solo_walls[0]:.3f}+{solo_walls[1]:.3f}")
         distributed_phase(card_line)
         phase("distributed")
+        scene4k, frames4k = fourk_scene()
+        n, _, engine = fourk_path(card_line, scene4k, frames4k,
+                                  rows["d384_4k"]["ms"],
+                                  rows["d384_4k"]["bound_ms"])
+        rows["d384_4k"]["launches"] = n["top2_batch"]
+        by_path["4k (D=384)"] = n["top2_batch"]
+        err = hold_on_ring(engine, "l2", "top2_batch on the 4K ring")
+        del engine, frames4k
+        phase("4k", top2_batch_launches=n["top2_batch"],
+              ring_max_abs_err=f"{err:.3g}")
         _, again, _ = main_path(card_line, scene, frames, "main path, run 2")
         same_run("main path", gd_l2, again)
         _, again = classic_path(card_line, scene, frames,
@@ -1674,7 +2100,10 @@ def main() -> None:
         same_run("orb path", gd_orb, again)
         _, again = stream_path(card_line, scene, frames, "stream path, run 2")
         same_run("stream path", gd_stream, again)
-        phase("repro", runs=10)
+        _, again, _ = hybrid_path(card_line, scene, frames,
+                                  "hybrid path, run 2")
+        same_run("hybrid path", gd_hybrid, again)
+        phase("repro", runs=12)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run

@@ -2,6 +2,7 @@
 """Where the port's main path spends its time on the card.
 
     python3 profile_main.py [l2|l1|orb|stream|classic|tile|diverge|sequences]
+    python3 profile_main.py stream [hybrid|hostorb|4k]
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
 port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
@@ -16,8 +17,14 @@ runtime/steps.py; "pipeline.<name>" on the classic conductor, see
 pipeline/) and the kernels with the most device time; with ``stream`` also
 the host ingest of each run, timed around every ``host_detect_pack`` call
 in the packer threads (chip_smoke.timed_host_ingest; the profiler records
-no op of those threads).  Writes the full table to
-chiprun_out/profile_main[_l1|_orb|_stream|_classic].txt.
+no op of those threads), split into the gray conversion, FAST, the ORB bits
+and the pooling, beside the tracking per frame (the host wall of the
+``advance_stream`` calls, chip_smoke.timed_tracking).  ``stream hybrid``
+takes chip_smoke.hybrid_config (host descriptor "auto", which is "hybrid");
+``stream hostorb`` chip_smoke.hostorb_config (ORB, "auto" is "orb");
+``stream 4k`` takes chip_smoke.fourk_config on chip_smoke.fourk_scene
+(bench.py's 4K point, 16 frames).  Writes the full table to
+chiprun_out/profile_main[_l1|_orb|_stream[_hybrid|_hostorb|_4k]|_classic].txt.
 
 With ``diverge``: the stream configuration once on CUDA and once on the
 CPU (same frames, seed 0), every ``advance_stream`` step's row recorded
@@ -355,24 +362,33 @@ def main() -> None:
     if metric not in ("l2", "l1", "orb", "stream", "classic"):
         raise SystemExit(f"mode must be l2, l1, orb, stream, classic, tile, "
                          f"diverge or sequences, got {metric!r}")
+    variant = sys.argv[2] if metric == "stream" and len(sys.argv) > 2 else ""
+    if variant not in ("", "hybrid", "hostorb", "4k"):
+        raise SystemExit(f"stream takes hybrid, hostorb or 4k, got "
+                         f"{variant!r}")
     _, card_line = chip_smoke.card()
     build.build_all()
-    scene, frames = chip_smoke.headline_scene()
+    scene, frames = (chip_smoke.fourk_scene() if variant == "4k"
+                     else chip_smoke.headline_scene())
     walls = []
     with tempfile.TemporaryDirectory() as out:
         cfg = {"orb": chip_smoke.orb_config,
-               "stream": chip_smoke.stream_config,
+               "stream": {"": chip_smoke.stream_config,
+                          "hybrid": chip_smoke.hybrid_config,
+                          "hostorb": chip_smoke.hostorb_config,
+                          "4k": chip_smoke.fourk_config}[variant],
                "classic": chip_smoke.classic_config}.get(
                    metric, chip_smoke.headline_config)(out)
 
-        ingest = []          # (seconds, frames) of host ingest per run
+        ingest = []          # (host ingest, tracking) of each run
 
         def run():
             if metric == "l1":
                 return chip_smoke.run_engine(scene, frames, "l1")[0]
-            with chip_smoke.timed_host_ingest() as spent:
+            with chip_smoke.timed_host_ingest() as spent, \
+                    chip_smoke.timed_tracking() as trk:
                 gd = slam_main(cfg, scene.K, frames=frames)
-            ingest.append((spent["s"], spent["frames"]))
+            ingest.append((spent, trk))
             return gd
 
         for _ in range(2):                   # cold (first) run, then warm
@@ -419,15 +435,16 @@ def main() -> None:
     for k, (host, calls, _) in sorted(spans.items(), key=lambda kv: -kv[1][0]):
         print(f"  {k:28s} {host:10.1f} {kernels_in[k]:10.1f} {calls:6d}")
     if metric == "stream":
-        for name, (s, n) in zip(("cold", "warm", "profiled"), ingest):
-            print(f"[{card_line}] host ingest, {name} run: {1e3 * s:.1f} ms "
-                  f"in the packer threads for {n} frames, "
-                  f"{1e3 * s / max(n, 1):.3f} ms per frame, "
-                  f"{os.cpu_count()} cores", flush=True)
+        for name, (spent, trk) in zip(("cold", "warm", "profiled"), ingest):
+            print(f"[{card_line}] {name} run: "
+                  f"{chip_smoke.ingest_line(spent, len(frames))}; tracking "
+                  f"{1e3 * trk['s'] / len(frames):.3f} ms per frame in "
+                  f"{trk['calls']} advance_stream calls", flush=True)
     table = avg.table(sort_by="self_device_time_total", row_limit=25)
     print(table, flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
-    suffix = "" if metric == "l2" else f"_{metric}"
+    suffix = ("" if metric == "l2" else f"_{metric}") + (
+        f"_{variant}" if variant else "")
     with open(f"chiprun_out/profile_main{suffix}.txt", "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=200))
 

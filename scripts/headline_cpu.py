@@ -4,15 +4,20 @@ bench.py headline: FHD, SIFT, ratio 0.8, 2048 keypoints, batch 16, Huber BA
 every 8 frames, device ingest) over the seed-7 synthetic hallway, with L2
 or L1 matching of the SIFT descriptors, or with ORB and Hamming matching
 (only ``useFM-ORB`` set, chip_smoke.py's ORB phase).  ``--ingest host``
-detects on the host instead and runs the streaming loop with
-``host_descriptor="same"`` and the pooled gray of ``--downscale`` (2, the
-JAX default; chip_smoke.py's stream phase).  It tells what the
+detects on the host instead and runs the streaming loop with the host
+descriptor of ``--host-desc`` ("same", chip_smoke.py's stream phase; "auto"
+is "hybrid" for SIFT and "orb" for ORB, its hybrid and hostorb phases) and
+the pooled gray of ``--downscale`` (2, the JAX default).  ``--classic`` runs
+the classic host conductor (``tpu.device_runtime=false``, chip_smoke.py's
+classic phase) instead of the device runtime.  It tells what the
 port gives on the CPU from what it gives on the card, and both from the JAX
 package.
 
     python scripts/headline_cpu.py torch l1     # the port, device="cpu"
     JAX_PLATFORMS=cpu python scripts/headline_cpu.py jax l2 --seed 1
     python scripts/headline_cpu.py torch l2 --ingest host --downscale 2
+    python scripts/headline_cpu.py torch l2 --ingest host --host-desc auto
+    python scripts/headline_cpu.py jax l2 --classic --seed 3
 
 ``--seed`` seeds the RANSAC draws (the engine's generator or PRNG key; the
 frames stay the seed-7 scene).  Prints one line: package, metric, seed,
@@ -66,6 +71,12 @@ def main() -> None:
     ap.add_argument("--ingest", choices=("device", "host"), default="device")
     ap.add_argument("--downscale", type=int, default=2,
                     help="pooled-gray factor under host ingest")
+    ap.add_argument("--host-desc", default="same",
+                    choices=("same", "auto", "orb", "hybrid"),
+                    help="tpu.host_descriptor under host ingest")
+    ap.add_argument("--classic", action="store_true",
+                    help="the classic host conductor "
+                         "(tpu.device_runtime=false)")
     args = ap.parse_args()
     app, config, EngineConfig, make_scene, ate_fn, centers = _modules(
         args.package)
@@ -92,18 +103,27 @@ def main() -> None:
             tpu=config.TpuConfig(max_keypoints=2048, ransac_iters=1024,
                                  pnp_ransac_iters=64, window_points=4096,
                                  ba_max_iters=10, global_ba=False,
-                                 ingest=args.ingest, host_descriptor="same",
+                                 ingest=args.ingest,
+                                 host_descriptor=args.host_desc,
                                  streaming=True,
+                                 device_runtime=not args.classic,
                                  ingest_downscale=args.downscale))
         t = time.perf_counter()
         gd = app.slam_main(cfg, scene.K, frames=frames, seed=args.seed, **kw)
         wall = time.perf_counter() - t
     est = centers(gd.rotations, gd.positions)
-    gt = scene.centers()[np.asarray(gd.frame_ids, np.int64)]
+    ids = np.asarray(gd.frame_ids, np.int64)
+    if len(ids) != len(est) and len(est) == n_frames:
+        # the JAX package's classic conductor records no frame ids; with
+        # every frame a camera they are the frames in order
+        ids = np.arange(n_frames)
+    gt = scene.centers()[ids]
     ate = ate_fn(est, gt)
     extent = float(np.linalg.norm(gt.max(0) - gt.min(0)))
     ingest = ("device" if args.ingest == "device"
-              else f"host d={args.downscale} streaming")
+              else f"host d={args.downscale} {args.host_desc} streaming")
+    if args.classic:
+        ingest += " classic"
     print(f"{args.package} {args.metric} seed {args.seed} {ingest} cpu: "
           f"cameras "
           f"{len(est)}/{n_frames}  ATE {100 * ate / extent:.4f}% of extent"

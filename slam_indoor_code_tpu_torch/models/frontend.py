@@ -10,9 +10,9 @@ keypoints; the device then only describes (``describe_packed_batch``).  The
 JAX package's host half calls OpenCV; here it is numpy, equal to OpenCV
 bit for bit (the tests hold it to cv2): ``host_gray`` is cv2's fixed-point
 RGB→gray, ``fast.raw_corners`` cv2's FAST-9/16 corner list, and
-``area_downscale`` cv2's INTER_AREA at an integer factor.  The host ORB
-descriptor modes ("orb", "hybrid") need OpenCV's ORB pattern and are not
-ported."""
+``area_downscale`` cv2's INTER_AREA at an integer factor, and
+``host_orb_bits`` ``cv2.ORB_create().compute`` (the host descriptor modes
+"orb" and "hybrid", with OpenCV's pattern in ``ops/orb_pattern.py``)."""
 
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import fast, image, knn, orb, sift
+from ..ops.orb_pattern import BIT_PATTERN_31
 
 
 @dataclass(frozen=True)
@@ -149,6 +150,111 @@ def _host_detect_frame(gray: np.ndarray, threshold: float):
     return xy, ixy, int(keep.sum())
 
 
+# ORB's border (edgeThreshold = patchSize = 31): compute() keeps a keypoint
+# iff its rounded centre lies in [31, W-31) x [31, H-31)
+_ORB_EDGE = 31
+
+
+def _orb_gauss7() -> np.ndarray:
+    """OpenCV's 7-tap Gaussian at σ = 2 as float32 (getGaussianKernel(7, 2,
+    CV_32F)): exp(−x²/8) over x = −3..3, normalised in float64."""
+    x = np.arange(7, dtype=np.float64) - 3.0
+    t = np.exp(-0.125 * x * x)
+    return (t * (1.0 / t.sum())).astype(np.float32)
+
+
+_ORB_GAUSS7 = _orb_gauss7()
+
+
+def _orb_blur(gray: np.ndarray, strip: int = 32) -> np.ndarray:
+    """ORB's 7×7 Gaussian (σ = 2, reflect-101 borders) of a u8 plane as
+    OpenCV's separable float path computes it → [H,W] u8: the row pass
+    sums k_i·p_i for i = 0..6 as a chain of float32 fused multiply-adds, the
+    column pass starts from k_3·r_0 and adds k_j·(r_j + r_−j) for j = 1..3
+    the same way, then rounds half to even.  A fused multiply-add rounds
+    once: the product of a float32 pair and the float32 sum are exact in
+    float64, so each step is computed there and rounded to float32.  (An
+    exact float64 blur, or cv2.GaussianBlur on u8, each part from it at a
+    few near-ties per hundred thousand keypoints.)  Runs in strips of
+    ``strip`` rows, whose buffers stay in cache (2.5× faster at 4K)."""
+    H, W = gray.shape
+    k = _ORB_GAUSS7.astype(np.float64)
+    p = np.pad(gray, 3, mode="reflect")          # numpy's reflect = 101
+    out = np.empty((H, W), np.uint8)
+    acc = np.empty((strip + 6, W), np.float64)
+    r = np.empty((strip + 6, W), np.float32)
+    c = np.empty((strip, W), np.float32)
+    pair = np.empty((strip, W), np.float32)
+    for y0 in range(0, H, strip):
+        h = min(strip, H - y0)
+        ps, a, rr = p[y0:y0 + h + 6], acc[:h + 6], r[:h + 6]
+        np.multiply(ps[:, :W], k[0], out=a)
+        rr[...] = a
+        for i in range(1, 7):
+            np.multiply(ps[:, i:i + W], k[i], out=a)
+            a += rr
+            rr[...] = a
+        a, cc, pp = acc[:h], c[:h], pair[:h]
+        np.multiply(rr[3:3 + h], k[3], out=a)
+        cc[...] = a
+        for j in range(1, 4):
+            np.add(rr[3 + j:3 + j + h], rr[3 - j:3 - j + h], out=pp)
+            np.multiply(pp, k[3 + j], out=a)
+            a += cc
+            cc[...] = a
+        np.rint(cc, out=cc)
+        out[y0:y0 + h] = cc
+    return out
+
+
+def _orb_offsets() -> tuple[np.ndarray, np.ndarray]:
+    """The pattern's points rotated by the keypoints' angle → (dx, dy)
+    [256,2] int64.  The JAX package hands ORB keypoints of angle −1, which
+    compute() keeps: cos and sin of −1° in float32, x·cos − y·sin and
+    x·sin + y·cos in float32, rounded half to even (every value lies at
+    least 0.27 from a tie)."""
+    ang = np.float32(-1.0) * np.float32(np.pi / 180.0)
+    a, b = np.float32(np.cos(ang)), np.float32(np.sin(ang))
+    px = BIT_PATTERN_31[..., 0].astype(np.float32)
+    py = BIT_PATTERN_31[..., 1].astype(np.float32)
+    dx = np.rint(px * a - py * b).astype(np.int64)
+    dy = np.rint(px * b + py * a).astype(np.int64)
+    return dx, dy
+
+
+_ORB_DX, _ORB_DY = _orb_offsets()
+
+
+def host_orb_bits(gray: np.ndarray, xy: np.ndarray, valid: np.ndarray,
+                  max_keypoints: int) -> np.ndarray:
+    """OpenCV's ORB descriptors of a full-resolution u8 gray frame [H,W] at
+    keypoints xy [K,2] (valid [K]) → packed bits [max_keypoints, 32] u8,
+    bit for bit ``cv2.ORB_create().compute`` on keypoints of size 31 and
+    angle −1 (the JAX package's ``_host_orb_bits``).  Per kept keypoint:
+    the blurred plane (``_orb_blur``) at its rounded centre plus each
+    rotated pair's two points; bit k of byte i (LSB first) is set when the
+    first point of pair 8i+k is darker.  ORB drops keypoints within 31 px
+    of the border; those rows, and the invalid ones, stay zero."""
+    K = max_keypoints
+    out = np.zeros((K, 32), np.uint8)
+    H, W = gray.shape
+    xy = np.asarray(xy, np.float32)[:K]
+    cx = np.rint(xy[:, 0]).astype(np.int64)
+    cy = np.rint(xy[:, 1]).astype(np.int64)
+    keep = (np.asarray(valid[:K], bool)
+            & (cx >= _ORB_EDGE) & (cx < W - _ORB_EDGE)
+            & (cy >= _ORB_EDGE) & (cy < H - _ORB_EDGE))
+    rows = np.flatnonzero(keep)
+    if not len(rows):
+        return out
+    blurred = _orb_blur(gray).ravel()
+    centre = cy[rows] * W + cx[rows]
+    v = blurred[centre[:, None, None] + (_ORB_DY * W + _ORB_DX)[None]]
+    darker = (v[..., 0] < v[..., 1]).reshape(-1, 32, 8)  # [n,256,2] → bits
+    out[rows] = np.packbits(darker, axis=-1, bitorder="little")[..., 0]
+    return out
+
+
 def host_detect_pack(frames, threshold: float, max_keypoints: int,
                      ingest_downscale: int = 2, host_desc: str = "same"):
     """Host-side ingest of a chunk of RGB u8 frames: per frame the gray
@@ -157,24 +263,35 @@ def host_detect_pack(frames, threshold: float, max_keypoints: int,
     sampled at full resolution and the 1/d pooled gray plane the device
     describes from.
 
-    Returns dict of numpy arrays: gray_small [C,H/d,W/d] u8, xy [C,K,2] f32
-    (full-resolution coords), valid [C,K] bool, colors [C,K,3] u8, counts
-    [C] i32 (post-NMS corner totals, the requiredExtractedPointsCount
-    gate).  Only ``host_desc="same"``: "orb" and "hybrid" need OpenCV's
-    ORB pattern, which is not in this repository."""
-    if host_desc != "same":
-        raise NotImplementedError(
-            f"host_desc={host_desc!r} needs OpenCV's ORB pattern (its "
-            "learned 256 test pairs), which is not in this repository")
+    ``host_desc`` adds full-resolution descriptor content the pooled gray
+    cannot carry, as the JAX package's packer does:
+      - "orb":    ORB bits per keypoint (``host_orb_bits``) and no gray
+                  plane; the device matches them by Hamming.
+      - "hybrid": the ORB bits beside the pooled gray; the device joins
+                  pooled SIFT (128) and α·bits (256) into one L2
+                  descriptor.
+      - "same":   the pooled gray only.
+
+    Returns dict of numpy arrays: gray_small [C,H/d,W/d] u8 (absent for
+    "orb"), xy [C,K,2] f32 (full-resolution coords), valid [C,K] bool,
+    colors [C,K,3] u8, counts [C] i32 (post-NMS corner totals, the
+    requiredExtractedPointsCount gate), desc_bits [C,K,32] u8 (for "orb"
+    and "hybrid")."""
+    if host_desc not in ("same", "orb", "hybrid"):
+        raise ValueError(f"unknown host descriptor {host_desc!r}")
     d = ingest_downscale
     C = len(frames)
     H, W = frames[0].shape[:2]
     K = max_keypoints
-    gray_small = np.empty((C, H // d, W // d), np.uint8)
+    want_gray = host_desc != "orb"
+    gray_small = (np.empty((C, H // d, W // d), np.uint8) if want_gray
+                  else None)
     xy = np.zeros((C, K, 2), np.float32)
     valid = np.zeros((C, K), bool)
     colors = np.zeros((C, K, 3), np.uint8)
     counts = np.zeros((C,), np.int32)
+    bits = (np.zeros((C, K, 32), np.uint8) if host_desc != "same"
+            else None)
     for i, f in enumerate(frames):
         gray = host_gray(f)
         kxy, ixy, num = _host_detect_frame(gray, threshold)
@@ -184,9 +301,16 @@ def host_detect_pack(frames, threshold: float, max_keypoints: int,
             xy[i, :n] = kxy[:n]
             valid[i, :n] = True
             colors[i, :n] = f[ixy[:n, 1], ixy[:n, 0]]
-        gray_small[i] = area_downscale(gray, d) if d > 1 else gray
-    return {"gray_small": gray_small, "xy": xy, "valid": valid,
-            "colors": colors, "counts": counts}
+        if bits is not None:
+            bits[i] = host_orb_bits(gray, xy[i], valid[i], K)
+        if want_gray:
+            gray_small[i] = area_downscale(gray, d) if d > 1 else gray
+    out = {"xy": xy, "valid": valid, "colors": colors, "counts": counts}
+    if want_gray:
+        out["gray_small"] = gray_small
+    if bits is not None:
+        out["desc_bits"] = bits
+    return out
 
 
 def describe_packed_batch(cfg: "FrontendConfig", gray_small: torch.Tensor,

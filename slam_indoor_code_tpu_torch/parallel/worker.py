@@ -19,9 +19,9 @@ Modes:
 * ``pipeline`` — ``slam_main`` with ``tpu.mesh_shape=(nproc,)`` across the
   processes (host ingest, the candidate matches and the BA's observations
   split over them), then the same scene without a mesh in each process;
-  the two trajectories must agree within 3 % of the extent.  The JAX
-  worker describes on the host with OpenCV's ORB ("hybrid"), which is not
-  in this repository: here the device describes ("same").
+  the two trajectories must agree within 3 % of the extent.  Host ingest
+  takes the default host descriptor, "hybrid" (pooled SIFT beside the
+  host's ORB bits), as the JAX worker does.
 
 The device defaults to CUDA: NCCL where every rank has a card of its own,
 else gloo (ranks that share a card, or ``--device cpu``).  Nothing happens
@@ -161,8 +161,7 @@ def pipeline_main(args, dev: torch.device) -> str:
             tpu=TpuConfig(max_keypoints=512, ransac_iters=256,
                           pnp_ransac_iters=128, window_points=2048,
                           ba_max_iters=10, mesh_shape=mesh_shape,
-                          ingest="host", host_descriptor="same",
-                          ingest_downscale=1))
+                          ingest="host", ingest_downscale=1))
         return slam_main(cfg, scene.K, frames=list(frames), device=dev)
 
     gd_g = run((args.nproc,), "global")

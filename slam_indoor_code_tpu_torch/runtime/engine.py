@@ -41,7 +41,11 @@ observations over it; the state and the payload uploads stay on the first
 device, and every process of a group holds the whole state.  Streaming is
 off under a mesh, as in the JAX package.
 
-Not ported yet (ROADMAP): the host ORB descriptor modes ("orb", "hybrid").
+Under host ingest the descriptor source follows ``host_desc``
+(``resolve_host_desc``): "same" uploads the pooled gray for the device to
+describe, "orb" uploads OpenCV-equal ORB bit words from the host and
+matches them by Hamming, "hybrid" uploads both and joins pooled SIFT with
+the α-weighted bits into one L2 descriptor.
 """
 
 from __future__ import annotations
@@ -104,9 +108,7 @@ def resolve_host_desc(cfg: EngineConfig) -> EngineConfig:
     """The JAX engine's host-descriptor rules: "auto" is "hybrid" (SIFT) or
     "orb" (ORB) under host ingest and "same" under device ingest; device
     ingest always describes on the device ("same"); an ORB config takes
-    "orb" for "hybrid"; "orb" matches by Hamming.  Host ingest with "orb"
-    or "hybrid" raises: both need OpenCV's ORB pattern, which is not in
-    this repository, and running them as "same" would be another result."""
+    "orb" for "hybrid"; "orb" matches by Hamming."""
     hd = cfg.host_desc
     if hd == "auto":
         if cfg.ingest_mode == "host":
@@ -120,12 +122,6 @@ def resolve_host_desc(cfg: EngineConfig) -> EngineConfig:
     cfg = dataclasses.replace(cfg, host_desc=hd)
     if hd == "orb":
         cfg = dataclasses.replace(cfg, metric="hamming")
-    if hd != "same":
-        raise NotImplementedError(
-            f"host ingest with host_descriptor {hd!r} needs OpenCV's ORB "
-            "pattern (its learned 256 test pairs), which is not in this "
-            "repository: set tpu.host_descriptor to \"same\" or tpu.ingest "
-            "to \"device\"")
     return cfg
 
 
@@ -336,12 +332,22 @@ class DeviceEngine:
             from ..models.frontend import host_detect_pack, pack_frames
 
             if self.cfg.ingest_mode == "host":
+                hd = self.cfg.host_desc
                 p = host_detect_pack(chunk, thr, self.cfg.max_keypoints,
-                                     self.cfg.ingest_downscale,
-                                     host_desc=self.cfg.host_desc)
-                return slots, n, (self._put(p["gray_small"]),
-                                  self._put(p["xy"]), self._put(p["valid"]),
-                                  self._put(p["colors"]), p["counts"])
+                                     self.cfg.ingest_downscale, host_desc=hd)
+                if hd == "orb":
+                    # the bit words alone: no image plane travels.  The
+                    # int32 view of the bytes (little-endian words, as the
+                    # JAX package's uint32 view and ops/orb.py's packing)
+                    head = (self._put(p["desc_bits"].view(np.int32)),)
+                elif hd == "hybrid":
+                    head = (self._put(p["gray_small"]),
+                            self._put(p["desc_bits"]))
+                else:
+                    head = (self._put(p["gray_small"]),)
+                return slots, n, head + (
+                    self._put(p["xy"]), self._put(p["valid"]),
+                    self._put(p["colors"]), p["counts"])
             gray, small = pack_frames(chunk, self.cfg.color_downscale)
             return slots, n, (self._put(gray), self._put(small))
 
@@ -349,12 +355,15 @@ class DeviceEngine:
         return True
 
     def _dispatch_host_payload(self, slots, payload) -> np.ndarray:
-        """Dispatch the device half of a host-ingest chunk; returns its
-        host-side corner counts."""
-        gray_small, xy, valid, colors, counts = payload
-        self.state = steps.ingest_host(self.cfg, self.state, gray_small, xy,
-                                       valid, colors, self._dev(slots),
-                                       self.mesh)
+        """Dispatch the device half of a host-ingest chunk (the payload of
+        ``_stage_chunk``: the ``host_desc`` arrays, then xy, valid, colours
+        and the counts); returns its host-side corner counts."""
+        *head, xy, valid, colors, counts = payload
+        ingest = {"orb": steps.ingest_host_desc,
+                  "hybrid": steps.ingest_host_hybrid,
+                  "same": steps.ingest_host}[self.cfg.host_desc]
+        self.state = ingest(self.cfg, self.state, *head, xy, valid, colors,
+                            self._dev(slots), self.mesh)
         return counts
 
     def _dispatch_ingest(self) -> bool:

@@ -157,6 +157,50 @@ def ingest_host(cfg: EngineConfig, state: TrackerState,
     return _write_ring(cfg, state, slots, xy, valid, desc, colors)
 
 
+@_span
+def ingest_host_desc(cfg: EngineConfig, state: TrackerState,
+                     desc_words: torch.Tensor, xy: torch.Tensor,
+                     valid: torch.Tensor, colors: torch.Tensor,
+                     slots: torch.Tensor, mesh=None) -> TrackerState:
+    """Host-descriptor ingest (``host_desc="orb"``): the host's ORB bits
+    arrive as int32 words [C,K,8] and go into the ring as they are, to be
+    matched by Hamming.  No image plane travels and nothing is computed
+    per frame, so there is nothing to split over ``mesh``."""
+    return _write_ring(cfg, state, slots, xy, valid, desc_words, colors)
+
+
+def _unpack_bits_msb(desc_bits: torch.Tensor) -> torch.Tensor:
+    """[..., 32] u8 packed ORB bits → [..., 256] float32 0/1, most
+    significant bit of each byte first (numpy's ``bitorder="big"``)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32,
+                          device=desc_bits.device)
+    bits = (desc_bits.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(*desc_bits.shape[:-1], -1).to(torch.float32)
+
+
+@_span
+def ingest_host_hybrid(cfg: EngineConfig, state: TrackerState,
+                       gray_small: torch.Tensor, desc_bits: torch.Tensor,
+                       xy: torch.Tensor, valid: torch.Tensor,
+                       colors: torch.Tensor, slots: torch.Tensor,
+                       mesh=None) -> TrackerState:
+    """Hybrid host ingest: pooled-gray SIFT [C,K,128] described on the
+    device, then the host's full-resolution ORB bits unpacked MSB first and
+    weighted by ``hybrid_alpha`` [C,K,256], one 384-dim L2 descriptor (the
+    squared L2 of two 0/1 blocks is their Hamming distance, so the bits ride
+    the SIFT matcher).  The chunk is split over ``mesh``."""
+    fcfg = _frontend_cfg(cfg)
+
+    def one(g, bits, x, v):
+        sift_part = fe.describe_packed_batch(fcfg, g, x, v,
+                                             cfg.ingest_downscale)
+        return torch.cat([sift_part,
+                          cfg.hybrid_alpha * _unpack_bits_msb(bits)], -1)
+
+    desc = map_batch(mesh, one, (gray_small, desc_bits, xy, valid))
+    return _write_ring(cfg, state, slots, xy, valid, desc, colors)
+
+
 # ------------------------------------------------------------- set prev
 @_span
 def set_prev_from_slot(cfg: EngineConfig, state: TrackerState, slot, R, t):

@@ -94,6 +94,39 @@ def test_kernel_takes_wide_descriptors_on_card(cuda_device, B, N, M, D):
 
 
 @pytest.mark.gpu
+def test_kernel_at_the_hybrid_shape_on_card(cuda_device):
+    """The hybrid descriptor's shape on the path (2048 keypoints, 16
+    candidate frames, D = 384): 128 SIFT-like columns beside 256 columns of
+    α·bits (α = 0.08) with duplicate rows, through ``knn.match_batch``: one
+    launch, the L2 rule against the plain version."""
+    from slam_indoor_code_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(11)
+
+    def hybrid(*shape):
+        sift = np.abs(rng.normal(size=shape + (128,))).astype(np.float32)
+        sift /= np.linalg.norm(sift, axis=-1, keepdims=True)
+        bits = rng.integers(0, 2, shape + (256,)).astype(np.float32)
+        return np.concatenate([sift, np.float32(0.08) * bits], -1)
+
+    a, b = hybrid(2048), hybrid(16, 2048)
+    b[3, :100] = a[:100]                     # exact matches in one lane
+    vb = rng.random((16, 2048)) >= 0.1
+    vb[3, :100] = True
+    args = [torch.from_numpy(x).to(cuda_device) for x in (a, b, vb)]
+    _hold_l2(ck.top2_batch(*args), ck.top2_batch_plain(*args), a, b)
+    before = ck.top2_batch.launches
+    res = knn.match_batch(args[0], torch.ones(2048, dtype=torch.bool,
+                                              device=cuda_device),
+                          args[1], args[2],
+                          torch.ones(16, dtype=torch.bool,
+                                     device=cuda_device), 0.8, "l2")
+    torch.cuda.synchronize()
+    assert ck.top2_batch.launches == before + 1
+    assert int(res["num_matches"][3]) >= 95
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B", [16, 6])
 @pytest.mark.parametrize("lpb", [2, 4])
 def test_multi_lane_equals_single_lane_on_card(cuda_device, B, lpb):

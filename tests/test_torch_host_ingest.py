@@ -1,7 +1,8 @@
 """The port's host frontend (host ingest) against OpenCV and the JAX
 package's, on the CPU: the gray plane, the raw FAST corners, the NMS and
-subpixel survivors, the pooled gray and the packed chunk exactly; the
-descriptors the device half computes from them to fp32 tolerance."""
+subpixel survivors, the pooled gray and the packed chunk (with the host
+ORB bits of "orb" and "hybrid") exactly; the descriptors the device half
+computes from them to fp32 tolerance."""
 
 import cv2
 import jax.numpy as jnp
@@ -132,9 +133,18 @@ def test_host_detect_pack_equals_jax_byte_for_byte(rt_scene, d):
 
 @pytest.mark.parametrize("host_desc", ["orb", "hybrid"])
 def test_host_detect_pack_refuses_orb_modes(rt_scene, host_desc):
-    with pytest.raises(NotImplementedError, match="ORB pattern"):
-        tfe.host_detect_pack([rt_scene.render(0)], 20.0, 64, 1,
-                             host_desc=host_desc)
+    """The host ORB modes are no longer refused: the port's packed chunk
+    equals the JAX package's (cv2's ORB bits) key for key, byte for byte;
+    "orb" ships no gray plane."""
+    frames = [rt_scene.render(i) for i in (0, 7)]
+    want = jfe.host_detect_pack(frames, 20.0, 256, 1, host_desc=host_desc)
+    got = tfe.host_detect_pack(frames, 20.0, 256, 1, host_desc=host_desc)
+    assert set(got) == set(want)
+    assert ("gray_small" in got) == (host_desc == "hybrid")
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert (got["desc_bits"] != 0).any(-1).sum() > 200
 
 
 @pytest.mark.parametrize("d,descriptor", [(2, "sift"), (1, "sift"),

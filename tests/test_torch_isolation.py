@@ -31,7 +31,7 @@ def test_every_port_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 57
+    assert int(res.stdout.strip().splitlines()[-1]) >= 58
 
 
 @pytest.mark.parametrize("pattern", [

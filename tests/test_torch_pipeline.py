@@ -342,3 +342,26 @@ def test_classic_slam_main_twin(e2e_scene, e2e_frames, tmp_path, case):
     assert "Batch size" in main and "Used in solvePnP" in main
     if case == "ba_on":
         assert "Bundle Adjustment statistics" in main
+
+
+def test_engine_matches_classic_ba_off(tmp_path):
+    """Twin of tests/test_runtime.py's test_engine_matches_classic_ba_off on
+    the port: with map re-binding off (the engine's one deliberate
+    departure from the classic conductor) the device runtime and the
+    classic conductor track the same number of frames of rt_scene, the
+    engine under 6 % ATE and within 0.03 of the extent of the classic
+    run's, and maps within 15 % of each other in size."""
+    scene = make_scene(n_points=700, n_frames=14, seed=5, baseline=0.3)
+    frames = [scene.render(i) for i in range(14)]
+    out = {}
+    for name, device_runtime in (("classic", False), ("engine", True)):
+        cfg = _cfg(tconfig, tmp_path / name)
+        cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(
+            cfg.tpu, device_runtime=device_runtime, rebind_cap=0))
+        gd = tapp.slam_main(cfg, scene.K, frames=list(frames), device="cpu")
+        out[name] = (gd, _rel_ate(scene, gd))
+    (gd_c, rel_c), (gd_e, rel_e) = out["classic"], out["engine"]
+    assert len(gd_e.rotations) == len(gd_c.rotations)
+    assert rel_e < 0.06, f"engine ATE {rel_e:.3f}"
+    assert abs(rel_e - rel_c) < 0.03, (rel_e, rel_c)
+    assert abs(len(gd_e.points) - len(gd_c.points)) < 0.15 * len(gd_c.points)

@@ -272,9 +272,10 @@ def test_queue_append_equals_jax(Q, q_head, q_len, admit):
 ])
 def test_host_desc_resolution_matches_jax(rt_scene, ingest, descriptor,
                                           host_desc, want):
-    """The JAX engine's host-descriptor rules; the port runs "same" and
-    refuses "orb" and "hybrid" under host ingest, never running them as
-    "same"."""
+    """The JAX engine's host-descriptor rules: the port resolves every case
+    as the JAX engine does (descriptor source, metric, descriptor width and
+    type) and ingests a chunk with it: every kept keypoint gets a
+    descriptor."""
     kw = dict(max_keypoints=64, ring=8, map_cap=256, window=4,
               window_points=256, descriptor=descriptor,
               metric="hamming" if descriptor == "orb" else "l2",
@@ -282,18 +283,21 @@ def test_host_desc_resolution_matches_jax(rt_scene, ingest, descriptor,
     jeng = JEngine(JArraySource([rt_scene.render(0)]), rt_scene.K,
                    JEngineConfig(**kw), batch_size=4, required_extracted=10)
     assert jeng.cfg.host_desc == want
-    if want == "same":
-        eng = DeviceEngine(ArraySource([rt_scene.render(0)]), rt_scene.K,
-                           EngineConfig(**kw), batch_size=4,
-                           required_extracted=10, device="cpu")
-        assert (eng.cfg.host_desc, eng.cfg.metric) == ("same", kw["metric"])
-        assert eng.cfg.ingest_mode == ingest
-        return
-    with pytest.raises(NotImplementedError,
-                       match=f"host_descriptor '{want}'.*ORB pattern"):
-        DeviceEngine(ArraySource([rt_scene.render(0)]), rt_scene.K,
-                     EngineConfig(**kw), batch_size=4, required_extracted=10,
-                     device="cpu")
+    eng = DeviceEngine(ArraySource([rt_scene.render(0)]), rt_scene.K,
+                       EngineConfig(**kw), batch_size=4,
+                       required_extracted=10, device="cpu")
+    assert eng.cfg.ingest_mode == ingest
+    assert (eng.cfg.host_desc, eng.cfg.metric, eng.cfg.desc_dim) == (
+        jeng.cfg.host_desc, jeng.cfg.metric, jeng.cfg.desc_dim)
+    jdesc = np.asarray(jeng.state.ring_desc)
+    assert tuple(eng.state.ring_desc.shape[1:]) == jdesc.shape[1:]
+    assert eng.state.ring_desc.element_size() == jdesc.dtype.itemsize
+    assert eng._stage_chunk() and eng._dispatch_ingest()
+    slot = int(eng._pending[0][0][0])
+    valid = eng.state.ring_valid[slot]
+    desc = eng.state.ring_desc[slot]
+    assert int(valid.sum()) > 20
+    assert bool((desc[valid] != 0).any(-1).float().mean() > 0.9)
 
 
 def test_link_probe_measures_once_per_device():
@@ -308,11 +312,33 @@ def test_link_probe_measures_once_per_device():
     assert measured_link_bandwidth_mbps(torch.device("cpu")) == bw
 
 
-def test_slam_main_refuses_the_default_host_descriptor(rt_scene, tmp_path):
-    """A host-ingest config left at host_descriptor "auto" is the JAX
-    package's hybrid descriptor: the port raises rather than run it as
-    "same"."""
-    cfg = _cfg(tconfig, tmp_path, host_descriptor="auto")
-    with pytest.raises(NotImplementedError, match="'hybrid'"):
-        tapp.slam_main(cfg, rt_scene.K, frames=[rt_scene.render(0)],
-                       device="cpu")
+def test_slam_main_refuses_the_default_host_descriptor(rt_scene, rt_frames,
+                                                      tmp_path):
+    """A host-ingest config left at host_descriptor "auto" runs the JAX
+    package's hybrid descriptor (it no longer refuses it): the port's run
+    of the first 8 frames resolves to "hybrid" and gives the JAX package's
+    cameras, ATE within 0.02 of the extent of its ATE."""
+    engines = []
+    orig_init = DeviceEngine.__init__
+
+    def init(self, *a, **kw):
+        orig_init(self, *a, **kw)
+        engines.append(self)
+
+    DeviceEngine.__init__ = init
+    try:
+        gd = tapp.slam_main(_cfg(tconfig, tmp_path / "t",
+                                 host_descriptor="auto"),
+                            rt_scene.K, frames=list(rt_frames[:8]),
+                            device="cpu")
+    finally:
+        DeviceEngine.__init__ = orig_init
+    assert (engines[0].cfg.host_desc, engines[0].cfg.desc_dim) == (
+        "hybrid", 384)
+    gd_j = japp.slam_main(_cfg(jconfig, tmp_path / "j",
+                               host_descriptor="auto"),
+                          rt_scene.K, frames=list(rt_frames[:8]))
+    assert len(gd.rotations) >= 6
+    assert _ids(gd) == _ids(gd_j)
+    rel_t, rel_j = _rel_ate(rt_scene, gd), _rel_ate(rt_scene, gd_j)
+    assert rel_t < 0.05 and abs(rel_t - rel_j) < 0.02, (rel_t, rel_j)

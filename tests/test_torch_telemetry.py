@@ -36,12 +36,12 @@ def rt_frames(rt_scene):
 
 def _cfg(mod, out, **tpu_over):
     """tests/test_runtime.py's per_frame_telemetry configuration: host
-    ingest at full resolution, Huber BA every 4 frames; "same" host
-    descriptors (the JAX default "hybrid" needs OpenCV's ORB pattern)."""
+    ingest at full resolution, Huber BA every 4 frames, the JAX default
+    host descriptor ("auto", which is "hybrid" here)."""
     tpu = mod.TpuConfig(max_keypoints=512, ransac_iters=256,
                         pnp_ransac_iters=128, window_points=4096,
                         ba_max_iters=12, ingest="host", ingest_downscale=1,
-                        host_descriptor="same", per_frame_telemetry=True)
+                        per_frame_telemetry=True)
     tpu = dataclasses.replace(tpu, **tpu_over)
     return mod.Config(usePhotosCycle=True, outputDataDir=str(out),
                       requiredExtractedPointsCount=80,
@@ -64,11 +64,14 @@ def _matching_lines(out):
             if ln.startswith("Matching time for index")]
 
 
-@pytest.fixture(scope="module")
-def telemetry_run(rt_scene, rt_frames, tmp_path_factory):
-    """The port's per-frame telemetry run, with every advance_window call's
-    step count and the engine recorded."""
-    out = tmp_path_factory.mktemp("telemetry")
+@pytest.fixture(scope="module", params=["auto", "same"])
+def telemetry_run(request, rt_scene, rt_frames, tmp_path_factory):
+    """The port's per-frame telemetry run with the default host descriptor
+    ("hybrid") and with "same", with every advance_window call's step count
+    and the engine recorded → (GlobalData, its output directory, the step
+    counts, the engine, the host descriptor asked for)."""
+    hd = request.param
+    out = tmp_path_factory.mktemp(f"telemetry_{hd}")
     t_steps, engines = [], []
     orig_adv, orig_init = steps.advance_window, DeviceEngine.__init__
 
@@ -82,11 +85,11 @@ def telemetry_run(rt_scene, rt_frames, tmp_path_factory):
 
     steps.advance_window, DeviceEngine.__init__ = adv, init
     try:
-        gd = tapp.slam_main(_cfg(tconfig, out), rt_scene.K,
-                            frames=list(rt_frames), device="cpu")
+        gd = tapp.slam_main(_cfg(tconfig, out, host_descriptor=hd),
+                            rt_scene.K, frames=list(rt_frames), device="cpu")
     finally:
         steps.advance_window, DeviceEngine.__init__ = orig_adv, orig_init
-    return gd, out, t_steps, engines[0]
+    return gd, out, t_steps, engines[0], hd
 
 
 def test_per_frame_telemetry_mode(rt_scene, rt_frames, telemetry_run,
@@ -95,14 +98,15 @@ def test_per_frame_telemetry_mode(rt_scene, rt_frames, telemetry_run,
     per dispatch, one "Matching time for index N" line per tracked step,
     and the JAX package's run on the same frames: the same cameras, ATE
     within 0.02 of the extent of its ATE."""
-    gd, out, t_steps, engine = telemetry_run
+    gd, out, t_steps, engine, hd = telemetry_run
     assert len(gd.rotations) >= 10
     assert not engine._will_stream
+    assert engine.cfg.host_desc == {"auto": "hybrid"}.get(hd, hd)
     assert t_steps and set(t_steps) == {1}
     lines = _matching_lines(out)
     assert len(lines) >= len(gd.rotations) - 2
-    gd_j = japp.slam_main(_cfg(jconfig, tmp_path), rt_scene.K,
-                          frames=list(rt_frames))
+    gd_j = japp.slam_main(_cfg(jconfig, tmp_path, host_descriptor=hd),
+                          rt_scene.K, frames=list(rt_frames))
     assert [int(f) for f in gd.frame_ids] == [int(f) for f in gd_j.frame_ids]
     rel_t, rel_j = _rel_ate(rt_scene, gd), _rel_ate(rt_scene, gd_j)
     assert rel_t < 0.05 and abs(rel_t - rel_j) < 0.02, (rel_t, rel_j)
@@ -113,9 +117,10 @@ def test_per_frame_telemetry_equals_fused_loop(rt_scene, rt_frames,
     """The one-step loop schedules and tracks as the fused window loop
     does (the same scheduling rule at a finer dispatch granularity): the
     same cameras and chosen indices, poses to 1e-5."""
-    gd, out, _, _ = telemetry_run
+    gd, out, _, _, hd = telemetry_run
     fused = tapp.slam_main(
-        _cfg(tconfig, tmp_path, per_frame_telemetry=False, streaming=False),
+        _cfg(tconfig, tmp_path, per_frame_telemetry=False, streaming=False,
+             host_descriptor=hd),
         rt_scene.K, frames=list(rt_frames), device="cpu")
     assert [int(f) for f in fused.frame_ids] == [int(f) for f in gd.frame_ids]
     idx = [ln.split()[4] for ln in _matching_lines(out)]
