@@ -85,31 +85,54 @@ Phases, each followed by one flushed line with the elapsed seconds:
               reloaded with its cameras at ATE < 5 %, a trace in DIR that
               names ``top2_l2_kernel`` and ``steps.`` spans; prints the
               photo decode ms per frame and which decoder ran.
-16. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+16. jpeg    — the 32 frames as baseline 4:2:0 JPEG at quality 95 (the
+              numpy writer of testing/mjpeg.py: the card has no encoder),
+              then the CLI module in a subprocess under a counting wrapper
+              (three decode workers): exit 0, the "map points" line, the
+              logs reloaded with cameras >= 24/32 at ATE < 5 %, one L2
+              ``top2_batch`` launch per scan step and bootstrap match and
+              no other kernel; before it, io/jpeg.py is held to the
+              committed sha256 of cv2's decode of the fixtures in
+              testing/jpeg_fixtures/; after it, the decode is timed with
+              three workers and with one (two passes bit for bit) and set
+              beside the tracking ms per frame; prints which decoder ran.
+17. video   — the same JPEG frames muxed into one MJPEG AVI, the CLI with
+              ``usePhotosCycle=false``: the jpeg phase's checks, poses.txt
+              equal to the jpeg run's byte for byte, the AVI's frames equal
+              to the JPEG files'; prints the frame count, the container
+              parse time and the decode ms per frame.
+18. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+              frames, two procedural textures from seeds, rendered on the
+              card (frame 0 equal to the CPU render), through ``slam_main``
+              at the headline configuration: cameras >= 12/24 at ATE < 5 %
+              against the scene's exact centres, one L2 ``top2_batch``
+              launch per scan step and bootstrap match; prints the render
+              ms per frame.
+19. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
               the same views; the XML written and reloaded; the solve's
               seconds.
-17. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+20. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-18. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+21. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-19. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+22. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-20. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+23. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-21. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+24. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -119,7 +142,7 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-22. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+25. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
@@ -1556,47 +1579,32 @@ def telemetry_path(card_line: str, scene, frames, gd_l2, logged_l2):
     return n
 
 
-def cli_path(card_line: str, scene, frames, gd_l2, logged_l2):
+def cli_path(card_line: str, scene, frames, logged_l2):
     """The reference binary's contract: the 32 frames as PNG files, K as
     OpenCV XML, the headline configuration as JSON (three decode workers),
-    then ``python3 -m slam_indoor_code_tpu_torch cfg.json --profile DIR``
-    as a subprocess.  It must exit 0 and print the "map points" line; its
-    six logs must reload with its cameras at ATE < 5 % (poses.txt holds
-    each frame's pose as accepted, before the windowed BA moves it); DIR
-    must hold a trace naming ``top2_l2_kernel`` and ``steps.`` spans.
-    Prints whether its poses.txt equals phase 4's byte for byte (the same
-    frames, K and seed) and times the photo decode per frame in this
-    process."""
+    then the CLI module with ``--profile DIR`` in a subprocess
+    (cli_counted's checks).  DIR must hold a trace naming
+    ``top2_l2_kernel`` and ``steps.`` spans.  Prints whether its poses.txt
+    equals phase 4's byte for byte (the same frames, K and seed) and times
+    the photo decode per frame in this process."""
     import glob
-    import re
 
     import numpy as np
 
-    from slam_indoor_code_tpu_torch.config import dump_config
     from slam_indoor_code_tpu_torch.io import native
-    from slam_indoor_code_tpu_torch.io.logs import load_global_data_from_logs
     from slam_indoor_code_tpu_torch.io.media import MediaSource
     from slam_indoor_code_tpu_torch.io.png import write_png
-    from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
 
-    repo = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as root:
-        photos, out, prof = (os.path.join(root, d)
-                             for d in ("photos", "out", "prof"))
-        for d in (photos, out):
-            os.makedirs(d)
+        photos, prof = (os.path.join(root, d) for d in ("photos", "prof"))
+        os.makedirs(photos)
         t = time.perf_counter()
         for i, f in enumerate(frames):
             write_png(os.path.join(photos, f"frame_{i}.png"), f)
         write_s = time.perf_counter() - t
-        save_matrix_to_xml(os.path.join(root, "cam.xml"), scene.K, "K")
         cfg = dataclasses.replace(
-            headline_config(out), threadsCount=3,
-            photosPathPattern=os.path.join(photos, "*.png"),
-            calibrationPath=os.path.join(root, "cam.xml"))
-        cfg_path = os.path.join(root, "cfg.json")
-        with open(cfg_path, "w") as f:
-            f.write(dump_config(cfg))
+            headline_config(os.path.join(root, "out")),
+            photosPathPattern=os.path.join(photos, "*.png"))
 
         decoder = "native (libjpeg/libpng)"
         if not native.available():
@@ -1612,55 +1620,348 @@ def cli_path(card_line: str, scene, frames, gd_l2, logged_l2):
                 np.array_equal(a, b) for a, b in zip(decoded, frames)):
             fail("cli: the decoded photos differ from the rendered frames")
 
-        env = dict(os.environ, PYTHONPATH=repo)
-        t = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "slam_indoor_code_tpu_torch", cfg_path,
-             "--profile", prof], capture_output=True, text=True,
-            timeout=600, cwd=repo, env=env)
-        run_s = time.perf_counter() - t
-        if r.returncode != 0:
-            fail(f"cli: exit {r.returncode}: {r.stderr[-2000:]}")
-        m = re.search(r"map points: (\d+); cameras: (\d+)", r.stdout)
-        if m is None:
-            fail(f"cli: no 'map points' line in {r.stdout[-500:]!r}")
-        n_pts, n_cams = int(m.group(1)), int(m.group(2))
-        for name in ("poses", "rotations", "points", "colors", "main",
-                     "time"):
-            if not os.path.getsize(os.path.join(out, f"{name}.txt")):
-                fail(f"cli: {name}.txt is empty")
-        gd = load_global_data_from_logs(out)
-        with open(os.path.join(out, "poses.txt")) as f:
-            same = f.read() == logged_l2["poses"]
+        n, n_cams, ate_pct, poses, run_s = cli_counted(
+            "cli", cfg, root, scene, ("--profile", prof))
+        same = poses == logged_l2["poses"]
         traces = glob.glob(os.path.join(prof, "*.json"))
         text = "".join(open(p).read() for p in traces)
         trace_mb = sum(os.path.getsize(p) for p in traces) / 1e6
-    if len(gd.rotations) != n_cams or len(gd.points) != n_pts:
-        fail(f"cli: the logs reload {len(gd.rotations)} cameras and "
-             f"{len(gd.points)} points, the run printed {n_cams} and {n_pts}")
-    if n_cams < MIN_CAMERAS:
-        fail(f"cli: only {n_cams}/{N_FRAMES} frames became cameras")
-    if n_cams == N_FRAMES:
-        fids = np.arange(N_FRAMES)
-    elif n_cams == len(gd_l2.rotations):
-        fids = gd_l2.frame_ids
-    else:
-        fail(f"cli: {n_cams} cameras cannot be paired with ground truth")
-    ate_pct = rel_ate_pct(scene, gd.rotations, gd.positions, fids)
-    if not ate_pct < 100 * ATE_MAX_FRAC:
-        fail(f"cli: ATE {ate_pct:.4f}% >= {100 * ATE_MAX_FRAC}% of extent")
     if "top2_l2_kernel" not in text or "steps." not in text:
         fail(f"cli: the trace in {len(traces)} file(s) names "
              f"top2_l2_kernel: {'top2_l2_kernel' in text}, steps. spans: "
              f"{'steps.' in text}")
     print(f"cli: exit 0, cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
-          f"extent (logs reloaded)  map {n_pts} points  subprocess "
+          f"extent (logs reloaded)  launches {json.dumps(n)}  subprocess "
           f"{run_s:.3f} s (profiled)  trace {trace_mb:.1f} MB in "
           f"{len(traces)} file(s) names top2_l2_kernel and steps. spans  "
           f"poses.txt equals the main path's byte for byte: {same}  decode "
           f"{decode_ms:.3f} ms per frame (3 workers, {os.cpu_count()} cores; "
           f"{decoder}); PNG writing {1e3 * write_s / len(frames):.1f} ms per "
           f"frame  [{card_line}]", flush=True)
+
+# ------------------------------------------------------------ media slice
+
+# ``python -m slam_indoor_code_tpu_torch`` run through runpy so that the
+# subprocess can report what the card did: each kernel's launch count, the
+# plain versions' calls, the engine's bootstrap matches, slam_main's wall
+# and the source frame of each camera, printed as one JSON line at exit.
+CLI_COUNTING = r"""
+import atexit, json, runpy, sys, time
+import torch
+from slam_indoor_code_tpu_torch import app
+from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
+from slam_indoor_code_tpu_torch.runtime import DeviceEngine
+seen = {"engines": [], "wall": [], "plain": 0, "frame_ids": []}
+init = DeviceEngine.__init__
+def spy(self, *a, **kw):
+    init(self, *a, **kw)
+    seen["engines"].append(self)
+DeviceEngine.__init__ = spy
+for name in ("top2_batch_plain", "top2_pair_plain", "top2_l1_plain"):
+    def counted(*a, _fn=getattr(ck, name), **kw):
+        seen["plain"] += 1
+        return _fn(*a, **kw)
+    setattr(ck, name, counted)
+slam_main = app.slam_main
+def timed(*a, **kw):
+    t = time.perf_counter()
+    gd = slam_main(*a, **kw)
+    torch.cuda.synchronize()
+    seen["wall"].append(time.perf_counter() - t)
+    seen["frame_ids"] = [int(i) for i in gd.frame_ids]
+    return gd
+app.slam_main = timed
+atexit.register(lambda: print("counts: " + json.dumps({
+    "top2_batch": ck.top2_batch.launches,
+    "hamming": ck.top2_batch.hamming_launches,
+    "lpb": ck.top2_batch.multi_lane_launches,
+    "top2_pair": ck.top2_pair.launches, "top2_l1": ck.top2_l1.launches,
+    "plain": seen["plain"], "slam_main_s": sum(seen["wall"]),
+    "frame_ids": seen["frame_ids"],
+    "match_select_calls": sum(e.match_select_calls
+                              for e in seen["engines"])}), flush=True))
+sys.argv = ["slam_indoor_code_tpu_torch"] + sys.argv[1:]
+runpy.run_module("slam_indoor_code_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def cli_counted(what: str, cfg, root: str, scene, extra_args=()):
+    """The configuration as JSON and K as XML under ``root``, then the CLI
+    module in a subprocess under CLI_COUNTING.  Holds its exit, the "map
+    points" line, the six logs (reloaded: cameras >= MIN_CAMERAS at ATE <
+    5 %, paired with ground truth by the run's frame ids), and one L2
+    ``top2_batch`` launch per scan step (time.txt's "Matching time for
+    index" lines) and per bootstrap ``match_select``, with no other kernel
+    and no plain version → (counts, cameras, ATE %, poses.txt's text,
+    subprocess s).  ``extra_args`` go on the CLI's command line."""
+    import re
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.config import dump_config
+    from slam_indoor_code_tpu_torch.io.logs import load_global_data_from_logs
+    from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    save_matrix_to_xml(os.path.join(root, "cam.xml"), scene.K, "K")
+    cfg = dataclasses.replace(cfg, threadsCount=3,
+                              calibrationPath=os.path.join(root, "cam.xml"))
+    out = cfg.outputDataDir
+    os.makedirs(out, exist_ok=True)
+    cfg_path = os.path.join(root, "cfg.json")
+    with open(cfg_path, "w") as f:
+        f.write(dump_config(cfg))
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLI_COUNTING, cfg_path,
+                        *extra_args],
+                       capture_output=True, text=True, timeout=600, cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    run_s = time.perf_counter() - t
+    if r.returncode != 0:
+        fail(f"{what}: exit {r.returncode}: {r.stderr[-2000:]}")
+    m = re.search(r"map points: (\d+); cameras: (\d+)", r.stdout)
+    c = re.search(r"^counts: (.*)$", r.stdout, re.M)
+    if m is None or c is None:
+        fail(f"{what}: no 'map points' or counts line in "
+             f"{r.stdout[-500:]!r}")
+    n_pts, n_cams = int(m.group(1)), int(m.group(2))
+    n = json.loads(c.group(1))
+    for name in ("poses", "rotations", "points", "colors", "main", "time"):
+        if not os.path.getsize(os.path.join(out, f"{name}.txt")):
+            fail(f"{what}: {name}.txt is empty")
+    gd = load_global_data_from_logs(out)
+    with open(os.path.join(out, "poses.txt")) as f:
+        poses = f.read()
+    with open(os.path.join(out, "time.txt")) as f:
+        steps = sum(ln.startswith("Matching time for index") for ln in f)
+    if len(gd.rotations) != n_cams or len(gd.points) != n_pts:
+        fail(f"{what}: the logs reload {len(gd.rotations)} cameras and "
+             f"{len(gd.points)} points, the run printed {n_cams} and {n_pts}")
+    if n_cams < MIN_CAMERAS:
+        fail(f"{what}: only {n_cams}/{N_FRAMES} frames became cameras")
+    fids = n.pop("frame_ids")
+    if len(fids) != n_cams:
+        fail(f"{what}: {len(fids)} frame ids for {n_cams} cameras")
+    ate_pct = rel_ate_pct(scene, gd.rotations, gd.positions, fids)
+    if not np.isfinite(ate_pct) or not ate_pct < 100 * ATE_MAX_FRAC:
+        fail(f"{what}: ATE {ate_pct:.4f}% >= {100 * ATE_MAX_FRAC}% of extent")
+    if n["plain"]:
+        fail(f"{what}: a kernel's plain version was called {n['plain']} "
+             "times on the card")
+    if (n["top2_batch"] != steps + n["match_select_calls"] or steps == 0
+            or n["hamming"] or n["lpb"] or n["top2_pair"] or n["top2_l1"]):
+        fail(f"{what}: launches {n} for {steps} scan steps and "
+             f"{n['match_select_calls']} bootstrap matches")
+    return n, n_cams, ate_pct, poses, run_s
+
+
+def held_to_fixtures() -> int:
+    """The decoder on the card against the committed sha256 of cv2's
+    decode of each fixture (the card has no cv2) → fixtures held."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import jpeg
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "slam_indoor_code_tpu_torch", "testing",
+                            "jpeg_fixtures")
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        table = json.load(f)
+    for name, want in table.items():
+        img = jpeg.imread_rgb(os.path.join(fixtures, name))
+        got = (None if img is None else
+               hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest())
+        if got != want["sha256"]:
+            fail(f"jpeg: {name} decodes to sha256 {got}, cv2's is "
+                 f"{want['sha256']}")
+    return len(table)
+
+
+def decode_timings(media_kw: dict, n_frames: int):
+    """Two passes of ``MediaSource(**media_kw)`` with three workers → (the
+    first pass's frames, its ms per frame); fails unless the second pass
+    gives the same frames bit for bit."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    t = time.perf_counter()
+    first = list(MediaSource(threads=3, **media_kw))
+    ms = 1e3 * (time.perf_counter() - t) / max(len(first), 1)
+    second = list(MediaSource(threads=3, **media_kw))
+    if len(first) != n_frames or len(second) != n_frames or not all(
+            np.array_equal(a, b) for a, b in zip(first, second)):
+        fail(f"decode {media_kw}: {len(first)} and {len(second)} frames, "
+             "or two passes differ")
+    return first, ms
+
+
+def jpeg_phase(card_line: str, scene, frames, gd_l2):
+    """The 32 headline frames as baseline 4:2:0 JPEG at quality 95 (the
+    numpy writer, testing/mjpeg.py: the card has no encoder), then the CLI
+    on the photo glob with three decode workers (cli_counted).  First the
+    decoder is held to the committed fixtures; after the run, the decode is
+    timed in this process with three workers and with one, and two passes
+    must agree bit for bit → (counts, poses.txt, the JPEG bytes, the
+    decoded frames)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import jpeg, native
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    held = held_to_fixtures()
+    decoder = "native (libjpeg)"
+    if not native.available():
+        why = [ln for ln in native.build_error().splitlines()
+               if "error" in ln] or ["?"]
+        decoder = (f"io/jpeg.py (native/jpeg.cpp); the native libjpeg build "
+                   f"failed: {why[0].strip()[:100]}")
+    with tempfile.TemporaryDirectory() as root:
+        photos = os.path.join(root, "photos")
+        os.makedirs(photos)
+        t = time.perf_counter()
+        jpegs = [mjpeg.encode_jpeg(f, 95) for f in frames]
+        encode_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+        for i, data in enumerate(jpegs):
+            with open(os.path.join(photos, f"frame_{i}.jpg"), "wb") as f:
+                f.write(data)
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            photosPathPattern=os.path.join(photos, "*.jpg"))
+        n, n_cams, ate_pct, poses, run_s = cli_counted("jpeg", cfg, root,
+                                                       scene)
+        decoded, decode_ms = decode_timings(
+            {"photos_pattern": cfg.photosPathPattern}, len(frames))
+        t = time.perf_counter()
+        for data in jpegs:
+            jpeg.decode(data)
+        one_ms = 1e3 * (time.perf_counter() - t) / len(jpegs)
+    err = max(float(np.abs(a.astype(np.int16) - b).mean())
+              for a, b in zip(decoded, frames))
+    if err > 3.0:
+        fail(f"jpeg: decoded frames are {err:.3f} grey levels off the "
+             "rendered ones on average")
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"jpeg: exit 0, cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% "
+          f"of extent (logs reloaded; the L2 run on the lossless frames: "
+          f"{len(gd_l2.rotations)} cameras)  launches {json.dumps(n)}  "
+          f"decoder {decoder}; {held} fixtures equal cv2's decode (sha256); "
+          f"{sum(map(len, jpegs)) / len(jpegs) / 1e3:.1f} kB per frame, "
+          f"mean |decoded - rendered| <= {err:.3f}; decode "
+          f"{decode_ms:.3f} ms per frame with 3 workers ({os.cpu_count()} "
+          f"cores), {one_ms:.3f} ms per frame on one thread; tracking "
+          f"(slam_main in the CLI, decode overlapped) {track_ms:.3f} ms per "
+          f"frame; subprocess {run_s:.3f} s; numpy encode {encode_ms:.1f} ms "
+          f"per frame  [{card_line}]", flush=True)
+    return n, poses, jpegs, decoded
+
+
+def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg):
+    """The jpeg phase's JPEG frames muxed into one Motion-JPEG AVI (the
+    RIFF writer, testing/mjpeg.py), then the CLI with
+    ``usePhotosCycle=false`` (cli_counted): its poses.txt must equal the
+    jpeg run's byte for byte (the same frames); the container parse and
+    the decode are timed in this process, whose frames must equal the
+    jpeg phase's → counts."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "seq.avi")
+        h, w = decoded[0].shape[:2]
+        mjpeg.write_avi(path, jpegs, w, h)
+        t = time.perf_counter()
+        parsed = avi.MjpegAvi(path)
+        parse_ms = 1e3 * (time.perf_counter() - t)
+        parsed.close()
+        if len(parsed.frames) != len(jpegs) or parsed.fourcc != b"MJPG":
+            fail(f"video: the container lists {len(parsed.frames)} "
+                 f"{parsed.fourcc!r} frames for {len(jpegs)} written")
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=path)
+        n, n_cams, ate_pct, poses, run_s = cli_counted("video", cfg, root,
+                                                       scene)
+        frames, decode_ms = decode_timings(
+            {"video_path": path, "use_photos": False}, len(jpegs))
+        mb = os.path.getsize(path) / 1e6
+    if not all(np.array_equal(a, b) for a, b in zip(frames, decoded)):
+        fail("video: the AVI's frames differ from the JPEG files' frames")
+    if poses != poses_jpeg:
+        fail("video: poses.txt differs from the jpeg run's")
+    print(f"video: exit 0, {len(frames)} frames ({mb:.1f} MB MJPEG AVI), "
+          f"cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  "
+          f"poses.txt equals the jpeg run's byte for byte  launches "
+          f"{json.dumps(n)}  container parse {parse_ms:.3f} ms; decode "
+          f"{decode_ms:.3f} ms per frame with 3 workers; tracking "
+          f"{1e3 * n['slam_main_s'] / N_FRAMES:.3f} ms per frame; "
+          f"subprocess {run_s:.3f} s  [{card_line}]", flush=True)
+    return n
+
+
+# The real-texture scene at FHD: 24 frames (the JAX package's default
+# sweep, 0.12 per frame), two procedural textures from seeds, rendered on
+# the card.  The good-frame rule keeps the head-most best-matched frame of
+# each batch, which on this sweep is every other frame: the JAX package
+# keeps 13 of the 24 on the CPU (frames 0, 2, ..., 22, 23), as the port
+# does there.
+N_FRAMES_RT = 24
+MIN_CAMERAS_RT = 12
+
+
+def realtex_scene():
+    """testing/realtex.py's two-plane scene at 1080x1920, N_FRAMES_RT
+    frames, over two procedural textures (seeds 21 and 22)."""
+    from slam_indoor_code_tpu_torch.testing import realtex
+
+    far = realtex.procedural_texture((1080, 1920), 21)
+    near = realtex.procedural_texture((1080, 1125), 22)
+    return realtex.make_two_plane_scene([far, near], n_frames=N_FRAMES_RT,
+                                        step=0.12, image_size=(1080, 1920))
+
+
+def realtex_phase(card_line: str):
+    """testing/realtex.py's two-plane scene at 1080x1920 with two
+    procedural textures (posterized multi-octave noise, seeds 21 and 22;
+    no photo), rendered on the card (frame 0 must equal its CPU render bit
+    for bit), then ``slam_main`` on CUDA with the headline configuration:
+    cameras >= 12/24 at ATE < 5 % of extent against the scene's exact
+    centres, one L2 ``top2_batch`` launch per scan step and bootstrap
+    match → counts."""
+    import numpy as np
+    import torch
+
+    scene = realtex_scene()
+    scene.render(0, device="cuda")            # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    frames = [scene.render(i, device="cuda") for i in range(N_FRAMES_RT)]
+    render_ms = 1e3 * (time.perf_counter() - t) / N_FRAMES_RT
+    if not np.array_equal(frames[0], scene.render(0, device="cpu")):
+        fail("realtex: the card's render differs from the CPU's")
+    what = "realtex"
+    with tempfile.TemporaryDirectory() as out:
+        n, gd, wall, engine, logged = slam_run(headline_config(out), scene,
+                                               frames)
+    n_cams, ate_pct = trajectory_ok(what, scene, gd, N_FRAMES_RT,
+                                    MIN_CAMERAS_RT)
+    on_cuda(what, engine)
+    steps = len(logged["picks"])
+    if (n["top2_batch"] != steps + engine.match_select_calls or steps == 0
+            or n["hamming"] or n["lpb"] or n["top2_pair"] or n["top2_l1"]):
+        fail(f"{what}: launches {n} for {steps} scan steps and "
+             f"{engine.match_select_calls} bootstrap matches")
+    report(what, n_cams, ate_pct, gd, wall, n, card_line, N_FRAMES_RT)
+    print(f"realtex: render {render_ms:.3f} ms per frame on the card (two "
+          f"planes, 1080x1920, equal to the CPU render)  [{card_line}]",
+          flush=True)
+    return n
+
 
 # ------------------------------------------------------- distribution slice
 
@@ -2060,8 +2361,19 @@ def main() -> None:
         n = telemetry_path(card_line, scene, frames, gd_l2, logged_l2)
         by_path["telemetry"] = n["top2_batch"]
         phase("telemetry", top2_batch_launches=n["top2_batch"])
-        cli_path(card_line, scene, frames, gd_l2, logged_l2)
+        cli_path(card_line, scene, frames, logged_l2)
         phase("cli")
+        n, poses_jpeg, jpegs, decoded = jpeg_phase(card_line, scene, frames,
+                                                   gd_l2)
+        by_path["jpeg (cli)"] = n["top2_batch"]
+        phase("jpeg", top2_batch_launches=n["top2_batch"])
+        n = video_phase(card_line, scene, jpegs, decoded, poses_jpeg)
+        by_path["video (cli)"] = n["top2_batch"]
+        del jpegs, decoded
+        phase("video", top2_batch_launches=n["top2_batch"])
+        n = realtex_phase(card_line)
+        by_path["realtex"] = n["top2_batch"]
+        phase("realtex", top2_batch_launches=n["top2_batch"])
         calib_s = calibrate_phase(card_line, scene)
         phase("calibrate", solve_s=f"{calib_s:.4f}")
         shard_launches, shard_ba_s = shard_phase(card_line, scene, frames)

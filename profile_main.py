@@ -3,6 +3,7 @@
 
     python3 profile_main.py [l2|l1|orb|stream|classic|tile|diverge|sequences]
     python3 profile_main.py stream [hybrid|hostorb|4k]
+    python3 profile_main.py nullspace
 
 Runs chip_smoke.py's headline configuration (FHD, 32 frames) through the
 port's ``slam_main`` on CUDA (with ``l1``: through ``DeviceEngine.run`` with
@@ -50,6 +51,16 @@ interval at 0.5 ms instead of 5 ms (a thread that waited on the card takes
 the interpreter back sooner); and with the Jacobian lock
 (utils/autodiff.py) timed, to give the seconds the threads waited on it.
 Each parallel result must equal its solo run bit for bit.
+
+With ``nullspace``: why the DLT nullspaces (geometry/nullspace.py) solve in
+float64 on CUDA.  On a batch of 4096 PnP-shaped 12x12 AᵀA from near-flat
+6-point clouds, the smallest eigenpair from ``torch.linalg.eigh`` in
+float32 on the CPU (LAPACK) and on CUDA (cuSOLVER), and in float64 on
+CUDA, each against float64 LAPACK: the eigenvector's |cos| (minimum and
+the share below 0.999) and the eigenvalue's median.  Then chip_smoke.py's
+realtex scene through ``slam_main`` on CUDA for RANSAC seeds 0-3, with the
+nullspaces in float32 (the solver as it was) and as they are now, and on
+the CPU for seed 0: cameras, frame ids and ATE of each.
 """
 
 from __future__ import annotations
@@ -348,6 +359,64 @@ def sequences() -> None:
         autodiff._LOCK = plain
 
 
+def nullspace() -> None:
+    import torch
+
+    from slam_indoor_code_tpu_torch.app import slam_main
+    from slam_indoor_code_tpu_torch.geometry import essential, pnp, triangulate
+    from slam_indoor_code_tpu_torch.geometry import nullspace as ns
+
+    _, card_line = chip_smoke.card()
+    chip_smoke.build()
+    g = torch.Generator().manual_seed(0)
+    X = (torch.randn(4096, 6, 3, generator=g)
+         * torch.tensor([2.0, 1.0, 0.05]) + torch.tensor([0.0, 0.0, 5.0]))
+    x = torch.randn(4096, 6, 2, generator=g) * 0.3
+    Xh = torch.cat([X, torch.ones(4096, 6, 1)], -1)
+    zeros = torch.zeros_like(Xh)
+    A = torch.cat([torch.cat([Xh, zeros, -x[..., :1] * Xh], -1),
+                   torch.cat([zeros, Xh, -x[..., 1:] * Xh], -1)], 1)
+    AtA = torch.einsum("sij,sik->sjk", A, A)
+    w64, v64 = torch.linalg.eigh(AtA.double())
+    for what, a in (("float32 LAPACK (cpu)", AtA),
+                    ("float32 cuSOLVER (cuda)", AtA.cuda()),
+                    ("float64 cuSOLVER (cuda)", AtA.cuda().double())):
+        w, v = torch.linalg.eigh(a)
+        cos = (v[..., 0].cpu().double() * v64[..., 0]).sum(-1).abs()
+        print(f"eigh {what}: smallest eigenvector |cos| against float64 "
+              f"LAPACK min {float(cos.min()):.6f}, share < 0.999 "
+              f"{float((cos < 0.999).double().mean()):.4f}; smallest "
+              f"eigenvalue median {float(w[:, 0].median()):.4e} (float64 "
+              f"LAPACK {float(w64[:, 0].median()):.4e})  [{card_line}]",
+              flush=True)
+
+    def float32_solver(AtA):
+        return torch.linalg.eigh(AtA)[1][..., 0]
+
+    scene = chip_smoke.realtex_scene()
+    frames = [scene.render(i, device="cuda")
+              for i in range(chip_smoke.N_FRAMES_RT)]
+    runs = [("cuda, nullspace float32", "cuda", s, float32_solver)
+            for s in range(4)]
+    runs += [("cuda, nullspace as now", "cuda", s, ns.smallest_eigenvector)
+             for s in range(4)]
+    runs += [("cpu", "cpu", 0, ns.smallest_eigenvector)]
+    for what, device, seed, solver in runs:
+        for m in (essential, pnp, triangulate):
+            m.smallest_eigenvector = solver
+        with tempfile.TemporaryDirectory() as out:
+            gd = slam_main(chip_smoke.headline_config(out), scene.K,
+                           frames=frames, seed=seed, device=device)
+        ate = chip_smoke.rel_ate_pct(scene, gd.rotations, gd.positions,
+                             gd.frame_ids)
+        print(f"realtex {what}, seed {seed}: cameras "
+              f"{len(gd.rotations)}/{chip_smoke.N_FRAMES_RT} ids "
+              f"{[int(i) for i in gd.frame_ids]} ATE {ate:.4f}%  "
+              f"[{card_line}]", flush=True)
+    for m in (essential, pnp, triangulate):
+        m.smallest_eigenvector = ns.smallest_eigenvector
+
+
 def main() -> None:
     from slam_indoor_code_tpu_torch.app import slam_main
     from slam_indoor_code_tpu_torch.ops import build
@@ -359,9 +428,11 @@ def main() -> None:
         return diverge()
     if metric == "sequences":
         return sequences()
+    if metric == "nullspace":
+        return nullspace()
     if metric not in ("l2", "l1", "orb", "stream", "classic"):
         raise SystemExit(f"mode must be l2, l1, orb, stream, classic, tile, "
-                         f"diverge or sequences, got {metric!r}")
+                         f"diverge, sequences or nullspace, got {metric!r}")
     variant = sys.argv[2] if metric == "stream" and len(sys.argv) > 2 else ""
     if variant not in ("", "hybrid", "hostorb", "4k"):
         raise SystemExit(f"stream takes hybrid, hostorb or 4k, got "

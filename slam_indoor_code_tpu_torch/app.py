@@ -7,8 +7,8 @@ cfg.outputDataDir.
 Two execution paths with the same semantics: the device-resident engine
 (runtime/engine.py, the default) and, with ``tpu.device_runtime=false``,
 the classic host conductor (pipeline/main_cycle.py, the readable one).
-Media comes from the config's photo glob (io/media.py) unless frames are
-passed in memory; the camera from its OpenCV-XML ``calibrationPath`` (K,
+Media comes from the config's photo glob or Motion-JPEG AVI (io/media.py)
+unless frames are passed in memory; the camera from its OpenCV-XML ``calibrationPath`` (K,
 and with ``useUndistortion`` the distortion coefficients DC).
 ``tpu.global_ba`` adds the final full-trajectory BA (``_global_refine``);
 ``tpu.checkpoint_path``/``checkpoint_every`` snapshot the run and
@@ -20,8 +20,8 @@ chessboard calibration (calibration/), ``tpu.mesh_shape`` the meshed engine
 (parallel/), and ``run_sequences_parallel`` tracks independent sequences
 at once, one thread, card and CUDA stream each.
 
-Not ported yet (ROADMAP): video media, chessboard corner detection (both
-OpenCV's in the JAX package) and the host ORB descriptor modes.
+Not ported yet (ROADMAP): chessboard corner detection, and video in codecs
+other than Motion-JPEG (both OpenCV's in the JAX package).
 """
 
 from __future__ import annotations
@@ -43,7 +43,8 @@ from .utils.timer import ChronoTimer
 
 def make_media(cfg: Config, frames=None):
     """In-memory frames (a list/array, or any object with ``next_frame``),
-    else the config's photo glob decoded by ``threadsCount`` workers."""
+    else the config's photo glob (or, with ``usePhotosCycle=false``, its
+    MJPEG AVI) decoded by ``threadsCount`` workers."""
     if frames is not None:
         if hasattr(frames, "next_frame"):
             return frames

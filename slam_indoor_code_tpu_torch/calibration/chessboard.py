@@ -12,7 +12,7 @@ the loop reads nothing back from the device until it ends.
 Corner detection is OpenCV's in the JAX package; the port does not import
 OpenCV, so ``find_chessboard_corners`` raises the JAX package's own error
 for a missing cv2, and the photo entry point reaches it after decoding the
-first photo.  Video calibration raises as ``MediaSource`` does for video.
+first photo (or the tenth video frame).
 """
 
 from __future__ import annotations
@@ -261,8 +261,8 @@ def chessboard_photos_calibration(photo_paths, save_path,
 
 def main_calibration_entry_point(cfg, device=None):
     """Dispatch like the reference's mainCalibrationEntryPoint
-    (cameraCalibration.cpp:18-32): photos glob, or video, which raises as
-    ``MediaSource`` raises for video media."""
+    (cameraCalibration.cpp:18-32): photos glob, or every tenth frame of the
+    video (an MJPEG AVI, read by ``MediaSource``)."""
     if cfg.usePhotosCycle:
         paths = sorted(_glob.glob(cfg.photosPathPattern))
         visual_dir = cfg.outputDataDir if cfg.visualCalibration else None
@@ -271,5 +271,22 @@ def main_calibration_entry_point(cfg, device=None):
                                              device=device)
     from ..io.media import MediaSource
 
-    MediaSource(video_path=cfg.videoSourcePath, use_photos=False)
-    raise AssertionError("MediaSource accepted video media")
+    src = MediaSource(video_path=cfg.videoSourcePath, use_photos=False)
+    obj = make_object_points()
+    img_pts = []
+    try:
+        for count, frame in enumerate(src, 1):
+            if count % 10:
+                continue
+            gray = (frame @ np.array([0.299, 0.587, 0.114])).astype(
+                np.float64)
+            c = find_chessboard_corners(gray)
+            if c is not None:
+                img_pts.append(c)
+            if len(img_pts) >= 20:
+                break
+    finally:
+        src.close()
+    if len(img_pts) < 3:
+        raise RuntimeError("not enough chessboard views in video")
+    return _calibrate_and_save(obj, img_pts, cfg.calibrationPath, device)

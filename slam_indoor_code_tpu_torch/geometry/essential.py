@@ -12,15 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from .nullspace import smallest_eigenvector
 from .projection import normalize_pixels
 from .ransac import sample_indices
 from .triangulate import triangulate_dlt
-
-
-def _nullspace_last(AtA: torch.Tensor) -> torch.Tensor:
-    """Smallest eigenvector of a batched symmetric matrix [S,D,D] → [S,D]."""
-    _, vecs = torch.linalg.eigh(AtA)
-    return vecs[..., 0]
 
 
 def _design(x1, x2):
@@ -42,7 +37,7 @@ def _eight_point(x1, x2):
     """Batched 8-point essential estimate: [S,8,2] pairs → E [S,3,3]."""
     A = _design(x1, x2)
     AtA = torch.einsum("sij,sik->sjk", A, A)
-    return _to_essential(_nullspace_last(AtA).reshape(-1, 3, 3))
+    return _to_essential(smallest_eigenvector(AtA).reshape(-1, 3, 3))
 
 
 def _sampson_sq(E, x1h, x2h):
@@ -79,7 +74,7 @@ def find_essential_ransac(K, uv1, uv2, mask, threshold_px: float = 1.0,
 
     # refit on all inliers of the best hypothesis (weighted 8-point over N)
     Aw = _design(x1, x2) * best_inliers.to(x1.dtype)[:, None]
-    e = _nullspace_last((Aw.T @ Aw)[None])[0]
+    e = smallest_eigenvector((Aw.T @ Aw)[None])[0]
     E_refined = _to_essential(e.reshape(3, 3))
     d2_ref = _sampson_sq(E_refined[None], x1h, x2h)[0]
     inliers_ref = (d2_ref < thr) & mask
@@ -138,7 +133,8 @@ def estimate_transformation(K, uv1, uv2, mask, *, use_ransac: bool = True,
     else:
         A = (_design(normalize_pixels(K, uv1), normalize_pixels(K, uv2))
              * mask.to(uv1.dtype)[:, None])
-        E = _to_essential(_nullspace_last((A.T @ A)[None])[0].reshape(3, 3))
+        e = smallest_eigenvector((A.T @ A)[None])[0]
+        E = _to_essential(e.reshape(3, 3))
         support = mask
     pose = recover_pose(E, K, uv1, uv2, support,
                         distance_threshold=distance_threshold)

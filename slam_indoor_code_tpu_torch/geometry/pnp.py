@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.autodiff import jacfwd
+from .nullspace import smallest_eigenvector
 from .projection import denormalize, normalize_pixels
 from .ransac import sample_indices
 from .rotations import matrix_to_rodrigues, rodrigues_to_matrix
@@ -28,8 +29,7 @@ def _dlt_pnp(X, x):
     r2 = torch.cat([zeros, Xh, -v * Xh], dim=-1)
     A = torch.cat([r1, r2], dim=1)
     AtA = torch.einsum("sij,sik->sjk", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
-    P = vecs[..., 0].reshape(S, 3, 4)
+    P = smallest_eigenvector(AtA).reshape(S, 3, 4)
     centroid = torch.cat([X.mean(dim=1), torch.ones((S, 1), dtype=X.dtype,
                                                      device=X.device)], -1)
     depth = torch.einsum("sj,sj->s", P[:, 2], centroid)

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from .nullspace import smallest_eigenvector
+
 
 def triangulate_dlt(P1, P2, uv1, uv2, mask=None):
     """Linear triangulation of N correspondences; P1, P2 [3,4], uv [N,2]
@@ -20,8 +22,7 @@ def triangulate_dlt(P1, P2, uv1, uv2, mask=None):
     A = torch.stack([a0, a1, a2, a3], dim=1)                 # [N,4,4]
     A = A / torch.clamp_min(torch.linalg.norm(A, dim=-1, keepdim=True), 1e-12)
     AtA = torch.einsum("nij,nik->njk", A, A)
-    _, vecs = torch.linalg.eigh(AtA)
-    Xh = vecs[..., 0]
+    Xh = smallest_eigenvector(AtA)
     w = Xh[:, 3:4]
     tiny = torch.where(w < 0, torch.full_like(w, -1e-12),
                        torch.full_like(w, 1e-12))

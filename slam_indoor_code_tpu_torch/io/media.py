@@ -1,13 +1,15 @@
 """Media ingest (counterpart of the JAX package's io/media.py): a frame
-source over a photo glob, and one over in-memory frames.
+source over a photo glob or a Motion-JPEG AVI, and one over in-memory
+frames.
 
 Photos are globbed, sorted naturally (shorter names first, then
 lexicographic, as the reference's ``sortGlobs``, src/misc/IOmisc.cpp:36-51)
 and decoded in order by ``threadsCount`` workers a bounded number of frames
 ahead: by the native sequence reader (io/native.py, libjpeg/libpng) where
-it builds, else by the port's own PNG reader (io/png.py) in a thread pool,
-which refuses JPEG.  Video (``usePhotosCycle=false``) needs a video decoder
-(the JAX package uses OpenCV's VideoCapture) and is not ported.
+it builds, else by the port's own PNG and JPEG readers (io/png.py,
+io/jpeg.py) in a thread pool.  Video (``usePhotosCycle=false``) is read
+the same way from an MJPEG AVI (io/avi.py), each frame decoded by
+io/jpeg.py; the JAX package reads any codec through OpenCV's VideoCapture.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from . import native, png
+from . import avi, jpeg, native, png
 
 
 def natural_sort_paths(paths: list[str]) -> list[str]:
@@ -31,7 +33,8 @@ def natural_sort_paths(paths: list[str]) -> list[str]:
 
 def _imread_rgb(path: str) -> Optional[np.ndarray]:
     """Decode one image to HxWx3 uint8 RGB; None if it does not decode.
-    Without the native decoder a JPEG raises, naming libjpeg."""
+    Without the native decoder, JPEG goes to io/jpeg.py (which raises for
+    the processes it does not read, and when it does not build)."""
     if native.available():
         return native.imread_rgb(path)
     with open(path, "rb") as fh:
@@ -42,28 +45,30 @@ def _imread_rgb(path: str) -> Optional[np.ndarray]:
         except (ValueError, OSError):
             return None
     if magic[:2] == b"\xff\xd8":
-        raise RuntimeError(
-            f"{path}: decoding JPEG needs libjpeg, and the native decoder "
-            f"did not build:\n{native.build_error()}")
+        return jpeg.imread_rgb(path)
     return None
 
 
 class _PooledSequence:
-    """In-order photo reader over ``_imread_rgb`` in a thread pool, at most
-    ``capacity`` frames ahead; undecodable frames are skipped, as the
-    native reader skips them."""
+    """In-order reader of ``decode(item)`` over ``items`` in a thread pool,
+    at most ``capacity`` frames ahead; undecodable frames (None) are
+    skipped, as the native reader skips them.  ``on_close`` runs once the
+    pool has stopped."""
 
-    def __init__(self, paths: list[str], capacity: int, threads: int):
-        self._paths = deque(paths)
+    def __init__(self, items: list, capacity: int, threads: int,
+                 decode=_imread_rgb, on_close=None):
+        self._items = deque(items)
+        self._decode = decode
+        self._on_close = on_close
         self._pool = ThreadPoolExecutor(max_workers=threads)
         self._ahead: deque = deque()
         self._capacity = capacity
         self._top_up()
 
     def _top_up(self) -> None:
-        while self._paths and len(self._ahead) < self._capacity:
-            self._ahead.append(self._pool.submit(_imread_rgb,
-                                                 self._paths.popleft()))
+        while self._items and len(self._ahead) < self._capacity:
+            self._ahead.append(self._pool.submit(self._decode,
+                                                 self._items.popleft()))
 
     def next_frame(self) -> Optional[np.ndarray]:
         while self._ahead:
@@ -78,22 +83,29 @@ class _PooledSequence:
         for fut in self._ahead:
             fut.cancel()
         self._ahead.clear()
+        self._items.clear()
         self._pool.shutdown(wait=True)
+        if self._on_close is not None:
+            self._on_close()
+            self._on_close = None
 
 
 class MediaSource:
-    """Destructive frame iterator over a photo glob."""
+    """Destructive frame iterator over a photo glob or an MJPEG AVI.  A
+    video that does not open raises ``IOError``; one in another codec
+    ``NotImplementedError``."""
 
     def __init__(self, *, photos_pattern: str = "", video_path: str = "",
                  use_photos: bool = True, prefetch: int = 8,
                  threads: int = 2):
-        if not use_photos:
-            raise NotImplementedError(
-                f"video media ({video_path!r}, usePhotosCycle=false) needs a "
-                "video decoder (OpenCV's VideoCapture in the JAX package), "
-                "and none runs on the card: pass a photo glob")
-        self._paths = natural_sort_paths(_glob.glob(photos_pattern))
         capacity, threads = max(1, prefetch), max(1, threads)
+        if not use_photos:
+            video = avi.MjpegAvi(video_path)
+            self._reader = _PooledSequence(video.frames, capacity, threads,
+                                           decode=video.decode_frame,
+                                           on_close=video.close)
+            return
+        self._paths = natural_sort_paths(_glob.glob(photos_pattern))
         if native.available() and self._paths:
             self._reader = native.NativeSequence(self._paths, capacity,
                                                  threads)

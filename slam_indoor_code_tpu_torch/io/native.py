@@ -6,7 +6,8 @@ Built at first use with ``g++ -O2 -fPIC -shared … -ljpeg -lpng -lpthread``
 into ``_build/libslamio.so`` inside the package (ignored by git).  Where the
 build fails (a machine without the libjpeg or libpng headers), ``load``
 raises with the compiler's message and ``available`` is False; media.py
-then decodes PNG with its own reader (io/png.py) and refuses JPEG.
+then decodes PNG and JPEG with the port's own readers (io/png.py,
+io/jpeg.py).
 """
 
 from __future__ import annotations
@@ -27,43 +28,57 @@ _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()     # threads of run_sequences_parallel build once
 
 
-def _build() -> None:
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f".libslamio.{os.getpid()}.so")
+def compile_shared(source: Path, library: Path, libs: list[str]) -> None:
+    """``g++ -O2 -fPIC -shared`` of ``source`` into ``library`` through a
+    temporary file (so that a reader never loads half a library); raises
+    with the compiler's message when it fails."""
+    library.parent.mkdir(parents=True, exist_ok=True)
+    tmp = library.with_name(f".{library.stem}.{os.getpid()}.so")
     cmd = ["g++", "-O2", "-fPIC", "-std=c++17", "-shared", "-o", str(tmp),
-           str(SOURCE), "-ljpeg", "-lpng", "-lpthread"]
+           str(source), *libs]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
     except OSError as e:
-        raise RuntimeError(f"building {SOURCE.name}: {e}") from e
+        raise RuntimeError(f"building {source.name}: {e}") from e
     if res.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed "
+        raise RuntimeError(f"building {source.name} failed "
                            f"(g++ rc={res.returncode}):\n"
                            f"{res.stderr.strip()}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
+
+
+def load_shared(state: dict, lock: threading.Lock, source: Path,
+                library: Path, libs: list[str], bind) -> ctypes.CDLL:
+    """The library ``source`` builds, built on first use (or when older
+    than its source) and bound by ``bind(lib)``; ``state`` caches it, or
+    the compiler's message, which every later call raises again."""
+    with lock:
+        if state["lib"] is not None:
+            return state["lib"]
+        if state["error"] is not None:
+            raise RuntimeError(state["error"])
+        try:
+            if (not library.exists()
+                    or library.stat().st_mtime < source.stat().st_mtime):
+                compile_shared(source, library, libs)
+            lib = ctypes.CDLL(str(library))
+        except (RuntimeError, OSError) as e:
+            state["error"] = str(e)
+            raise RuntimeError(state["error"]) from e
+        bind(lib)
+        state["lib"] = lib
+        return lib
 
 
 def load() -> ctypes.CDLL:
     """The decoder library, built on first use; raises with the compiler's
     message when it cannot be built (and on every later call)."""
-    with _LOCK:
-        return _load()
+    return load_shared(_state, _LOCK, SOURCE, LIBRARY,
+                       ["-ljpeg", "-lpng", "-lpthread"], _bind)
 
 
-def _load() -> ctypes.CDLL:
-    if _state["lib"] is not None:
-        return _state["lib"]
-    if _state["error"] is not None:
-        raise RuntimeError(_state["error"])
-    try:
-        if (not LIBRARY.exists()
-                or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
-            _build()
-        lib = ctypes.CDLL(str(LIBRARY))
-    except (RuntimeError, OSError) as e:
-        _state["error"] = str(e)
-        raise RuntimeError(_state["error"]) from e
+def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.POINTER, ctypes.c_int
     lib.slamio_decode_dims.argtypes = [ctypes.c_char_p, P(I), P(I)]
     lib.slamio_decode_dims.restype = I
@@ -77,8 +92,6 @@ def _load() -> ctypes.CDLL:
     lib.slamio_next.restype = I
     lib.slamio_close.argtypes = [ctypes.c_void_p]
     lib.slamio_close.restype = None
-    _state["lib"] = lib
-    return lib
 
 
 def available() -> bool:

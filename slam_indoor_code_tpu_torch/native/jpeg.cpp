@@ -1,0 +1,835 @@
+// jpeg — a baseline JPEG decoder with no library but the C++ standard
+// library, for machines without libjpeg.
+//
+// It decodes what libjpeg-turbo decodes for a sequential Huffman JPEG
+// (SOF0/SOF1, 8-bit samples, 1 or 3 components at any integral sampling
+// factors, restart intervals, optimized or absent Huffman tables) and
+// gives the same pixels as libjpeg-turbo with its defaults, bit for bit:
+//   - the ISLOW inverse DCT (jidctint.c: 13-bit constants, the
+//     CONST_BITS/PASS1_BITS descales and the wrapping range-limit table);
+//   - fancy upsampling (jdsample.c): the triangle filters of h2v1, h1v2 and
+//     h2v2 with their biases, the first and last columns special-cased and
+//     the rows above the first and below the last real row replicated;
+//     box replication for other integral factors and for h2 components
+//     at most two samples wide;
+//   - jdcolor.c's fixed-point YCbCr->RGB tables (16 fraction bits).
+// Progressive, arithmetic, lossless, hierarchical and 12-bit JPEGs are
+// refused with the process named; a corrupt or truncated stream decodes to
+// nothing.  A scan that references Huffman table 0 or 1 without defining
+// it takes the Annex K tables, as libjpeg does (Motion-JPEG frames carry
+// no DHT).
+//
+// C ABI; Python binds it through ctypes (io/jpeg.py).  Build:
+//   g++ -O2 -fPIC -std=c++17 -shared -o libjpegdec.so jpeg.cpp
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+// zig-zag index -> natural index; 16 extra entries absorb a corrupt run
+// past the end of a block, as jpeg_natural_order does.
+const int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// Annex K.3 tables (libjpeg's jstdhuff.c): code counts by length 1..16,
+// then the symbols.
+const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kAcChromBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+
+constexpr int kLookBits = 9;
+
+struct Huffman {
+  bool defined = false;
+  uint8_t look_len[1 << kLookBits];   // 0: the code is longer than 9 bits
+  uint8_t look_sym[1 << kLookBits];
+  int32_t maxcode[18];                // largest code of each length, or -1
+  int32_t valoff[18];                 // symbol index minus smallest code
+  uint8_t vals[256];
+
+  // Canonical codes from the counts by length (jdhuff.c
+  // jpeg_make_d_derived_tbl); false for a table that overflows its lengths.
+  bool build(const uint8_t bits[16], const uint8_t* symbols, int count) {
+    int total = 0;
+    for (int l = 0; l < 16; ++l) total += bits[l];
+    if (total > 256 || total > count) return false;
+    std::memcpy(vals, symbols, total);
+    std::memset(look_len, 0, sizeof(look_len));
+    int32_t code = 0;
+    int k = 0;
+    for (int l = 1; l <= 16; ++l) {
+      valoff[l] = k - code;
+      for (int i = 0; i < bits[l - 1]; ++i, ++k, ++code) {
+        if (l <= kLookBits) {
+          int shift = kLookBits - l;
+          for (int j = 0; j < (1 << shift); ++j) {
+            look_len[(code << shift) | j] = static_cast<uint8_t>(l);
+            look_sym[(code << shift) | j] = vals[k];
+          }
+        }
+      }
+      maxcode[l] = bits[l - 1] ? code - 1 : -1;
+      if (code > (1 << l)) return false;
+      code <<= 1;
+    }
+    maxcode[17] = 0x7fffffff;
+    defined = true;
+    return true;
+  }
+};
+
+// Entropy-coded bits, MSB first, with 0xFF00 unstuffed.  At a marker (or the
+// end of the data) it feeds zero bits, as libjpeg does, and flags a read of
+// any of them: a valid stream never consumes one.
+struct BitReader {
+  const uint8_t* d;
+  size_t n;
+  size_t pos;
+  uint64_t acc = 0;
+  int cnt = 0;            // valid bits in the low end of acc
+  int fill = 0;           // of which this many (the lowest) are zero fill
+  bool at_marker = false; // pos is at the 0xFF of the marker ending the data
+  bool overrun = false;
+
+  void refill() {
+    while (cnt <= 56) {
+      uint32_t b = 0;
+      if (at_marker) {
+        fill += 8;
+      } else if (pos >= n) {
+        at_marker = true;
+        fill += 8;
+      } else {
+        b = d[pos];
+        if (b == 0xFF) {
+          size_t q = pos + 1;
+          while (q < n && d[q] == 0xFF) ++q;   // fill bytes before a marker
+          if (q < n && d[q] == 0x00) {
+            pos = q + 1;
+          } else {
+            pos = q - 1;                       // the FF of the marker
+            at_marker = true;
+            b = 0;
+            fill += 8;
+          }
+        } else {
+          ++pos;
+        }
+      }
+      acc = (acc << 8) | b;
+      cnt += 8;
+    }
+  }
+  inline uint32_t peek(int k) {
+    return static_cast<uint32_t>(acc >> (cnt - k)) & ((1u << k) - 1);
+  }
+  inline void skip(int k) {
+    cnt -= k;
+    if (cnt < fill) {
+      overrun = true;
+      fill = cnt;
+    }
+  }
+  inline int bits(int k) {
+    if (k == 0) return 0;
+    if (cnt < k) refill();
+    int v = static_cast<int>(peek(k));
+    skip(k);
+    return v;
+  }
+  // One Huffman symbol, or -1 for a code the table does not hold.
+  inline int decode(const Huffman& h) {
+    if (cnt < 16) refill();
+    uint32_t p = peek(kLookBits);
+    int l = h.look_len[p];
+    if (l) {
+      skip(l);
+      return h.look_sym[p];
+    }
+    for (l = kLookBits + 1; l <= 16; ++l) {
+      int32_t code = static_cast<int32_t>(peek(l));
+      if (code <= h.maxcode[l]) {
+        skip(l);
+        return h.vals[code + h.valoff[l]];
+      }
+    }
+    return -1;
+  }
+  // Move to the next marker (skipping what libjpeg would discard); false at
+  // the end of the data.
+  bool seek_marker() {
+    acc = 0;
+    cnt = fill = 0;
+    if (!at_marker) {
+      while (pos + 1 < n &&
+             !(d[pos] == 0xFF && d[pos + 1] != 0x00 && d[pos + 1] != 0xFF))
+        ++pos;
+    }
+    at_marker = false;
+    return pos + 1 < n && d[pos] == 0xFF;
+  }
+};
+
+inline int extend(int v, int s) {
+  return s == 0 ? 0 : (v < (1 << (s - 1)) ? v - (1 << s) + 1 : v);
+}
+
+// ---------------------------------------------------------------- ISLOW IDCT
+constexpr int kConstBits = 13;
+constexpr int kPass1Bits = 2;
+constexpr int64_t FIX_0_298631336 = 2446;
+constexpr int64_t FIX_0_390180644 = 3196;
+constexpr int64_t FIX_0_541196100 = 4433;
+constexpr int64_t FIX_0_765366865 = 6270;
+constexpr int64_t FIX_0_899976223 = 7373;
+constexpr int64_t FIX_1_175875602 = 9633;
+constexpr int64_t FIX_1_501321110 = 12299;
+constexpr int64_t FIX_1_847759065 = 15137;
+constexpr int64_t FIX_1_961570560 = 16069;
+constexpr int64_t FIX_2_053119869 = 16819;
+constexpr int64_t FIX_2_562915447 = 20995;
+constexpr int64_t FIX_3_072711026 = 25172;
+
+inline int64_t descale(int64_t x, int n) {
+  return (x + (int64_t(1) << (n - 1))) >> n;
+}
+
+// jdmaster.c's post-IDCT range-limit table, indexed by (x & 1023): x + 128
+// clamped to [0, 255] for |x| < 384, wrapping beyond as libjpeg's does.
+struct RangeLimit {
+  uint8_t t[1024];
+  RangeLimit() {
+    for (int v = 0; v < 1024; ++v)
+      t[v] = v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896;
+  }
+};
+const RangeLimit kLimit;
+
+// jidctint.c jpeg_idct_islow: coefficients in natural order times the
+// quantization table, into an 8x8 block of out (row stride `stride`).
+void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
+                size_t stride) {
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* ip = in + c;
+    const int16_t* qp = q + c;
+    int* wp = ws + c;
+    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
+        ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
+      int dc = (ip[0] * qp[0]) * (1 << kPass1Bits);
+      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    z2 = ip[0] * qp[0];
+    z3 = ip[32] * qp[32];
+    int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
+    int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = ip[56] * qp[56];
+    tmp1 = ip[40] * qp[40];
+    tmp2 = ip[24] * qp[24];
+    tmp3 = ip[8] * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int s = kConstBits - kPass1Bits;
+    wp[0] = static_cast<int>(descale(tmp10 + tmp3, s));
+    wp[56] = static_cast<int>(descale(tmp10 - tmp3, s));
+    wp[8] = static_cast<int>(descale(tmp11 + tmp2, s));
+    wp[48] = static_cast<int>(descale(tmp11 - tmp2, s));
+    wp[16] = static_cast<int>(descale(tmp12 + tmp1, s));
+    wp[40] = static_cast<int>(descale(tmp12 - tmp1, s));
+    wp[24] = static_cast<int>(descale(tmp13 + tmp0, s));
+    wp[32] = static_cast<int>(descale(tmp13 - tmp0, s));
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + r * stride;
+    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 &&
+        wp[6] == 0 && wp[7] == 0) {
+      uint8_t v = kLimit.t[static_cast<int>(descale(wp[0], kPass1Bits + 3)) &
+                           1023];
+      for (int c = 0; c < 8; ++c) op[c] = v;
+      continue;
+    }
+    int64_t z2 = wp[2], z3 = wp[6];
+    int64_t z1 = (z2 + z3) * FIX_0_541196100;
+    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
+    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
+    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (int64_t(1) << kConstBits);
+    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (int64_t(1) << kConstBits);
+    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    int64_t z4 = tmp1 + tmp3;
+    int64_t z5 = (z3 + z4) * FIX_1_175875602;
+    tmp0 *= FIX_0_298631336;
+    tmp1 *= FIX_2_053119869;
+    tmp2 *= FIX_3_072711026;
+    tmp3 *= FIX_1_501321110;
+    z1 *= -FIX_0_899976223;
+    z2 *= -FIX_2_562915447;
+    z3 *= -FIX_1_961570560;
+    z4 *= -FIX_0_390180644;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    constexpr int s = kConstBits + kPass1Bits + 3;
+    op[0] = kLimit.t[static_cast<int>(descale(tmp10 + tmp3, s)) & 1023];
+    op[7] = kLimit.t[static_cast<int>(descale(tmp10 - tmp3, s)) & 1023];
+    op[1] = kLimit.t[static_cast<int>(descale(tmp11 + tmp2, s)) & 1023];
+    op[6] = kLimit.t[static_cast<int>(descale(tmp11 - tmp2, s)) & 1023];
+    op[2] = kLimit.t[static_cast<int>(descale(tmp12 + tmp1, s)) & 1023];
+    op[5] = kLimit.t[static_cast<int>(descale(tmp12 - tmp1, s)) & 1023];
+    op[3] = kLimit.t[static_cast<int>(descale(tmp13 + tmp0, s)) & 1023];
+    op[4] = kLimit.t[static_cast<int>(descale(tmp13 - tmp0, s)) & 1023];
+  }
+}
+
+// ------------------------------------------------------- YCbCr -> RGB tables
+// jdcolor.c build_ycc_rgb_table.
+struct ColorTables {
+  int cr_r[256], cb_b[256];
+  int64_t cr_g[256], cb_g[256];
+  ColorTables() {
+    constexpr int kScale = 16;
+    constexpr int64_t kHalf = int64_t(1) << (kScale - 1);
+    auto fix = [](double x) {
+      return static_cast<int64_t>(x * (int64_t(1) << kScale) + 0.5);
+    };
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = static_cast<int>((fix(1.40200) * x + kHalf) >> kScale);
+      cb_b[i] = static_cast<int>((fix(1.77200) * x + kHalf) >> kScale);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + kHalf;
+    }
+  }
+};
+const ColorTables kColor;
+
+inline uint8_t clamp255(int v) {
+  return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+}
+
+// -------------------------------------------------------------- the decoder
+enum Status { kOk = 0, kCorrupt = 1, kRefused = 2, kSmall = 3 };
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int ds_w = 0, ds_h = 0;     // downsampled size (jdinput.c)
+  int plane_w = 0, plane_h = 0;
+  std::vector<uint8_t> plane; // samples, block-padded to whole MCUs
+  int16_t q[64];              // quantization table latched at its 1st scan
+  bool latched = false;
+  int dc = 0;                 // DC prediction
+};
+
+struct Decoder {
+  const uint8_t* d;
+  size_t n;
+  std::string msg;
+  int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
+  int mcux = 0, mcuy = 0;
+  Component comp[3];
+  uint16_t qt[4][64];
+  bool qt_defined[4] = {false, false, false, false};
+  Huffman dc_tab[4], ac_tab[4];
+  int restart_interval = 0;
+  bool saw_jfif = false, saw_adobe = false;
+  int adobe_transform = 0;
+  bool frame = false;
+
+  Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
+
+  Status refuse(const std::string& what) {
+    msg = what;
+    return kRefused;
+  }
+
+  static int be16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
+
+  Status parse_sof(int marker, const uint8_t* p, int len) {
+    if (len < 6) return kCorrupt;
+    int precision = p[0];
+    height = be16(p + 1);
+    width = be16(p + 3);
+    ncomp = p[5];
+    if (precision != 8)
+      return refuse(std::to_string(precision) +
+                    "-bit sample precision (SOF" +
+                    std::to_string(marker - 0xC0) +
+                    "): only 8-bit JPEG is decoded");
+    if (ncomp == 4)
+      return refuse("4-component (CMYK/YCCK) JPEG is not decoded");
+    if (ncomp != 1 && ncomp != 3) return kCorrupt;
+    if (height == 0 || width == 0 || len < 6 + 3 * ncomp) return kCorrupt;
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      k.id = p[6 + 3 * c];
+      k.h = p[7 + 3 * c] >> 4;
+      k.v = p[7 + 3 * c] & 15;
+      k.tq = p[8 + 3 * c];
+      if (k.h < 1 || k.h > 4 || k.v < 1 || k.v > 4 || k.tq > 3)
+        return kCorrupt;
+      hmax = k.h > hmax ? k.h : hmax;
+      vmax = k.v > vmax ? k.v : vmax;
+    }
+    mcux = (width + 8 * hmax - 1) / (8 * hmax);
+    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      k.ds_w = static_cast<int>((int64_t(width) * k.h + hmax - 1) / hmax);
+      k.ds_h = static_cast<int>((int64_t(height) * k.v + vmax - 1) / vmax);
+      k.plane_w = mcux * k.h * 8;
+      k.plane_h = mcuy * k.v * 8;
+    }
+    frame = true;
+    return kOk;
+  }
+
+  Status parse_dht(const uint8_t* p, int len) {
+    while (len > 0) {
+      if (len < 17) return kCorrupt;
+      int tc = p[0] >> 4, th = p[0] & 15;
+      if (tc > 1 || th > 3) return kCorrupt;
+      int total = 0;
+      for (int i = 0; i < 16; ++i) total += p[1 + i];
+      if (len < 17 + total) return kCorrupt;
+      Huffman& h = tc == 0 ? dc_tab[th] : ac_tab[th];
+      if (!h.build(p + 1, p + 17, total)) return kCorrupt;
+      p += 17 + total;
+      len -= 17 + total;
+    }
+    return kOk;
+  }
+
+  Status parse_dqt(const uint8_t* p, int len) {
+    while (len > 0) {
+      int pq = p[0] >> 4, tq = p[0] & 15;
+      if (tq > 3 || pq > 1 || len < 1 + 64 * (pq + 1)) return kCorrupt;
+      for (int i = 0; i < 64; ++i)
+        qt[tq][kNatural[i]] =
+            pq ? static_cast<uint16_t>(be16(p + 1 + 2 * i)) : p[1 + i];
+      qt_defined[tq] = true;
+      p += 1 + 64 * (pq + 1);
+      len -= 1 + 64 * (pq + 1);
+    }
+    return kOk;
+  }
+
+  // Baseline block: DC difference then run/size AC symbols.
+  inline bool decode_block(BitReader& br, Component& k, const Huffman& dct,
+                           const Huffman& act, int16_t* blk) {
+    std::memset(blk, 0, 64 * sizeof(int16_t));
+    int s = br.decode(dct);
+    if (s < 0 || s > 16) return false;
+    int diff = extend(br.bits(s), s);
+    k.dc += diff;
+    blk[0] = static_cast<int16_t>(k.dc);
+    for (int i = 1; i < 64; ++i) {
+      int rs = br.decode(act);
+      if (rs < 0) return false;
+      int r = rs >> 4;
+      s = rs & 15;
+      if (s) {
+        i += r;
+        blk[kNatural[i]] = static_cast<int16_t>(extend(br.bits(s), s));
+      } else {
+        if (r != 15) break;
+        i += 15;
+      }
+    }
+    return true;
+  }
+
+  Status decode_scan(BitReader& br, Component** sc, const int* td,
+                     const int* ta, int ns) {
+    // Undefined tables 0 and 1 take Annex K's (jdhuff.c std_huff_tables).
+    if (!dc_tab[0].defined) dc_tab[0].build(kDcLumBits, kDcVals, 12);
+    if (!dc_tab[1].defined) dc_tab[1].build(kDcChromBits, kDcVals, 12);
+    if (!ac_tab[0].defined) ac_tab[0].build(kAcLumBits, kAcLumVals, 162);
+    if (!ac_tab[1].defined) ac_tab[1].build(kAcChromBits, kAcChromVals, 162);
+    for (int i = 0; i < ns; ++i) {
+      Component& k = *sc[i];
+      if (!dc_tab[td[i]].defined || !ac_tab[ta[i]].defined) return kCorrupt;
+      if (!k.latched) {
+        if (!qt_defined[k.tq]) return kCorrupt;
+        for (int j = 0; j < 64; ++j) k.q[j] = static_cast<int16_t>(qt[k.tq][j]);
+        k.latched = true;
+      }
+      if (k.plane.empty())
+        k.plane.assign(static_cast<size_t>(k.plane_w) * k.plane_h, 0);
+      k.dc = 0;
+    }
+    int units_x, units_y;
+    if (ns == 1) {  // non-interleaved: one block per MCU
+      units_x = (sc[0]->ds_w + 7) / 8;
+      units_y = (sc[0]->ds_h + 7) / 8;
+    } else {
+      units_x = mcux;
+      units_y = mcuy;
+    }
+    const int64_t total = int64_t(units_x) * units_y;
+    int16_t blk[64];
+    int rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval && m && m % restart_interval == 0) {
+        if (br.overrun || !br.seek_marker()) return kCorrupt;
+        if (br.d[br.pos + 1] != 0xD0 + rst) return kCorrupt;
+        br.pos += 2;
+        rst = (rst + 1) & 7;
+        for (int i = 0; i < ns; ++i) sc[i]->dc = 0;
+      }
+      int mx = static_cast<int>(m % units_x), my = static_cast<int>(m / units_x);
+      for (int i = 0; i < ns; ++i) {
+        Component& k = *sc[i];
+        int bh = ns == 1 ? 1 : k.h, bv = ns == 1 ? 1 : k.v;
+        for (int v = 0; v < bv; ++v)
+          for (int h = 0; h < bh; ++h) {
+            if (!decode_block(br, k, dc_tab[td[i]], ac_tab[ta[i]], blk))
+              return kCorrupt;
+            size_t x = (size_t(mx) * bh + h) * 8, y = (size_t(my) * bv + v) * 8;
+            idct_islow(blk, k.q, k.plane.data() + y * k.plane_w + x,
+                       static_cast<size_t>(k.plane_w));
+          }
+      }
+    }
+    if (br.overrun) return kCorrupt;
+    return kOk;
+  }
+
+  // Walk the markers; with header_only stop at the frame header.
+  Status run(bool header_only) {
+    if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kCorrupt;
+    size_t pos = 2;
+    bool any_scan = false;
+    for (;;) {
+      while (pos < n && d[pos] != 0xFF) ++pos;    // garbage before a marker
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) break;                        // no EOI: end of data
+      int m = d[pos++];
+      if (m == 0xD9) break;                       // EOI
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      if (pos + 2 > n) return kCorrupt;
+      int len = be16(d + pos) - 2;
+      if (len < 0 || pos + 2 + len > n) return kCorrupt;
+      const uint8_t* p = d + pos + 2;
+      pos += 2 + len;
+      if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+        if (m == 0xC0 || m == 0xC1) {
+          if (frame) return kCorrupt;
+          Status st = parse_sof(m, p, len);
+          if (st != kOk || header_only) return st;
+          continue;
+        }
+        std::string sof = " (SOF" + std::to_string(m - 0xC0) + ")";
+        if (m == 0xC2) return refuse("progressive JPEG" + sof + " is not decoded");
+        if (m == 0xC3) return refuse("lossless JPEG" + sof + " is not decoded");
+        if (m == 0xC9)
+          return refuse("arithmetic-coded sequential JPEG" + sof + " is not decoded");
+        if (m == 0xCA)
+          return refuse("arithmetic-coded progressive JPEG" + sof + " is not decoded");
+        if (m == 0xCB)
+          return refuse("arithmetic-coded lossless JPEG" + sof + " is not decoded");
+        return refuse("hierarchical JPEG" + sof + " is not decoded");
+      }
+      switch (m) {
+        case 0xC4: {
+          Status st = parse_dht(p, len);
+          if (st != kOk) return st;
+          break;
+        }
+        case 0xCC:
+          return refuse("arithmetic-coded JPEG (DAC) is not decoded");
+        case 0xDB: {
+          Status st = parse_dqt(p, len);
+          if (st != kOk) return st;
+          break;
+        }
+        case 0xDD:
+          if (len < 2) return kCorrupt;
+          restart_interval = be16(p);
+          break;
+        case 0xE0:
+          if (len >= 5 && std::memcmp(p, "JFIF\0", 5) == 0) saw_jfif = true;
+          break;
+        case 0xEE:
+          if (len >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
+            saw_adobe = true;
+            adobe_transform = p[11];
+          }
+          break;
+        case 0xDA: {
+          if (!frame || len < 1) return kCorrupt;
+          int ns = p[0];
+          if (ns < 1 || ns > ncomp || len < 4 + 2 * ns) return kCorrupt;
+          Component* sc[3];
+          int td[3], ta[3];
+          for (int i = 0; i < ns; ++i) {
+            int id = p[1 + 2 * i];
+            sc[i] = nullptr;
+            for (int c = 0; c < ncomp; ++c)
+              if (comp[c].id == id) sc[i] = &comp[c];
+            td[i] = p[2 + 2 * i] >> 4;
+            ta[i] = p[2 + 2 * i] & 15;
+            if (!sc[i] || td[i] > 3 || ta[i] > 3) return kCorrupt;
+          }
+          int blocks = 0;
+          for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+          if (ns > 1 && blocks > 10) return kCorrupt;
+          BitReader br{d, n, pos};
+          Status st = decode_scan(br, sc, td, ta, ns);
+          if (st != kOk) return st;
+          any_scan = true;
+          br.seek_marker();
+          pos = br.pos;
+          break;
+        }
+        default:
+          break;  // APPn, COM, DNL, ...
+      }
+    }
+    if (!frame) return kCorrupt;
+    if (header_only) return kOk;
+    for (int c = 0; c < ncomp; ++c)
+      if (comp[c].plane.empty()) return kCorrupt;
+    return any_scan ? kOk : kCorrupt;
+  }
+
+  // jdsample.c: component c at full size (hmax x vmax) into out, a plane of
+  // out_w x out_h (at least ds_w*hx x ds_h*vx).
+  Status upsample(const Component& k, std::vector<uint8_t>& out, int& out_w) {
+    if (hmax % k.h || vmax % k.v)
+      return refuse("fractional sampling factors are not decoded");
+    const int hx = hmax / k.h, vx = vmax / k.v;
+    const int W = k.ds_w, H = k.ds_h, S = k.plane_w;
+    const uint8_t* in = k.plane.data();
+    out_w = W * hx;
+    out.assign(static_cast<size_t>(out_w) * H * vx, 0);
+    auto row = [&](int r) {
+      r = r < 0 ? 0 : r >= H ? H - 1 : r;    // context rows replicated
+      return in + static_cast<size_t>(r) * S;
+    };
+    if (hx == 2 && vx == 1 && W > 2) {       // h2v1_fancy_upsample
+      for (int r = 0; r < H; ++r) {
+        const uint8_t* ip = row(r);
+        uint8_t* op = out.data() + static_cast<size_t>(r) * out_w;
+        int v = ip[0];
+        op[0] = v;
+        op[1] = (v * 3 + ip[1] + 2) >> 2;
+        for (int c = 1; c < W - 1; ++c) {
+          v = ip[c] * 3;
+          op[2 * c] = (v + ip[c - 1] + 1) >> 2;
+          op[2 * c + 1] = (v + ip[c + 1] + 2) >> 2;
+        }
+        v = ip[W - 1];
+        op[2 * W - 2] = (v * 3 + ip[W - 2] + 1) >> 2;
+        op[2 * W - 1] = v;
+      }
+    } else if (hx == 1 && vx == 2) {         // h1v2_fancy_upsample
+      for (int r = 0; r < H; ++r)
+        for (int half = 0; half < 2; ++half) {
+          const uint8_t* i0 = row(r);
+          const uint8_t* i1 = row(half ? r + 1 : r - 1);
+          const int bias = half ? 2 : 1;
+          uint8_t* op = out.data() + static_cast<size_t>(2 * r + half) * out_w;
+          for (int c = 0; c < W; ++c) op[c] = (i0[c] * 3 + i1[c] + bias) >> 2;
+        }
+    } else if (hx == 2 && vx == 2 && W > 2) {  // h2v2_fancy_upsample
+      for (int r = 0; r < H; ++r)
+        for (int half = 0; half < 2; ++half) {
+          const uint8_t* i0 = row(r);
+          const uint8_t* i1 = row(half ? r + 1 : r - 1);
+          uint8_t* op = out.data() + static_cast<size_t>(2 * r + half) * out_w;
+          int this_sum = i0[0] * 3 + i1[0];
+          int next_sum = i0[1] * 3 + i1[1];
+          op[0] = (this_sum * 4 + 8) >> 4;
+          op[1] = (this_sum * 3 + next_sum + 7) >> 4;
+          int last_sum = this_sum;
+          this_sum = next_sum;
+          for (int c = 2; c < W; ++c) {
+            next_sum = i0[c] * 3 + i1[c];
+            op[2 * c - 2] = (this_sum * 3 + last_sum + 8) >> 4;
+            op[2 * c - 1] = (this_sum * 3 + next_sum + 7) >> 4;
+            last_sum = this_sum;
+            this_sum = next_sum;
+          }
+          op[2 * W - 2] = (this_sum * 3 + last_sum + 8) >> 4;
+          op[2 * W - 1] = (this_sum * 4 + 7) >> 4;
+        }
+    } else {                                 // fullsize or int_upsample
+      for (int r = 0; r < H; ++r) {
+        const uint8_t* ip = in + static_cast<size_t>(r) * S;
+        for (int j = 0; j < vx; ++j) {
+          uint8_t* op = out.data() + static_cast<size_t>(r * vx + j) * out_w;
+          for (int c = 0; c < W; ++c)
+            for (int i = 0; i < hx; ++i) op[c * hx + i] = ip[c];
+        }
+      }
+    }
+    return kOk;
+  }
+
+  Status to_rgb(uint8_t* rgb) {
+    std::vector<uint8_t> up[3];
+    int up_w[3];
+    for (int c = 0; c < ncomp; ++c) {
+      Status st = upsample(comp[c], up[c], up_w[c]);
+      if (st != kOk) return st;
+    }
+    if (ncomp == 1) {
+      for (int y = 0; y < height; ++y) {
+        const uint8_t* g = up[0].data() + static_cast<size_t>(y) * up_w[0];
+        uint8_t* o = rgb + static_cast<size_t>(y) * width * 3;
+        for (int x = 0; x < width; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = g[x];
+      }
+      return kOk;
+    }
+    // jdapimin.c default_decompress_parms: the JPEG colour space.
+    bool rgb_space;
+    if (saw_jfif)
+      rgb_space = false;
+    else if (saw_adobe)
+      rgb_space = adobe_transform == 0;
+    else
+      rgb_space = comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
+    for (int y = 0; y < height; ++y) {
+      const uint8_t* p0 = up[0].data() + static_cast<size_t>(y) * up_w[0];
+      const uint8_t* p1 = up[1].data() + static_cast<size_t>(y) * up_w[1];
+      const uint8_t* p2 = up[2].data() + static_cast<size_t>(y) * up_w[2];
+      uint8_t* o = rgb + static_cast<size_t>(y) * width * 3;
+      if (rgb_space) {
+        for (int x = 0; x < width; ++x) {
+          o[3 * x] = p0[x];
+          o[3 * x + 1] = p1[x];
+          o[3 * x + 2] = p2[x];
+        }
+        continue;
+      }
+      for (int x = 0; x < width; ++x) {
+        int yy = p0[x], cb = p1[x], cr = p2[x];
+        o[3 * x] = clamp255(yy + kColor.cr_r[cr]);
+        o[3 * x + 1] = clamp255(
+            yy + static_cast<int>((kColor.cb_g[cb] + kColor.cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(yy + kColor.cb_b[cb]);
+      }
+    }
+    return kOk;
+  }
+};
+
+void put_msg(const std::string& s, char* msg, int msg_len) {
+  if (msg && msg_len > 0) {
+    std::snprintf(msg, static_cast<size_t>(msg_len), "%s", s.c_str());
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Image size of a JPEG in memory.  0: *h and *w set; 1: not a decodable
+// JPEG; 2: a JPEG this decoder refuses (msg names the process).
+int jpegdec_info(const uint8_t* data, int64_t n, int* h, int* w, char* msg,
+                 int msg_len) {
+  Decoder dec(data, static_cast<size_t>(n));
+  Status st = dec.run(true);
+  put_msg(dec.msg, msg, msg_len);
+  if (st == kOk) {
+    *h = dec.height;
+    *w = dec.width;
+  }
+  return st;
+}
+
+// Decode a JPEG in memory to h*w*3 RGB bytes.  0: done, *h and *w set;
+// 1: corrupt or truncated; 2: refused (msg names the process); 3: `cap`
+// is smaller than h*w*3.
+int jpegdec_decode(const uint8_t* data, int64_t n, uint8_t* rgb, int64_t cap,
+                   int* h, int* w, char* msg, int msg_len) {
+  Decoder dec(data, static_cast<size_t>(n));
+  Status st = dec.run(false);
+  if (st == kOk) {
+    *h = dec.height;
+    *w = dec.width;
+    if (int64_t(dec.height) * dec.width * 3 > cap)
+      st = kSmall;
+    else
+      st = dec.to_rgb(rgb);
+  }
+  put_msg(dec.msg, msg, msg_len);
+  return st;
+}
+
+}  // extern "C"

@@ -1,0 +1,264 @@
+"""Writers of test media where no encoder is installed: a baseline JPEG
+encoder in numpy and a RIFF/AVI muxer for Motion-JPEG.
+
+``encode_jpeg`` writes baseline JPEG at 4:2:0 (Y 2x2, Cb and Cr 1x1) with
+libjpeg's quality-scaled tables (``jpeg_quality_scaling``) and the Annex K
+Huffman tables; the DCT is a float one and the Huffman bit packing is
+vectorised over the whole frame.  With ``dht=False`` the file carries no
+DHT segment, as Motion-JPEG frames often do (decoders then use Annex K's).
+``write_avi`` muxes JPEG frames into an AVI 1.0 file: ``hdrl`` with one
+``vids`` stream of fourcc MJPG, ``movi`` with one ``00dc`` chunk per frame,
+and an ``idx1`` index.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+# libjpeg's jcparam.c base tables (natural order) and Annex K Huffman tables
+_STD_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_STD_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+    + [99] * 32)
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0],
+             list(range(12)))
+AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d], [
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa])
+AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa])
+
+_k = np.arange(8)
+# orthonormal DCT-II rows: JPEG's 1/4 C(u) C(v) sum sum in two products
+_DCT = np.sqrt(2 / 8) * np.cos((2 * _k[None, :] + 1) * _k[:, None] * np.pi / 16)
+_DCT[0] /= np.sqrt(2)
+
+
+def quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """libjpeg's ``jpeg_quality_scaling`` of a base table, baseline-clamped
+    to 1..255 (natural order)."""
+    q = min(max(quality, 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _huff_codes(spec):
+    """(code, length) per symbol of a canonical table (bits, symbols)."""
+    bits, vals = spec
+    code_of = np.zeros(256, np.int64)
+    len_of = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(rows/8, cols/8, 8, 8) blocks of a plane whose sides are multiples
+    of 8."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3)
+
+
+def _categories(v: np.ndarray):
+    """JPEG magnitude category and its value bits of each integer."""
+    a = np.abs(v)
+    s = np.zeros(v.shape, np.int64)
+    nz = a > 0
+    s[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    bits = np.where(v >= 0, v, v + (1 << s) - 1)
+    return s, bits
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
+    """Baseline 4:2:0 JPEG of an HxWx3 uint8 RGB image."""
+    rgb = np.asarray(rgb, np.uint8)
+    H, W = rgb.shape[:2]
+    Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
+    img = np.pad(rgb, ((0, Hp - H), (0, Wp - W), (0, 0)),
+                 mode="edge").astype(np.float64)
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
+
+    def down(c):
+        return c.reshape(Hp // 2, 2, Wp // 2, 2).mean(axis=(1, 3))
+
+    qy = quant_table(_STD_LUMA_Q, quality)
+    qc = quant_table(_STD_CHROMA_Q, quality)
+
+    def coefs(plane, q):
+        blk = _blocks(plane - 128.0)
+        d = _DCT @ blk @ _DCT.T
+        zz = np.rint(d.reshape(d.shape[:2] + (64,)) / q)[..., ZIGZAG]
+        return zz.astype(np.int64)
+
+    cy, ccb, ccr = coefs(y, qy), coefs(down(cb), qc), coefs(down(cr), qc)
+    my, mx = Hp // 16, Wp // 16
+    # MCU order: Y00 Y01 Y10 Y11 Cb Cr
+    ys = cy.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
+        my * mx, 4, 64)
+    blocks = np.concatenate([ys, ccb.reshape(-1, 1, 64),
+                             ccr.reshape(-1, 1, 64)], axis=1).reshape(-1, 64)
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), my * mx)
+    chroma = comp > 0
+    nb = len(blocks)
+
+    dc = blocks[:, 0]
+    diff = np.empty_like(dc)
+    for c in range(3):
+        sel = np.flatnonzero(comp == c)
+        diff[sel] = np.diff(dc[sel], prepend=0)
+    tabs = {name: _huff_codes(spec) for name, spec in (
+        ("dcl", DC_LUMA), ("dcc", DC_CHROMA), ("acl", AC_LUMA),
+        ("acc", AC_CHROMA))}
+
+    def huff(sym, is_chroma, kind):
+        cl, ll = tabs[kind + "l"]
+        cc, lc = tabs[kind + "c"]
+        return (np.where(is_chroma, cc[sym], cl[sym]),
+                np.where(is_chroma, lc[sym], ll[sym]))
+
+    keys, codes, lens = [], [], []
+    s, vb = _categories(diff)
+    hc, hl = huff(s, chroma, "dc")
+    keys.append(np.arange(nb) * 1024)
+    codes.append((hc << s) | vb)
+    lens.append(hl + s)
+
+    ac = blocks[:, 1:]
+    bi, kk = np.nonzero(ac)                    # row-major: by block, then k
+    kk = kk + 1
+    v = ac[bi, kk - 1]
+    first = np.r_[True, bi[1:] != bi[:-1]]
+    prev = np.where(first, 0, np.r_[0, kk[:-1]])
+    run = kk - prev - 1
+    zrl, r = run // 16, run % 16
+    s, vb = _categories(v)
+    hc, hl = huff((r << 4) | s, chroma[bi], "ac")
+    keys.append(bi * 1024 + kk * 8 + 4)
+    codes.append((hc << s) | vb)
+    lens.append(hl + s)
+    zi = np.repeat(np.arange(len(bi)), zrl)    # runs of 16 zeros
+    zj = np.arange(len(zi)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+    hc, hl = huff(np.full(len(zi), 0xF0), chroma[bi[zi]], "ac")
+    keys.append(bi[zi] * 1024 + kk[zi] * 8 + zj)
+    codes.append(hc)
+    lens.append(hl)
+    last = np.zeros(nb, np.int64)              # end of block unless k=63
+    np.maximum.at(last, bi, kk)
+    eob = np.flatnonzero(last < 63)
+    hc, hl = huff(np.zeros(len(eob), np.int64), chroma[eob], "ac")
+    keys.append(eob * 1024 + 1000)
+    codes.append(hc)
+    lens.append(hl)
+
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    code = np.concatenate(codes)[order]
+    length = np.concatenate(lens)[order]
+    ends = np.cumsum(length)
+    total = int(ends[-1])
+    item = np.repeat(np.arange(len(code)), length)
+    shift = ends[item] - 1 - np.arange(total)  # bit position within item
+    bits = ((code[item] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
+    data = np.packbits(bits)
+    ff = np.flatnonzero(data == 0xFF)
+    data = np.insert(data, ff + 1, 0).tobytes()   # byte stuffing
+
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")]
+    out.append(_segment(0xDB, bytes([0]) + bytes(qy[ZIGZAG].tolist())
+                        + bytes([1]) + bytes(qc[ZIGZAG].tolist())))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, H, W, 3)
+                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    if dht:
+        payload = b""
+        for cls_id, spec in ((0x00, DC_LUMA), (0x10, AC_LUMA),
+                             (0x01, DC_CHROMA), (0x11, AC_CHROMA)):
+            payload += bytes([cls_id] + spec[0] + spec[1])
+        out.append(_segment(0xC4, payload))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11,
+                                     0, 63, 0])))
+    out += [data, b"\xff\xd9"]
+    return b"".join(out)
+
+
+def write_avi(path: str, jpegs: list, width: int, height: int) -> None:
+    """An AVI 1.0 file of Motion-JPEG frames (``jpegs``: JPEG bytes) at 10
+    frames/s."""
+    fps, n = 10, len(jpegs)
+    biggest = max((len(j) for j in jpegs), default=0)
+
+    def chunk(fcc: bytes, data: bytes) -> bytes:
+        return fcc + struct.pack("<I", len(data)) + data + b"\0" * (
+            len(data) & 1)
+
+    def lst(kind: bytes, data: bytes) -> bytes:
+        return b"LIST" + struct.pack("<I", len(data) + 4) + kind + data
+
+    avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
+                       1, biggest, width, height, 0, 0, 0, 0)
+    strh = (b"vidsMJPG" + struct.pack("<IHHIIIIIIiI", 0, 0, 0, 0, 1, fps, 0,
+                                      n, biggest, -1, 0)
+            + struct.pack("<4h", 0, 0, width, height))
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+                       width * height * 3, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih)
+               + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    frames, index, off = [], [], 4             # offsets from "movi"
+    for j in jpegs:
+        c = chunk(b"00dc", j)
+        index.append(b"00dc" + struct.pack("<III", 0x10, off, len(j)))
+        frames.append(c)
+        off += len(c)
+    body = hdrl + lst(b"movi", b"".join(frames)) + chunk(b"idx1",
+                                                        b"".join(index))
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", len(body) + 4) + b"AVI " + body)

@@ -6,8 +6,8 @@ The port is held to the JAX test's own bounds against the truth, and to the
 JAX package's ``calibrate_camera`` on the same views: K within 2e-3
 relative, dist[0:2] within 5e-3 absolute, rms within 0.01 px.  Corner
 detection is OpenCV's in the JAX package, so the port's photo entry point
-raises the JAX package's own no-cv2 error, and video calibration raises as
-the port's MediaSource does for video.  tests/test_calibration.py's video
+raises the JAX package's own no-cv2 error (on photos, and on the tenth
+frame of an MJPEG AVI).  tests/test_calibration.py's video
 test has no twin: it writes its video with cv2's VideoWriter and detects
 the corners with cv2, neither of which the port has.
 """
@@ -186,17 +186,31 @@ def test_run_from_config_calibrate_on_photos(tmp_path, monkeypatch):
     assert not (tmp_path / "cam.xml").exists()
 
 
-def test_calibrate_video_raises_as_media_source(tmp_path):
+def test_calibrate_video_raises_as_media_source(tmp_path, monkeypatch):
+    """Video calibration opens the video as ``MediaSource`` does (a missing
+    file raises its ``IOError``), and on an MJPEG AVI stops at the tenth
+    frame's corner detection with the JAX package's no-cv2 error; nothing
+    is written."""
     from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg
 
     cfg = tconfig.Config(usePhotosCycle=False, calibrate=True,
                          videoSourcePath=str(tmp_path / "calib.avi"),
                          calibrationPath=str(tmp_path / "cam.xml"))
-    with pytest.raises(NotImplementedError) as e:
+    with pytest.raises(IOError) as e:
         tapp.run_from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError) as want:
+    with pytest.raises(IOError) as want:
         MediaSource(video_path=cfg.videoSourcePath, use_photos=False)
     assert str(e.value) == str(want.value)
+    rng = np.random.default_rng(0)
+    frames = [mjpeg.encode_jpeg(rng.integers(0, 255, (24, 32, 3),
+                                             dtype=np.uint8))
+              for _ in range(10)]
+    mjpeg.write_avi(cfg.videoSourcePath, frames, 32, 24)
+    with pytest.raises(RuntimeError) as e:
+        tapp.run_from_config(cfg, device="cpu")
+    assert str(e.value) == _jax_no_cv2_error(monkeypatch)
+    assert not (tmp_path / "cam.xml").exists()
 
 
 @pytest.mark.parametrize("pil", [True, False])

@@ -165,3 +165,19 @@ def test_sample_indices_stay_on_valid_slots():
     assert set(idx.unique().tolist()) == {3, 17, 40}
     none = transac.sample_indices(torch.zeros(5, dtype=torch.bool), (4, 2), g)
     assert int(none.max()) <= 4
+
+
+@pytest.mark.parametrize("d", [4, 9, 12])
+def test_smallest_eigenvector_on_the_cpu_is_lapack_float32(rng, d):
+    """geometry/nullspace.py keeps the CPU on float32 LAPACK (the solver
+    moves to float64 only on CUDA): bit for bit ``torch.linalg.eigh``'s
+    smallest eigenvector at the DLT shapes (triangulation 4, the 8-point
+    essential 9, PnP 12), float32 in, float32 out."""
+    from slam_indoor_code_tpu_torch.geometry.nullspace import (
+        smallest_eigenvector)
+
+    A = torch.from_numpy(rng.normal(size=(64, d + 2, d)).astype(np.float32))
+    AtA = A.transpose(1, 2) @ A
+    got = smallest_eigenvector(AtA)
+    assert got.dtype == torch.float32 and got.shape == (64, d)
+    assert torch.equal(got, torch.linalg.eigh(AtA)[1][..., 0])

@@ -562,10 +562,17 @@ def test_classic_conductor_launches_top2_batch_per_scan_on_card(
 @pytest.mark.gpu
 def test_media_source_decodes_on_card_machine(cuda_device, tmp_path):
     """Photo media decodes on the card's machine (natively where libpng
-    builds, else with the port's PNG reader) to the frames written; without
-    the native decoder a JPEG raises and names libjpeg."""
-    from slam_indoor_code_tpu_torch.io import native
+    builds, else with the port's PNG reader) to the frames written; JPEG
+    (io/jpeg.py where libjpeg does not build) gives cv2's decode of the
+    committed fixtures (their sha256), skips a corrupt file, and an MJPEG
+    AVI of the fixture frames reads back frame for frame."""
+    import hashlib
+    import json
+    import pathlib
+
+    from slam_indoor_code_tpu_torch.io import jpeg
     from slam_indoor_code_tpu_torch.io.media import MediaSource, _imread_rgb
+    from slam_indoor_code_tpu_torch.testing import mjpeg
 
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (60, 80, 3), dtype=np.uint8)
@@ -577,10 +584,21 @@ def test_media_source_decodes_on_card_machine(cuda_device, tmp_path):
     assert len(got) == len(frames)
     for a, b in zip(got, frames):        # img2 before img10: natural order
         np.testing.assert_array_equal(a, b)
-    if not native.available():
-        (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-        with pytest.raises(RuntimeError, match="libjpeg"):
-            _imread_rgb(str(tmp_path / "x.jpg"))
+    fixtures = (pathlib.Path(__file__).resolve().parent.parent
+                / "slam_indoor_code_tpu_torch" / "testing" / "jpeg_fixtures")
+    table = json.loads((fixtures / "cv2_sha256.json").read_text())
+    for name, want in table.items():
+        img = _imread_rgb(str(fixtures / name))
+        assert hashlib.sha256(img.tobytes()).hexdigest() == want["sha256"]
+    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    assert _imread_rgb(str(tmp_path / "x.jpg")) is None
+    jpegs = [mjpeg.encode_jpeg(f) for f in frames[:4]]
+    mjpeg.write_avi(str(tmp_path / "v.avi"), jpegs, 80, 60)
+    video = list(MediaSource(video_path=str(tmp_path / "v.avi"),
+                             use_photos=False, threads=3))
+    assert len(video) == 4
+    for a, j in zip(video, jpegs):
+        np.testing.assert_array_equal(a, jpeg.decode(j))
 
 
 @pytest.mark.gpu
@@ -750,3 +768,27 @@ def test_sequences_on_card_equal_solo_runs(cuda_device, tmp_path):
         np.testing.assert_array_equal(np.asarray(gd.rotations),
                                       np.asarray(solo.rotations))
         np.testing.assert_array_equal(gd.points, solo.points)
+
+
+@pytest.mark.gpu
+def test_smallest_eigenvector_on_card_equals_lapack(cuda_device):
+    """geometry/nullspace.py on CUDA gives LAPACK's smallest eigenvector
+    (float64 on the CPU) on near-singular PnP-shaped 12x12 AᵀA: a near-flat
+    6-point cloud, as minimal samples on a wall give; cuSOLVER's float32
+    batched solver does not."""
+    from slam_indoor_code_tpu_torch.geometry.nullspace import (
+        smallest_eigenvector)
+
+    g = torch.Generator().manual_seed(0)
+    X = (torch.randn(4096, 6, 3, generator=g)
+         * torch.tensor([2.0, 1.0, 0.05]) + torch.tensor([0.0, 0.0, 5.0]))
+    x = torch.randn(4096, 6, 2, generator=g) * 0.3
+    Xh = torch.cat([X, torch.ones(4096, 6, 1)], -1)
+    zeros = torch.zeros_like(Xh)
+    A = torch.cat([torch.cat([Xh, zeros, -x[..., :1] * Xh], -1),
+                   torch.cat([zeros, Xh, -x[..., 1:] * Xh], -1)], 1)
+    AtA = torch.einsum("sij,sik->sjk", A, A)
+    want = torch.linalg.eigh(AtA.double())[1][..., 0]
+    got = smallest_eigenvector(AtA.to(cuda_device)).cpu().double()
+    cos = (got * want).sum(-1).abs()
+    assert float(cos.min()) > 0.9999, float(cos.min())

@@ -2,7 +2,9 @@
 natural sort and MediaSource against the JAX package's, bit for bit, on
 PNG and JPEG files written by cv2; the port's own PNG reader (the decoder
 where libpng cannot be built) over every colour type and row filter; the
-native build's failure; and what stays unported (video)."""
+native build's failure; the video the port refuses (io/avi.py; the MJPEG
+reader itself is in tests/test_torch_video.py); and the gray plane the
+frames become, against the JAX package's."""
 
 import struct
 import zlib
@@ -143,7 +145,7 @@ def test_png_reader_refuses_what_it_does_not_read(tmp_path):
 def test_pooled_reader_without_native(scene_frames, tmp_path, no_native):
     """Without the native decoder: the thread-pool PNG reader gives the
     same frames in natural order and skips an undecodable file; a JPEG
-    raises and names libjpeg."""
+    goes to the port's own decoder (io/jpeg.py), to cv2's pixels."""
     for i, f in enumerate(scene_frames):
         cv2.imwrite(str(tmp_path / f"f{i}.png"),
                     cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
@@ -158,9 +160,8 @@ def test_pooled_reader_without_native(scene_frames, tmp_path, no_native):
         np.testing.assert_array_equal(a, b)
     assert src.next_frame() is None
     cv2.imwrite(str(tmp_path / "x.jpg"), scene_frames[0])
-    with pytest.raises(RuntimeError, match="libjpeg") as e:
-        media._imread_rgb(str(tmp_path / "x.jpg"))
-    assert "jpeglib.h" in str(e.value)
+    np.testing.assert_array_equal(media._imread_rgb(str(tmp_path / "x.jpg")),
+                                  cv2.imread(str(tmp_path / "x.jpg"))[..., ::-1])
 
 
 def test_native_build_failure_raises_with_the_compilers_message(
@@ -178,9 +179,41 @@ def test_native_build_failure_raises_with_the_compilers_message(
 
 
 # -------------------------------------------------------------- app glue
-def test_video_media_is_not_ported():
-    with pytest.raises(NotImplementedError, match="video decoder"):
-        MediaSource(video_path="seq.avi", use_photos=False)
+def _avi_with_fourcc(path, fourcc: bytes):
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    mjpeg.write_avi(str(path), [mjpeg.encode_jpeg(np.zeros((8, 8, 3),
+                                                           np.uint8))], 8, 8)
+    data = path.read_bytes()
+    i = data.index(b"strf") + 8 + 16           # BITMAPINFOHEADER.biCompression
+    path.write_bytes(data[:i] + fourcc + data[i + 4:])
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("missing", IOError, "Video wasn't opened: "),
+    ("not_a_video", IOError, "Video wasn't opened: "),
+    ("h264_avi", NotImplementedError, "video codec 'H264' needs a decoder"),
+    ("xvid_avi", NotImplementedError, "video codec 'XVID' needs a decoder"),
+    ("mp4", NotImplementedError, "MP4/QuickTime"),
+    ("mkv", NotImplementedError, "Matroska/WebM"),
+])
+def test_video_media_is_not_ported(tmp_path, case, error, match):
+    """The video the port does not read: a file that does not open raises
+    the JAX package's ``IOError``; a codec other than Motion-JPEG, or a
+    container other than AVI, ``NotImplementedError`` naming it."""
+    path = tmp_path / "seq.avi"
+    if case == "not_a_video":
+        path.write_bytes(b"plain text, no RIFF header here")
+    elif case.endswith("_avi"):
+        _avi_with_fourcc(path, case[:4].upper().encode())
+    elif case == "mp4":
+        path = tmp_path / "seq.mp4"
+        path.write_bytes(b"\0\0\0\x18ftypmp42" + bytes(32))
+    elif case == "mkv":
+        path = tmp_path / "seq.mkv"
+        path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(32))
+    with pytest.raises(error, match=match):
+        MediaSource(video_path=str(path), use_photos=False)
 
 
 def test_make_media_builds_a_photo_source(scene_frames, tmp_path):
@@ -195,3 +228,23 @@ def test_make_media_builds_a_photo_source(scene_frames, tmp_path):
     np.testing.assert_array_equal(src.next_frame(), scene_frames[0])
     assert isinstance(tapp.make_media(cfg, frames=scene_frames), ArraySource)
     assert tapp.make_media(cfg, frames=src) is src
+
+
+def test_rgb_to_gray_equals_jax_eager_on_an_fhd_frame():
+    """The port's gray plane is the JAX package's eager ``rgb_to_gray`` bit
+    for bit at FHD (the same three products and two sums in float32).  The
+    jitted JAX form can differ on some pixels: XLA contracts a product and
+    a sum into one fused multiply-add there."""
+    import jax.numpy as jnp
+    import torch
+
+    from slam_indoor_code_tpu.ops import image as jimage
+    from slam_indoor_code_tpu.testing import make_scene as jmake_scene
+    from slam_indoor_code_tpu_torch.ops import image as timage
+
+    frame = jmake_scene(n_points=1500, n_frames=1, seed=7, baseline=0.3,
+                        image_size=(1080, 1920)).render(0)
+    want = np.asarray(jimage.rgb_to_gray(jnp.asarray(frame)))
+    got = timage.rgb_to_gray(torch.from_numpy(frame)).numpy()
+    assert got.shape == (1080, 1920) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
