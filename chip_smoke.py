@@ -113,7 +113,19 @@ Phases, each followed by one flushed line with the elapsed seconds:
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
               the same views; the XML written and reloaded; the solve's
-              seconds.
+              seconds.  Then from pixels: 20 FHD views rendered on the card
+              by testing/board.py through the same K and distortion with
+              noise of 2 gray levels, held host-side to the projection
+              (calibration/corners.py: all 20 found, corners within median
+              0.1 / max 0.5 px), a board-free frame and a board cut by the
+              frame edge giving None; the views as PNG photos and as one
+              MJPEG AVI (each q95 frame written ten times: the branch
+              takes every tenth) through the CLI as subprocesses
+              (``calibrate``, default device): exit 0, 20 views in the
+              XML, fx/fy within 1 %, cx/cy within 1 % of the image size,
+              rms < 0.3 px; prints the detection ms per FHD photo with and
+              without a board, each branch's K and its solve's seconds on
+              the card.
 20. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
@@ -2051,6 +2063,212 @@ def calibrate_phase(card_line: str, scene):
     return secs
 
 
+# ``python -m slam_indoor_code_tpu_torch`` with ``calibrate`` through runpy,
+# reporting each corner detection's host seconds and whether it found a
+# board, and the solve's seconds (card synchronised), rms and view count.
+CLI_CALIBRATE = r"""
+import atexit, json, runpy, sys, time
+import torch
+from slam_indoor_code_tpu_torch.calibration import chessboard as cb
+seen = {"detect_s": [], "found": [], "solve_s": [], "rms": [], "views": []}
+find, solve = cb.find_chessboard_corners, cb.calibrate_camera
+def timed_find(*a, **kw):
+    t = time.perf_counter()
+    c = find(*a, **kw)
+    seen["detect_s"].append(time.perf_counter() - t)
+    seen["found"].append(c is not None)
+    return c
+def timed_solve(obj, pts, *a, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = solve(obj, pts, *a, **kw)
+    torch.cuda.synchronize()
+    seen["solve_s"].append(time.perf_counter() - t)
+    seen["rms"].append(out[4])
+    seen["views"].append(len(pts))
+    return out
+cb.find_chessboard_corners, cb.calibrate_camera = timed_find, timed_solve
+atexit.register(lambda: print("calib: " + json.dumps(seen), flush=True))
+sys.argv = ["slam_indoor_code_tpu_torch"] + sys.argv[1:]
+runpy.run_module("slam_indoor_code_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+
+BOARD_DIST = (0.08, -0.15, 0.001, -0.0005, 0.0)
+BOARD_NOISE = 2.0
+
+
+def rendered_board_views(K, n_views: int, seed: int = 5,
+                         size=(1080, 1920)):
+    """``n_views`` views of the 7x7 board rendered on the card by
+    testing/board.py through K with ``BOARD_DIST`` and noise of
+    ``BOARD_NOISE`` gray levels, from a seed: any in-plane angle, tilts of
+    σ 0.3 rad, the whole board 40 px inside the frame → (gray u8 views,
+    projected corners, render seconds per view)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.testing import board
+
+    rng = np.random.default_rng(seed)
+    H, W = size
+    dist = np.array(BOARD_DIST)
+    views, truth, spent = [], [], 0.0
+    while len(views) < n_views:
+        R = np.eye(3)
+        for aa in (rng.normal(0, 0.3, 3),
+                   np.array([0, 0, rng.uniform(-np.pi, np.pi)])):
+            th = np.linalg.norm(aa)
+            k = aa / th
+            Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]],
+                           [-k[1], k[0], 0]])
+            R = R @ (np.eye(3) + np.sin(th) * Kx
+                     + (1 - np.cos(th)) * Kx @ Kx)
+        t = np.array([rng.uniform(-60, 60), rng.uniform(-40, 40),
+                      rng.uniform(420, 700)]) - R @ np.array([60, 60, 0.0])
+        # the board's outer squares reach one cell past the inner corners
+        outline = board.project_corners(
+            K, dist, R, R @ np.array([-20.0, -20.0, 0.0]) + t, (9, 9))
+        if (outline.min() < 40 or outline[:, 0].max() > W - 40
+                or outline[:, 1].max() > H - 40):
+            continue
+        (img, secs) = sync_time(lambda: board.render_view(
+            K, dist, R, t, size, noise=BOARD_NOISE, seed=len(views),
+            device="cuda"))
+        spent += secs
+        views.append(img)
+        truth.append(board.project_corners(K, dist, R, t))
+    return views, truth, spent / n_views
+
+
+def cli_calibrate(what: str, cfg, root: str):
+    """The CLI module with ``calibrate`` in a subprocess under
+    CLI_CALIBRATE: exit 0, the XML's K and 20 views → (K, the run's report
+    of detections and solves)."""
+    import re
+
+    from slam_indoor_code_tpu_torch.config import dump_config
+    from slam_indoor_code_tpu_torch.io.xmlio import load_matrix_from_xml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(root, f"{what}.json")
+    with open(cfg_path, "w") as f:
+        f.write(dump_config(cfg))
+    r = subprocess.run([sys.executable, "-c", CLI_CALIBRATE, cfg_path],
+                       capture_output=True, text=True, timeout=600, cwd=repo,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    if r.returncode != 0:
+        fail(f"calibrate ({what}): exit {r.returncode}: {r.stderr[-2000:]}")
+    c = re.search(r"^calib: (.*)$", r.stdout, re.M)
+    if c is None:
+        fail(f"calibrate ({what}): no report in {r.stdout[-500:]!r}")
+    seen = json.loads(c.group(1))
+    K = load_matrix_from_xml(cfg.calibrationPath, "K")
+    n_views = load_matrix_from_xml(cfg.calibrationPath, "R").shape[0]
+    if n_views != 20 or seen["views"] != [20]:
+        fail(f"calibrate ({what}): {n_views} views in the XML, "
+             f"{seen['views']} solved; 20 expected")
+    return K, seen
+
+
+def hold_k(what: str, K, K_true, size, rms) -> None:
+    """fx/fy within 1 % of the truth, cx/cy within 1 % of the image size,
+    rms < 0.3 px."""
+    H, W = size
+    for i, name in ((0, "fx"), (1, "fy")):
+        err = abs(K[i, i] - K_true[i, i]) / K_true[i, i]
+        if not err < 0.01:
+            fail(f"calibrate ({what}): {name} {K[i, i]:.3f} is "
+                 f"{100 * err:.3f}% from the truth {K_true[i, i]:.3f}")
+    for i, name, n in ((0, "cx", W), (1, "cy", H)):
+        if not abs(K[i, 2] - K_true[i, 2]) < 0.01 * n:
+            fail(f"calibrate ({what}): {name} {K[i, 2]:.3f} is more than "
+                 f"1% of {n} px from the truth {K_true[i, 2]:.3f}")
+    if not rms < 0.3:
+        fail(f"calibrate ({what}): rms {rms:.4f} px >= 0.3")
+
+
+def calibrate_pixels(card_line: str, scene, frames):
+    """Calibration from pixels through the CLI (phase 19's second part)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.calibration import chessboard as cb
+    from slam_indoor_code_tpu_torch.config import Config
+    from slam_indoor_code_tpu_torch.io.png import write_png
+    from slam_indoor_code_tpu_torch.models.frontend import host_gray
+    from slam_indoor_code_tpu_torch.testing import board, mjpeg
+
+    size = (1080, 1920)
+    views, truth, render_s = rendered_board_views(scene.K, 20)
+    # host-side detection, held to the projection
+    errs, board_s = [], []
+    for img, want in zip(views, truth):
+        t = time.perf_counter()
+        got = cb.find_chessboard_corners(img.astype(np.float64))
+        board_s.append(time.perf_counter() - t)
+        if got is None:
+            fail(f"calibrate: no board found in view {len(errs)}")
+        errs.append(np.linalg.norm(got[:, None] - want[None], axis=2).min(0))
+    errs = np.concatenate(errs)
+    if not (np.median(errs) < 0.1 and errs.max() < 0.5):
+        fail(f"calibrate: corners {np.median(errs):.4f} px (median) / "
+             f"{errs.max():.4f} px (max) from the projection")
+    t = time.perf_counter()
+    empty = cb.find_chessboard_corners(host_gray(frames[0]).astype(
+        np.float64))
+    empty_s = time.perf_counter() - t
+    K = scene.K
+    R = np.eye(3)
+    cut = board.render_view(K, np.array(BOARD_DIST), R,
+                            np.array([200.0, -60.0, 500.0]), size,
+                            noise=BOARD_NOISE, device="cuda")
+    if empty is not None or cb.find_chessboard_corners(
+            cut.astype(np.float64)) is not None:
+        fail("calibrate: a board was found in a board-free frame or in a "
+             "board cut by the frame edge")
+
+    with tempfile.TemporaryDirectory() as root:
+        photos = os.path.join(root, "photos")
+        os.makedirs(photos)
+        for i, img in enumerate(views):
+            write_png(os.path.join(photos, f"board_{i:02d}.png"),
+                      np.repeat(img[..., None], 3, axis=2))
+        jpegs = [mjpeg.encode_jpeg(np.repeat(img[..., None], 3, axis=2))
+                 for img in views]
+        avi = os.path.join(root, "board.avi")
+        mjpeg.write_avi(avi, [j for j in jpegs for _ in range(10)], size[1],
+                        size[0])
+        runs = {}
+        for what, use_photos in (("photos", True), ("video", False)):
+            cfg = Config(calibrate=True, usePhotosCycle=use_photos,
+                         photosPathPattern=os.path.join(photos, "*.png"),
+                         videoSourcePath=avi,
+                         calibrationPath=os.path.join(root, f"{what}.xml"),
+                         outputDataDir=os.path.join(root, "out"))
+            Kc, seen = cli_calibrate(what, cfg, root)
+            hold_k(what, Kc, K, size, seen["rms"][0])
+            if what == "photos" and sum(seen["found"]) != 20:
+                fail(f"calibrate (photos): {sum(seen['found'])}/20 boards "
+                     "found")
+            runs[what] = (Kc, seen)
+    lines = []
+    for what, (Kc, seen) in runs.items():
+        lines.append(
+            f"{what}: fx {Kc[0, 0]:.4f} fy {Kc[1, 1]:.4f} cx {Kc[0, 2]:.4f} "
+            f"cy {Kc[1, 2]:.4f} rms {seen['rms'][0]:.5f} px, "
+            f"{sum(seen['found'])}/{len(seen['found'])} boards found, "
+            f"detection {1e3 * np.mean(seen['detect_s']):.1f} ms per frame "
+            f"in the CLI, solve {seen['solve_s'][0]:.4f} s on the card")
+    print(f"calibrate (pixels): 20 FHD views rendered on the card "
+          f"({1e3 * render_s:.1f} ms each), corners {np.median(errs):.4f} px "
+          f"median / {errs.max():.4f} px max from the projection; detection "
+          f"{1e3 * np.mean(board_s):.1f} ms per FHD photo with a board "
+          f"(max {1e3 * max(board_s):.1f}), {1e3 * empty_s:.1f} ms without "
+          f"(host, numpy); truth fx {K[0, 0]:.1f} cx {K[0, 2]:.1f} cy "
+          f"{K[1, 2]:.1f}; CLI {'; '.join(lines)}  [{card_line}]",
+          flush=True)
+    return {w: seen["solve_s"][0] for w, (_, seen) in runs.items()}
+
+
 def ba_window_problem(scene, F: int = 8, slots: int = 2048,
                       points: int = 4096, seed: int = 77):
     """The headline's BA window shape from its scene: F frames of ``slots``
@@ -2375,7 +2593,10 @@ def main() -> None:
         by_path["realtex"] = n["top2_batch"]
         phase("realtex", top2_batch_launches=n["top2_batch"])
         calib_s = calibrate_phase(card_line, scene)
-        phase("calibrate", solve_s=f"{calib_s:.4f}")
+        solves = calibrate_pixels(card_line, scene, frames)
+        phase("calibrate", solve_s=f"{calib_s:.4f}",
+              photos_solve_s=f"{solves['photos']:.4f}",
+              video_solve_s=f"{solves['video']:.4f}")
         shard_launches, shard_ba_s = shard_phase(card_line, scene, frames)
         by_path.update(shard_launches)
         phase("shard", top2_batch_launches=json.dumps(shard_launches),

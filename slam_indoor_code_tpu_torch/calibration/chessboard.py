@@ -9,10 +9,12 @@ device with the Jacobian from ``torch.func.jacfwd`` (``jax.jacfwd`` in the
 JAX code); accept/reject and the damping schedule are the JAX package's, and
 the loop reads nothing back from the device until it ends.
 
-Corner detection is OpenCV's in the JAX package; the port does not import
-OpenCV, so ``find_chessboard_corners`` raises the JAX package's own error
-for a missing cv2, and the photo entry point reaches it after decoding the
-first photo (or the tenth video frame).
+Corner detection is OpenCV's ``findChessboardCorners`` then
+``cornerSubPix`` in the JAX package; here it is calibration/corners.py, in
+numpy, held to OpenCV on the same images.  The video branch takes the gray
+``cv2.cvtColor(BGR2GRAY)`` gives the JAX package (``host_gray``, OpenCV's
+fixed point); the photo branch truncates the float dot product to u8, as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from torch.func import vmap
 from .. import resolve_device
 from ..geometry.rotations import matrix_to_rodrigues, rodrigues_to_matrix
 from ..io.xmlio import save_calib_parameters_to_xml
+from ..models.frontend import host_gray
 from ..utils.autodiff import jacfwd
+from .corners import corner_subpix, find_corners
 
 PATTERN_SIZE = (7, 7)  # inner corners, reference cameraCalibration.cpp:15
 CELL_SIZE = 20.0       # arbitrary board units (reference uses unit cells)
@@ -43,11 +47,14 @@ def make_object_points(pattern_size=PATTERN_SIZE,
 
 
 def find_chessboard_corners(gray: np.ndarray, pattern_size=PATTERN_SIZE):
-    """Inner-corner detection is OpenCV's (``findChessboardCorners`` and
-    ``cornerSubPix``), which the port does not use: raises the error the
-    JAX package raises where cv2 is missing."""
-    raise RuntimeError(
-        "chessboard corner detection needs cv2 (host-side only)")
+    """Detect inner corners (host-side).  Returns [N,2] float64 in
+    OpenCV's order, or None."""
+    img8 = gray.astype(np.uint8)
+    corners = find_corners(img8, pattern_size)
+    if corners is None:
+        return None
+    corners = corner_subpix(img8, corners, (11, 11), (-1, -1), 30, 1e-3)
+    return corners.astype(np.float64)
 
 
 # ------------------------------------------------------------- Zhang closed form
@@ -278,9 +285,7 @@ def main_calibration_entry_point(cfg, device=None):
         for count, frame in enumerate(src, 1):
             if count % 10:
                 continue
-            gray = (frame @ np.array([0.299, 0.587, 0.114])).astype(
-                np.float64)
-            c = find_chessboard_corners(gray)
+            c = find_chessboard_corners(host_gray(frame))
             if c is not None:
                 img_pts.append(c)
             if len(img_pts) >= 20:

@@ -17,7 +17,7 @@ is ``fma(x, M0, row) / fma(x, M6, row)`` in float32, with each row's terms
 leaves to its scalar loop).  INTER_LINEAR floors it and blends the 2x2
 neighbours with ``fma(alpha, p01 - p00, p00)`` across and then down,
 rounded half to even; INTER_NEAREST rounds it half to even.  Outside the
-texture is ``BORDER_CONSTANT`` 0.
+texture is ``BORDER_CONSTANT`` (0 unless a border value is given).
 
 A float32 FMA is computed in float64 and rounded once more (exact but for
 a double rounding, which needs the float64 result to fall on a float32
@@ -63,7 +63,7 @@ def _fma(a, b, c):
 
 
 def _gather(pad, iy, ix):
-    """The texture (zero-padded by one) at integer (iy, ix), 0 outside."""
+    """The texture (padded by one) at integer (iy, ix), the pad outside."""
     Hp, Wp = pad.shape[:2]
     return pad[(iy + 1).clamp(0, Hp - 1), (ix + 1).clamp(0, Wp - 1)]
 
@@ -89,7 +89,7 @@ def _source_xy(M, size, device):
 
 
 def _index(v, n):
-    """Integer texture index, clamped into the zero border."""
+    """Integer texture index, clamped into the one-pixel border."""
     return v.clamp(-2, n + 1).long()
 
 
@@ -111,22 +111,24 @@ def _nearest_inside(sx, sy, tex_hw):
     return (X >= 0) & (X < tex_hw[1]) & (Y >= 0) & (Y < tex_hw[0])
 
 
-def _padded(tex, device):
-    """An HxWxC texture as float32 on ``device``, zero-padded by one."""
+def _padded(tex, device, border: int = 0):
+    """An HxWxC texture as float32 on ``device``, padded by one pixel of
+    ``border``."""
     t = torch.as_tensor(np.ascontiguousarray(tex), device=device)
     t = t.reshape(t.shape[0], t.shape[1], -1)
-    pad = torch.zeros((t.shape[0] + 2, t.shape[1] + 2, t.shape[2]),
-                      dtype=torch.float32, device=device)
+    pad = torch.full((t.shape[0] + 2, t.shape[1] + 2, t.shape[2]),
+                     float(border), dtype=torch.float32, device=device)
     pad[1:-1, 1:-1] = t
     return pad
 
 
 def warp_perspective(src: np.ndarray, Hm: np.ndarray, size,
-                     nearest: bool = False, device="cpu") -> np.ndarray:
+                     nearest: bool = False, device="cpu",
+                     border: int = 0) -> np.ndarray:
     """``cv2.warpPerspective(src, Hm, (W, H), flags=INTER_LINEAR or
-    INTER_NEAREST)`` with ``BORDER_CONSTANT`` 0, for a uint8 image,
-    computed on ``device``."""
-    pad = _padded(src, device)
+    INTER_NEAREST, borderValue=border)`` with ``BORDER_CONSTANT``, for a
+    uint8 image, computed on ``device``."""
+    pad = _padded(src, device, border)
     sx, sy = _source_xy(invert3x3(Hm), size, device)
     if nearest:
         X = _index(torch.round(sx), pad.shape[1] - 2)

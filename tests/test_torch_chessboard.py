@@ -4,12 +4,16 @@ synthetic views (seed 9, 8 views of the 7×7 board, 0.1 px noise).
 
 The port is held to the JAX test's own bounds against the truth, and to the
 JAX package's ``calibrate_camera`` on the same views: K within 2e-3
-relative, dist[0:2] within 5e-3 absolute, rms within 0.01 px.  Corner
-detection is OpenCV's in the JAX package, so the port's photo entry point
-raises the JAX package's own no-cv2 error (on photos, and on the tenth
-frame of an MJPEG AVI).  tests/test_calibration.py's video
-test has no twin: it writes its video with cv2's VideoWriter and detects
-the corners with cv2, neither of which the port has.
+relative, dist[0:2] within 5e-3 absolute, rms within 0.01 px.  From pixels,
+the port's corner detection (calibration/corners.py) against the JAX
+package's OpenCV call on a render, and ``run_from_config`` with
+``calibrate`` on the same PNG photos in both packages: K within 1e-3
+relative, dist within 1e-3, rms within 1e-3 px.  The twin of
+tests/test_calibration.py's video test writes its MJPEG AVI with the numpy
+writer (testing/mjpeg.py); the JAX package reads it with
+``cv2.VideoCapture``, the port with ``MediaSource``; each K lies within 2 %
+of the truth and within 1e-3 (relative) of the other.  The video branch's
+gray is ``cv2.cvtColor(BGR2GRAY)``'s, bit for bit.
 """
 
 import sys
@@ -160,57 +164,189 @@ def _jax_no_cv2_error(monkeypatch) -> str:
     return str(e.value)
 
 
+def _rendered_views(n, seed):
+    """``n`` 480x640 renders of the board (testing/board.py) through K_gt
+    with distortion and noise of one gray level, every inner corner 20 px
+    inside the frame."""
+    from slam_indoor_code_tpu_torch.testing import board
+
+    H, W = size = (480, 640)
+    dist = np.array([0.08, -0.15, 1e-3, -5e-4, 0.0])
+    K = np.array([[800.0, 0, W / 2], [0, 810.0, H / 2], [0, 0, 1.0]])
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        R = _rot(rng, scale=0.3)
+        t = np.array([rng.uniform(-40, 40), rng.uniform(-30, 30),
+                      rng.uniform(420, 600)]) - R @ np.array([60, 60, 0.0])
+        p = board.project_corners(K, dist, R, t)
+        if p.min() < 20 or p[:, 0].max() > W - 20 or p[:, 1].max() > H - 20:
+            continue
+        out.append(board.render_view(K, dist, R, t, size, noise=1.0,
+                                     seed=len(out)))
+    return K, out
+
+
 def test_find_corners_raises_jax_no_cv2_error(monkeypatch):
-    with pytest.raises(RuntimeError) as e:
-        tcb.find_chessboard_corners(np.zeros((8, 8)))
-    assert str(e.value) == _jax_no_cv2_error(monkeypatch)
+    """Where the JAX package raises its no-cv2 error, the port's detection
+    (no OpenCV) finds the corners OpenCV finds, in OpenCV's order."""
+    _, views = _rendered_views(2, seed=5)
+    for img in views:
+        want = jcb.find_chessboard_corners(img.astype(np.float64))
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "cv2", None)
+            got = tcb.find_chessboard_corners(img.astype(np.float64))
+        assert got.shape == want.shape == (49, 2)
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.05)
+    assert "cv2" in _jax_no_cv2_error(monkeypatch)
+
+
+def _spy_calibrate(monkeypatch, module):
+    """Record what ``module.calibrate_camera`` returns."""
+    seen = []
+    orig = module.calibrate_camera
+
+    def spy(*a, **kw):
+        seen.append(orig(*a, **kw))
+        return seen[-1]
+
+    monkeypatch.setattr(module, "calibrate_camera", spy)
+    return seen
 
 
 def test_run_from_config_calibrate_on_photos(tmp_path, monkeypatch):
-    """``calibrate`` dispatches to main_calibration_entry_point, which
-    decodes the photos and stops at detection with the JAX package's
-    no-cv2 error; nothing is written."""
+    """``calibrate`` on the same PNG photos in both packages: the port's K
+    within 1e-3 (relative) of the JAX package's, dist within 1e-3, rms
+    within 1e-3 px, and the XML written and read back by both."""
+    from slam_indoor_code_tpu import app as japp
+    from slam_indoor_code_tpu import config as jconfig
+    from slam_indoor_code_tpu.io.xmlio import load_matrix_from_xml
+
     photos = tmp_path / "photos"
     photos.mkdir()
-    rng = np.random.default_rng(0)
-    for i in range(3):
-        png.write_png(str(photos / f"board_{i}.png"),
-                      rng.integers(0, 255, (24, 32, 3), dtype=np.uint8))
-    cfg = tconfig.Config(usePhotosCycle=True, calibrate=True,
-                         photosPathPattern=str(photos / "*.png"),
-                         calibrationPath=str(tmp_path / "cam.xml"),
-                         outputDataDir=str(tmp_path / "out"))
-    with pytest.raises(RuntimeError) as e:
-        tapp.run_from_config(cfg, device="cpu")
-    assert str(e.value) == _jax_no_cv2_error(monkeypatch)
-    assert not (tmp_path / "cam.xml").exists()
+    K_gt, views = _rendered_views(10, seed=21)
+    for i, img in enumerate(views):
+        png.write_png(str(photos / f"board_{i:02d}.png"),
+                      np.repeat(img[..., None], 3, axis=2))
+    got = _spy_calibrate(monkeypatch, tcb)
+    want = _spy_calibrate(monkeypatch, jcb)
+    kw = dict(usePhotosCycle=True, calibrate=True,
+              photosPathPattern=str(photos / "*.png"),
+              outputDataDir=str(tmp_path / "out"))
+    tapp.run_from_config(tconfig.Config(
+        calibrationPath=str(tmp_path / "cam.xml"), **kw), device="cpu")
+    japp.run_from_config(jconfig.Config(
+        calibrationPath=str(tmp_path / "jcam.xml"), **kw))
+    (K, dist, rvecs, _, rms), = got
+    (jK, jdist, _, _, jrms), = want
+    assert rvecs.shape == (10, 3)
+    np.testing.assert_allclose(K, jK, rtol=1e-3, atol=0)
+    np.testing.assert_allclose(dist, jdist, rtol=0, atol=1e-3)
+    assert abs(rms - jrms) < 1e-3, (rms, jrms)
+    assert rms < 0.3
+    np.testing.assert_allclose(K[0, 0], K_gt[0, 0], rtol=0.01)
+    for load in (txml.load_matrix_from_xml, load_matrix_from_xml):
+        np.testing.assert_allclose(load(str(tmp_path / "cam.xml"), "K"), K,
+                                   atol=1e-6)
+        assert load(str(tmp_path / "cam.xml"), "R").shape == (10, 3)
+
+
+def _video_views():
+    """tests/test_calibration.py::test_video_calibration_entry_point's
+    eight views, rendered by testing/board.py (equal to its cv2 warps)."""
+    from slam_indoor_code_tpu_torch.testing import board
+
+    rng = np.random.default_rng(3)
+    K_gt = np.array([[800.0, 0, 320.0], [0, 810.0, 240.0], [0, 0, 1.0]])
+    W, H = 640, 480
+    views = []
+    while len(views) < 8:
+        R = _rot(rng, scale=0.25)
+        t = np.array([rng.uniform(-30, 30), rng.uniform(-25, 25),
+                      rng.uniform(380, 560)])
+        corners = _project_board(K_gt, np.zeros(5), R, t,
+                                 tcb.make_object_points())
+        if (corners.min() < 20 or corners[:, 0].max() > W - 20
+                or corners[:, 1].max() > H - 20):
+            continue
+        views.append(board.render_view(K_gt, np.zeros(5), R, t, (H, W)))
+    return K_gt, views
 
 
 def test_calibrate_video_raises_as_media_source(tmp_path, monkeypatch):
     """Video calibration opens the video as ``MediaSource`` does (a missing
-    file raises its ``IOError``), and on an MJPEG AVI stops at the tenth
-    frame's corner detection with the JAX package's no-cv2 error; nothing
-    is written."""
+    file raises its ``IOError``); on the twin of tests/test_calibration.py's
+    video (its eight views, each ten times, as q95 MJPEG from the numpy
+    writer) both packages recover K within 2 % of the truth, and within
+    1e-3 (relative) of each other."""
+    from slam_indoor_code_tpu.calibration.chessboard import \
+        main_calibration_entry_point as jentry
+    from slam_indoor_code_tpu.config import Config as JConfig
+    from slam_indoor_code_tpu.config import TpuConfig
+    from slam_indoor_code_tpu.io.xmlio import load_matrix_from_xml
     from slam_indoor_code_tpu_torch.io.media import MediaSource
     from slam_indoor_code_tpu_torch.testing import mjpeg
 
     cfg = tconfig.Config(usePhotosCycle=False, calibrate=True,
                          videoSourcePath=str(tmp_path / "calib.avi"),
-                         calibrationPath=str(tmp_path / "cam.xml"))
+                         calibrationPath=str(tmp_path / "cam.xml"),
+                         outputDataDir=str(tmp_path))
     with pytest.raises(IOError) as e:
         tapp.run_from_config(cfg, device="cpu")
     with pytest.raises(IOError) as want:
         MediaSource(video_path=cfg.videoSourcePath, use_photos=False)
     assert str(e.value) == str(want.value)
-    rng = np.random.default_rng(0)
-    frames = [mjpeg.encode_jpeg(rng.integers(0, 255, (24, 32, 3),
-                                             dtype=np.uint8))
+    K_gt, views = _video_views()
+    jpegs = [mjpeg.encode_jpeg(np.repeat(v[..., None], 3, axis=2))
+             for v in views for _ in range(10)]
+    mjpeg.write_avi(cfg.videoSourcePath, jpegs, 640, 480)
+    got = _spy_calibrate(monkeypatch, tcb)
+    tapp.run_from_config(cfg, device="cpu")
+    K = got[0][0]
+    jK, _, jrms = jentry(JConfig(
+        usePhotosCycle=False, videoSourcePath=cfg.videoSourcePath,
+        calibrationPath=str(tmp_path / "jcam.xml"), calibrate=True,
+        outputDataDir=str(tmp_path), tpu=TpuConfig()))
+    for k in (K, jK):
+        np.testing.assert_allclose(np.diag(k)[:2], np.diag(K_gt)[:2],
+                                   rtol=0.02)
+        np.testing.assert_allclose(k[:2, 2], K_gt[:2, 2], rtol=0.02)
+    np.testing.assert_allclose(K, jK, rtol=1e-3, atol=0)
+    np.testing.assert_allclose(load_matrix_from_xml(cfg.calibrationPath,
+                                                    "K"), K, atol=1e-6)
+
+
+def test_video_branch_gray_equals_cv2(tmp_path, monkeypatch):
+    """The video branch detects on ``cv2.cvtColor(frame, BGR2GRAY)`` of the
+    decoded frame, bit for bit (OpenCV's fixed point, not a truncated
+    float dot product)."""
+    import cv2
+
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    rng = np.random.default_rng(2)
+    frames = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
               for _ in range(10)]
-    mjpeg.write_avi(cfg.videoSourcePath, frames, 32, 24)
-    with pytest.raises(RuntimeError) as e:
-        tapp.run_from_config(cfg, device="cpu")
-    assert str(e.value) == _jax_no_cv2_error(monkeypatch)
-    assert not (tmp_path / "cam.xml").exists()
+    path = str(tmp_path / "v.avi")
+    mjpeg.write_avi(path, [mjpeg.encode_jpeg(f) for f in frames], 64, 48)
+    seen = []
+    monkeypatch.setattr(tcb, "find_chessboard_corners",
+                        lambda gray, *a: seen.append(gray))
+    cfg = tconfig.Config(usePhotosCycle=False, calibrate=True,
+                         videoSourcePath=path,
+                         calibrationPath=str(tmp_path / "cam.xml"))
+    with pytest.raises(RuntimeError, match="not enough chessboard views"):
+        tcb.main_calibration_entry_point(cfg, device="cpu")
+    src = MediaSource(video_path=path, use_photos=False)
+    decoded = list(src)
+    src.close()
+    want = cv2.cvtColor(decoded[9][..., ::-1].copy(), cv2.COLOR_BGR2GRAY)
+    assert len(seen) == 1
+    np.testing.assert_array_equal(seen[0], want)
+    assert not np.array_equal(
+        seen[0], (decoded[9] @ np.array([0.299, 0.587, 0.114])).astype(
+            np.uint8))
 
 
 @pytest.mark.parametrize("pil", [True, False])

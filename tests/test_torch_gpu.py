@@ -726,6 +726,34 @@ def test_calibrate_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.gpu
+def test_board_render_on_card_equals_cpu(cuda_device):
+    """testing/board.py on the card: the undistorted render (the warp)
+    equals the CPU's bit for bit; the distorted one differs in at most one
+    4x4 sub-sample on a few edge pixels, and detection on it lands within
+    0.01 px of detection on the CPU's."""
+    from slam_indoor_code_tpu_torch.calibration import chessboard as cb
+    from slam_indoor_code_tpu_torch.testing import board
+
+    K = np.array([[1728.0, 0, 960.0], [0, 1728.0, 540.0], [0, 0, 1.0]])
+    R = torch.linalg.matrix_exp(torch.tensor(
+        [[0, -0.5, 0.2], [0.5, 0, -0.3], [-0.2, 0.3, 0]],
+        dtype=torch.float64)).numpy()
+    t = np.array([-20.0, 10.0, 560.0]) - R @ np.array([60.0, 60.0, 0.0])
+    size = (1080, 1920)
+    for dist in (np.zeros(5), np.array([0.08, -0.15, 1e-3, -5e-4, 0.0])):
+        cpu = board.render_view(K, dist, R, t, size, noise=2, seed=1)
+        card = board.render_view(K, dist, R, t, size, noise=2, seed=1,
+                                 device="cuda")
+        diff = np.abs(cpu.astype(int) - card)
+        if not dist.any():
+            np.testing.assert_array_equal(card, cpu)
+        assert diff.max() <= 16 and (diff > 0).mean() < 1e-3
+        got = cb.find_chessboard_corners(card.astype(np.float64))
+        want = cb.find_chessboard_corners(cpu.astype(np.float64))
+        np.testing.assert_allclose(got, want, rtol=0, atol=0.01)
+
+
+@pytest.mark.gpu
 def test_engine_mesh_needs_distinct_cards(cuda_device):
     from slam_indoor_code_tpu_torch.io.media import ArraySource
     from slam_indoor_code_tpu_torch.runtime import DeviceEngine, EngineConfig
