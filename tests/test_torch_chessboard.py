@@ -366,3 +366,65 @@ def test_corner_overlay_png(tmp_path, monkeypatch, pil):
     np.testing.assert_array_equal(got[13, 10], [255, 0, 0])
     np.testing.assert_array_equal(got[20, 30], [255, 0, 0])
     np.testing.assert_array_equal(got[0, 0], [200, 200, 200])
+
+
+def agreement() -> dict:
+    """The numbers behind the photo and video tests: the port against the
+    JAX package on the same PNG photos and on the same MJPEG AVI (K's
+    largest relative difference, dist's largest absolute difference, the
+    rms difference), and how far cv2's default video backend decodes that
+    AVI from ``MediaSource`` (gray levels, share of pixels)."""
+    import glob
+    import tempfile
+
+    import cv2
+
+    from slam_indoor_code_tpu.config import Config as JConfig
+    from slam_indoor_code_tpu.config import TpuConfig
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    def diff(a, b):
+        return dict(K_rel=float(np.max(np.abs(a[0] - b[0]) / b[0].max())),
+                    dist_abs=float(np.abs(a[1] - b[1]).max()),
+                    rms_px=float(abs(a[2] - b[2])))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for i, img in enumerate(_rendered_views(10, seed=21)[1]):
+            png.write_png(f"{d}/b{i:02d}.png",
+                          np.repeat(img[..., None], 3, axis=2))
+        paths = sorted(glob.glob(f"{d}/*.png"))
+        out["photos"] = diff(
+            tcb.chessboard_photos_calibration(paths, f"{d}/t.xml",
+                                              device="cpu"),
+            jcb.chessboard_photos_calibration(paths, f"{d}/j.xml"))
+        views = _video_views()[1]
+        mjpeg.write_avi(f"{d}/v.avi", [
+            mjpeg.encode_jpeg(np.repeat(v[..., None], 3, axis=2))
+            for v in views for _ in range(10)], 640, 480)
+        kw = dict(usePhotosCycle=False, videoSourcePath=f"{d}/v.avi",
+                  calibrate=True, outputDataDir=d)
+        out["video"] = diff(
+            tcb.main_calibration_entry_point(tconfig.Config(
+                calibrationPath=f"{d}/t.xml", **kw), device="cpu"),
+            jcb.main_calibration_entry_point(JConfig(
+                calibrationPath=f"{d}/j.xml", tpu=TpuConfig(), **kw)))
+        src = MediaSource(video_path=f"{d}/v.avi", use_photos=False)
+        ours = list(src)
+        src.close()
+        cap = cv2.VideoCapture(f"{d}/v.avi")
+        theirs = []
+        while (frame := cap.read())[0]:
+            theirs.append(frame[1][..., ::-1].astype(int))
+        out["decode"] = dict(
+            max_levels=int(max(np.abs(a - b).max()
+                               for a, b in zip(ours, theirs))),
+            share=float(np.mean([(a != b).mean()
+                                 for a, b in zip(ours, theirs)])))
+    return out
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_chessboard.py
+    print(agreement())

@@ -246,3 +246,35 @@ def test_distorted_render_puts_corners_at_the_projection():
     assert np.array_equal(
         noisy, board.render_view(K, dist, R, t, size, noise=2, seed=4))
     assert 0 < np.abs(noisy.astype(int) - img).mean() < 3
+
+
+def survey(seed: int, n: int, size=(480, 640)) -> dict:
+    """Detection against the JAX package's OpenCV call on ``n`` renders of
+    the test set's kind from ``seed``: boards found by both, by one only,
+    by neither; boards whose order differs; the largest corner distance
+    (grid rotations allowed); and how often cv2's first corner is the
+    topmost of the four outer ones (the geometric rule the port does not
+    use)."""
+    out = dict(both=0, port_only=0, cv2_only=0, neither=0, order_differs=0,
+               max_px=0.0, cv2_first_is_topmost=0)
+    for view in _views(seed, n, size):
+        img = _image(view, size).astype(np.float64)
+        got = tcb.find_chessboard_corners(img)
+        want = jcb.find_chessboard_corners(img)
+        if got is None or want is None:
+            key = ("neither" if got is None and want is None else
+                   "port_only" if want is None else "cv2_only")
+            out[key] += 1
+            continue
+        out["both"] += 1
+        out["order_differs"] += int(np.abs(got - want).max() > 0.05)
+        out["max_px"] = max(out["max_px"], min(
+            np.abs(r - want).max() for r in _grid_rotations(got)))
+        outer = want[[0, 6, 42, 48], 1]
+        out["cv2_first_is_topmost"] += int(outer.argmin() == 0)
+    return out
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_corners.py SEED N: the survey at 640x480
+    print(survey(int(sys.argv[1]), int(sys.argv[2])))
