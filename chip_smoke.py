@@ -101,14 +101,24 @@ Phases, each followed by one flushed line with the elapsed seconds:
               equal to the jpeg run's byte for byte, the AVI's frames equal
               to the JPEG files'; prints the frame count, the container
               parse time and the decode ms per frame.
-18. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+18. mp4     — the committed fixture testing/video_fixtures/headline_mp4v.mp4
+              (the 32 frames as OpenCV's ``mp4v`` writer makes them; the
+              card has no encoder): the container parsed and timed, every
+              frame decoded by io/mpeg4.py on one thread and held to the
+              committed sha256 of cv2's RGB frames and Y planes (and the
+              small AC-prediction/DQUANT fixture to its RGB sha256), the
+              samples muxed into an XVID AVI whose frames equal the MP4's,
+              then the CLI with ``usePhotosCycle=false`` on the .mp4: the
+              jpeg phase's checks; prints the parse time and the decode ms
+              per frame beside the tracking ms per frame.
+19. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-19. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+20. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -126,25 +136,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rms < 0.3 px; prints the detection ms per FHD photo with and
               without a board, each branch's K and its solve's seconds on
               the card.
-20. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+21. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-21. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+22. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-22. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+23. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-23. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+24. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-24. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+25. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -154,7 +164,7 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-25. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+26. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
@@ -1888,7 +1898,7 @@ def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg):
         h, w = decoded[0].shape[:2]
         mjpeg.write_avi(path, jpegs, w, h)
         t = time.perf_counter()
-        parsed = avi.MjpegAvi(path)
+        parsed = avi.AviVideo(path)
         parse_ms = 1e3 * (time.perf_counter() - t)
         parsed.close()
         if len(parsed.frames) != len(jpegs) or parsed.fourcc != b"MJPG":
@@ -1913,6 +1923,90 @@ def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg):
           f"{decode_ms:.3f} ms per frame with 3 workers; tracking "
           f"{1e3 * n['slam_main_s'] / N_FRAMES:.3f} ms per frame; "
           f"subprocess {run_s:.3f} s  [{card_line}]", flush=True)
+    return n
+
+
+MP4_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "slam_indoor_code_tpu_torch", "testing",
+                           "video_fixtures", "headline_mp4v.mp4")
+
+
+def mp4_phase(card_line: str, scene):
+    """The committed fixture (the 32 headline frames as OpenCV's ``mp4v``
+    writer makes them: the card has no encoder): the container parsed and
+    timed; every frame decoded on one thread, timed, and held to the
+    committed sha256 of cv2's RGB frames and Y planes (and the small
+    AC-prediction/DQUANT fixture to its RGB sha256); the same samples
+    muxed into an XVID AVI (testing/mjpeg.py, the headers in front of the
+    first), whose frames through ``MediaSource`` must equal the MP4's; then
+    the CLI on the .mp4 with ``usePhotosCycle=false`` (cli_counted) →
+    counts."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import mp4, mpeg4
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    fixtures = os.path.dirname(MP4_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    table = tables[os.path.basename(MP4_FIXTURE)]
+    t = time.perf_counter()
+    video = mp4.Mp4Video(MP4_FIXTURE)
+    parse_ms = 1e3 * (time.perf_counter() - t)
+    samples = [video.read(fr) for fr in video.frames]
+    extradata, w, h = video.extradata, video.width, video.height
+    video.close()
+    if len(samples) != table["frames"] or (h, w) != tuple(table["shape"][:2]):
+        fail(f"mp4: the fixture parses to {len(samples)} samples at {h}x{w}")
+    dec = mpeg4.Decoder(extradata)
+    t = time.perf_counter()
+    rgb = [dec.decode(s) for s in samples]
+    decode_ms = 1e3 * (time.perf_counter() - t) / len(samples)
+    dec.close()
+    dec = mpeg4.Decoder(extradata)
+    luma = [dec.decode_yuv(s)[0] for s in samples]
+    dec.close()
+    if [sha(f) for f in rgb] != table["rgb_sha256"]:
+        fail("mp4: the decoded RGB frames differ from cv2's (sha256)")
+    if [sha(y) for y in luma] != table["y_sha256"]:
+        fail("mp4: the decoded Y planes differ from cv2's (sha256)")
+    aq = os.path.join(fixtures, "acpred_dquant_xvid.avi")
+    if [sha(f) for f in MediaSource(video_path=aq, use_photos=False)
+        ] != tables[os.path.basename(aq)]["rgb_sha256"]:
+        fail("mp4: the AC-prediction/DQUANT fixture differs from cv2's "
+             "decode (sha256)")
+    with tempfile.TemporaryDirectory() as root:
+        avi_path = os.path.join(root, "seq.avi")
+        mjpeg.write_avi(avi_path, [extradata + samples[0]] + samples[1:],
+                        w, h, fourcc=b"XVID")
+        from_avi = list(MediaSource(video_path=avi_path, use_photos=False))
+        from_mp4 = list(MediaSource(video_path=MP4_FIXTURE,
+                                    use_photos=False))
+        if len(from_avi) != len(rgb) or not all(
+                np.array_equal(a, b) for a, b in zip(from_avi, rgb)):
+            fail("mp4: the XVID AVI's frames differ from the MP4's")
+        if len(from_mp4) != len(rgb) or not all(
+                np.array_equal(a, b) for a, b in zip(from_mp4, rgb)):
+            fail("mp4: MediaSource's frames differ from the decoder's")
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=MP4_FIXTURE)
+        n, n_cams, ate_pct, _, run_s = cli_counted("mp4", cfg, root, scene)
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"mp4: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(MP4_FIXTURE) / 1e6:.2f} MB mp4v, MPEG-4 Part "
+          f"2) equal to cv2's decode (sha256 of RGB and Y; the AC-prediction/"
+          f"DQUANT fixture's too), the XVID AVI's equal the MP4's; cameras "
+          f"{n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  launches {json.dumps(n)}  container "
+          f"parse {parse_ms:.3f} ms; decode {decode_ms:.3f} ms per frame on "
+          f"one thread; tracking {track_ms:.3f} ms per frame; subprocess "
+          f"{run_s:.3f} s  [{card_line}]", flush=True)
     return n
 
 
@@ -2188,7 +2282,7 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
 
 
 def calibrate_pixels(card_line: str, scene, frames):
-    """Calibration from pixels through the CLI (phase 19's second part)."""
+    """Calibration from pixels through the CLI (phase 20's second part)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.calibration import chessboard as cb
@@ -2589,6 +2683,9 @@ def main() -> None:
         by_path["video (cli)"] = n["top2_batch"]
         del jpegs, decoded
         phase("video", top2_batch_launches=n["top2_batch"])
+        n = mp4_phase(card_line, scene)
+        by_path["mp4 (cli)"] = n["top2_batch"]
+        phase("mp4", top2_batch_launches=n["top2_batch"])
         n = realtex_phase(card_line)
         by_path["realtex"] = n["top2_batch"]
         phase("realtex", top2_batch_launches=n["top2_batch"])

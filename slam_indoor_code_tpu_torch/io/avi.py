@@ -1,12 +1,15 @@
-"""Motion-JPEG in AVI: the RIFF container parsed in Python, each frame a
-JPEG decoded by io/jpeg.py.
+"""Video files: AVI parsed here, MP4/QuickTime handed to io/mp4.py.
 
-The video stream's fourcc and size come from ``hdrl``/``strl``/``strh``/
-``strf``; its frames are the ``movi`` list's ``##dc``/``##db`` chunks of
-that stream in file order (``rec `` lists entered, empty chunks skipped),
-through every ``AVIX`` extension RIFF of an OpenDML file.  This is what
-OpenCV's ``VideoWriter(..., 'MJPG')`` writes and what USB webcams record.
-Other codecs need a decoder the port does not have.
+In AVI, the video stream's fourcc and size come from ``hdrl``/``strl``/
+``strh``/``strf``; its frames are the ``movi`` list's ``##dc``/``##db``
+chunks of that stream in file order (``rec `` lists entered, empty chunks
+skipped), through every ``AVIX`` extension RIFF of an OpenDML file.
+Motion-JPEG (``MJPG``: OpenCV's ``VideoWriter(..., 'MJPG')``, USB
+webcams) decodes each chunk by io/jpeg.py, in any order; MPEG-4 Part 2
+(``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``mp4v``: OpenCV's ``XVID``
+writer) decodes the chunks in order by io/mpeg4.py, which finds the VOL
+headers in band.  ``open_video`` reads either container; other codecs and
+Matroska/WebM raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -17,12 +20,31 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg
+from . import jpeg, mp4
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
-# (offset, bytes) that mark containers other than AVI
-_OTHER_CONTAINERS = ((4, b"ftyp", "MP4/QuickTime"),
-                     (0, b"\x1a\x45\xdf\xa3", "Matroska/WebM"))
+MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
+                 b"fmp4", b"mp4v", b"MP4V")
+_MATROSKA = b"\x1a\x45\xdf\xa3"
+
+
+def open_video(path: str):
+    """The video of an AVI (``AviVideo``) or MP4/QuickTime file
+    (``mp4.Mp4Video``); ``IOError`` when it does not open,
+    ``NotImplementedError`` for a container or codec the port does not
+    read."""
+    try:
+        with open(path, "rb") as fh:
+            magic = fh.read(12)
+    except OSError as e:
+        raise IOError(f"Video wasn't opened: {path}") from e
+    if magic[:4] == _MATROSKA:
+        raise NotImplementedError(
+            f"{path}: a Matroska/WebM file; only AVI (Motion-JPEG, MPEG-4 "
+            "Part 2) and MP4 (MPEG-4 Part 2) are read")
+    if mp4.is_mp4(magic):
+        return mp4.Mp4Video(path)
+    return AviVideo(path)
 
 
 def _chunks(fh, start: int, end: int):
@@ -43,10 +65,13 @@ def _chunks(fh, start: int, end: int):
         pos += 8 + size + (size & 1)
 
 
-class MjpegAvi:
-    """The frames of an MJPEG AVI file: ``frames`` lists (offset, size) of
-    each JPEG chunk in file order; ``decode_frame`` reads and decodes one
+class AviVideo:
+    """The video stream of an AVI file: ``frames`` lists (offset, size,
+    shown) of each chunk in file order, ``codec`` is "mjpeg" or "mpeg4";
+    ``read`` reads one chunk and ``decode_frame`` decodes a Motion-JPEG one
     (thread-safe: ``os.pread`` on one descriptor)."""
+
+    extradata = b""     # MPEG-4 streams in AVI carry their VOL in band
 
     def __init__(self, path: str):
         self.path = path
@@ -56,11 +81,6 @@ class MjpegAvi:
             raise IOError(f"Video wasn't opened: {path}") from e
         with fh:
             magic = fh.read(12)
-            for at, mark, name in _OTHER_CONTAINERS:
-                if magic[at:at + len(mark)] == mark:
-                    raise NotImplementedError(
-                        f"{path}: a {name} file; only Motion-JPEG in AVI is "
-                        "decoded (no decoder for its codec)")
             if magic[:4] != b"RIFF" or magic[8:12] != b"AVI ":
                 raise IOError(f"Video wasn't opened: {path}")
             fh.seek(0, os.SEEK_END)
@@ -68,17 +88,22 @@ class MjpegAvi:
             self.fourcc: Optional[bytes] = None
             self.width = self.height = 0
             self._stream: Optional[int] = None
-            self.frames: list[tuple[int, int]] = []
+            self.frames: list[tuple[int, int, bool]] = []
             for fcc, off, n, kind in _chunks(fh, 0, size):
                 if fcc == b"RIFF" and kind in (b"AVI ", b"AVIX"):
                     self._riff(fh, off, off + n)
         if self._stream is None:
             raise IOError(f"Video wasn't opened: {path} (no video stream)")
-        if self.fourcc not in MJPEG_FOURCCS:
+        if self.fourcc in MJPEG_FOURCCS:
+            self.codec = "mjpeg"
+        elif self.fourcc in MPEG4_FOURCCS:
+            self.codec = "mpeg4"
+        else:
             raise NotImplementedError(
                 f"{path}: video codec {self.fourcc.decode(errors='replace')!r}"
-                " needs a decoder the port does not have; only Motion-JPEG "
-                "(MJPG) in AVI is decoded")
+                " needs a decoder the port does not have; in AVI only "
+                "Motion-JPEG (MJPG) and MPEG-4 Part 2 (XVID, DIVX, DX50, "
+                "FMP4, mp4v) are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 
     def _riff(self, fh, start: int, end: int) -> None:
@@ -121,12 +146,18 @@ class MjpegAvi:
             if fcc == b"LIST" and kind == b"rec ":
                 self._movi(fh, off, off + n)
             elif fcc in ids and n > 0:
-                self.frames.append((off, n))
+                self.frames.append((off, n, True))
 
-    def decode_frame(self, frame: tuple[int, int]) -> Optional[np.ndarray]:
-        """HxWx3 uint8 RGB of one frame chunk; None if it does not decode."""
-        off, n = frame
-        return jpeg.decode(os.pread(self._fd, n, off))
+    def read(self, frame: tuple[int, int, bool]) -> bytes:
+        """The bytes of one chunk (fewer where the file is cut short)."""
+        off, n, _ = frame
+        return os.pread(self._fd, n, off)
+
+    def decode_frame(self, frame: tuple[int, int, bool]
+                     ) -> Optional[np.ndarray]:
+        """HxWx3 uint8 RGB of one Motion-JPEG chunk; None if it does not
+        decode."""
+        return jpeg.decode(self.read(frame))
 
     def close(self) -> None:
         if self._fd >= 0:

@@ -1,27 +1,31 @@
 """Media ingest (counterpart of the JAX package's io/media.py): a frame
-source over a photo glob or a Motion-JPEG AVI, and one over in-memory
-frames.
+source over a photo glob or a video file, and one over in-memory frames.
 
 Photos are globbed, sorted naturally (shorter names first, then
 lexicographic, as the reference's ``sortGlobs``, src/misc/IOmisc.cpp:36-51)
 and decoded in order by ``threadsCount`` workers a bounded number of frames
 ahead: by the native sequence reader (io/native.py, libjpeg/libpng) where
 it builds, else by the port's own PNG and JPEG readers (io/png.py,
-io/jpeg.py) in a thread pool.  Video (``usePhotosCycle=false``) is read
-the same way from an MJPEG AVI (io/avi.py), each frame decoded by
-io/jpeg.py; the JAX package reads any codec through OpenCV's VideoCapture.
+io/jpeg.py) in a thread pool.  Video (``usePhotosCycle=false``) is opened
+by io/avi.py (AVI, or MP4 through io/mp4.py): Motion-JPEG frames are
+decoded the same way as photos, each by io/jpeg.py; MPEG-4 Part 2 frames
+(io/mpeg4.py), each of which predicts from the one before, in order on one
+producer thread a bounded number of frames ahead.  The JAX package reads
+any codec through OpenCV's VideoCapture.
 """
 
 from __future__ import annotations
 
 import glob as _glob
+import queue
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional
+from typing import Generator, Iterator, Optional
 
 import numpy as np
 
-from . import avi, jpeg, native, png
+from . import avi, jpeg, mpeg4, native, png
 
 
 def natural_sort_paths(paths: list[str]) -> list[str]:
@@ -90,20 +94,86 @@ class _PooledSequence:
             self._on_close = None
 
 
+class _ThreadedSequence:
+    """In-order reader of the generator ``frames`` on one producer thread, at
+    most ``capacity`` frames ahead; an exception of the producer is raised
+    by the ``next_frame`` that reaches it.  ``on_close`` runs once the
+    producer has stopped."""
+
+    def __init__(self, frames: Generator[np.ndarray, None, None],
+                 capacity: int, on_close=None):
+        self._queue: queue.Queue = queue.Queue(maxsize=capacity)
+        self._stop = threading.Event()
+        self._on_close = on_close
+        self._thread = threading.Thread(target=self._produce, args=(frames,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _produce(self, frames: Generator[np.ndarray, None, None]) -> None:
+        try:
+            for img in frames:
+                if not self._put(("frame", img)):
+                    return
+            self._put(("end", None))
+        except Exception as e:          # raised by the consumer
+            self._put(("error", e))
+        finally:
+            frames.close()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def next_frame(self) -> Optional[np.ndarray]:
+        if self._stop.is_set():
+            return None
+        kind, value = self._queue.get()
+        if kind == "frame":
+            return value
+        self.close()
+        if kind == "error":
+            raise value
+        return None
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+        if self._on_close is not None:
+            self._on_close()
+            self._on_close = None
+
+
 class MediaSource:
-    """Destructive frame iterator over a photo glob or an MJPEG AVI.  A
-    video that does not open raises ``IOError``; one in another codec
-    ``NotImplementedError``."""
+    """Destructive frame iterator over a photo glob or a video file (AVI:
+    Motion-JPEG or MPEG-4 Part 2; MP4: MPEG-4 Part 2).  A video that does
+    not open raises ``IOError``; another container or codec
+    ``NotImplementedError``; an MPEG-4 tool the decoder does not read
+    ``ValueError``."""
 
     def __init__(self, *, photos_pattern: str = "", video_path: str = "",
                  use_photos: bool = True, prefetch: int = 8,
                  threads: int = 2):
         capacity, threads = max(1, prefetch), max(1, threads)
         if not use_photos:
-            video = avi.MjpegAvi(video_path)
-            self._reader = _PooledSequence(video.frames, capacity, threads,
-                                           decode=video.decode_frame,
-                                           on_close=video.close)
+            video = avi.open_video(video_path)
+            if video.codec == "mjpeg":
+                self._reader = _PooledSequence(video.frames, capacity,
+                                               threads,
+                                               decode=video.decode_frame,
+                                               on_close=video.close)
+                return
+            try:
+                frames = mpeg4.frames(video)
+            except BaseException:
+                video.close()
+                raise
+            self._reader = _ThreadedSequence(frames, capacity,
+                                             on_close=video.close)
             return
         self._paths = natural_sort_paths(_glob.glob(photos_pattern))
         if native.available() and self._paths:

@@ -1,0 +1,343 @@
+"""MPEG-4 Part 2 video in MP4/QuickTime: the ISO BMFF boxes parsed in
+Python, each sample decoded by io/mpeg4.py.
+
+The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
+entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
+(MPEG-4 Visual), whose DecoderSpecificInfo holds the VOS/VOL headers.  The
+samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
+``co64`` (chunk offsets) and ``stsc`` (samples per chunk); ``stts`` and
+``ctts`` give their times.  An ``edts/elst`` edit is applied as FFmpeg's
+mov demuxer applies it: samples before its media time are decoded but not
+shown, samples past its end are not read.  This is what OpenCV's
+``VideoWriter(..., 'mp4v')`` writes.  Other sample entries (H.264, HEVC,
+VP9, AV1, Motion-JPEG, ...) raise ``NotImplementedError`` naming the codec.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from typing import Optional
+
+# sample entry -> the codec it names, for the refusal
+_CODECS = {b"avc1": "H.264", b"avc3": "H.264", b"hvc1": "HEVC",
+           b"hev1": "HEVC", b"vp08": "VP8", b"vp09": "VP9", b"av01": "AV1",
+           b"jpeg": "Motion-JPEG", b"mjpa": "Motion-JPEG",
+           b"mjpb": "Motion-JPEG", b"s263": "H.263", b"apch": "ProRes",
+           b"apcn": "ProRes", b"ap4h": "ProRes"}
+# esds objectTypeIndication -> codec
+_OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
+                 0x61: "MPEG-2 video", 0x62: "MPEG-2 video",
+                 0x63: "MPEG-2 video", 0x64: "MPEG-2 video",
+                 0x65: "MPEG-2 video", 0x6A: "MPEG-1 video",
+                 0x6C: "Motion-JPEG"}
+_TOP = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot",
+        b"uuid", b"meta")
+
+
+def is_mp4(head: bytes) -> bool:
+    """Whether the first 12 bytes of a file start an ISO BMFF/QuickTime
+    file."""
+    return len(head) >= 8 and head[4:8] in _TOP
+
+
+def _boxes(data: bytes, start: int, end: int):
+    """(type, body start, body end) of the boxes in data[start:end]."""
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        head = 8
+        if size == 1:
+            if pos + 16 > end:
+                return
+            size = struct.unpack(">Q", data[pos + 8:pos + 16])[0]
+            head = 16
+        elif size == 0:
+            size = end - pos
+        if size < head:
+            return
+        yield kind, pos + head, min(pos + size, end)
+        pos += size
+
+
+def _find(data: bytes, start: int, end: int, kind: bytes):
+    for k, s, e in _boxes(data, start, end):
+        if k == kind:
+            return s, e
+    return None
+
+
+def _read_box(fh, kind: bytes) -> Optional[bytes]:
+    """The body of the first top-level box ``kind`` of the open file, read
+    without reading the boxes before it (mdat may be gigabytes)."""
+    end = fh.seek(0, os.SEEK_END)
+    pos = 0
+    while pos + 8 <= end:
+        fh.seek(pos)
+        head = fh.read(16)
+        size, k = struct.unpack(">I4s", head[:8])
+        skip = 8
+        if size == 1 and len(head) == 16:
+            size, skip = struct.unpack(">Q", head[8:16])[0], 16
+        elif size == 0:
+            size = end - pos
+        if size < skip:
+            return None
+        if k == kind:
+            fh.seek(pos + skip)
+            return fh.read(min(size, end - pos) - skip)
+        pos += size
+    return None
+
+
+def _descriptor(data: bytes, pos: int):
+    """(tag, body start, body end) of the MPEG-4 descriptor at pos."""
+    tag = data[pos]
+    pos += 1
+    size = 0
+    for _ in range(4):
+        b = data[pos]
+        pos += 1
+        size = (size << 7) | (b & 0x7F)
+        if not b & 0x80:
+            break
+    return tag, pos, pos + size
+
+
+def _esds(body: bytes) -> tuple[int, bytes]:
+    """(objectTypeIndication, DecoderSpecificInfo) of an esds box body."""
+    tag, s, e = _descriptor(body, 4)           # after version/flags
+    if tag != 3:
+        raise IOError("esds without an ES_Descriptor")
+    flags = body[s + 2]
+    p = s + 3
+    if flags & 0x80:
+        p += 2                                  # dependsOn_ES_ID
+    if flags & 0x40:
+        p += 1 + body[p]                        # URL
+    if flags & 0x20:
+        p += 2                                  # OCR_ES_Id
+    while p < e:
+        tag, s2, e2 = _descriptor(body, p)
+        if tag == 4:                            # DecoderConfigDescriptor
+            oti = body[s2]
+            q = s2 + 13
+            while q < e2:
+                t3, s3, e3 = _descriptor(body, q)
+                if t3 == 5:
+                    return oti, bytes(body[s3:e3])
+                q = e3
+            return oti, b""
+        p = e2
+    raise IOError("esds without a DecoderConfigDescriptor")
+
+
+def _full(body: bytes) -> tuple[int, bytes]:
+    """(version, rest) of a full box body."""
+    return body[0], body[4:]
+
+
+class Mp4Video:
+    """The video track of an MP4/QuickTime file: ``frames`` lists (offset,
+    size, shown) of each sample in decode order, ``extradata`` its VOS/VOL
+    headers, ``width``/``height`` its sample entry's size."""
+
+    codec = "mpeg4"
+
+    def __init__(self, path: str):
+        self.path = path
+        try:
+            with open(path, "rb") as fh:
+                data = _read_box(fh, b"moov")
+                self._file_size = fh.seek(0, os.SEEK_END)
+        except OSError as e:
+            raise IOError(f"Video wasn't opened: {path}") from e
+        if data is None:
+            raise IOError(f"Video wasn't opened: {path} (no moov box)")
+        try:
+            movie_scale = 1000
+            mvhd = _find(data, 0, len(data), b"mvhd")
+            if mvhd is not None:
+                v, rest = _full(data[mvhd[0]:mvhd[1]])
+                movie_scale = struct.unpack(">I", rest[16:20] if v == 1
+                                            else rest[8:12])[0] or 1000
+            found = any(kind == b"trak"
+                        and self._video_track(data, s, e, movie_scale)
+                        for kind, s, e in _boxes(data, 0, len(data)))
+        except (IndexError, struct.error) as e:
+            raise IOError(f"Video wasn't opened: {path} (malformed boxes: "
+                          f"{e})") from e
+        if not found:
+            raise IOError(f"Video wasn't opened: {path} (no video track)")
+        self._fd = os.open(path, os.O_RDONLY)
+
+    def _video_track(self, data: bytes, start: int, end: int,
+                     movie_scale: int) -> bool:
+        mdia = _find(data, start, end, b"mdia")
+        if mdia is None:
+            return False
+        hdlr = _find(data, *mdia, b"hdlr")
+        if hdlr is None or data[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
+            return False
+        mdhd = self._path(data, mdia, (b"mdhd",))
+        v, rest = _full(data[mdhd[0]:mdhd[1]])
+        media_scale = struct.unpack(">I", rest[16:20] if v == 1
+                                    else rest[8:12])[0] or 1
+        stbl = data[slice(*self._path(data, mdia, (b"minf", b"stbl")))]
+        tables = {k: stbl[s:e] for k, s, e in _boxes(stbl, 0, len(stbl))}
+        self._sample_entry(tables.get(b"stsd", b""))
+        sizes = self._sizes(tables)
+        offsets = self._offsets(tables, sizes)
+        times = self._times(tables, len(sizes))
+        edit = self._edit(data, start, end, movie_scale, media_scale)
+        self.frames: list[tuple[int, int, bool]] = []
+        for off, size, t in zip(offsets, sizes, times):
+            if edit is not None and t >= edit[1]:
+                continue                       # past the edit: not read
+            shown = edit is None or t >= edit[0]
+            self.frames.append((off, size, shown))
+        return True
+
+    def _path(self, data, box, kinds):
+        for kind in kinds:
+            box = _find(data, *box, kind)
+            if box is None:
+                raise IOError(f"Video wasn't opened: {self.path} (no "
+                              f"{kind.decode()} box)")
+        return box
+
+    def _sample_entry(self, stsd: bytes) -> None:
+        if len(stsd) < 16:
+            raise IOError(f"Video wasn't opened: {self.path} (no stsd)")
+        entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
+        kind = entry[4:8]
+        if kind != b"mp4v":
+            fourcc = kind.decode(errors="replace")
+            raise NotImplementedError(
+                f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
+                f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
+                "only MPEG-4 Part 2 (mp4v) is decoded")
+        self.width, self.height = struct.unpack(">HH", entry[32:36])
+        esds = _find(entry, 86, len(entry), b"esds")
+        if esds is None:
+            raise IOError(f"Video wasn't opened: {self.path} (mp4v without "
+                          "esds)")
+        oti, self.extradata = _esds(entry[esds[0]:esds[1]])
+        if oti != 0x20:
+            name = _OBJECT_TYPES.get(oti, f"object type 0x{oti:02x}")
+            raise NotImplementedError(
+                f"{self.path}: video codec {name} (mp4v, objectType"
+                f"Indication 0x{oti:02x}) needs a decoder the port does not "
+                "have; only MPEG-4 Part 2 (0x20) is decoded")
+
+    def _sizes(self, tables: dict) -> list[int]:
+        if b"stsz" in tables:
+            _, rest = _full(tables[b"stsz"])
+            fixed, count = struct.unpack(">II", rest[:8])
+            if fixed:                       # no file holds more samples
+                return [fixed] * min(count, self._file_size // fixed + 1)
+            return list(struct.unpack(f">{count}I", rest[8:8 + 4 * count]))
+        if b"stz2" in tables:
+            _, rest = _full(tables[b"stz2"])
+            field, count = rest[3], struct.unpack(">I", rest[4:8])[0]
+            raw = rest[8:]
+            if field == 16:
+                return list(struct.unpack(f">{count}H", raw[:2 * count]))
+            if field == 8:
+                return list(raw[:count])
+            return [(raw[i // 2] >> (4 * (1 - i % 2))) & 15
+                    for i in range(count)]
+        return []
+
+    @staticmethod
+    def _offsets(tables: dict, sizes: list[int]) -> list[int]:
+        """File offset of each sample: the chunks' offsets, each chunk's
+        samples back to back."""
+        if b"stco" in tables:
+            _, rest = _full(tables[b"stco"])
+            count = struct.unpack(">I", rest[:4])[0]
+            chunks = struct.unpack(f">{count}I", rest[4:4 + 4 * count])
+        else:
+            _, rest = _full(tables.get(b"co64", bytes(8)))
+            count = struct.unpack(">I", rest[:4])[0]
+            chunks = struct.unpack(f">{count}Q", rest[4:4 + 8 * count])
+        _, rest = _full(tables.get(b"stsc", bytes(8)))
+        count = struct.unpack(">I", rest[:4])[0]
+        runs = [struct.unpack(">III", rest[4 + 12 * i:16 + 12 * i])
+                for i in range(count)]
+        offsets = []
+        for i, (first, per, _) in enumerate(runs):
+            last = runs[i + 1][0] if i + 1 < len(runs) else len(chunks) + 1
+            for chunk in range(first - 1, min(last - 1, len(chunks))):
+                pos = chunks[chunk]
+                for _ in range(per):
+                    if len(offsets) == len(sizes):
+                        return offsets
+                    offsets.append(pos)
+                    pos += sizes[len(offsets) - 1]
+        return offsets
+
+    @staticmethod
+    def _times(tables: dict, n: int) -> list[int]:
+        """Presentation time of each sample in media units."""
+        _, rest = _full(tables.get(b"stts", bytes(8)))
+        count = struct.unpack(">I", rest[:4])[0]
+        dts, t = [], 0
+        for i in range(count):
+            k, delta = struct.unpack(">II", rest[4 + 8 * i:12 + 8 * i])
+            k = min(k, n - len(dts))
+            dts += range(t, t + k * delta, delta) if delta else [t] * k
+            t += k * delta
+            if len(dts) == n:
+                break
+        dts += [t] * (n - len(dts))
+        if b"ctts" in tables:
+            v, rest = _full(tables[b"ctts"])
+            count = struct.unpack(">I", rest[:4])[0]
+            i = 0
+            for j in range(count):
+                if i >= n:
+                    break
+                k, off = struct.unpack(">I" + ("i" if v else "I"),
+                                       rest[4 + 8 * j:12 + 8 * j])
+                end = min(i + k, n)
+                for m in range(i, end):
+                    dts[m] += off
+                i = end
+        return dts
+
+    def _edit(self, data: bytes, start: int, end: int, movie_scale: int,
+              media_scale: int) -> Optional[tuple[int, int]]:
+        """(first shown time, end time) in media units of the track's one
+        edit; None without an edit list."""
+        edts = _find(data, start, end, b"edts")
+        elst = edts and _find(data, *edts, b"elst")
+        if not elst:
+            return None
+        v, rest = _full(data[elst[0]:elst[1]])
+        count = struct.unpack(">I", rest[:4])[0]
+        fmt, step = (">QqI", 20) if v == 1 else (">IiI", 12)
+        edits = [struct.unpack(fmt, rest[4 + step * i:4 + step * (i + 1)])
+                 for i in range(count)]
+        edits = [e for e in edits if e[1] != -1]   # empty edits: a delay
+        if not edits:
+            return None
+        if len(edits) > 1:
+            raise NotImplementedError(
+                f"{self.path}: an edit list of {len(edits)} segments is not "
+                "applied; one segment only")
+        duration, media_time, _ = edits[0]
+        # a zero duration shows nothing, as in FFmpeg
+        return media_time, media_time + (
+            duration * media_scale + movie_scale // 2) // movie_scale
+
+    def read(self, frame: tuple[int, int, bool]) -> bytes:
+        """The bytes of one sample (fewer where the file is cut short)."""
+        off, size, _ = frame
+        return os.pread(self._fd, max(0, min(size, self._file_size - off)),
+                        off)
+
+    def close(self) -> None:
+        if getattr(self, "_fd", -1) >= 0:
+            os.close(self._fd)
+            self._fd = -1

@@ -1,0 +1,148 @@
+"""MPEG-4 Part 2 video decoding without FFmpeg: a ctypes binding of
+``native/mpeg4.cpp``, which needs nothing but the C++ standard library.
+
+It gives FFmpeg's decode bit for bit (the simple IDCT, H.263 quantisation,
+half-pel prediction under ``vop_rounding_type``, edge replication of the
+macroblock-aligned picture) for Simple Profile streams as FFmpeg's
+``mpeg4`` encoder writes them, which is what OpenCV's ``mp4v`` (MP4) and
+``XVID``/``DIVX`` (AVI) writers record, and converts to RGB as OpenCV's
+FFmpeg backend does (swscale's yuv420p->bgr24).  B-VOPs, quarter-pel,
+GMC, interlace, MPEG quantisation, 4MV, resync markers, data partitioning
+and the other tools it does not decode raise ``ValueError`` naming the
+tool; a corrupt or truncated VOP decodes to None; a VOP with ``vop_coded``
+0 gives no frame (None), as in FFmpeg.
+
+Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
+the package (ignored by git).  If the build fails, every decoder raises
+with the compiler's message.  The calls release the GIL.  A decoder holds
+the reference frame, so one decoder reads one stream, in decode order, on
+one thread at a time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Generator, Optional
+
+import numpy as np
+
+from .native import _PKG_DIR, load_shared
+
+SOURCE = _PKG_DIR / "native" / "mpeg4.cpp"
+LIBRARY = _PKG_DIR / "_build" / "libmpeg4dec.so"
+_state: dict = {"lib": None, "error": None}
+_LOCK = threading.Lock()
+_MSG_LEN = 256
+_FRAME, _UNSUPPORTED = 0, 2      # mpeg4dec_* return codes
+
+
+def load() -> ctypes.CDLL:
+    """The decoder library, built on first use; raises with the compiler's
+    message when it cannot be built (and on every later call)."""
+    return load_shared(_state, _LOCK, SOURCE, LIBRARY, [], _bind)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, I64, U8 = (ctypes.POINTER, ctypes.c_int, ctypes.c_int64,
+                     ctypes.POINTER(ctypes.c_uint8))
+    lib.mpeg4dec_open.argtypes = [ctypes.c_char_p, I64,
+                                  P(ctypes.c_void_p), ctypes.c_char_p, I]
+    lib.mpeg4dec_open.restype = I
+    lib.mpeg4dec_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, I64,
+                                    P(I), P(I), ctypes.c_char_p, I]
+    lib.mpeg4dec_decode.restype = I
+    lib.mpeg4dec_rgb.argtypes = [ctypes.c_void_p, U8, I64]
+    lib.mpeg4dec_rgb.restype = I
+    lib.mpeg4dec_planes.argtypes = [ctypes.c_void_p, U8, U8, U8, I64, I64]
+    lib.mpeg4dec_planes.restype = I
+    lib.mpeg4dec_close.argtypes = [ctypes.c_void_p]
+    lib.mpeg4dec_close.restype = None
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+class Decoder:
+    """One MPEG-4 Part 2 stream: ``extradata`` holds its VOS/VOL headers
+    when the container keeps them out of band (an MP4 ``esds``); an AVI
+    stream carries them in its first sample."""
+
+    def __init__(self, extradata: bytes = b""):
+        self._lib = load()
+        self._handle = ctypes.c_void_p()
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        rc = self._lib.mpeg4dec_open(extradata, len(extradata),
+                                     ctypes.byref(self._handle), msg,
+                                     _MSG_LEN)
+        if rc != 0:
+            self._handle = ctypes.c_void_p()
+            text = msg.value.decode(errors="replace")
+            raise ValueError(text) if rc == _UNSUPPORTED else IOError(text)
+
+    def _decode(self, sample: bytes) -> Optional[tuple[int, int]]:
+        if not self._handle:
+            raise ValueError("decoder is closed")
+        w, h = ctypes.c_int(), ctypes.c_int()
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        rc = self._lib.mpeg4dec_decode(self._handle, sample, len(sample),
+                                       ctypes.byref(w), ctypes.byref(h), msg,
+                                       _MSG_LEN)
+        if rc == _UNSUPPORTED:
+            raise ValueError(msg.value.decode(errors="replace"))
+        return (h.value, w.value) if rc == _FRAME else None
+
+    def decode(self, sample: bytes) -> Optional[np.ndarray]:
+        """HxWx3 uint8 RGB of the VOP in ``sample``; None when it gives no
+        frame (headers only, ``vop_coded`` 0, corrupt or truncated)."""
+        hw = self._decode(sample)
+        if hw is None:
+            return None
+        out = np.empty(hw + (3,), np.uint8)
+        self._lib.mpeg4dec_rgb(self._handle, _u8(out), out.nbytes)
+        return out
+
+    def decode_yuv(self, sample: bytes):
+        """(Y, U, V) uint8 planes of the VOP in ``sample`` (U and V at half
+        size, rounded up), or None as ``decode``."""
+        hw = self._decode(sample)
+        if hw is None:
+            return None
+        h, w = hw
+        y = np.empty((h, w), np.uint8)
+        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        v = np.empty_like(u)
+        self._lib.mpeg4dec_planes(self._handle, _u8(y), _u8(u), _u8(v),
+                                  y.nbytes, u.nbytes)
+        return y, u, v
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.mpeg4dec_close(self._handle)
+            self._handle = ctypes.c_void_p()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def frames(video) -> Generator[np.ndarray, None, None]:
+    """The frames of ``video`` (an ``avi.AviVideo`` or ``mp4.Mp4Video`` of
+    codec "mpeg4"), decoded in order; a sample an edit list hides is
+    decoded (as a reference) and not given.  The decoder is made before the
+    first frame is asked for, so a VOL in the container's headers that uses
+    a tool it does not decode raises at once."""
+    dec = Decoder(video.extradata)
+
+    def run():
+        try:
+            for frame in video.frames:
+                img = dec.decode(video.read(frame))
+                if img is not None and frame[2]:
+                    yield img
+        finally:
+            dec.close()
+    return run()

@@ -1,0 +1,1097 @@
+// mpeg4 — an MPEG-4 Part 2 video decoder (Simple Profile, as FFmpeg's
+// `mpeg4` encoder writes it: OpenCV's `mp4v` and `XVID` recordings) with no
+// library but the C++ standard library.
+//
+// It gives the pixels FFmpeg's decoder gives for such a stream, bit for bit:
+//   - I-VOPs: MCBPC, ac_pred_flag, CBPY, DQUANT; intra DC by its own VLC or
+//     as the first TCOEF (intra_dc_vlc_thr, judged on the quantiser before
+//     DQUANT); the intra and inter TCOEF tables with their three escapes;
+//     DC prediction (reconstructed DC values, 1024 outside the VOP and in
+//     non-intra macroblocks) and AC prediction (quantised levels, the
+//     predictor rescaled when the neighbour's quantiser differs, with
+//     FFmpeg's ROUNDED_DIV); H.263 inverse quantisation;
+//   - P-VOPs: not_coded skips, 1MV with the median predictor (the first
+//     row special-cased), the f_code range and its wrap; half-pel bilinear
+//     prediction under vop_rounding_type for luma and for chroma (the
+//     chroma vector's quarter positions taken to the half), unrestricted
+//     vectors by edge replication of the macroblock-aligned picture;
+//   - FFmpeg's "simple" IDCT (simple_idct_template.c, 8-bit: 14-bit
+//     constants, the row DC shortcut, the column rounding folded into W4);
+//   - the crop of the macroblock-aligned picture to the VOL's size, and
+//     YUV 4:2:0 -> RGB as swscale's unscaled yuv420p->bgr24 converter does
+//     it on x86 (BT.601 limited range, 16-bit fixed point, one chroma
+//     sample per 2x2 block), which is what OpenCV's FFmpeg backend returns.
+// A tool it does not decode raises with the tool named: B-VOPs (low_delay
+// 0), quarter-pel, sprites/GMC, interlace, MPEG quantisation, INTER4V,
+// resync markers, data partitioning, RVLC, short video header, non-
+// rectangular shapes, not_8_bit, scalability, newpred, reduced resolution,
+// complexity estimation.  A VOP with vop_coded 0 gives no frame, as in
+// FFmpeg.  A corrupt or truncated VOP gives no frame and leaves the
+// reference as it was.
+//
+// C ABI; Python binds it through ctypes (io/mpeg4.py).  Build:
+//   g++ -O2 -fPIC -std=c++17 -shared -o libmpeg4dec.so mpeg4.cpp
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+enum Status { kFrame = 0, kNoFrame = 1, kUnsupported = 2, kCorrupt = 3,
+              kSmall = 4 };
+
+struct Error {
+  Status status;
+  std::string msg;
+};
+
+[[noreturn]] void unsupported(const std::string& tool) {
+  throw Error{kUnsupported,
+              "MPEG-4 Part 2 " + tool + " is not decoded (Simple Profile "
+              "without it only)"};
+}
+
+[[noreturn]] void corrupt(const std::string& what) {
+  throw Error{kCorrupt, "corrupt MPEG-4 stream: " + what};
+}
+
+// ---------------------------------------------------------------- bits
+
+class Bits {
+ public:
+  Bits(const uint8_t* p, int64_t n) : buf_(static_cast<size_t>(n) + 72, 0),
+                                      nbits_(n * 8) {
+    if (n > 0) std::memcpy(buf_.data(), p, static_cast<size_t>(n));
+  }
+  uint32_t peek(int n) const {  // 1 <= n <= 32; zeros past the end
+    if (pos_ >= nbits_ + 256) corrupt("read past the end of the sample");
+    uint64_t v;
+    std::memcpy(&v, &buf_[static_cast<size_t>(pos_ >> 3)], 8);
+    v = __builtin_bswap64(v) << (pos_ & 7);  // big-endian bit order
+    return static_cast<uint32_t>(v >> (64 - n));
+  }
+  void skip(int n) { pos_ += n; }
+  uint32_t get(int n) {
+    if (n == 0) return 0;
+    uint32_t v = peek(n);
+    pos_ += n;
+    return v;
+  }
+  int get1() { return static_cast<int>(get(1)); }
+  void marker(const char* what) {
+    if (!get1()) corrupt(std::string("marker bit missing in ") + what);
+  }
+  int64_t pos() const { return pos_; }
+  void seek(int64_t p) { pos_ = p; }
+  bool overrun() const { return pos_ > nbits_; }
+  int byte(int64_t i) const { return buf_[static_cast<size_t>(i)]; }
+
+ private:
+  std::vector<uint8_t> buf_;
+  int64_t nbits_;
+  int64_t pos_ = 0;
+};
+
+// ---------------------------------------------------------------- VLCs
+
+struct Code {
+  uint16_t code;
+  uint8_t len;
+};
+
+// A prefix code read by one lookup of `bits` bits.
+class Vlc {
+ public:
+  Vlc(const Code* codes, int n) {
+    for (int i = 0; i < n; ++i) bits_ = std::max<int>(bits_, codes[i].len);
+    sym_.assign(size_t(1) << bits_, -1);
+    len_.assign(size_t(1) << bits_, 0);
+    for (int i = 0; i < n; ++i) {
+      if (codes[i].len == 0) continue;  // an unused entry
+      int shift = bits_ - codes[i].len;
+      size_t lo = size_t(codes[i].code) << shift;
+      for (size_t k = lo; k < lo + (size_t(1) << shift); ++k) {
+        sym_[k] = static_cast<int16_t>(i);
+        len_[k] = codes[i].len;
+      }
+    }
+  }
+  int read(Bits& b, const char* what) const {
+    uint32_t x = b.peek(bits_);
+    if (!len_[x]) corrupt(std::string("invalid ") + what + " code");
+    b.skip(len_[x]);
+    return sym_[x];
+  }
+
+ private:
+  int bits_ = 0;
+  std::vector<int16_t> sym_;
+  std::vector<uint8_t> len_;
+};
+
+// MCBPC for I-VOPs (Table B-6): index = intra (0-3) / intra+q (4-7) by
+// cbpc, 8 = stuffing.
+const Code kIntraMcbpc[9] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
+                             {1, 6}, {2, 6}, {3, 6}, {1, 9}};
+// MCBPC for P-VOPs (Table B-7), FFmpeg's layout: index & 3 = cbpc,
+// 4 = intra, 8 = dquant, 16 = INTER4V; 20 = stuffing; 21-23 unused.
+const Code kInterMcbpc[28] = {
+    {1, 1}, {3, 4}, {2, 4}, {5, 6},     {3, 5}, {4, 8}, {3, 8}, {3, 7},
+    {3, 3}, {7, 7}, {6, 7}, {5, 9},     {4, 6}, {4, 9}, {3, 9}, {2, 9},
+    {2, 3}, {5, 7}, {4, 7}, {5, 8},     {1, 9}, {0, 0}, {0, 0}, {0, 0},
+    {2, 11}, {12, 13}, {14, 13}, {15, 13}};
+// CBPY (Table B-8), index = the intra value.
+const Code kCbpy[16] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4},
+                        {2, 6}, {11, 4}, {2, 5}, {3, 6}, {5, 4}, {10, 4},
+                        {4, 4}, {8, 4}, {6, 4}, {3, 2}};
+// dct_dc_size_luminance / _chrominance (Tables B-13, B-14).
+const Code kDcLum[13] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3},
+                         {1, 4}, {1, 5}, {1, 6}, {1, 7}, {1, 8},
+                         {1, 9}, {1, 10}, {1, 11}};
+const Code kDcChrom[13] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4},
+                           {1, 5}, {1, 6}, {1, 7}, {1, 8}, {1, 9},
+                           {1, 10}, {1, 11}, {1, 12}};
+// motion_code magnitude 0..32 (Table B-12); a sign bit follows a nonzero.
+const Code kMv[33] = {
+    {1, 1}, {1, 2}, {1, 3}, {1, 4}, {3, 6}, {5, 7}, {4, 7}, {3, 7},
+    {11, 9}, {10, 9}, {9, 9}, {17, 10}, {16, 10}, {15, 10}, {14, 10},
+    {13, 10}, {12, 10}, {11, 10}, {10, 10}, {9, 10}, {8, 10}, {7, 10},
+    {6, 10}, {5, 10}, {4, 10}, {7, 11}, {6, 11}, {5, 11}, {4, 11},
+    {3, 11}, {2, 11}, {3, 12}, {2, 12}};
+
+// TCOEF (Tables B-16 intra, B-17 inter): entries ordered by last, run,
+// level (the runs and levels follow from kIntraMaxLevel / kInterMaxLevel);
+// the last entry (102) is the escape.  A sign bit follows each code.
+const Code kIntraTcoef[103] = {
+    {2, 2}, {6, 3}, {15, 4}, {13, 5}, {12, 5}, {21, 6}, {19, 6}, {18, 6},
+    {23, 7}, {31, 8}, {30, 8}, {29, 8}, {37, 9}, {36, 9}, {35, 9}, {33, 9},
+    {33, 10}, {32, 10}, {15, 10}, {14, 10}, {7, 11}, {6, 11}, {32, 11},
+    {33, 11}, {80, 12}, {81, 12}, {82, 12}, {14, 4}, {20, 6}, {22, 7},
+    {28, 8}, {32, 9}, {31, 9}, {13, 10}, {34, 11}, {83, 12}, {85, 12},
+    {11, 5}, {21, 7}, {30, 9}, {12, 10}, {86, 12}, {17, 6}, {27, 8},
+    {29, 9}, {11, 10}, {16, 6}, {34, 9}, {10, 10}, {13, 6}, {28, 9},
+    {8, 10}, {18, 7}, {27, 9}, {84, 12}, {20, 7}, {26, 9}, {87, 12},
+    {25, 8}, {9, 10}, {24, 8}, {35, 11}, {23, 8}, {25, 9}, {24, 9},
+    {7, 10}, {88, 12}, {7, 4}, {12, 6}, {22, 8}, {23, 9}, {6, 10},
+    {5, 11}, {4, 11}, {89, 12}, {15, 6}, {22, 9}, {5, 10}, {14, 6},
+    {4, 10}, {17, 7}, {36, 11}, {16, 7}, {37, 11}, {19, 7}, {90, 12},
+    {21, 8}, {91, 12}, {20, 8}, {19, 8}, {26, 8}, {21, 9}, {20, 9},
+    {19, 9}, {18, 9}, {17, 9}, {38, 11}, {39, 11}, {92, 12}, {93, 12},
+    {94, 12}, {95, 12}, {3, 7}};
+const Code kInterTcoef[103] = {
+    {2, 2}, {15, 4}, {21, 6}, {23, 7}, {31, 8}, {37, 9}, {36, 9}, {33, 10},
+    {32, 10}, {7, 11}, {6, 11}, {32, 11}, {6, 3}, {20, 6}, {30, 8},
+    {15, 10}, {33, 11}, {80, 12}, {14, 4}, {29, 8}, {14, 10}, {81, 12},
+    {13, 5}, {35, 9}, {13, 10}, {12, 5}, {34, 9}, {82, 12}, {11, 5},
+    {12, 10}, {83, 12}, {19, 6}, {11, 10}, {84, 12}, {18, 6}, {10, 10},
+    {17, 6}, {9, 10}, {16, 6}, {8, 10}, {22, 7}, {85, 12}, {21, 7},
+    {20, 7}, {28, 8}, {27, 8}, {33, 9}, {32, 9}, {31, 9}, {30, 9},
+    {29, 9}, {28, 9}, {27, 9}, {26, 9}, {34, 11}, {35, 11}, {86, 12},
+    {87, 12}, {7, 4}, {25, 9}, {5, 11}, {15, 6}, {4, 11}, {14, 6},
+    {13, 6}, {12, 6}, {19, 7}, {18, 7}, {17, 7}, {16, 7}, {26, 8},
+    {25, 8}, {24, 8}, {23, 8}, {22, 8}, {21, 8}, {20, 8}, {19, 8},
+    {24, 9}, {23, 9}, {22, 9}, {21, 9}, {20, 9}, {19, 9}, {18, 9},
+    {17, 9}, {7, 10}, {6, 10}, {5, 10}, {4, 10}, {36, 11}, {37, 11},
+    {38, 11}, {39, 11}, {88, 12}, {89, 12}, {90, 12}, {91, 12}, {92, 12},
+    {93, 12}, {94, 12}, {95, 12}, {3, 7}};
+// LMAX by run (Tables B-19, B-20): last 0, then last 1.
+const uint8_t kIntraMaxLevel[2][21] = {
+    {27, 10, 5, 4, 3, 3, 3, 3, 2, 2, 1, 1, 1, 1, 1},
+    {8, 3, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1}};
+const uint8_t kInterMaxLevel[2][41] = {
+    {12, 6, 4, 3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+     1, 1, 1, 1},
+    {3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1}};
+
+constexpr int kEscape = 102;
+
+// One TCOEF table with its (last, run, level) per entry and the escape
+// limits LMAX[last][run] and RMAX[last][level].
+struct RunLevel {
+  Vlc vlc;
+  uint8_t last[102], run[102], level[102];
+  uint8_t max_level[2][64] = {};
+  uint8_t max_run[2][64] = {};
+  RunLevel(const Code* codes, const uint8_t* lmax0, int runs0,
+           const uint8_t* lmax1, int runs1) : vlc(codes, 103) {
+    int k = 0;
+    for (int l = 0; l < 2; ++l) {
+      const uint8_t* lmax = l ? lmax1 : lmax0;
+      int runs = l ? runs1 : runs0;
+      for (int r = 0; r < runs; ++r) {
+        max_level[l][r] = lmax[r];
+        for (int v = 1; v <= lmax[r]; ++v, ++k) {
+          last[k] = static_cast<uint8_t>(l);
+          run[k] = static_cast<uint8_t>(r);
+          level[k] = static_cast<uint8_t>(v);
+          max_run[l][v] = static_cast<uint8_t>(r);
+        }
+      }
+    }
+    if (k != 102) std::abort();
+  }
+};
+
+struct Tables {
+  Vlc intra_mcbpc{kIntraMcbpc, 9}, inter_mcbpc{kInterMcbpc, 28};
+  Vlc cbpy{kCbpy, 16}, dc_lum{kDcLum, 13}, dc_chrom{kDcChrom, 13};
+  Vlc mv{kMv, 33};
+  RunLevel intra{kIntraTcoef, kIntraMaxLevel[0], 15, kIntraMaxLevel[1], 21};
+  RunLevel inter{kInterTcoef, kInterMaxLevel[0], 27, kInterMaxLevel[1], 41};
+  uint8_t zigzag[64], vertical[64], horizontal[64];
+  Tables() {
+    static const uint8_t zz[64] = {
+        0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+        12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+        35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+        58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    // alternate-vertical scan; alternate-horizontal is its transpose
+    static const uint8_t vt[64] = {
+        0,  8,  16, 24, 1,  9,  2,  10, 17, 25, 32, 40, 48, 56, 57, 49,
+        41, 33, 26, 18, 3,  11, 4,  12, 19, 27, 34, 42, 50, 58, 35, 43,
+        51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44, 52, 60, 37, 45,
+        53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
+    for (int i = 0; i < 64; ++i) {
+      zigzag[i] = zz[i];
+      vertical[i] = vt[i];
+      horizontal[i] = static_cast<uint8_t>((vt[i] & 7) * 8 + (vt[i] >> 3));
+    }
+  }
+};
+
+const Tables& tables() {
+  static const Tables t;
+  return t;
+}
+
+// ---------------------------------------------------------------- IDCT
+// FFmpeg's simple_idct_template.c at 8 bits.
+
+constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873,
+              W6 = 8867, W7 = 4520;
+constexpr int kRowShift = 11, kColShift = 20;
+
+inline void idct_row(int16_t* row) {
+  if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
+    int16_t t = static_cast<int16_t>(static_cast<uint16_t>(row[0] * 8));
+    for (int i = 0; i < 8; ++i) row[i] = t;
+    return;
+  }
+  unsigned a0 = W4 * row[0] + (1 << (kRowShift - 1));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += W2 * row[2];
+  a1 += W6 * row[2];
+  a2 -= W6 * row[2];
+  a3 -= W2 * row[2];
+  unsigned b0 = W1 * row[1] + W3 * row[3];
+  unsigned b1 = W3 * row[1] - W7 * row[3];
+  unsigned b2 = W5 * row[1] - W1 * row[3];
+  unsigned b3 = W7 * row[1] - W5 * row[3];
+  if (row[4] | row[5] | row[6] | row[7]) {
+    a0 += W4 * row[4] + W6 * row[6];
+    a1 += -W4 * row[4] - W2 * row[6];
+    a2 += -W4 * row[4] + W2 * row[6];
+    a3 += W4 * row[4] - W6 * row[6];
+    b0 += W5 * row[5] + W7 * row[7];
+    b1 += -W1 * row[5] - W5 * row[7];
+    b2 += W7 * row[5] + W3 * row[7];
+    b3 += W3 * row[5] - W1 * row[7];
+  }
+  row[0] = static_cast<int16_t>(static_cast<int>(a0 + b0) >> kRowShift);
+  row[7] = static_cast<int16_t>(static_cast<int>(a0 - b0) >> kRowShift);
+  row[1] = static_cast<int16_t>(static_cast<int>(a1 + b1) >> kRowShift);
+  row[6] = static_cast<int16_t>(static_cast<int>(a1 - b1) >> kRowShift);
+  row[2] = static_cast<int16_t>(static_cast<int>(a2 + b2) >> kRowShift);
+  row[5] = static_cast<int16_t>(static_cast<int>(a2 - b2) >> kRowShift);
+  row[3] = static_cast<int16_t>(static_cast<int>(a3 + b3) >> kRowShift);
+  row[4] = static_cast<int16_t>(static_cast<int>(a3 - b3) >> kRowShift);
+}
+
+inline uint8_t clip8(int v) {
+  return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+}
+
+// The column pass; `add` adds to dest (inter), else writes (intra).
+inline void idct_col(const int16_t* col, uint8_t* dest, int stride,
+                     bool add) {
+  unsigned a0 = W4 * (col[0] + ((1 << (kColShift - 1)) / W4));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += W2 * col[16];
+  a1 += W6 * col[16];
+  a2 += -W6 * col[16];
+  a3 += -W2 * col[16];
+  unsigned b0 = W1 * col[8] + W3 * col[24];
+  unsigned b1 = W3 * col[8] - W7 * col[24];
+  unsigned b2 = W5 * col[8] - W1 * col[24];
+  unsigned b3 = W7 * col[8] - W5 * col[24];
+  if (col[32]) {
+    a0 += W4 * col[32];
+    a1 += -W4 * col[32];
+    a2 += -W4 * col[32];
+    a3 += W4 * col[32];
+  }
+  if (col[40]) {
+    b0 += W5 * col[40];
+    b1 += -W1 * col[40];
+    b2 += W7 * col[40];
+    b3 += W3 * col[40];
+  }
+  if (col[48]) {
+    a0 += W6 * col[48];
+    a1 += -W2 * col[48];
+    a2 += W2 * col[48];
+    a3 += -W6 * col[48];
+  }
+  if (col[56]) {
+    b0 += W7 * col[56];
+    b1 += -W5 * col[56];
+    b2 += W3 * col[56];
+    b3 += -W1 * col[56];
+  }
+  const int v[8] = {static_cast<int>(a0 + b0) >> kColShift,
+                    static_cast<int>(a1 + b1) >> kColShift,
+                    static_cast<int>(a2 + b2) >> kColShift,
+                    static_cast<int>(a3 + b3) >> kColShift,
+                    static_cast<int>(a3 - b3) >> kColShift,
+                    static_cast<int>(a2 - b2) >> kColShift,
+                    static_cast<int>(a1 - b1) >> kColShift,
+                    static_cast<int>(a0 - b0) >> kColShift};
+  for (int i = 0; i < 8; ++i) {
+    uint8_t* d = dest + i * stride;
+    *d = clip8(add ? *d + v[i] : v[i]);
+  }
+}
+
+void idct(int16_t* block, uint8_t* dest, int stride, bool add) {
+  for (int i = 0; i < 8; ++i) idct_row(block + 8 * i);
+  for (int i = 0; i < 8; ++i) idct_col(block + i, dest + i, stride, add);
+}
+
+// ---------------------------------------------------------------- colour
+// swscale's x86 yuv420p -> 24-bit converter: each sample scaled by 8,
+// offset, multiplied by a 16-bit coefficient keeping the high half
+// (pmulhw), summed with signed saturation (paddsw) and packed with
+// unsigned saturation (packuswb).  The coefficients are libswscale's
+// ff_yuv2rgb_c_init_tables for BT.601, limited range, default contrast and
+// saturation, rounded to 16 bits.
+
+int round16(int64_t f) {
+  int64_t r = (f + (1 << 15)) >> 16;
+  return static_cast<int>(std::clamp<int64_t>(r, -0x8000, 0x7FFF));
+}
+
+struct Colour {
+  int y_coeff, y_offset, v2r, u2g, v2g, u2b;
+  Colour() {
+    const int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+    const int64_t cy = (int64_t(1 << 16) * 255) / 219, oy = 16 << 16;
+    y_coeff = round16(cy * (1 << 13));
+    y_offset = round16(oy * (1 << 3));
+    v2r = round16(crv * (1 << 13));
+    u2g = round16(cgu * (1 << 13));
+    v2g = round16(cgv * (1 << 13));
+    u2b = round16(cbu * (1 << 13));
+  }
+};
+
+inline int mulhi(int a, int b) { return (a * b) >> 16; }
+
+// Per pixel: R = lum[Y] + cr[V], G = lum[Y] + cg[U][V] (one paddsw of
+// the two chroma products), B = lum[Y] + cb[U], each packed to 0..255
+// (`clip`); no sum leaves 16 bits, so paddsw's saturation never acts.
+void to_rgb(const uint8_t* py, int ys, const uint8_t* pu, const uint8_t* pv,
+            int cs, int w, int h, uint8_t* out) {
+  static const Colour k;
+  int lum[256], cr[256], cb[256], ug[256], vg[256];
+  uint8_t clip_[1024];
+  const uint8_t* clip = clip_ + 512;
+  for (int i = -512; i < 512; ++i) clip_[i + 512] = clip8(i);
+  for (int i = 0; i < 256; ++i) {
+    lum[i] = mulhi(i * 8 - k.y_offset, k.y_coeff);
+    cr[i] = mulhi(i * 8 - 1024, k.v2r);
+    cb[i] = mulhi(i * 8 - 1024, k.u2b);
+    ug[i] = mulhi(i * 8 - 1024, k.u2g);
+    vg[i] = mulhi(i * 8 - 1024, k.v2g);
+  }
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* yr = py + int64_t(y) * ys;
+    const uint8_t* ur = pu + int64_t(y >> 1) * cs;
+    const uint8_t* vr = pv + int64_t(y >> 1) * cs;
+    uint8_t* o = out + int64_t(y) * w * 3;
+    for (int x = 0; x < w; x += 2) {
+      int u = ur[x >> 1], v = vr[x >> 1];
+      int r = cr[v], g = ug[u] + vg[v], b = cb[u];
+      int n = std::min(2, w - x);
+      for (int i = 0; i < n; ++i, o += 3) {
+        int l = lum[yr[x + i]];
+        o[0] = clip[l + r];
+        o[1] = clip[l + g];
+        o[2] = clip[l + b];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------- decoder
+
+struct Plane {
+  int w = 0, h = 0;
+  std::vector<uint8_t> px;
+  void init(int width, int height) {
+    w = width;
+    h = height;
+    px.assign(size_t(w) * h, 0);
+  }
+  uint8_t* at(int x, int y) { return px.data() + int64_t(y) * w + x; }
+};
+
+struct Picture {
+  Plane y, u, v;
+  void init(int mbw, int mbh) {
+    y.init(mbw * 16, mbh * 16);
+    u.init(mbw * 8, mbh * 8);
+    v.init(mbw * 8, mbh * 8);
+  }
+};
+
+const uint8_t kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};
+const int kDquant[4] = {-1, -2, 1, 2};
+
+inline int y_dc_scale(int q) {
+  return q < 5 ? 8 : q < 9 ? 2 * q : q < 25 ? q + 8 : 2 * q - 16;
+}
+inline int c_dc_scale(int q) {
+  return q < 5 ? 8 : q < 25 ? (q + 13) / 2 : q - 6;
+}
+inline int median3(int a, int b, int c) {
+  return std::max(std::min(a, b), std::min(std::max(a, b), c));
+}
+inline int rounded_div(int a, int b) {
+  return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b;
+}
+
+// Half-pel prediction of a bw x bh block at integer position (sx, sy) of
+// `ref` with half-pel flags dxy (bit 0: x, bit 1: y); positions outside
+// the plane take its nearest edge pixel.  rnd = vop_rounding_type.
+void predict(Plane& ref, int sx, int sy, int dxy, int rnd, int bw, int bh,
+             uint8_t* dst, int dstride) {
+  uint8_t tmp[17 * 17];
+  const uint8_t* src;
+  int ss;
+  int ex = bw + (dxy & 1), ey = bh + (dxy >> 1);
+  if (sx >= 0 && sy >= 0 && sx + ex <= ref.w && sy + ey <= ref.h) {
+    src = ref.at(sx, sy);
+    ss = ref.w;
+  } else {
+    for (int j = 0; j < ey; ++j) {
+      int yy = std::clamp(sy + j, 0, ref.h - 1);
+      for (int i = 0; i < ex; ++i)
+        tmp[j * 17 + i] = *ref.at(std::clamp(sx + i, 0, ref.w - 1), yy);
+    }
+    src = tmp;
+    ss = 17;
+  }
+  for (int j = 0; j < bh; ++j) {
+    const uint8_t* s0 = src + j * ss;
+    const uint8_t* s1 = s0 + ss;
+    uint8_t* d = dst + j * dstride;
+    switch (dxy) {
+      case 0:
+        std::memcpy(d, s0, static_cast<size_t>(bw));
+        break;
+      case 1:
+        for (int i = 0; i < bw; ++i) d[i] = (s0[i] + s0[i + 1] + 1 - rnd) >> 1;
+        break;
+      case 2:
+        for (int i = 0; i < bw; ++i) d[i] = (s0[i] + s1[i] + 1 - rnd) >> 1;
+        break;
+      default:
+        for (int i = 0; i < bw; ++i)
+          d[i] = (s0[i] + s0[i + 1] + s1[i] + s1[i + 1] + 2 - rnd) >> 2;
+    }
+  }
+}
+
+class Decoder {
+ public:
+  int width = 0, height = 0;  // the VOL's size
+  Picture cur, ref;
+
+  // Headers (VOS/VO/VOL/GOV/user data) in `data`; a VOP, if present, is
+  // decoded into `cur` (then swapped into `ref`).  Returns kFrame or
+  // kNoFrame.
+  Status feed(const uint8_t* data, int64_t n, bool headers_only) {
+    Bits b(data, n);
+    int64_t p = 0;
+    bool vop_seen = false;
+    Status st = kNoFrame;
+    while ((p = next_start_code(b, p, n)) >= 0) {
+      int code = b.byte(p + 3);
+      b.seek((p + 4) * 8);
+      if (code >= 0x20 && code <= 0x2F) {
+        parse_vol(b);
+      } else if (code == 0xB6) {
+        if (headers_only) break;
+        if (vop_seen) unsupported("packed bitstream (two VOPs in a sample)");
+        vop_seen = true;
+        st = decode_vop(b);
+        p = (b.pos() + 7) >> 3;
+        continue;
+      }
+      p += 4;
+    }
+    if (!vop_seen && !headers_only && n >= 3 && data[0] == 0 &&
+        data[1] == 0 && (data[2] & 0xFC) == 0x80)
+      unsupported("short video header (H.263 baseline)");
+    return st;
+  }
+
+ private:
+  bool have_vol_ = false;
+  bool ref_ok_ = false;  // ref holds a decoded picture of this size
+  int mbw_ = 0, mbh_ = 0;
+  int time_bits_ = 1;
+  bool resync_ = false;
+  // per macroblock / block state
+  std::vector<int16_t> dc_y_, dc_u_, dc_v_;   // reconstructed DC
+  std::vector<int16_t> ac_y_, ac_u_, ac_v_;   // 16 per block
+  std::vector<int8_t> qs_;                    // quantiser per macroblock
+  std::vector<int16_t> mv_;                   // (x, y) per macroblock
+  // VOP state
+  int qscale_ = 1, rnd_ = 0, fcode_ = 1, dc_thr_ = 99;
+  bool ac_pred_ = false;
+
+  static int64_t next_start_code(const Bits& b, int64_t p, int64_t n) {
+    for (; p + 3 < n; ++p)
+      if (b.byte(p) == 0 && b.byte(p + 1) == 0 && b.byte(p + 2) == 1)
+        return p;
+    return -1;
+  }
+
+  void parse_vol(Bits& b) {
+    b.skip(1);  // random_accessible_vol
+    int type = b.get(8);
+    if (type == 0x12) unsupported("fine granularity scalability");
+    int verid = 1;
+    if (b.get1()) {  // is_object_layer_identifier
+      verid = b.get(4);
+      b.skip(3);
+    }
+    if (b.get(4) == 15) b.skip(16);  // extended pixel aspect ratio
+    if (b.get1()) {                  // vol_control_parameters
+      if (b.get(2) != 1) unsupported("chroma format other than 4:2:0");
+      if (!b.get1()) unsupported("B-VOPs (low_delay 0)");
+      if (b.get1()) {  // vbv_parameters
+        b.skip(15); b.marker("VOL"); b.skip(15); b.marker("VOL");
+        b.skip(15); b.marker("VOL"); b.skip(3); b.skip(11);
+        b.marker("VOL"); b.skip(15); b.marker("VOL");
+      }
+    } else if (type != 1 && type != 17) {
+      // low_delay is 1 only for the Simple and Advanced Simple types
+      unsupported("B-VOPs (low_delay 0)");
+    }
+    if (b.get(2) != 0) unsupported("non-rectangular shape");
+    b.marker("VOL");
+    int res = b.get(16);
+    if (res == 0) corrupt("vop_time_increment_resolution 0");
+    b.marker("VOL");
+    time_bits_ = 1;
+    while ((1 << time_bits_) < res) ++time_bits_;
+    if (b.get1()) b.skip(time_bits_);  // fixed_vop_rate
+    b.marker("VOL");
+    int w = b.get(13);
+    b.marker("VOL");
+    int h = b.get(13);
+    b.marker("VOL");
+    if (b.get1()) unsupported("interlace");
+    if (!b.get1()) unsupported("OBMC (obmc_disable 0)");
+    if (b.get(verid == 1 ? 1 : 2)) unsupported("sprites/GMC");
+    if (b.get1()) unsupported("not_8_bit");
+    if (b.get1()) unsupported("MPEG quantisation (quant_type 1)");
+    if (verid != 1 && b.get1()) unsupported("quarter-pel");
+    if (!b.get1()) unsupported("complexity estimation header");
+    resync_ = !b.get1();
+    if (b.get1()) {
+      if (b.get1()) unsupported("RVLC");
+      unsupported("data partitioning");
+    }
+    if (verid != 1) {
+      if (b.get1()) unsupported("newpred");
+      if (b.get1()) unsupported("reduced-resolution VOPs");
+    }
+    if (b.get1()) unsupported("scalability");
+    if (w <= 0 || h <= 0) corrupt("VOL size 0");
+    if (!have_vol_ || w != width || h != height) {
+      width = w;
+      height = h;
+      mbw_ = (w + 15) / 16;
+      mbh_ = (h + 15) / 16;
+      cur.init(mbw_, mbh_);
+      ref.init(mbw_, mbh_);
+      ref_ok_ = false;
+    }
+    have_vol_ = true;
+  }
+
+  Status decode_vop(Bits& b) {
+    if (!have_vol_) corrupt("VOP before any VOL header");
+    int type = b.get(2);
+    if (type == 2) unsupported("B-VOPs");
+    if (type == 3) unsupported("sprites/GMC (S-VOP)");
+    while (b.get1()) {
+      if (b.overrun()) corrupt("modulo_time_base runs past the end");
+    }
+    b.marker("VOP");
+    b.skip(time_bits_);
+    b.marker("VOP");
+    if (!b.get1()) return kNoFrame;  // vop_coded 0
+    rnd_ = type == 1 ? b.get1() : 0;
+    dc_thr_ = kDcThreshold[b.get(3)];
+    qscale_ = b.get(5);
+    if (qscale_ == 0) corrupt("vop_quant 0");
+    fcode_ = type == 1 ? b.get(3) : 1;
+    if (fcode_ == 0) corrupt("vop_fcode_forward 0");
+    if (type == 1 && !ref_ok_) corrupt("P-VOP without a reference");
+    if (b.overrun()) corrupt("VOP header cut short");
+    reset_state();
+    for (int my = 0; my < mbh_; ++my) {
+      for (int mx = 0; mx < mbw_; ++mx) {
+        if (resync_) check_resync(b, type);
+        if (type == 0)
+          intra_mb(b, mx, my, false);
+        else
+          p_mb(b, mx, my);
+        if (b.overrun()) corrupt("VOP cut short");
+      }
+    }
+    std::swap(cur, ref);
+    ref_ok_ = true;
+    return kFrame;
+  }
+
+  // Every block's DC and AC predictors start at 1024 and 0: what a
+  // non-intra macroblock, which never writes them, leaves for its
+  // neighbours.
+  void reset_state() {
+    size_t nb = size_t(mbw_) * mbh_;
+    dc_y_.assign(nb * 4, 1024);
+    dc_u_.assign(nb, 1024);
+    dc_v_.assign(nb, 1024);
+    ac_y_.assign(nb * 4 * 16, 0);
+    ac_u_.assign(nb * 16, 0);
+    ac_v_.assign(nb * 16, 0);
+    qs_.assign(nb, 0);
+    mv_.assign(nb * 2, 0);
+  }
+
+  // A resync marker after the byte-alignment stuffing.
+  void check_resync(Bits& b, int type) {
+    int64_t p = b.pos();
+    int n = 8 - static_cast<int>(p & 7);
+    if (b.peek(n) != (1u << (n - 1)) - 1) return;
+    b.skip(n);
+    uint32_t v = b.peek(16 + type);
+    b.seek(p);
+    if (v == 1) unsupported("resync markers (video packets)");
+  }
+
+  void p_mb(Bits& b, int mx, int my) {
+    const Tables& t = tables();
+    int cbpc;
+    for (;;) {
+      if (b.get1()) {  // not_coded
+        skip_mb(mx, my);
+        return;
+      }
+      cbpc = t.inter_mcbpc.read(b, "MCBPC");
+      if (cbpc != 20) break;
+      if (b.overrun()) corrupt("stuffing runs past the end");
+    }
+    if (cbpc & 16) unsupported("INTER4V (4MV) macroblocks");
+    if (cbpc & 4) {
+      intra_mb(b, mx, my, true, cbpc);
+      return;
+    }
+    int cbpy = t.cbpy.read(b, "CBPY") ^ 15;
+    if (cbpc & 8) set_qscale(qscale_ + kDquant[b.get(2)]);
+    int cbp = (cbpc & 3) | (cbpy << 2);
+    // 1MV: the median of left, top and top-right (the first row takes the
+    // left one, or none in the first column)
+    int px, py;
+    int i = my * mbw_ + mx;
+    auto mvat = [&](int x, int y, int c) {
+      if (x < 0 || x >= mbw_ || y < 0) return 0;
+      return static_cast<int>(mv_[2 * (size_t(y) * mbw_ + x) + c]);
+    };
+    if (my == 0) {
+      px = mvat(mx - 1, my, 0);
+      py = mvat(mx - 1, my, 1);
+    } else {
+      px = median3(mvat(mx - 1, my, 0), mvat(mx, my - 1, 0),
+                   mvat(mx + 1, my - 1, 0));
+      py = median3(mvat(mx - 1, my, 1), mvat(mx, my - 1, 1),
+                   mvat(mx + 1, my - 1, 1));
+    }
+    int vx = motion(b, px), vy = motion(b, py);
+    mv_[2 * i] = static_cast<int16_t>(vx);
+    mv_[2 * i + 1] = static_cast<int16_t>(vy);
+    qs_[i] = static_cast<int8_t>(qscale_);
+    // prediction
+    int dxy = ((vy & 1) << 1) | (vx & 1);
+    int sx = mx * 16 + (vx >> 1), sy = my * 16 + (vy >> 1);
+    predict(ref.y, sx, sy, dxy, rnd_, 16, 16, cur.y.at(mx * 16, my * 16),
+            cur.y.w);
+    int uvdxy = dxy | (vy & 2) | ((vx & 2) >> 1);
+    predict(ref.u, sx >> 1, sy >> 1, uvdxy, rnd_, 8, 8,
+            cur.u.at(mx * 8, my * 8), cur.u.w);
+    predict(ref.v, sx >> 1, sy >> 1, uvdxy, rnd_, 8, 8,
+            cur.v.at(mx * 8, my * 8), cur.v.w);
+    // residual
+    int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
+    for (int n = 0; n < 6; ++n) {
+      if (!(cbp & (32 >> n))) continue;
+      int16_t block[64] = {};
+      inter_block(b, block, qmul, qadd);
+      uint8_t* dst;
+      int stride;
+      block_dest(cur, mx, my, n, &dst, &stride);
+      idct(block, dst, stride, true);
+    }
+  }
+
+  int motion(Bits& b, int pred) {
+    int code = tables().mv.read(b, "motion vector");
+    if (code == 0) return pred;
+    int sign = b.get1();
+    int shift = fcode_ - 1;
+    int val = code;
+    if (shift) {
+      val = (val - 1) << shift;
+      val |= static_cast<int>(b.get(shift));
+      val++;
+    }
+    if (sign) val = -val;
+    val += pred;
+    int bits = 5 + fcode_;  // wrap into [-2^(bits-1), 2^(bits-1))
+    val = static_cast<int>(static_cast<unsigned>(val) << (32 - bits)) >>
+          (32 - bits);
+    return val;
+  }
+
+  void skip_mb(int mx, int my) {
+    int i = my * mbw_ + mx;
+    mv_[2 * i] = mv_[2 * i + 1] = 0;
+    qs_[i] = static_cast<int8_t>(qscale_);
+    int x = mx * 16, y = my * 16;
+    for (int j = 0; j < 16; ++j)
+      std::memcpy(cur.y.at(x, y + j), ref.y.at(x, y + j), 16);
+    for (int j = 0; j < 8; ++j) {
+      std::memcpy(cur.u.at(x / 2, y / 2 + j), ref.u.at(x / 2, y / 2 + j), 8);
+      std::memcpy(cur.v.at(x / 2, y / 2 + j), ref.v.at(x / 2, y / 2 + j), 8);
+    }
+  }
+
+  void set_qscale(int q) { qscale_ = std::clamp(q, 1, 31); }
+
+  static void block_dest(Picture& p, int mx, int my, int n, uint8_t** dst,
+                         int* stride) {
+    if (n < 4) {
+      *dst = p.y.at(mx * 16 + (n & 1) * 8, my * 16 + (n >> 1) * 8);
+      *stride = p.y.w;
+    } else {
+      Plane& c = n == 4 ? p.u : p.v;
+      *dst = c.at(mx * 8, my * 8);
+      *stride = c.w;
+    }
+  }
+
+  // The block grid of block n of macroblock (mx, my): column, row, width.
+  void grid(int mx, int my, int n, int* bx, int* by, int* gw) const {
+    if (n < 4) {
+      *bx = 2 * mx + (n & 1);
+      *by = 2 * my + (n >> 1);
+      *gw = 2 * mbw_;
+    } else {
+      *bx = mx;
+      *by = my;
+      *gw = mbw_;
+    }
+  }
+  int16_t* dc_ptr(int mx, int my, int n) {
+    int bx, by, gw;
+    grid(mx, my, n, &bx, &by, &gw);
+    std::vector<int16_t>& v = n < 4 ? dc_y_ : (n == 4 ? dc_u_ : dc_v_);
+    return &v[size_t(by) * gw + bx];
+  }
+  int16_t* ac_ptr(int mx, int my, int n) {
+    int bx, by, gw;
+    grid(mx, my, n, &bx, &by, &gw);
+    std::vector<int16_t>& v = n < 4 ? ac_y_ : (n == 4 ? ac_u_ : ac_v_);
+    return &v[(size_t(by) * gw + bx) * 16];
+  }
+  // DC (and AC) neighbour of block n at grid offset (dx, dy); null outside.
+  int16_t* neighbour(std::vector<int16_t>& v, int mx, int my, int n, int dx,
+                     int dy, int per) {
+    int bx, by, gw;
+    grid(mx, my, n, &bx, &by, &gw);
+    bx += dx;
+    by += dy;
+    if (bx < 0 || by < 0 || bx >= gw) return nullptr;
+    return &v[(size_t(by) * gw + bx) * per];
+  }
+
+  void intra_mb(Bits& b, int mx, int my, bool in_p, int cbpc = -1) {
+    const Tables& t = tables();
+    if (!in_p) {
+      do {
+        cbpc = t.intra_mcbpc.read(b, "MCBPC");
+        if (b.overrun()) corrupt("stuffing runs past the end");
+      } while (cbpc == 8);
+    }
+    bool dquant = in_p ? (cbpc & 8) != 0 : (cbpc & 4) != 0;
+    ac_pred_ = b.get1();
+    int cbpy = t.cbpy.read(b, "CBPY");
+    int cbp = (cbpc & 3) | (cbpy << 2);
+    bool dc_vlc = qscale_ < dc_thr_;
+    if (dquant) set_qscale(qscale_ + kDquant[b.get(2)]);
+    int i = my * mbw_ + mx;
+    mv_[2 * i] = mv_[2 * i + 1] = 0;
+    qs_[i] = static_cast<int8_t>(qscale_);
+    int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
+    for (int n = 0; n < 6; ++n) {
+      int16_t block[64] = {};
+      intra_block(b, block, mx, my, n, (cbp & (32 >> n)) != 0, dc_vlc);
+      // H.263 inverse quantisation (intra)
+      block[0] = static_cast<int16_t>(block[0] *
+                                      (n < 4 ? y_dc_scale(qscale_)
+                                             : c_dc_scale(qscale_)));
+      for (int k = 1; k < 64; ++k) {
+        int level = block[k];
+        if (level)
+          block[k] = static_cast<int16_t>(level < 0 ? level * qmul - qadd
+                                                    : level * qmul + qadd);
+      }
+      uint8_t* dst;
+      int stride;
+      block_dest(cur, mx, my, n, &dst, &stride);
+      idct(block, dst, stride, false);
+    }
+  }
+
+  // DC prediction: returns the quantised DC (`diff` plus the predictor),
+  // stores its reconstruction; *dir = 1 when predicted from the top.
+  int pred_dc(int mx, int my, int n, int diff, int* dir) {
+    std::vector<int16_t>& v = n < 4 ? dc_y_ : (n == 4 ? dc_u_ : dc_v_);
+    auto dc = [&](int dx, int dy) {
+      int16_t* p = neighbour(v, mx, my, n, dx, dy, 1);
+      return p ? static_cast<int>(*p) : 1024;
+    };
+    int a = dc(-1, 0), bb = dc(-1, -1), c = dc(0, -1);
+    int scale = n < 4 ? y_dc_scale(qscale_) : c_dc_scale(qscale_);
+    int pred;
+    if (std::abs(a - bb) < std::abs(bb - c)) {
+      pred = c;
+      *dir = 1;
+    } else {
+      pred = a;
+      *dir = 0;
+    }
+    pred = (pred + (scale >> 1)) / scale;
+    int level = diff + pred;
+    int rec = level * scale;
+    if (rec & ~2047) rec = rec < 0 ? 0 : 2047;
+    *dc_ptr(mx, my, n) = static_cast<int16_t>(rec);
+    return level;
+  }
+
+  void intra_block(Bits& b, int16_t* block, int mx, int my, int n,
+                   bool coded, bool dc_vlc) {
+    const Tables& t = tables();
+    int dir = 0;
+    int pos = 0;
+    if (dc_vlc) {
+      int size = (n < 4 ? t.dc_lum : t.dc_chrom).read(b, "DC size");
+      int diff = 0;
+      if (size) {
+        uint32_t v = b.get(size);
+        diff = (v >> (size - 1)) ? static_cast<int>(v)
+                                 : static_cast<int>(v) - ((1 << size) - 1);
+        if (size > 8) b.marker("intra DC");
+      }
+      block[0] = static_cast<int16_t>(pred_dc(mx, my, n, diff, &dir));
+      pos = 1;
+    } else {
+      pred_dc(mx, my, n, 0, &dir);  // for the direction only
+    }
+    if (coded) {
+      const uint8_t* scan = !ac_pred_ ? t.zigzag
+                            : dir == 0 ? t.vertical
+                                       : t.horizontal;
+      tcoef(b, t.intra, block, scan, pos, 1, 0);
+    }
+    if (!dc_vlc) block[0] = static_cast<int16_t>(
+        pred_dc(mx, my, n, block[0], &dir));
+    pred_ac(block, mx, my, n, dir);
+  }
+
+  void inter_block(Bits& b, int16_t* block, int qmul, int qadd) {
+    tcoef(b, tables().inter, block, tables().zigzag, 0, qmul, qadd);
+  }
+
+  // TCOEF run/level pairs from scan position `pos` until `last`; levels
+  // are scaled by qmul/qadd (1/0 for intra, which is dequantised after AC
+  // prediction).
+  void tcoef(Bits& b, const RunLevel& rl, int16_t* block, const uint8_t* scan,
+             int pos, int qmul, int qadd) {
+    for (;;) {
+      int k = rl.vlc.read(b, "TCOEF");
+      int last, run, level;
+      if (k != kEscape) {
+        last = rl.last[k];
+        run = rl.run[k];
+        level = rl.level[k] * qmul + qadd;
+        if (b.get1()) level = -level;
+      } else if (!b.get1()) {  // escape 1: level offset
+        k = rl.vlc.read(b, "TCOEF");
+        if (k == kEscape) corrupt("escape in escape");
+        last = rl.last[k];
+        run = rl.run[k];
+        level = (rl.level[k] + rl.max_level[last][run]) * qmul + qadd;
+        if (b.get1()) level = -level;
+      } else if (!b.get1()) {  // escape 2: run offset
+        k = rl.vlc.read(b, "TCOEF");
+        if (k == kEscape) corrupt("escape in escape");
+        last = rl.last[k];
+        run = rl.run[k] + rl.max_run[last][rl.level[k]] + 1;
+        level = rl.level[k] * qmul + qadd;
+        if (b.get1()) level = -level;
+      } else {  // escape 3: fixed length
+        last = b.get1();
+        run = b.get(6);
+        b.marker("escape");
+        level = static_cast<int>(b.get(12) << 20) >> 20;
+        b.marker("escape");
+        level = level > 0 ? level * qmul + qadd : level * qmul - qadd;
+        if (level < -2048 || level > 2047) level = level < 0 ? -2048 : 2047;
+      }
+      pos += run;
+      if (pos > 63) corrupt("run past the end of a block");
+      block[scan[pos]] = static_cast<int16_t>(level);
+      ++pos;
+      if (last) return;
+    }
+  }
+
+  // AC prediction of the first row or column of quantised levels, and the
+  // store of this block's for its neighbours.
+  void pred_ac(int16_t* block, int mx, int my, int n, int dir) {
+    std::vector<int16_t>& v = n < 4 ? ac_y_ : (n == 4 ? ac_u_ : ac_v_);
+    int16_t* own = ac_ptr(mx, my, n);
+    if (ac_pred_) {
+      if (dir == 0) {  // from the left
+        const int16_t* left = neighbour(v, mx, my, n, -1, 0, 16);
+        if (left) {
+          int lq = mx > 0 ? qs_[my * mbw_ + mx - 1] : qscale_;
+          bool same = mx == 0 || lq == qscale_ || n == 1 || n == 3;
+          for (int i = 1; i < 8; ++i)
+            block[i * 8] = static_cast<int16_t>(
+                block[i * 8] +
+                (same ? left[i] : rounded_div(left[i] * lq, qscale_)));
+        }
+      } else {  // from the top
+        const int16_t* top = neighbour(v, mx, my, n, 0, -1, 16);
+        if (top) {
+          int tq = my > 0 ? qs_[(my - 1) * mbw_ + mx] : qscale_;
+          bool same = my == 0 || tq == qscale_ || n == 2 || n == 3;
+          for (int i = 1; i < 8; ++i)
+            block[i] = static_cast<int16_t>(
+                block[i] +
+                (same ? top[8 + i] : rounded_div(top[8 + i] * tq, qscale_)));
+        }
+      }
+    }
+    for (int i = 1; i < 8; ++i) {
+      own[i] = block[i * 8];
+      own[8 + i] = block[i];
+    }
+  }
+};
+
+void put_msg(const std::string& s, char* msg, int msg_len) {
+  if (msg && msg_len > 0)
+    std::snprintf(msg, static_cast<size_t>(msg_len), "%s", s.c_str());
+}
+
+}  // namespace
+
+extern "C" {
+
+// A decoder over the headers in `extra` (an MP4 esds DecoderSpecificInfo;
+// may be empty when the stream carries its headers in band).  0: *out set;
+// 2: a tool it does not decode (msg names it); 3: corrupt headers.
+int mpeg4dec_open(const uint8_t* extra, int64_t n, void** out, char* msg,
+                  int msg_len) {
+  Decoder* d = new Decoder();
+  try {
+    if (n > 0) d->feed(extra, n, true);
+  } catch (const Error& e) {
+    put_msg(e.msg, msg, msg_len);
+    delete d;
+    return e.status;
+  }
+  *out = d;
+  return kFrame;
+}
+
+// Decode one sample.  0: a frame, *w and *h set; 1: no frame (headers
+// only, or vop_coded 0); 2: a tool it does not decode (msg names it); 3:
+// corrupt or truncated (no frame; the reference stays).
+int mpeg4dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,
+                    int* h, char* msg, int msg_len) {
+  Decoder* d = static_cast<Decoder*>(handle);
+  try {
+    Status st = d->feed(data, n, false);
+    *w = d->width;
+    *h = d->height;
+    return st;
+  } catch (const Error& e) {
+    put_msg(e.msg, msg, msg_len);
+    return e.status;
+  }
+}
+
+// The last decoded frame as h*w*3 RGB bytes.  0: done; 4: cap too small.
+int mpeg4dec_rgb(void* handle, uint8_t* rgb, int64_t cap) {
+  Decoder* d = static_cast<Decoder*>(handle);
+  if (int64_t(d->width) * d->height * 3 > cap) return kSmall;
+  Picture& p = d->ref;
+  to_rgb(p.y.px.data(), p.y.w, p.u.px.data(), p.v.px.data(), p.u.w, d->width,
+         d->height, rgb);
+  return kFrame;
+}
+
+// The last decoded frame's I420 planes, cropped: y (h*w), u and v
+// (ceil(h/2)*ceil(w/2) each).  0: done; 4: a cap too small.
+int mpeg4dec_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v,
+                    int64_t ycap, int64_t ccap) {
+  Decoder* d = static_cast<Decoder*>(handle);
+  int w = d->width, h = d->height, cw = (w + 1) / 2, ch = (h + 1) / 2;
+  if (int64_t(w) * h > ycap || int64_t(cw) * ch > ccap) return kSmall;
+  Picture& p = d->ref;
+  for (int j = 0; j < h; ++j) std::memcpy(y + int64_t(j) * w, p.y.at(0, j), w);
+  for (int j = 0; j < ch; ++j) {
+    std::memcpy(u + int64_t(j) * cw, p.u.at(0, j), cw);
+    std::memcpy(v + int64_t(j) * cw, p.v.at(0, j), cw);
+  }
+  return kFrame;
+}
+
+void mpeg4dec_close(void* handle) { delete static_cast<Decoder*>(handle); }
+
+}  // extern "C"

@@ -6,9 +6,10 @@ libjpeg's quality-scaled tables (``jpeg_quality_scaling``) and the Annex K
 Huffman tables; the DCT is a float one and the Huffman bit packing is
 vectorised over the whole frame.  With ``dht=False`` the file carries no
 DHT segment, as Motion-JPEG frames often do (decoders then use Annex K's).
-``write_avi`` muxes JPEG frames into an AVI 1.0 file: ``hdrl`` with one
-``vids`` stream of fourcc MJPG, ``movi`` with one ``00dc`` chunk per frame,
-and an ``idx1`` index.
+``write_avi`` muxes frames into an AVI 1.0 file: ``hdrl`` with one
+``vids`` stream (fourcc MJPG for JPEG frames, or another such as XVID for
+MPEG-4 Part 2 samples), ``movi`` with one ``00dc`` chunk per frame, and an
+``idx1`` index.
 """
 
 from __future__ import annotations
@@ -230,11 +231,13 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
     return b"".join(out)
 
 
-def write_avi(path: str, jpegs: list, width: int, height: int) -> None:
-    """An AVI 1.0 file of Motion-JPEG frames (``jpegs``: JPEG bytes) at 10
-    frames/s."""
-    fps, n = 10, len(jpegs)
-    biggest = max((len(j) for j in jpegs), default=0)
+def write_avi(path: str, frames: list, width: int, height: int,
+              fourcc: bytes = b"MJPG") -> None:
+    """An AVI 1.0 file of ``frames`` (the bytes of each coded frame: JPEG
+    for the default MJPG, MPEG-4 Part 2 samples with the VOL in the first
+    for XVID) at 10 frames/s, every frame a key frame in the index."""
+    fps, n = 10, len(frames)
+    biggest = max((len(j) for j in frames), default=0)
 
     def chunk(fcc: bytes, data: bytes) -> bytes:
         return fcc + struct.pack("<I", len(data)) + data + b"\0" * (
@@ -245,20 +248,21 @@ def write_avi(path: str, jpegs: list, width: int, height: int) -> None:
 
     avih = struct.pack("<14I", 1000000 // fps, biggest * fps, 0, 0x10, n, 0,
                        1, biggest, width, height, 0, 0, 0, 0)
-    strh = (b"vidsMJPG" + struct.pack("<IHHIIIIIIiI", 0, 0, 0, 0, 1, fps, 0,
-                                      n, biggest, -1, 0)
+    strh = (b"vids" + fourcc
+            + struct.pack("<IHHIIIIIIiI", 0, 0, 0, 0, 1, fps, 0, n, biggest,
+                          -1, 0)
             + struct.pack("<4h", 0, 0, width, height))
-    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG",
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, fourcc,
                        width * height * 3, 0, 0, 0, 0)
     hdrl = lst(b"hdrl", chunk(b"avih", avih)
                + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
-    frames, index, off = [], [], 4             # offsets from "movi"
-    for j in jpegs:
+    chunks, index, off = [], [], 4             # offsets from "movi"
+    for j in frames:
         c = chunk(b"00dc", j)
         index.append(b"00dc" + struct.pack("<III", 0x10, off, len(j)))
-        frames.append(c)
+        chunks.append(c)
         off += len(c)
-    body = hdrl + lst(b"movi", b"".join(frames)) + chunk(b"idx1",
+    body = hdrl + lst(b"movi", b"".join(chunks)) + chunk(b"idx1",
                                                         b"".join(index))
     with open(path, "wb") as fh:
         fh.write(b"RIFF" + struct.pack("<I", len(body) + 4) + b"AVI " + body)

@@ -3,7 +3,8 @@ natural sort and MediaSource against the JAX package's, bit for bit, on
 PNG and JPEG files written by cv2; the port's own PNG reader (the decoder
 where libpng cannot be built) over every colour type and row filter; the
 native build's failure; the video the port refuses (io/avi.py; the MJPEG
-reader itself is in tests/test_torch_video.py); and the gray plane the
+reader itself is in tests/test_torch_video.py, the MPEG-4 one in
+tests/test_torch_mp4.py); and the gray plane the
 frames become, against the JAX package's."""
 
 import struct
@@ -193,20 +194,22 @@ def _avi_with_fourcc(path, fourcc: bytes):
     ("missing", IOError, "Video wasn't opened: "),
     ("not_a_video", IOError, "Video wasn't opened: "),
     ("h264_avi", NotImplementedError, "video codec 'H264' needs a decoder"),
-    ("xvid_avi", NotImplementedError, "video codec 'XVID' needs a decoder"),
-    ("mp4", NotImplementedError, "MP4/QuickTime"),
+    ("div3_avi", NotImplementedError, "video codec 'DIV3' needs a decoder"),
+    ("mp4_without_moov", IOError, "Video wasn't opened: "),
     ("mkv", NotImplementedError, "Matroska/WebM"),
 ])
 def test_video_media_is_not_ported(tmp_path, case, error, match):
-    """The video the port does not read: a file that does not open raises
-    the JAX package's ``IOError``; a codec other than Motion-JPEG, or a
-    container other than AVI, ``NotImplementedError`` naming it."""
+    """The video the port does not read: a file that does not open (an MP4
+    without its moov box too) raises the JAX package's ``IOError``; a codec
+    other than Motion-JPEG and MPEG-4 Part 2, or a container other than
+    AVI and MP4, ``NotImplementedError`` naming it (MP4's other codecs:
+    tests/test_torch_mp4.py)."""
     path = tmp_path / "seq.avi"
     if case == "not_a_video":
         path.write_bytes(b"plain text, no RIFF header here")
     elif case.endswith("_avi"):
         _avi_with_fourcc(path, case[:4].upper().encode())
-    elif case == "mp4":
+    elif case == "mp4_without_moov":
         path = tmp_path / "seq.mp4"
         path.write_bytes(b"\0\0\0\x18ftypmp42" + bytes(32))
     elif case == "mkv":

@@ -75,7 +75,7 @@ def test_frames_equal_opencv_mjpeg_backend(tmp_path, scene_frames, hw,
     for a, b in zip(got, want):
         assert a.shape == hw + (3,)
         np.testing.assert_array_equal(a, b)
-    v = avi.MjpegAvi(str(path))
+    v = avi.AviVideo(str(path))
     assert (v.fourcc, v.width, v.height) == (b"MJPG", hw[1], hw[0])
     v.close()
 
@@ -131,7 +131,7 @@ def test_riff_walk_rec_lists_other_streams_and_avix(tmp_path, scene_frames):
         _chunk(b"01db", jpegs[4])])], outer=b"RIFF")
     path = tmp_path / "odml.avi"
     path.write_bytes(first + ext)
-    v = avi.MjpegAvi(str(path))
+    v = avi.AviVideo(str(path))
     assert (v.fourcc, v.width, v.height, len(v.frames)) == (b"MJPG", 56, 40,
                                                             5)
     v.close()
