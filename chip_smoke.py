@@ -111,14 +111,23 @@ Phases, each followed by one flushed line with the elapsed seconds:
               then the CLI with ``usePhotosCycle=false`` on the .mp4: the
               jpeg phase's checks; prints the parse time and the decode ms
               per frame beside the tracking ms per frame.
-19. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+19. webm    — the committed fixture testing/video_fixtures/headline_vp8.webm
+              (the 32 frames as OpenCV's ``VP80`` writer makes them): the
+              Matroska container parsed and timed, every frame decoded by
+              io/vp8.py on one thread and held to the committed sha256 of
+              cv2's RGB frames and Y planes, the frames muxed into a VP80
+              AVI whose frames equal the WebM's through ``MediaSource``,
+              then the CLI with ``usePhotosCycle=false`` on the .webm: the
+              jpeg phase's checks; prints the parse time and the decode ms
+              per FHD frame beside the tracking ms per frame.
+20. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-20. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+21. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -136,25 +145,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rms < 0.3 px; prints the detection ms per FHD photo with and
               without a board, each branch's K and its solve's seconds on
               the card.
-21. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+22. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-22. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+23. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-23. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+24. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-24. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+25. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-25. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+26. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -164,7 +173,7 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-26. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+27. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
@@ -2010,6 +2019,83 @@ def mp4_phase(card_line: str, scene):
     return n
 
 
+WEBM_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                            "headline_vp8.webm")
+
+
+def webm_phase(card_line: str, scene):
+    """The committed fixture (the 32 headline frames as OpenCV's ``VP80``
+    writer makes them into WebM: the card has no encoder): the Matroska
+    container parsed and timed; every frame decoded on one thread, timed,
+    and held to the committed sha256 of cv2's RGB frames and Y planes; the
+    same frames muxed into a VP80 AVI (testing/mjpeg.py), whose frames
+    through ``MediaSource`` must equal the WebM's; then the CLI on the
+    .webm with ``usePhotosCycle=false`` (cli_counted) → (counts, decode ms
+    per frame, tracking ms per frame)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import matroska, vp8
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    with open(os.path.join(os.path.dirname(WEBM_FIXTURE),
+                           "cv2_sha256.json")) as f:
+        table = json.load(f)[os.path.basename(WEBM_FIXTURE)]
+    t = time.perf_counter()
+    video = matroska.MkvVideo(WEBM_FIXTURE)
+    parse_ms = 1e3 * (time.perf_counter() - t)
+    data = [video.read(fr) for fr in video.frames]
+    codec, w, h = video.codec, video.width, video.height
+    video.close()
+    if (codec != "vp8" or len(data) != table["frames"]
+            or (h, w) != tuple(table["shape"][:2])):
+        fail(f"webm: the fixture parses to {len(data)} {codec} frames at "
+             f"{h}x{w}")
+    dec = vp8.Decoder()
+    t = time.perf_counter()
+    rgb = [dec.decode(d) for d in data]
+    decode_ms = 1e3 * (time.perf_counter() - t) / len(data)
+    dec.close()
+    dec = vp8.Decoder()
+    luma = [dec.decode_yuv(d)[0] for d in data]
+    dec.close()
+    if [sha(f) for f in rgb] != table["rgb_sha256"]:
+        fail("webm: the decoded RGB frames differ from cv2's (sha256)")
+    if [sha(y) for y in luma] != table["y_sha256"]:
+        fail("webm: the decoded Y planes differ from cv2's (sha256)")
+    with tempfile.TemporaryDirectory() as root:
+        avi_path = os.path.join(root, "seq.avi")
+        mjpeg.write_avi(avi_path, data, w, h, fourcc=b"VP80")
+        from_avi = list(MediaSource(video_path=avi_path, use_photos=False))
+        from_webm = list(MediaSource(video_path=WEBM_FIXTURE,
+                                     use_photos=False))
+        if len(from_avi) != len(rgb) or not all(
+                np.array_equal(a, b) for a, b in zip(from_avi, rgb)):
+            fail("webm: the VP80 AVI's frames differ from the WebM's")
+        if len(from_webm) != len(rgb) or not all(
+                np.array_equal(a, b) for a, b in zip(from_webm, rgb)):
+            fail("webm: MediaSource's frames differ from the decoder's")
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=WEBM_FIXTURE)
+        n, n_cams, ate_pct, _, run_s = cli_counted("webm", cfg, root, scene)
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"webm: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(WEBM_FIXTURE) / 1e6:.2f} MB WebM, VP8) equal "
+          f"to cv2's decode (sha256 of RGB and Y), the VP80 AVI's equal "
+          f"the WebM's; cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
+          f"extent  launches {json.dumps(n)}  container parse "
+          f"{parse_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
+          f"one thread; tracking {track_ms:.3f} ms per frame; subprocess "
+          f"{run_s:.3f} s  [{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
 # The real-texture scene at FHD: 24 frames (the JAX package's default
 # sweep, 0.12 per frame), two procedural textures from seeds, rendered on
 # the card.  The good-frame rule keeps the head-most best-matched frame of
@@ -2282,7 +2368,7 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
 
 
 def calibrate_pixels(card_line: str, scene, frames):
-    """Calibration from pixels through the CLI (phase 20's second part)."""
+    """Calibration from pixels through the CLI (phase 21's second part)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.calibration import chessboard as cb
@@ -2686,6 +2772,11 @@ def main() -> None:
         n = mp4_phase(card_line, scene)
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])
+        n, decode_ms, track_ms = webm_phase(card_line, scene)
+        by_path["webm (cli)"] = n["top2_batch"]
+        phase("webm", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
         n = realtex_phase(card_line)
         by_path["realtex"] = n["top2_batch"]
         phase("realtex", top2_batch_launches=n["top2_batch"])

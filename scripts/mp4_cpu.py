@@ -1,10 +1,13 @@
-"""MPEG-4 Part 2 video on the CPU, two measurements:
+"""MPEG-4 Part 2 and VP8 video on the CPU, two measurements:
 
 ``decode``: the committed FHD fixture
 (slam_indoor_code_tpu_torch/testing/video_fixtures/headline_mp4v.mp4, the
 32 headline frames as OpenCV's ``mp4v`` writer makes them) parsed by
-io/mp4.py and decoded by io/mpeg4.py on one thread: ms for the parse, and
-ms per frame to I420 planes and to RGB, best of ``--reps`` passes.
+io/mp4.py and decoded by io/mpeg4.py on one thread; with ``--webm``,
+headline_vp8.webm (the same frames as OpenCV's ``VP80`` writer makes
+them) parsed by io/matroska.py and decoded by io/vp8.py: ms for the
+parse, and ms per frame to I420 planes and to RGB, best of ``--reps``
+passes.
 
 ``ate``: tests/test_torch_mp4.py's end-to-end file (the 540x960 seed-5
 scene, 14 frames, written by cv2's ``mp4v`` writer) through ``slam_main``
@@ -13,7 +16,7 @@ per seed with cameras and ATE as a share of the trajectory extent.  The
 JAX package's numbers move with Python's hash seed and with the process's
 history, so run it under several ``PYTHONHASHSEED`` values:
 
-    python scripts/mp4_cpu.py decode
+    python scripts/mp4_cpu.py decode [--webm]
     PYTHONHASHSEED=1 JAX_PLATFORMS=cpu python scripts/mp4_cpu.py ate jax
     python scripts/mp4_cpu.py ate torch
 
@@ -31,28 +34,34 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 FIXTURE = os.path.join(ROOT, "slam_indoor_code_tpu_torch", "testing",
                        "video_fixtures", "headline_mp4v.mp4")
+FIXTURE_WEBM = os.path.join(os.path.dirname(FIXTURE), "headline_vp8.webm")
 
 
-def decode(reps: int) -> None:
-    from slam_indoor_code_tpu_torch.io import mp4, mpeg4
+def decode(reps: int, webm: bool) -> None:
+    from slam_indoor_code_tpu_torch.io import matroska, mp4, mpeg4, vp8
 
     t = time.perf_counter()
-    video = mp4.Mp4Video(FIXTURE)
+    if webm:
+        video = matroska.MkvVideo(FIXTURE_WEBM)
+        make = vp8.Decoder
+    else:
+        video = mp4.Mp4Video(FIXTURE)
+        make = lambda: mpeg4.Decoder(video.extradata)  # noqa: E731
     parse_ms = 1e3 * (time.perf_counter() - t)
     samples = [video.read(f) for f in video.frames]
     best = {}
     for _ in range(reps):
         for name in ("yuv", "rgb"):
-            dec = mpeg4.Decoder(video.extradata)
+            dec = make()
             run = dec.decode_yuv if name == "yuv" else dec.decode
             t = time.perf_counter()
             for s in samples:
                 run(s)
             ms = 1e3 * (time.perf_counter() - t) / len(samples)
             best[name] = min(best.get(name, ms), ms)
-    print(f"parse {parse_ms:.3f} ms; decode {best['yuv']:.3f} ms per frame "
-          f"to I420, {best['rgb']:.3f} ms to RGB (one thread, best of "
-          f"{reps}, {len(samples)} FHD frames)")
+    print(f"{video.codec}: parse {parse_ms:.3f} ms; decode {best['yuv']:.3f} "
+          f"ms per frame to I420, {best['rgb']:.3f} ms to RGB (one thread, "
+          f"best of {reps}, {len(samples)} FHD frames)")
 
 
 def ate(package: str) -> None:
@@ -94,11 +103,12 @@ def main() -> None:
     sub = ap.add_subparsers(dest="what", required=True)
     d = sub.add_parser("decode")
     d.add_argument("--reps", type=int, default=3)
+    d.add_argument("--webm", action="store_true")
     a = sub.add_parser("ate")
     a.add_argument("package", choices=["jax", "torch"])
     args = ap.parse_args()
     if args.what == "decode":
-        decode(args.reps)
+        decode(args.reps, args.webm)
     else:
         ate(args.package)
 

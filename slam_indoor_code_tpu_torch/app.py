@@ -7,7 +7,7 @@ cfg.outputDataDir.
 Two execution paths with the same semantics: the device-resident engine
 (runtime/engine.py, the default) and, with ``tpu.device_runtime=false``,
 the classic host conductor (pipeline/main_cycle.py, the readable one).
-Media comes from the config's photo glob or Motion-JPEG AVI (io/media.py)
+Media comes from the config's photo glob or video file (io/media.py)
 unless frames are passed in memory; the camera from its OpenCV-XML ``calibrationPath`` (K,
 and with ``useUndistortion`` the distortion coefficients DC).
 ``tpu.global_ba`` adds the final full-trajectory BA (``_global_refine``);
@@ -20,8 +20,10 @@ chessboard calibration (calibration/), ``tpu.mesh_shape`` the meshed engine
 (parallel/), and ``run_sequences_parallel`` tracks independent sequences
 at once, one thread, card and CUDA stream each.
 
-Not ported yet (ROADMAP): chessboard corner detection, and video in codecs
-other than Motion-JPEG (both OpenCV's in the JAX package).
+Video is read in AVI, MP4 and Matroska/WebM, in Motion-JPEG, MPEG-4 Part 2
+and VP8 (io/avi.py, io/mp4.py, io/matroska.py); H.264, HEVC, VP9, AV1, FFV1
+and the other codecs OpenCV reads for the JAX package raise
+``NotImplementedError`` naming them (ROADMAP).
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ from .utils.timer import ChronoTimer
 def make_media(cfg: Config, frames=None):
     """In-memory frames (a list/array, or any object with ``next_frame``),
     else the config's photo glob (or, with ``usePhotosCycle=false``, its
-    MJPEG AVI) decoded by ``threadsCount`` workers."""
+    video file) decoded by ``threadsCount`` workers."""
     if frames is not None:
         if hasattr(frames, "next_frame"):
             return frames

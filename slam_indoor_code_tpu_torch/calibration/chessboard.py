@@ -269,7 +269,8 @@ def chessboard_photos_calibration(photo_paths, save_path,
 def main_calibration_entry_point(cfg, device=None):
     """Dispatch like the reference's mainCalibrationEntryPoint
     (cameraCalibration.cpp:18-32): photos glob, or every tenth frame of the
-    video (Motion-JPEG or MPEG-4 Part 2, read by ``MediaSource``)."""
+    video (Motion-JPEG, MPEG-4 Part 2 or VP8 in AVI, MP4 or Matroska/WebM,
+    read by ``MediaSource``)."""
     if cfg.usePhotosCycle:
         paths = sorted(_glob.glob(cfg.photosPathPattern))
         visual_dir = cfg.outputDataDir if cfg.visualCalibration else None

@@ -1,4 +1,5 @@
-"""Video files: AVI parsed here, MP4/QuickTime handed to io/mp4.py.
+"""Video files: AVI parsed here, MP4/QuickTime handed to io/mp4.py and
+Matroska/WebM to io/matroska.py.
 
 In AVI, the video stream's fourcc and size come from ``hdrl``/``strl``/
 ``strh``/``strf``; its frames are the ``movi`` list's ``##dc``/``##db``
@@ -8,8 +9,9 @@ Motion-JPEG (``MJPG``: OpenCV's ``VideoWriter(..., 'MJPG')``, USB
 webcams) decodes each chunk by io/jpeg.py, in any order; MPEG-4 Part 2
 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``mp4v``: OpenCV's ``XVID``
 writer) decodes the chunks in order by io/mpeg4.py, which finds the VOL
-headers in band.  ``open_video`` reads either container; other codecs and
-Matroska/WebM raise ``NotImplementedError`` naming them.
+headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
+in order by io/vp8.py.  ``open_video`` reads any of the three containers;
+other codecs raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -20,28 +22,26 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, mp4
+from . import jpeg, matroska, mp4
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
                  b"fmp4", b"mp4v", b"MP4V")
-_MATROSKA = b"\x1a\x45\xdf\xa3"
+VP8_FOURCCS = (b"VP80", b"vp80")
 
 
 def open_video(path: str):
-    """The video of an AVI (``AviVideo``) or MP4/QuickTime file
-    (``mp4.Mp4Video``); ``IOError`` when it does not open,
-    ``NotImplementedError`` for a container or codec the port does not
-    read."""
+    """The video of an AVI (``AviVideo``), MP4/QuickTime
+    (``mp4.Mp4Video``) or Matroska/WebM file (``matroska.MkvVideo``);
+    ``IOError`` when it does not open, ``NotImplementedError`` for a codec
+    the port does not read."""
     try:
         with open(path, "rb") as fh:
             magic = fh.read(12)
     except OSError as e:
         raise IOError(f"Video wasn't opened: {path}") from e
-    if magic[:4] == _MATROSKA:
-        raise NotImplementedError(
-            f"{path}: a Matroska/WebM file; only AVI (Motion-JPEG, MPEG-4 "
-            "Part 2) and MP4 (MPEG-4 Part 2) are read")
+    if matroska.is_matroska(magic):
+        return matroska.MkvVideo(path)
     if mp4.is_mp4(magic):
         return mp4.Mp4Video(path)
     return AviVideo(path)
@@ -67,7 +67,8 @@ def _chunks(fh, start: int, end: int):
 
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
-    shown) of each chunk in file order, ``codec`` is "mjpeg" or "mpeg4";
+    shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4" or
+    "vp8";
     ``read`` reads one chunk and ``decode_frame`` decodes a Motion-JPEG one
     (thread-safe: ``os.pread`` on one descriptor)."""
 
@@ -98,12 +99,14 @@ class AviVideo:
             self.codec = "mjpeg"
         elif self.fourcc in MPEG4_FOURCCS:
             self.codec = "mpeg4"
+        elif self.fourcc in VP8_FOURCCS:
+            self.codec = "vp8"
         else:
             raise NotImplementedError(
                 f"{path}: video codec {self.fourcc.decode(errors='replace')!r}"
                 " needs a decoder the port does not have; in AVI only "
-                "Motion-JPEG (MJPG) and MPEG-4 Part 2 (XVID, DIVX, DX50, "
-                "FMP4, mp4v) are decoded")
+                "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
+                "FMP4, mp4v) and VP8 (VP80) are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 
     def _riff(self, fh, start: int, end: int) -> None:

@@ -7,9 +7,10 @@ and decoded in order by ``threadsCount`` workers a bounded number of frames
 ahead: by the native sequence reader (io/native.py, libjpeg/libpng) where
 it builds, else by the port's own PNG and JPEG readers (io/png.py,
 io/jpeg.py) in a thread pool.  Video (``usePhotosCycle=false``) is opened
-by io/avi.py (AVI, or MP4 through io/mp4.py): Motion-JPEG frames are
-decoded the same way as photos, each by io/jpeg.py; MPEG-4 Part 2 frames
-(io/mpeg4.py), each of which predicts from the one before, in order on one
+by io/avi.py (AVI; MP4 through io/mp4.py; Matroska/WebM through
+io/matroska.py): Motion-JPEG frames are decoded the same way as photos,
+each by io/jpeg.py; MPEG-4 Part 2 (io/mpeg4.py) and VP8 (io/vp8.py)
+frames, each of which predicts from those before it, in order on one
 producer thread a bounded number of frames ahead.  The JAX package reads
 any codec through OpenCV's VideoCapture.
 """
@@ -25,7 +26,7 @@ from typing import Generator, Iterator, Optional
 
 import numpy as np
 
-from . import avi, jpeg, mpeg4, native, png
+from . import avi, jpeg, mpeg4, native, png, vp8
 
 
 def natural_sort_paths(paths: list[str]) -> list[str]:
@@ -94,6 +95,19 @@ class _PooledSequence:
             self._on_close = None
 
 
+def _decoded(video, dec) -> Generator[np.ndarray, None, None]:
+    """The shown frames of ``video``, each predicting from those before
+    it, decoded in order by ``dec`` (which it closes); a frame the decoder
+    gives none for, or the container hides, is still decoded."""
+    try:
+        for frame in video.frames:
+            img = dec.decode(video.read(frame))
+            if img is not None and frame[2]:
+                yield img
+    finally:
+        dec.close()
+
+
 class _ThreadedSequence:
     """In-order reader of the generator ``frames`` on one producer thread, at
     most ``capacity`` frames ahead; an exception of the producer is raised
@@ -149,11 +163,11 @@ class _ThreadedSequence:
 
 
 class MediaSource:
-    """Destructive frame iterator over a photo glob or a video file (AVI:
-    Motion-JPEG or MPEG-4 Part 2; MP4: MPEG-4 Part 2).  A video that does
-    not open raises ``IOError``; another container or codec
-    ``NotImplementedError``; an MPEG-4 tool the decoder does not read
-    ``ValueError``."""
+    """Destructive frame iterator over a photo glob or a video file (AVI
+    and Matroska/WebM: Motion-JPEG, MPEG-4 Part 2 or VP8; MP4: MPEG-4 Part
+    2).  A video that does not open raises ``IOError``; another container
+    or codec ``NotImplementedError``; an MPEG-4 tool or VP8 feature the
+    decoder does not read ``ValueError``."""
 
     def __init__(self, *, photos_pattern: str = "", video_path: str = "",
                  use_photos: bool = True, prefetch: int = 8,
@@ -167,12 +181,13 @@ class MediaSource:
                                                decode=video.decode_frame,
                                                on_close=video.close)
                 return
-            try:
-                frames = mpeg4.frames(video)
+            try:    # made at once: a VOL tool it does not decode raises here
+                dec = (vp8.Decoder() if video.codec == "vp8"
+                       else mpeg4.Decoder(video.extradata))
             except BaseException:
                 video.close()
                 raise
-            self._reader = _ThreadedSequence(frames, capacity,
+            self._reader = _ThreadedSequence(_decoded(video, dec), capacity,
                                              on_close=video.close)
             return
         self._paths = natural_sort_paths(_glob.glob(photos_pattern))

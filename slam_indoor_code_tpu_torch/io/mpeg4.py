@@ -23,13 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Generator, Optional
+from typing import Optional
 
 import numpy as np
 
 from .native import _PKG_DIR, load_shared
 
 SOURCE = _PKG_DIR / "native" / "mpeg4.cpp"
+HEADERS = (_PKG_DIR / "native" / "swscale_rgb.h",)
 LIBRARY = _PKG_DIR / "_build" / "libmpeg4dec.so"
 _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()
@@ -40,7 +41,7 @@ _FRAME, _UNSUPPORTED = 0, 2      # mpeg4dec_* return codes
 def load() -> ctypes.CDLL:
     """The decoder library, built on first use; raises with the compiler's
     message when it cannot be built (and on every later call)."""
-    return load_shared(_state, _LOCK, SOURCE, LIBRARY, [], _bind)
+    return load_shared(_state, _LOCK, SOURCE, LIBRARY, [], _bind, HEADERS)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -128,21 +129,3 @@ class Decoder:
         except Exception:
             pass
 
-
-def frames(video) -> Generator[np.ndarray, None, None]:
-    """The frames of ``video`` (an ``avi.AviVideo`` or ``mp4.Mp4Video`` of
-    codec "mpeg4"), decoded in order; a sample an edit list hides is
-    decoded (as a reference) and not given.  The decoder is made before the
-    first frame is asked for, so a VOL in the container's headers that uses
-    a tool it does not decode raises at once."""
-    dec = Decoder(video.extradata)
-
-    def run():
-        try:
-            for frame in video.frames:
-                img = dec.decode(video.read(frame))
-                if img is not None and frame[2]:
-                    yield img
-        finally:
-            dec.close()
-    return run()

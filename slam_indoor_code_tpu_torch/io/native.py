@@ -49,18 +49,21 @@ def compile_shared(source: Path, library: Path, libs: list[str]) -> None:
 
 
 def load_shared(state: dict, lock: threading.Lock, source: Path,
-                library: Path, libs: list[str], bind) -> ctypes.CDLL:
+                library: Path, libs: list[str], bind,
+                headers: tuple[Path, ...] = ()) -> ctypes.CDLL:
     """The library ``source`` builds, built on first use (or when older
-    than its source) and bound by ``bind(lib)``; ``state`` caches it, or
-    the compiler's message, which every later call raises again."""
+    than its source or one of the ``headers`` it includes) and bound by
+    ``bind(lib)``; ``state`` caches it, or the compiler's message, which
+    every later call raises again."""
     with lock:
         if state["lib"] is not None:
             return state["lib"]
         if state["error"] is not None:
             raise RuntimeError(state["error"])
         try:
+            newest = max(p.stat().st_mtime for p in (source, *headers))
             if (not library.exists()
-                    or library.stat().st_mtime < source.stat().st_mtime):
+                    or library.stat().st_mtime < newest):
                 compile_shared(source, library, libs)
             lib = ctypes.CDLL(str(library))
         except (RuntimeError, OSError) as e:

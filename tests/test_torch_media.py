@@ -197,13 +197,15 @@ def _avi_with_fourcc(path, fourcc: bytes):
     ("div3_avi", NotImplementedError, "video codec 'DIV3' needs a decoder"),
     ("mp4_without_moov", IOError, "Video wasn't opened: "),
     ("mkv", NotImplementedError, "Matroska/WebM"),
+    ("mkv_without_elements", IOError, "Video wasn't opened: "),
 ])
 def test_video_media_is_not_ported(tmp_path, case, error, match):
     """The video the port does not read: a file that does not open (an MP4
-    without its moov box too) raises the JAX package's ``IOError``; a codec
-    other than Motion-JPEG and MPEG-4 Part 2, or a container other than
-    AVI and MP4, ``NotImplementedError`` naming it (MP4's other codecs:
-    tests/test_torch_mp4.py)."""
+    without its moov box, or an EBML magic and nothing after it, too)
+    raises the JAX package's ``IOError``; a codec other than Motion-JPEG,
+    MPEG-4 Part 2 and VP8 (here VP9 in a Matroska track),
+    ``NotImplementedError`` naming it (MP4's other codecs:
+    tests/test_torch_mp4.py; Matroska's: tests/test_torch_webm.py)."""
     path = tmp_path / "seq.avi"
     if case == "not_a_video":
         path.write_bytes(b"plain text, no RIFF header here")
@@ -213,6 +215,15 @@ def test_video_media_is_not_ported(tmp_path, case, error, match):
         path = tmp_path / "seq.mp4"
         path.write_bytes(b"\0\0\0\x18ftypmp42" + bytes(32))
     elif case == "mkv":
+        def el(eid: bytes, body: bytes) -> bytes:
+            return eid + bytes([0x80 | len(body)]) + body
+        entry = (el(b"\xd7", b"\x01") + el(b"\x83", b"\x01")
+                 + el(b"\x86", b"V_VP9"))
+        path = tmp_path / "seq.mkv"
+        path.write_bytes(el(b"\x1a\x45\xdf\xa3", el(b"\x42\x82", b"webm"))
+                         + el(b"\x18\x53\x80\x67",
+                              el(b"\x16\x54\xae\x6b", el(b"\xae", entry))))
+    elif case == "mkv_without_elements":
         path = tmp_path / "seq.mkv"
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(32))
     with pytest.raises(error, match=match):

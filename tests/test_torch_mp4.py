@@ -9,7 +9,7 @@ sequence with three I-VOPs and both rounding types); the committed
 fixtures (the FHD headline as cv2 writes mp4v; a small XVID AVI coded with
 AC prediction and DQUANT, which cv2's writer does not use), whose cv2
 decode must still equal its recorded sha256 (the card holds the port to
-them); refusals (an ``avc1`` sample entry, WebM, VOL
+them); refusals (an ``avc1`` sample entry, a VP9 WebM, VOL
 headers asking for B-VOPs, quarter-pel, interlace and MPEG quantisation, a
 B-VOP); truncated files and a not-coded VOP as cv2 reads them; and, end to
 end, ``slam_main`` on a 540x960 ``mp4v`` file and the video calibration on
@@ -187,10 +187,14 @@ def test_moving_sequence_two_gops_both_roundings(tmp_path, scene_frames):
     _check_equal_cv2(path, (240, 320), 30)
 
 
-def _lavc_mpeg4(frames, options: dict) -> list:
-    """``frames`` (RGB, even sizes) coded by the libavcodec that cv2's
-    wheel carries, through ctypes, with encoder ``options`` (AVOptions)
-    that cv2's writer does not pass: the coded packets."""
+def lavc_encode(codec_name: str, frames, options: dict,
+                stats_in: bytes = None, pts: bool = True):
+    """``frames`` (RGB) coded by encoder ``codec_name`` of the
+    libavcodec that cv2's wheel carries, through ctypes, with encoder
+    ``options`` (AVOptions) that cv2's writer does not pass: (the coded
+    packets, the codec context).  ``stats_in`` is a first pass's
+    statistics (``pass1_stats``) for a second pass.  With ``pts`` the
+    frames are stamped 0, 1, 2, ..."""
     import ctypes
     import glob
 
@@ -206,6 +210,9 @@ def _lavc_mpeg4(frames, options: dict) -> list:
             (avc, "avcodec_alloc_context3", vp, [vp]),
             (avu, "av_opt_set", ctypes.c_int,
              [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]),
+            (avu, "av_opt_find", vp,
+             [vp, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+              ctypes.c_int]),
             (avc, "avcodec_open2", ctypes.c_int, [vp, vp, vp]),
             (avu, "av_frame_alloc", vp, []),
             (avu, "av_frame_get_buffer", ctypes.c_int, [vp, ctypes.c_int]),
@@ -217,21 +224,29 @@ def _lavc_mpeg4(frames, options: dict) -> list:
         getattr(lib, fn).restype = res
         getattr(lib, fn).argtypes = args
     h, w = frames[0].shape[:2]
-    codec = avc.avcodec_find_encoder_by_name(b"mpeg4")
+    codec = avc.avcodec_find_encoder_by_name(codec_name.encode())
     ctx = avc.avcodec_alloc_context3(codec)
     for k, v in {"video_size": f"{w}x{h}", "pixel_format": "yuv420p",
-                 "time_base": "1/10", "bf": "0", "g": "12",
-                 **options}.items():
+                 "time_base": "1/10", "g": "12", **options}.items():
         assert avu.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
+    if stats_in is not None:
+        # AVCodecContext's stats_in: the pointer after stats_out, which
+        # lies just before workaround_bugs (AVOption "bug"; an AVOption's
+        # offset is the int after its name and help pointers)
+        keep = ctypes.create_string_buffer(stats_in)
+        off = _stats_out_offset(avu, ctx) + 8
+        ctypes.c_void_p.from_address(ctx + off).value = \
+            ctypes.addressof(keep)
     assert avc.avcodec_open2(ctx, codec, None) == 0
     frame = avu.av_frame_alloc()
     # AVFrame: data[8], linesize[8], extended_data, width, height,
-    # nb_samples, format
+    # nb_samples, format, ..., pts at 136
     dims = (ctypes.c_int * 4).from_address(frame + 104)
     dims[0], dims[1], dims[3] = w, h, 0                  # yuv420p
     assert avu.av_frame_get_buffer(frame, 0) == 0
     data = (ctypes.c_void_p * 8).from_address(frame)
     stride = (ctypes.c_int * 8).from_address(frame + 64)
+    stamp = ctypes.c_int64.from_address(frame + 136)
     pkt, out = avc.av_packet_alloc(), []
 
     def drain():
@@ -241,21 +256,53 @@ def _lavc_mpeg4(frames, options: dict) -> list:
                 ctypes.c_void_p.from_address(pkt + 24).value,
                 ctypes.c_int.from_address(pkt + 32).value))
             avc.av_packet_unref(pkt)
-    for f in frames:
-        i420 = cv2.cvtColor(np.ascontiguousarray(f), cv2.COLOR_RGB2YUV_I420)
-        planes = (i420[:h], i420[h:h + h // 4].reshape(h // 2, w // 2),
-                  i420[h + h // 4:].reshape(h // 2, w // 2))
+    H, W = h + (h & 1), w + (w & 1)     # odd sizes: chroma rounded up
+    for i, f in enumerate(frames):
+        f = np.pad(f, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
+        i420 = cv2.cvtColor(np.ascontiguousarray(f),
+                            cv2.COLOR_RGB2YUV_I420).ravel()
+        n = H * W // 4
+        planes = (i420[:H * W].reshape(H, W)[:h, :w],
+                  i420[H * W:H * W + n].reshape(H // 2, W // 2),
+                  i420[H * W + n:].reshape(H // 2, W // 2))
         avu.av_frame_make_writable(frame)
-        for i, plane in enumerate(planes):
+        for k, plane in enumerate(planes):
             plane = np.ascontiguousarray(plane)
             for r in range(plane.shape[0]):
-                ctypes.memmove(data[i] + r * stride[i],
+                ctypes.memmove(data[k] + r * stride[k],
                                plane[r].ctypes.data, plane.shape[1])
+        if pts:
+            stamp.value = i
         assert avc.avcodec_send_frame(ctx, frame) == 0
         drain()
     avc.avcodec_send_frame(ctx, None)
     drain()
-    return out
+    return out, (avu, ctx)
+
+
+def _stats_out_offset(avu, ctx) -> int:
+    import ctypes
+
+    opt = avu.av_opt_find(ctx, b"bug", None, 0, 0)
+    return ctypes.c_int.from_address(opt + 16).value - 16
+
+
+def pass1_stats(lib_ctx) -> bytes:
+    """The first-pass statistics a ``lavc_encode`` with ``flags=+pass1``
+    left in its context's stats_out."""
+    import ctypes
+
+    avu, ctx = lib_ctx
+    p = ctypes.c_void_p.from_address(ctx + _stats_out_offset(avu, ctx))
+    assert p.value
+    return ctypes.string_at(p.value)
+
+
+def _lavc_mpeg4(frames, options: dict) -> list:
+    """``frames`` coded by libavcodec's ``mpeg4`` encoder with ``options``
+    (no B-frames): the coded packets."""
+    return lavc_encode("mpeg4", frames, {"bf": "0", **options},
+                       pts=False)[0]
 
 
 def write_fixture() -> None:
@@ -511,11 +558,14 @@ def test_other_mp4_codecs_raise(tmp_path, kind, codec):
 
 
 def test_webm_raises(tmp_path, scene_frames):
+    """A WebM file in a codec the port does not decode (cv2's ``VP90``
+    writer; VP8 WebM is read, tests/test_torch_webm.py):
+    NotImplementedError naming the codec."""
     path = tmp_path / "v.webm"
     write_cv2_video(path, [cv2.resize(f, (64, 48)) for f in scene_frames[:2]],
-                    "VP80")
+                    "VP90")
     assert len(cv2_rgb(path)) == 2
-    with pytest.raises(NotImplementedError, match="Matroska/WebM"):
+    with pytest.raises(NotImplementedError, match="VP9"):
         MediaSource(video_path=str(path), use_photos=False)
 
 
@@ -659,6 +709,15 @@ def test_slam_main_on_mp4v_against_jax_video_run(tmp_path):
     port's, 0.30 %, moves with none of them).  So the reference is the
     median of the JAX package's seeds 0-2, run in a process of its own
     with ``PYTHONHASHSEED=0``."""
+    slam_main_against_jax(tmp_path, "mp4v", "mp4")
+
+
+def slam_main_against_jax(tmp_path, fourcc: str, ext: str) -> None:
+    """``slam_main`` on 14 frames at 540x960 written by cv2's ``fourcc``
+    writer into a .``ext`` file: the port's frames equal the JAX package's
+    (cv2's) bit for bit, the cameras as many as each of the JAX package's
+    RANSAC seeds 0-2 give, the ATE within 0.02 of the extent of their
+    median (run in a process of its own with ``PYTHONHASHSEED=0``)."""
     import os
     import subprocess
     import types
@@ -670,8 +729,8 @@ def test_slam_main_on_mp4v_against_jax_video_run(tmp_path):
 
     scene = make_scene(n_points=700, n_frames=14, image_size=(540, 960),
                        seed=5, baseline=0.3)
-    path = tmp_path / "seq.mp4"
-    write_cv2_video(path, [scene.render(i) for i in range(14)], "mp4v")
+    path = tmp_path / f"seq.{ext}"
+    write_cv2_video(path, [scene.render(i) for i in range(14)], fourcc)
     f_j = list(JMediaSource(video_path=str(path), use_photos=False))
     f_t = list(MediaSource(video_path=str(path), use_photos=False))
     assert len(f_t) == len(f_j) == 14
@@ -702,6 +761,15 @@ def test_calibrate_from_mp4v_against_jax(tmp_path, monkeypatch):
     """tests/test_torch_chessboard.py's video calibration on an mp4v file
     of the same eight board renders, each ten times: both packages recover
     K within 2 % of the truth, and within 1e-3 (relative) of each other."""
+    calibrate_against_jax(tmp_path, monkeypatch, "mp4v", "mp4")
+
+
+def calibrate_against_jax(tmp_path, monkeypatch, fourcc: str,
+                          ext: str) -> None:
+    """The video calibration on eight board renders, each ten times, in a
+    .``ext`` file of cv2's ``fourcc`` writer: the port's and the JAX
+    package's K within 2 % of the truth and within 1e-3 (relative) of
+    each other."""
     from slam_indoor_code_tpu.calibration.chessboard import \
         main_calibration_entry_point as jentry
     from slam_indoor_code_tpu.config import Config as JConfig
@@ -712,9 +780,9 @@ def test_calibrate_from_mp4v_against_jax(tmp_path, monkeypatch):
     from test_torch_chessboard import _spy_calibrate, _video_views
 
     K_gt, views = _video_views()
-    path = str(tmp_path / "calib.mp4")
+    path = str(tmp_path / f"calib.{ext}")
     write_cv2_video(path, [np.repeat(v[..., None], 3, axis=2)
-                           for v in views for _ in range(10)], "mp4v")
+                           for v in views for _ in range(10)], fourcc)
     cfg = tconfig.Config(usePhotosCycle=False, calibrate=True,
                          videoSourcePath=path,
                          calibrationPath=str(tmp_path / "cam.xml"),
