@@ -101,7 +101,21 @@ Phases, each followed by one flushed line with the elapsed seconds:
               equal to the jpeg run's byte for byte, the AVI's frames equal
               to the JPEG files'; prints the frame count, the container
               parse time and the decode ms per frame.
-18. mp4     — the committed fixture testing/video_fixtures/headline_mp4v.mp4
+18. progjpeg — first the small committed video fixtures
+              (testing/video_fixtures/: video packets, an Xvid-tagged
+              stream, odd heights in VP8 and I420, Y800, MJPEG in MOV) held
+              through ``MediaSource`` to the committed sha256 of cv2's
+              decode, and the progressive JPEG fixtures among
+              testing/jpeg_fixtures/ (counted); then the 32 frames as
+              progressive JPEG at quality 95 in libjpeg's default scan
+              script (the numpy writer of testing/mjpeg.py, the same
+              coefficients as the jpeg phase's), the CLI on the photo glob
+              under the counting wrapper: the jpeg phase's checks, poses.txt
+              equal to the jpeg run's byte for byte where every decoded
+              frame equals the baseline one (else where they part); prints
+              the decode ms per FHD frame with three workers and with one
+              beside the tracking ms per frame.
+19. mp4     — the committed fixture testing/video_fixtures/headline_mp4v.mp4
               (the 32 frames as OpenCV's ``mp4v`` writer makes them; the
               card has no encoder): the container parsed and timed, every
               frame decoded by io/mpeg4.py on one thread and held to the
@@ -111,7 +125,7 @@ Phases, each followed by one flushed line with the elapsed seconds:
               then the CLI with ``usePhotosCycle=false`` on the .mp4: the
               jpeg phase's checks; prints the parse time and the decode ms
               per frame beside the tracking ms per frame.
-19. webm    — the committed fixture testing/video_fixtures/headline_vp8.webm
+20. webm    — the committed fixture testing/video_fixtures/headline_vp8.webm
               (the 32 frames as OpenCV's ``VP80`` writer makes them): the
               Matroska container parsed and timed, every frame decoded by
               io/vp8.py on one thread and held to the committed sha256 of
@@ -120,14 +134,14 @@ Phases, each followed by one flushed line with the elapsed seconds:
               then the CLI with ``usePhotosCycle=false`` on the .webm: the
               jpeg phase's checks; prints the parse time and the decode ms
               per FHD frame beside the tracking ms per frame.
-20. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+21. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-21. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+22. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -145,25 +159,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rms < 0.3 px; prints the detection ms per FHD photo with and
               without a board, each branch's K and its solve's seconds on
               the card.
-22. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+23. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-23. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+24. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-24. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+25. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-25. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+26. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-26. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+27. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -173,7 +187,7 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-27. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+28. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
@@ -1935,6 +1949,108 @@ def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg):
     return n
 
 
+def held_to_video_fixtures() -> list:
+    """The small committed video fixtures (testing/video_fixtures/, each
+    listed in its cv2_sha256.json with the sha256 of cv2's RGB frames)
+    through ``MediaSource`` on the card, frame for frame → their names."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    fixtures = os.path.dirname(MP4_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        table = json.load(f)
+    names = list(SMALL_VIDEO_FIXTURES)
+    for name in names:
+        got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+               for img in MediaSource(video_path=os.path.join(fixtures, name),
+                                      use_photos=False)]
+        if got != table[name]["rgb_sha256"]:
+            fail(f"progjpeg: {name} decodes to {len(got)} frames whose "
+                 "sha256 differ from cv2's")
+    return names
+
+
+def progjpeg_phase(card_line: str, scene, frames, decoded_jpeg, poses_jpeg):
+    """The small video fixtures held to cv2's decode; the 32 headline frames
+    as progressive JPEG at quality 95 in libjpeg's default script (the
+    numpy writer, testing/mjpeg.py: the card has no encoder), the CLI on
+    the photo glob with three decode workers (cli_counted); its poses.txt
+    must equal the jpeg run's where every decoded frame equals the
+    baseline one; the decode is timed with three workers and with one →
+    (counts, decode ms per frame with 3 workers, on one thread, tracking
+    ms per frame)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import jpeg
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    t0 = time.perf_counter()
+    held = held_to_video_fixtures()
+    jfix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "slam_indoor_code_tpu_torch", "testing",
+                        "jpeg_fixtures")
+    progressive = [n for n in sorted(os.listdir(jfix)) if "_prog_" in n]
+    for name in progressive:       # held to cv2's sha256 in the jpeg phase
+        with open(os.path.join(jfix, name), "rb") as f:
+            if b"\xff\xc2" not in f.read():
+                fail(f"progjpeg: {name} is not a progressive JPEG")
+    with tempfile.TemporaryDirectory() as root:
+        photos = os.path.join(root, "photos")
+        os.makedirs(photos)
+        t = time.perf_counter()
+        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            data = list(pool.map(
+                lambda f: mjpeg.encode_progressive_jpeg(f, 95), frames))
+        encode_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+        for i, d in enumerate(data):
+            with open(os.path.join(photos, f"frame_{i}.jpg"), "wb") as f:
+                f.write(d)
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            photosPathPattern=os.path.join(photos, "*.jpg"))
+        n, n_cams, ate_pct, poses, run_s = cli_counted("progjpeg", cfg, root,
+                                                       scene)
+        decoded, decode_ms = decode_timings(
+            {"photos_pattern": cfg.photosPathPattern}, len(frames))
+        t = time.perf_counter()
+        for d in data:
+            jpeg.decode(d)
+        one_ms = 1e3 * (time.perf_counter() - t) / len(data)
+    parted = [i for i, (a, b) in enumerate(zip(decoded, decoded_jpeg))
+              if not np.array_equal(a, b)]
+    if not parted and poses != poses_jpeg:
+        fail("progjpeg: the decoded frames equal the baseline ones, but "
+             "poses.txt differs from the jpeg run's")
+    same = ("poses.txt equals the jpeg run's byte for byte (every decoded "
+            "frame equal to the baseline file's)" if not parted else
+            f"decoded frames part from the baseline ones at frame "
+            f"{parted[0]} ({len(parted)} differ); poses.txt "
+            f"{'equal' if poses == poses_jpeg else 'differs'}")
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"progjpeg: {len(held)} small video fixtures equal cv2's decode "
+          f"(sha256: {', '.join(held)}); {len(progressive)} progressive JPEG "
+          f"fixtures among the jpeg phase's; exit 0, cameras "
+          f"{n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  {same}  "
+          f"launches {json.dumps(n)}  "
+          f"{sum(map(len, data)) / len(data) / 1e3:.1f} kB per frame (10 "
+          f"scans); decode {decode_ms:.3f} ms per FHD frame with 3 workers "
+          f"({os.cpu_count()} cores), {one_ms:.3f} ms on one thread; "
+          f"tracking {track_ms:.3f} ms per frame; subprocess {run_s:.3f} s; "
+          f"numpy encode {encode_ms:.1f} ms per frame on "
+          f"{os.cpu_count()} threads; phase "
+          f"{time.perf_counter() - t0:.1f} s  [{card_line}]", flush=True)
+    return n, decode_ms, one_ms, track_ms
+
+
+SMALL_VIDEO_FIXTURES = ("resync_fmp4.avi", "xvid_tagged.avi", "odd_vp8.webm",
+                        "odd_i420.avi", "y800.avi", "mjpeg.mov")
+
+
 MP4_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "slam_indoor_code_tpu_torch", "testing",
                            "video_fixtures", "headline_mp4v.mp4")
@@ -2368,7 +2484,7 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
 
 
 def calibrate_pixels(card_line: str, scene, frames):
-    """Calibration from pixels through the CLI (phase 21's second part)."""
+    """Calibration from pixels through the CLI (phase 22's second part)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.calibration import chessboard as cb
@@ -2767,8 +2883,15 @@ def main() -> None:
         phase("jpeg", top2_batch_launches=n["top2_batch"])
         n = video_phase(card_line, scene, jpegs, decoded, poses_jpeg)
         by_path["video (cli)"] = n["top2_batch"]
-        del jpegs, decoded
         phase("video", top2_batch_launches=n["top2_batch"])
+        n, dec3_ms, dec1_ms, track_ms = progjpeg_phase(
+            card_line, scene, frames, decoded, poses_jpeg)
+        by_path["progjpeg (cli)"] = n["top2_batch"]
+        del jpegs, decoded
+        phase("progjpeg", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame_3_workers=f"{dec3_ms:.3f}",
+              decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
         n = mp4_phase(card_line, scene)
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])

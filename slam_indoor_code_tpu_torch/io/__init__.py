@@ -1,7 +1,8 @@
 """Host-side IO: reference-format txt logs, OpenCV-XML calibration files,
-photo-glob media (native or numpy decoding), video (AVI, MP4 and
-Matroska/WebM containers; Motion-JPEG, MPEG-4 Part 2 and VP8 decoded
-without OpenCV or FFmpeg) and the in-memory frame source."""
+photo-glob media (native or numpy decoding; baseline and progressive
+JPEG), video (AVI, MP4/QuickTime and Matroska/WebM containers;
+Motion-JPEG, MPEG-4 Part 2, VP8 and uncompressed I420/Y800 decoded without
+OpenCV or FFmpeg) and the in-memory frame source."""
 
 from .logs import (
     GlobalData,

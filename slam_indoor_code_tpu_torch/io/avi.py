@@ -10,8 +10,11 @@ webcams) decodes each chunk by io/jpeg.py, in any order; MPEG-4 Part 2
 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``mp4v``: OpenCV's ``XVID``
 writer) decodes the chunks in order by io/mpeg4.py, which finds the VOL
 headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
-in order by io/vp8.py.  ``open_video`` reads any of the three containers;
-other codecs raise ``NotImplementedError`` naming them.
+in order by io/vp8.py; uncompressed planar 4:2:0 and gray (``I420``,
+``IYUV``, ``Y800``; OpenCV's writer stores fourcc 0 as ``I420``) each by
+io/rawvideo.py.  ``open_video`` reads any of the three containers, and
+names MPEG program and transport streams in its refusal; other codecs
+raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, matroska, mp4
+from . import jpeg, matroska, mp4, rawvideo
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
@@ -38,13 +41,35 @@ def open_video(path: str):
     try:
         with open(path, "rb") as fh:
             magic = fh.read(12)
+            fh.seek(0)
+            head = fh.read(_TS_PACKET * 4)
     except OSError as e:
         raise IOError(f"Video wasn't opened: {path}") from e
     if matroska.is_matroska(magic):
         return matroska.MkvVideo(path)
     if mp4.is_mp4(magic):
         return mp4.Mp4Video(path)
+    container = mpeg_container(head)
+    if container is not None:
+        raise NotImplementedError(
+            f"{path}: the {container} container needs a demuxer the port "
+            "does not have; AVI, MP4/QuickTime and Matroska/WebM are read")
     return AviVideo(path)
+
+
+_TS_PACKET = 188
+
+
+def mpeg_container(head: bytes) -> Optional[str]:
+    """"MPEG program stream" for data starting with a pack header
+    (``00 00 01 BA``), "MPEG transport stream" where the sync byte 0x47
+    starts every 188-byte packet of ``head`` (at least two), else None."""
+    if head[:4] == b"\x00\x00\x01\xba":
+        return "MPEG program stream"
+    n = min(len(head) // _TS_PACKET, 4)
+    if n >= 2 and all(head[i * _TS_PACKET] == 0x47 for i in range(n)):
+        return "MPEG transport stream"
+    return None
 
 
 def _chunks(fh, start: int, end: int):
@@ -67,9 +92,9 @@ def _chunks(fh, start: int, end: int):
 
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
-    shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4" or
-    "vp8";
-    ``read`` reads one chunk and ``decode_frame`` decodes a Motion-JPEG one
+    shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4",
+    "vp8" or "raw" (``pix_fmt`` "yuv420p" or "gray"); ``read`` reads one
+    chunk and ``decode_frame`` decodes a Motion-JPEG or uncompressed one
     (thread-safe: ``os.pread`` on one descriptor)."""
 
     extradata = b""     # MPEG-4 streams in AVI carry their VOL in band
@@ -101,12 +126,16 @@ class AviVideo:
             self.codec = "mpeg4"
         elif self.fourcc in VP8_FOURCCS:
             self.codec = "vp8"
+        elif self.fourcc in rawvideo.FOURCCS:
+            self.codec = "raw"
+            self.pix_fmt = rawvideo.FOURCCS[self.fourcc]
         else:
             raise NotImplementedError(
                 f"{path}: video codec {self.fourcc.decode(errors='replace')!r}"
                 " needs a decoder the port does not have; in AVI only "
                 "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
-                "FMP4, mp4v) and VP8 (VP80) are decoded")
+                "FMP4, mp4v), VP8 (VP80) and uncompressed I420, IYUV and "
+                "Y800 are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 
     def _riff(self, fh, start: int, end: int) -> None:
@@ -158,9 +187,12 @@ class AviVideo:
 
     def decode_frame(self, frame: tuple[int, int, bool]
                      ) -> Optional[np.ndarray]:
-        """HxWx3 uint8 RGB of one Motion-JPEG chunk; None if it does not
-        decode."""
-        return jpeg.decode(self.read(frame))
+        """HxWx3 uint8 RGB of one Motion-JPEG or uncompressed chunk; None
+        if it does not decode."""
+        if self.codec == "raw":
+            return rawvideo.decode(self.read(frame), self.pix_fmt,
+                                   self.width, self.height)
+        return jpeg.decode(self.read(frame), lenient=True)
 
     def close(self) -> None:
         if self._fd >= 0:

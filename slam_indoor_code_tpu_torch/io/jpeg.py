@@ -1,14 +1,19 @@
-"""Baseline JPEG decoding without libjpeg: a ctypes binding of
-``native/jpeg.cpp``, which needs nothing but the C++ standard library.
+"""Baseline and progressive JPEG decoding without libjpeg: a ctypes
+binding of ``native/jpeg.cpp``, which needs nothing but the C++ standard
+library.
 
-It gives libjpeg-turbo's default decode bit for bit (the ISLOW IDCT, fancy
-upsampling, the fixed-point YCbCr->RGB tables) for sequential Huffman JPEG
-with 8-bit samples, 1 or 3 components at any integral sampling factors,
-restart intervals and optimized or absent Huffman tables (Motion-JPEG
-frames without a DHT take the Annex K tables, as libjpeg does).
-Progressive, arithmetic-coded, lossless, hierarchical and 12-bit JPEG
-raise ``ValueError`` naming the process; a corrupt or truncated stream
-decodes to None.  EXIF orientation is not applied.
+It gives libjpeg-turbo 3.1's default decode bit for bit (the ISLOW IDCT,
+fancy upsampling, the fixed-point YCbCr->RGB tables; for progressive JPEG
+the whole-image coefficient buffer and block smoothing where the scan
+script stops short) for sequential and progressive Huffman JPEG with 8-bit
+samples, 1 or 3 components at any integral sampling factors, restart
+intervals and optimized or absent Huffman tables (Motion-JPEG frames
+without a DHT take the Annex K tables, as libjpeg does).  Arithmetic-coded,
+lossless, hierarchical and 12-bit JPEG raise ``ValueError`` naming the
+process; a corrupt or truncated stream decodes to None, or, with
+``lenient`` (a Motion-JPEG frame, which FFmpeg gives whenever its headers
+are whole), to libjpeg-turbo's reading of its damaged entropy-coded data.
+EXIF orientation is not applied.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
 the package (ignored by git).  If the build fails, every decode raises
@@ -44,15 +49,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jpegdec_info.argtypes = [ctypes.c_char_p, I64, P(I), P(I),
                                  ctypes.c_char_p, I]
     lib.jpegdec_info.restype = I
-    lib.jpegdec_decode.argtypes = [ctypes.c_char_p, I64, P(ctypes.c_uint8),
-                                   I64, P(I), P(I), ctypes.c_char_p, I]
+    lib.jpegdec_decode.argtypes = [ctypes.c_char_p, I64, I,
+                                   P(ctypes.c_uint8), I64, P(I), P(I),
+                                   ctypes.c_char_p, I]
     lib.jpegdec_decode.restype = I
 
 
-def decode(data: bytes) -> Optional[np.ndarray]:
+def decode(data: bytes, lenient: bool = False) -> Optional[np.ndarray]:
     """HxWx3 uint8 RGB of the JPEG ``data``; None if it is corrupt or
-    truncated; ``ValueError`` naming the process for a JPEG this decoder
-    does not read."""
+    truncated (with ``lenient``: only if its headers are); ``ValueError``
+    naming the process for a JPEG this decoder does not read."""
     lib = load()
     h, w = ctypes.c_int(), ctypes.c_int()
     msg = ctypes.create_string_buffer(_MSG_LEN)
@@ -61,7 +67,8 @@ def decode(data: bytes) -> Optional[np.ndarray]:
     if rc == 0:
         out = np.empty((h.value, w.value, 3), np.uint8)
         rc = lib.jpegdec_decode(
-            data, len(data), out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            data, len(data), int(lenient),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             out.nbytes, ctypes.byref(h), ctypes.byref(w), msg, _MSG_LEN)
         if rc == 0:
             return out

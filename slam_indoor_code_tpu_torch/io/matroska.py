@@ -85,7 +85,9 @@ class MkvVideo:
     (offset, size, shown) of each frame in file order, ``codec`` is "vp8",
     "mpeg4" or "mjpeg", ``extradata`` its CodecPrivate; ``read`` reads one
     frame and ``decode_frame`` decodes a Motion-JPEG one (thread-safe:
-    ``os.pread`` on one descriptor)."""
+    ``os.pread`` on one descriptor); ``fourcc`` is a VfW track's fourcc."""
+
+    fourcc = b""
 
     def __init__(self, path: str):
         self.path = path
@@ -275,7 +277,7 @@ class MkvVideo:
         if cid == "V_MS/VFW/FOURCC" and len(self.extradata) >= 20:
             from . import avi
 
-            fourcc = self.extradata[16:20]
+            fourcc = self.fourcc = self.extradata[16:20]
             w, h = struct.unpack("<ii", self.extradata[4:12])
             self.width, self.height = self.width or w, self.height or abs(h)
             extra = self.extradata[40:]
@@ -390,7 +392,7 @@ class MkvVideo:
                      ) -> Optional[np.ndarray]:
         """HxWx3 uint8 RGB of one Motion-JPEG frame; None if it does not
         decode."""
-        return jpeg.decode(self.read(frame))
+        return jpeg.decode(self.read(frame), lenient=True)
 
     def close(self) -> None:
         if self._fd >= 0:

@@ -8,11 +8,14 @@ ahead: by the native sequence reader (io/native.py, libjpeg/libpng) where
 it builds, else by the port's own PNG and JPEG readers (io/png.py,
 io/jpeg.py) in a thread pool.  Video (``usePhotosCycle=false``) is opened
 by io/avi.py (AVI; MP4 through io/mp4.py; Matroska/WebM through
-io/matroska.py): Motion-JPEG frames are decoded the same way as photos,
-each by io/jpeg.py; MPEG-4 Part 2 (io/mpeg4.py) and VP8 (io/vp8.py)
-frames, each of which predicts from those before it, in order on one
-producer thread a bounded number of frames ahead.  The JAX package reads
-any codec through OpenCV's VideoCapture.
+io/matroska.py): Motion-JPEG and uncompressed frames are decoded the same
+way as photos, each by io/jpeg.py or io/rawvideo.py; MPEG-4 Part 2
+(io/mpeg4.py) and VP8 (io/vp8.py) frames, each of which predicts from
+those before it, in order on one producer thread a bounded number of
+frames ahead.  A video ends at its first frame that fails to decode, where
+OpenCV's reader stops; a damaged frame that FFmpeg still gives (a frame
+whose data ends early) is given too.  The JAX package reads any codec
+through OpenCV's VideoCapture.
 """
 
 from __future__ import annotations
@@ -57,13 +60,16 @@ def _imread_rgb(path: str) -> Optional[np.ndarray]:
 class _PooledSequence:
     """In-order reader of ``decode(item)`` over ``items`` in a thread pool,
     at most ``capacity`` frames ahead; undecodable frames (None) are
-    skipped, as the native reader skips them.  ``on_close`` runs once the
-    pool has stopped."""
+    skipped, as the native reader skips photos, or, with ``stop_on_none``
+    (a video), end the sequence, as OpenCV's reader stops at the first
+    frame that fails.  ``on_close`` runs once the pool has stopped."""
 
     def __init__(self, items: list, capacity: int, threads: int,
-                 decode=_imread_rgb, on_close=None):
+                 decode=_imread_rgb, on_close=None,
+                 stop_on_none: bool = False):
         self._items = deque(items)
         self._decode = decode
+        self._stop_on_none = stop_on_none
         self._on_close = on_close
         self._pool = ThreadPoolExecutor(max_workers=threads)
         self._ahead: deque = deque()
@@ -78,9 +84,12 @@ class _PooledSequence:
     def next_frame(self) -> Optional[np.ndarray]:
         while self._ahead:
             img = self._ahead.popleft().result()
-            self._top_up()
             if img is not None:
+                self._top_up()
                 return img
+            if self._stop_on_none:
+                break
+            self._top_up()
         self.close()
         return None
 
@@ -98,10 +107,13 @@ class _PooledSequence:
 def _decoded(video, dec) -> Generator[np.ndarray, None, None]:
     """The shown frames of ``video``, each predicting from those before
     it, decoded in order by ``dec`` (which it closes); a frame the decoder
-    gives none for, or the container hides, is still decoded."""
+    gives none for, or the container hides, is still decoded; the first
+    that fails ends the sequence, as OpenCV's reader stops there."""
     try:
         for frame in video.frames:
             img = dec.decode(video.read(frame))
+            if dec.failed:
+                return
             if img is not None and frame[2]:
                 yield img
     finally:
@@ -164,10 +176,11 @@ class _ThreadedSequence:
 
 class MediaSource:
     """Destructive frame iterator over a photo glob or a video file (AVI
-    and Matroska/WebM: Motion-JPEG, MPEG-4 Part 2 or VP8; MP4: MPEG-4 Part
-    2).  A video that does not open raises ``IOError``; another container
-    or codec ``NotImplementedError``; an MPEG-4 tool or VP8 feature the
-    decoder does not read ``ValueError``."""
+    and Matroska/WebM: Motion-JPEG, MPEG-4 Part 2 or VP8, and in AVI
+    uncompressed I420/IYUV/Y800; MP4/QuickTime: MPEG-4 Part 2 or
+    Motion-JPEG).  A video that does not open raises ``IOError``; another
+    container or codec ``NotImplementedError``; an MPEG-4 tool or VP8
+    feature the decoder does not read ``ValueError``."""
 
     def __init__(self, *, photos_pattern: str = "", video_path: str = "",
                  use_photos: bool = True, prefetch: int = 8,
@@ -175,15 +188,16 @@ class MediaSource:
         capacity, threads = max(1, prefetch), max(1, threads)
         if not use_photos:
             video = avi.open_video(video_path)
-            if video.codec == "mjpeg":
+            if video.codec in ("mjpeg", "raw"):
                 self._reader = _PooledSequence(video.frames, capacity,
                                                threads,
                                                decode=video.decode_frame,
-                                               on_close=video.close)
+                                               on_close=video.close,
+                                               stop_on_none=True)
                 return
             try:    # made at once: a VOL tool it does not decode raises here
                 dec = (vp8.Decoder() if video.codec == "vp8"
-                       else mpeg4.Decoder(video.extradata))
+                       else mpeg4.Decoder(video.extradata, video.fourcc))
             except BaseException:
                 video.close()
                 raise

@@ -1,16 +1,19 @@
-"""MPEG-4 Part 2 video in MP4/QuickTime: the ISO BMFF boxes parsed in
-Python, each sample decoded by io/mpeg4.py.
+"""MPEG-4 Part 2 and Motion-JPEG video in MP4/QuickTime: the ISO BMFF
+boxes parsed in Python, each sample decoded by io/mpeg4.py or io/jpeg.py.
 
 The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
 entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
-(MPEG-4 Visual), whose DecoderSpecificInfo holds the VOS/VOL headers.  The
+(MPEG-4 Visual), whose DecoderSpecificInfo holds the VOS/VOL headers, or
+0x6C (Motion-JPEG, what OpenCV's ``MJPG`` writer puts in ``.mp4``), or
+``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer into ``.mov``).  The
 samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
 ``co64`` (chunk offsets) and ``stsc`` (samples per chunk); ``stts`` and
 ``ctts`` give their times.  An ``edts/elst`` edit is applied as FFmpeg's
 mov demuxer applies it: samples before its media time are decoded but not
 shown, samples past its end are not read.  This is what OpenCV's
 ``VideoWriter(..., 'mp4v')`` writes.  Other sample entries (H.264, HEVC,
-VP9, AV1, Motion-JPEG, ...) raise ``NotImplementedError`` naming the codec.
+VP9, AV1, Motion-JPEG format A/B, ...) raise ``NotImplementedError`` naming
+the codec.
 """
 
 from __future__ import annotations
@@ -19,12 +22,16 @@ import os
 import struct
 from typing import Optional
 
+import numpy as np
+
+from . import jpeg
+
 # sample entry -> the codec it names, for the refusal
 _CODECS = {b"avc1": "H.264", b"avc3": "H.264", b"hvc1": "HEVC",
            b"hev1": "HEVC", b"vp08": "VP8", b"vp09": "VP9", b"av01": "AV1",
-           b"jpeg": "Motion-JPEG", b"mjpa": "Motion-JPEG",
-           b"mjpb": "Motion-JPEG", b"s263": "H.263", b"apch": "ProRes",
-           b"apcn": "ProRes", b"ap4h": "ProRes"}
+           b"mjpa": "Motion-JPEG format A", b"mjpb": "Motion-JPEG format B",
+           b"s263": "H.263", b"apch": "ProRes", b"apcn": "ProRes",
+           b"ap4h": "ProRes"}
 # esds objectTypeIndication -> codec
 _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
                  0x61: "MPEG-2 video", 0x62: "MPEG-2 video",
@@ -139,10 +146,13 @@ def _full(body: bytes) -> tuple[int, bytes]:
 
 class Mp4Video:
     """The video track of an MP4/QuickTime file: ``frames`` lists (offset,
-    size, shown) of each sample in decode order, ``extradata`` its VOS/VOL
-    headers, ``width``/``height`` its sample entry's size."""
+    size, shown) of each sample in decode order, ``codec`` "mpeg4" or
+    "mjpeg", ``extradata`` its VOS/VOL headers, ``width``/``height`` its
+    sample entry's size; ``decode_frame`` decodes a Motion-JPEG sample
+    (thread-safe: ``os.pread`` on one descriptor)."""
 
     codec = "mpeg4"
+    extradata = b""
 
     def __init__(self, path: str):
         self.path = path
@@ -210,25 +220,34 @@ class Mp4Video:
         if len(stsd) < 16:
             raise IOError(f"Video wasn't opened: {self.path} (no stsd)")
         entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
-        kind = entry[4:8]
-        if kind != b"mp4v":
+        kind = self.fourcc = entry[4:8]
+        if kind not in (b"mp4v", b"jpeg"):
             fourcc = kind.decode(errors="replace")
             raise NotImplementedError(
                 f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
                 f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
-                "only MPEG-4 Part 2 (mp4v) is decoded")
+                "only MPEG-4 Part 2 (mp4v) and Motion-JPEG (jpeg, mp4v "
+                "0x6C) are decoded")
         self.width, self.height = struct.unpack(">HH", entry[32:36])
+        if kind == b"jpeg":
+            self.codec = "mjpeg"
+            return
         esds = _find(entry, 86, len(entry), b"esds")
         if esds is None:
             raise IOError(f"Video wasn't opened: {self.path} (mp4v without "
                           "esds)")
-        oti, self.extradata = _esds(entry[esds[0]:esds[1]])
+        oti, extradata = _esds(entry[esds[0]:esds[1]])
+        if oti == 0x6C:
+            self.codec = "mjpeg"
+            return
+        self.extradata = extradata
         if oti != 0x20:
             name = _OBJECT_TYPES.get(oti, f"object type 0x{oti:02x}")
             raise NotImplementedError(
                 f"{self.path}: video codec {name} (mp4v, objectType"
                 f"Indication 0x{oti:02x}) needs a decoder the port does not "
-                "have; only MPEG-4 Part 2 (0x20) is decoded")
+                "have; only MPEG-4 Part 2 (0x20) and Motion-JPEG (0x6C) "
+                "are decoded")
 
     def _sizes(self, tables: dict) -> list[int]:
         if b"stsz" in tables:
@@ -336,6 +355,12 @@ class Mp4Video:
         off, size, _ = frame
         return os.pread(self._fd, max(0, min(size, self._file_size - off)),
                         off)
+
+    def decode_frame(self, frame: tuple[int, int, bool]
+                     ) -> Optional[np.ndarray]:
+        """HxWx3 uint8 RGB of one Motion-JPEG sample; None if it does not
+        decode."""
+        return jpeg.decode(self.read(frame), lenient=True)
 
     def close(self) -> None:
         if getattr(self, "_fd", -1) >= 0:

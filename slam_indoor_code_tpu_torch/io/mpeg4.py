@@ -1,16 +1,20 @@
 """MPEG-4 Part 2 video decoding without FFmpeg: a ctypes binding of
 ``native/mpeg4.cpp``, which needs nothing but the C++ standard library.
 
-It gives FFmpeg's decode bit for bit (the simple IDCT, H.263 quantisation,
-half-pel prediction under ``vop_rounding_type``, edge replication of the
-macroblock-aligned picture) for Simple Profile streams as FFmpeg's
-``mpeg4`` encoder writes them, which is what OpenCV's ``mp4v`` (MP4) and
-``XVID``/``DIVX`` (AVI) writers record, and converts to RGB as OpenCV's
-FFmpeg backend does (swscale's yuv420p->bgr24).  B-VOPs, quarter-pel,
-GMC, interlace, MPEG quantisation, 4MV, resync markers, data partitioning
-and the other tools it does not decode raise ``ValueError`` naming the
-tool; a corrupt or truncated VOP decodes to None; a VOP with ``vop_coded``
-0 gives no frame (None), as in FFmpeg.
+It gives FFmpeg's decode bit for bit (the simple IDCT, or the Xvid IDCT
+for a stream FFmpeg takes to be Xvid's; H.263 quantisation, half-pel
+prediction under ``vop_rounding_type``, edge replication of the
+macroblock-aligned picture, video packets) for Simple Profile streams as
+FFmpeg's ``mpeg4`` encoder writes them, which is what OpenCV's ``mp4v``
+(MP4) and ``XVID``/``DIVX`` (AVI) writers record, and converts to RGB as
+OpenCV's FFmpeg backend does (native/swscale_rgb.h).  B-VOPs, quarter-pel,
+GMC, interlace, MPEG quantisation, 4MV, data partitioning, RVLC and the
+other tools it does not decode raise ``ValueError`` naming the tool.  A
+VOP whose macroblock data is damaged or cut short gives a frame, as
+FFmpeg's concealment does (the macroblocks from the damage on are the
+reference's); a sample without a VOP, or with a damaged VOP header, gives
+None and sets ``failed``; a VOP with ``vop_coded`` 0 gives no frame (None),
+as in FFmpeg.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
 the package (ignored by git).  If the build fails, every decoder raises
@@ -35,7 +39,7 @@ LIBRARY = _PKG_DIR / "_build" / "libmpeg4dec.so"
 _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()
 _MSG_LEN = 256
-_FRAME, _UNSUPPORTED = 0, 2      # mpeg4dec_* return codes
+_FRAME, _UNSUPPORTED, _FAILED = 0, 2, 3      # mpeg4dec_* return codes
 
 
 def load() -> ctypes.CDLL:
@@ -47,7 +51,7 @@ def load() -> ctypes.CDLL:
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, I64, U8 = (ctypes.POINTER, ctypes.c_int, ctypes.c_int64,
                      ctypes.POINTER(ctypes.c_uint8))
-    lib.mpeg4dec_open.argtypes = [ctypes.c_char_p, I64,
+    lib.mpeg4dec_open.argtypes = [ctypes.c_char_p, I64, ctypes.c_uint32,
                                   P(ctypes.c_void_p), ctypes.c_char_p, I]
     lib.mpeg4dec_open.restype = I
     lib.mpeg4dec_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, I64,
@@ -68,13 +72,21 @@ def _u8(a: np.ndarray):
 class Decoder:
     """One MPEG-4 Part 2 stream: ``extradata`` holds its VOS/VOL headers
     when the container keeps them out of band (an MP4 ``esds``); an AVI
-    stream carries them in its first sample."""
+    stream carries them in its first sample.  ``fourcc`` is the
+    container's tag for the stream (AVI ``strf``, MP4 sample entry), from
+    which, with the user data, the decoder tells an Xvid stream as FFmpeg
+    does.  ``failed`` tells whether the last sample failed (no VOP, or a
+    damaged VOP header), which ends a stream where OpenCV's reader ends
+    it."""
 
-    def __init__(self, extradata: bytes = b""):
+    failed = False
+
+    def __init__(self, extradata: bytes = b"", fourcc: bytes = b""):
         self._lib = load()
         self._handle = ctypes.c_void_p()
         msg = ctypes.create_string_buffer(_MSG_LEN)
-        rc = self._lib.mpeg4dec_open(extradata, len(extradata),
+        tag = int.from_bytes(fourcc[:4].ljust(4, b"\0"), "little")
+        rc = self._lib.mpeg4dec_open(extradata, len(extradata), tag,
                                      ctypes.byref(self._handle), msg,
                                      _MSG_LEN)
         if rc != 0:
@@ -92,11 +104,12 @@ class Decoder:
                                        _MSG_LEN)
         if rc == _UNSUPPORTED:
             raise ValueError(msg.value.decode(errors="replace"))
+        self.failed = rc == _FAILED
         return (h.value, w.value) if rc == _FRAME else None
 
     def decode(self, sample: bytes) -> Optional[np.ndarray]:
         """HxWx3 uint8 RGB of the VOP in ``sample``; None when it gives no
-        frame (headers only, ``vop_coded`` 0, corrupt or truncated)."""
+        frame (``vop_coded`` 0, or ``failed``)."""
         hw = self._decode(sample)
         if hw is None:
             return None

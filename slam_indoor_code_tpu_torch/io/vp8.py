@@ -5,9 +5,12 @@ It decodes what RFC 6386 defines (key and inter frames, segmentation,
 1-8 token partitions, the simple and normal loop filters, the 6-tap and
 bilinear predictors of versions 0-3, golden and altref references, hidden
 frames) to FFmpeg's pixels bit for bit, and converts to RGB as OpenCV's
-FFmpeg backend does (swscale's yuv420p->bgr24).  A frame with
-``show_frame`` 0 gives no frame (None) and updates the references; so does
-a corrupt or truncated frame, which leaves them as they were.  A key frame
+FFmpeg backend does (native/swscale_rgb.h).  A frame with ``show_frame`` 0
+gives no frame (None) and updates the references.  A frame whose token
+data ends early is given where FFmpeg gives it, decoded to where FFmpeg
+stops (the rest is the last frame's); one with a corrupt or truncated
+header gives None, sets ``failed`` and leaves the references as they
+were.  A key frame
 that changes the size, and full-range colour, raise ``ValueError`` naming
 them.
 
@@ -34,7 +37,7 @@ LIBRARY = _PKG_DIR / "_build" / "libvp8dec.so"
 _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()
 _MSG_LEN = 256
-_FRAME, _UNSUPPORTED = 0, 2      # vp8dec_decode return codes
+_FRAME, _UNSUPPORTED, _FAILED = 0, 2, 3      # vp8dec_decode return codes
 
 
 def load() -> ctypes.CDLL:
@@ -79,7 +82,11 @@ def table(name: str) -> np.ndarray:
 
 
 class Decoder:
-    """One VP8 stream, fed its frames in decode order."""
+    """One VP8 stream, fed its frames in decode order; ``failed`` tells
+    whether the last frame failed (a damaged header), which ends a stream
+    where OpenCV's reader ends it."""
+
+    failed = False
 
     def __init__(self):
         self._lib = load()
@@ -95,11 +102,12 @@ class Decoder:
                                      _MSG_LEN)
         if rc == _UNSUPPORTED:
             raise ValueError(msg.value.decode(errors="replace"))
+        self.failed = rc == _FAILED
         return (h.value, w.value) if rc == _FRAME else None
 
     def decode(self, frame: bytes) -> Optional[np.ndarray]:
         """HxWx3 uint8 RGB of ``frame``; None when it gives no frame
-        (``show_frame`` 0, corrupt or truncated)."""
+        (``show_frame`` 0, or ``failed``)."""
         hw = self._decode(frame)
         if hw is None:
             return None

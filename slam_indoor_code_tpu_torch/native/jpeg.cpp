@@ -1,10 +1,17 @@
-// jpeg — a baseline JPEG decoder with no library but the C++ standard
-// library, for machines without libjpeg.
+// jpeg — a baseline and progressive JPEG decoder with no library but the
+// C++ standard library, for machines without libjpeg.
 //
-// It decodes what libjpeg-turbo decodes for a sequential Huffman JPEG
-// (SOF0/SOF1, 8-bit samples, 1 or 3 components at any integral sampling
-// factors, restart intervals, optimized or absent Huffman tables) and
-// gives the same pixels as libjpeg-turbo with its defaults, bit for bit:
+// It decodes what libjpeg-turbo decodes for a sequential or progressive
+// Huffman JPEG (SOF0/SOF1/SOF2, 8-bit samples, 1 or 3 components at any
+// integral sampling factors, restart intervals, optimized or absent
+// Huffman tables, a DHT between scans) and gives the same pixels as
+// libjpeg-turbo 3.1 with its defaults, bit for bit:
+//   - progressive scans (jdphuff.c) into a whole-image coefficient buffer:
+//     DC first and refine, AC first with end-of-band runs, AC refine with
+//     correction bits; then block smoothing (jdcoefct.c
+//     decompress_smooth_data) where the scan script left any of the first
+//     nine AC coefficients short of full precision, as in a file cut at a
+//     scan boundary;
 //   - the ISLOW inverse DCT (jidctint.c: 13-bit constants, the
 //     CONST_BITS/PASS1_BITS descales and the wrapping range-limit table);
 //   - fancy upsampling (jdsample.c): the triangle filters of h2v1, h1v2 and
@@ -13,15 +20,17 @@
 //     box replication for other integral factors and for h2 components
 //     at most two samples wide;
 //   - jdcolor.c's fixed-point YCbCr->RGB tables (16 fraction bits).
-// Progressive, arithmetic, lossless, hierarchical and 12-bit JPEGs are
-// refused with the process named; a corrupt or truncated stream decodes to
-// nothing.  A scan that references Huffman table 0 or 1 without defining
+// Arithmetic-coded, lossless, hierarchical and 12-bit JPEGs are refused
+// with the process named; a corrupt or truncated stream decodes to nothing,
+// unless the caller asks for libjpeg's reading of a damaged sequential
+// frame (`lenient`, for Motion-JPEG).  A scan that references Huffman table 0 or 1 without defining
 // it takes the Annex K tables, as libjpeg does (Motion-JPEG frames carry
 // no DHT).
 //
 // C ABI; Python binds it through ctypes (io/jpeg.py).  Build:
 //   g++ -O2 -fPIC -std=c++17 -shared -o libjpegdec.so jpeg.cpp
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -130,6 +139,7 @@ struct BitReader {
   int fill = 0;           // of which this many (the lowest) are zero fill
   bool at_marker = false; // pos is at the 0xFF of the marker ending the data
   bool overrun = false;
+  bool lenient = false;   // a code the table lacks reads as libjpeg's
 
   void refill() {
     while (cnt <= 56) {
@@ -193,7 +203,9 @@ struct BitReader {
         return h.vals[code + h.valoff[l]];
       }
     }
-    return -1;
+    if (!lenient) return -1;
+    skip(17);      // jpeg_huff_decode: 17 bits read, a zero faked
+    return 0;
   }
   // Move to the next marker (skipping what libjpeg would discard); false at
   // the end of the data.
@@ -393,6 +405,16 @@ struct Component {
   int16_t q[64];              // quantization table latched at its 1st scan
   bool latched = false;
   int dc = 0;                 // DC prediction
+  // progressive: every block's coefficients (natural order), block-padded
+  // to whole MCUs as libjpeg's whole-image buffer, and the successive-
+  // approximation bit each coefficient is known to (jdphuff.c coef_bits;
+  // -1: none of it yet)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  int blocks_w() const { return plane_w / 8; }
+  int16_t* block(int bx, int by) {
+    return coef.data() + (static_cast<size_t>(by) * blocks_w() + bx) * 64;
+  }
 };
 
 struct Decoder {
@@ -409,6 +431,11 @@ struct Decoder {
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
   bool frame = false;
+  bool progressive = false;
+  // decode damaged entropy-coded data as libjpeg-turbo does (a Motion-JPEG
+  // frame): a bad code reads as zero; data that ends early is read as zero
+  // bits to the end of that MCU and the MCUs after it are left zero
+  bool lenient = false;
 
   Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
 
@@ -453,7 +480,10 @@ struct Decoder {
       k.ds_h = static_cast<int>((int64_t(height) * k.v + vmax - 1) / vmax);
       k.plane_w = mcux * k.h * 8;
       k.plane_h = mcuy * k.v * 8;
+      for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+      std::memset(k.q, 0, sizeof(k.q));
     }
+    progressive = marker == 0xC2;
     frame = true;
     return kOk;
   }
@@ -523,11 +553,7 @@ struct Decoder {
     for (int i = 0; i < ns; ++i) {
       Component& k = *sc[i];
       if (!dc_tab[td[i]].defined || !ac_tab[ta[i]].defined) return kCorrupt;
-      if (!k.latched) {
-        if (!qt_defined[k.tq]) return kCorrupt;
-        for (int j = 0; j < 64; ++j) k.q[j] = static_cast<int16_t>(qt[k.tq][j]);
-        k.latched = true;
-      }
+      if (!latch(k)) return kCorrupt;
       if (k.plane.empty())
         k.plane.assign(static_cast<size_t>(k.plane_w) * k.plane_h, 0);
       k.dc = 0;
@@ -543,8 +569,11 @@ struct Decoder {
     const int64_t total = int64_t(units_x) * units_y;
     int16_t blk[64];
     int rst = 0;
+    br.lenient = lenient;
+    bool short_data = false;     // libjpeg's insufficient_data
     for (int64_t m = 0; m < total; ++m) {
-      if (restart_interval && m && m % restart_interval == 0) {
+      if (lenient && br.overrun) short_data = true;
+      if (restart_interval && m && m % restart_interval == 0 && !short_data) {
         if (br.overrun || !br.seek_marker()) return kCorrupt;
         if (br.d[br.pos + 1] != 0xD0 + rst) return kCorrupt;
         br.pos += 2;
@@ -557,7 +586,9 @@ struct Decoder {
         int bh = ns == 1 ? 1 : k.h, bv = ns == 1 ? 1 : k.v;
         for (int v = 0; v < bv; ++v)
           for (int h = 0; h < bh; ++h) {
-            if (!decode_block(br, k, dc_tab[td[i]], ac_tab[ta[i]], blk))
+            if (short_data)
+              std::memset(blk, 0, sizeof(blk));
+            else if (!decode_block(br, k, dc_tab[td[i]], ac_tab[ta[i]], blk))
               return kCorrupt;
             size_t x = (size_t(mx) * bh + h) * 8, y = (size_t(my) * bv + v) * 8;
             idct_islow(blk, k.q, k.plane.data() + y * k.plane_w + x,
@@ -565,8 +596,329 @@ struct Decoder {
           }
       }
     }
+    if (br.overrun && !lenient) return kCorrupt;
+    return kOk;
+  }
+
+  // ------------------------------------------------------ progressive
+  // One scan of a progressive JPEG into the coefficient buffers, as
+  // jdphuff.c decodes it: DC first (differences, scaled by Al), DC refine
+  // (one bit per block), AC first (one component, the band Ss..Se with
+  // end-of-band runs) and AC refine (newly nonzero coefficients and the
+  // correction bits of those already nonzero).  A non-interleaved scan
+  // covers the component's own blocks, not the MCU-padded grid.
+  Status decode_prog_scan(BitReader& br, Component** sc, const int* td,
+                          const int* ta, int ns, int ss, int se, int ah,
+                          int al) {
+    const bool dc_band = ss == 0;
+    bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) return kCorrupt;                  // JERR_BAD_PROGRESSION
+    for (int i = 0; i < ns; ++i) {
+      Component& k = *sc[i];
+      if (dc_band ? (ah == 0 && !dc_tab[td[i]].defined)
+                  : !ac_tab[ta[i]].defined)
+        return kCorrupt;
+      if (!latch(k)) return kCorrupt;
+      if (k.coef.empty())
+        k.coef.assign(static_cast<size_t>(k.plane_w / 8) * (k.plane_h / 8) *
+                          64, 0);
+      for (int c = ss; c <= se; ++c) k.coef_bits[c] = al;
+      k.dc = 0;
+    }
+    int units_x, units_y;
+    if (ns == 1) {
+      units_x = (sc[0]->ds_w + 7) / 8;
+      units_y = (sc[0]->ds_h + 7) / 8;
+    } else {
+      units_x = mcux;
+      units_y = mcuy;
+    }
+    const int64_t total = int64_t(units_x) * units_y;
+    int eobrun = 0, rst = 0;
+    for (int64_t m = 0; m < total; ++m) {
+      if (restart_interval && m && m % restart_interval == 0) {
+        if (br.overrun || !br.seek_marker()) return kCorrupt;
+        if (br.d[br.pos + 1] != 0xD0 + rst) return kCorrupt;
+        br.pos += 2;
+        rst = (rst + 1) & 7;
+        for (int i = 0; i < ns; ++i) sc[i]->dc = 0;
+        eobrun = 0;
+      }
+      const int mx = static_cast<int>(m % units_x);
+      const int my = static_cast<int>(m / units_x);
+      for (int i = 0; i < ns; ++i) {
+        Component& k = *sc[i];
+        const int bh = ns == 1 ? 1 : k.h, bv = ns == 1 ? 1 : k.v;
+        for (int v = 0; v < bv; ++v)
+          for (int h = 0; h < bh; ++h) {
+            int16_t* blk = k.block(mx * bh + h, my * bv + v);
+            bool ok;
+            if (dc_band && ah == 0) {
+              ok = dc_first(br, k, dc_tab[td[i]], blk, al);
+            } else if (dc_band) {
+              if (br.bits(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+              ok = true;
+            } else if (ah == 0) {
+              ok = ac_first(br, ac_tab[ta[i]], blk, ss, se, al, eobrun);
+            } else {
+              ok = ac_refine(br, ac_tab[ta[i]], blk, ss, se, al, eobrun);
+            }
+            if (!ok) return kCorrupt;
+          }
+      }
+    }
     if (br.overrun) return kCorrupt;
     return kOk;
+  }
+
+  bool latch(Component& k) {
+    if (!k.latched) {
+      if (!qt_defined[k.tq]) return false;
+      for (int j = 0; j < 64; ++j) k.q[j] = static_cast<int16_t>(qt[k.tq][j]);
+      k.latched = true;
+    }
+    return true;
+  }
+
+  static bool dc_first(BitReader& br, Component& k, const Huffman& tab,
+                       int16_t* blk, int al) {
+    int s = br.decode(tab);
+    if (s < 0 || s > 16) return false;
+    k.dc += extend(br.bits(s), s);
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(k.dc) << al);
+    return true;
+  }
+
+  static bool ac_first(BitReader& br, const Huffman& tab, int16_t* blk,
+                       int ss, int se, int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return true;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs = br.decode(tab);
+      if (rs < 0) return false;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(
+            static_cast<unsigned>(extend(br.bits(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;                               // ZRL
+      } else {                                 // EOBr
+        eobrun = (1 << r) + br.bits(r) - 1;
+        break;
+      }
+    }
+    return true;
+  }
+
+  // A correction bit for each already nonzero coefficient from k on
+  // until `stop` zero coefficients have been passed (stop < 0: to Se);
+  // returns the position reached.
+  static int correct(BitReader& br, int16_t* blk, int k, int se, int stop,
+                     int p1) {
+    for (; k <= se; ++k) {
+      int16_t& c = blk[kNatural[k]];
+      if (c != 0) {
+        if (br.bits(1) && (c & p1) == 0)
+          c = static_cast<int16_t>(c >= 0 ? c + p1 : c - p1);
+      } else if (stop >= 0 && --stop < 0) {
+        break;
+      }
+    }
+    return k;
+  }
+
+  static bool ac_refine(BitReader& br, const Huffman& tab, int16_t* blk,
+                        int ss, int se, int al, int& eobrun) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs = br.decode(tab);
+        if (rs < 0) return false;
+        int r = rs >> 4, s = rs & 15, value = 0;
+        if (s) {                               // size 1: a new +-1
+          value = br.bits(1) ? p1 : -p1;
+        } else if (r != 15) {                  // EOBr
+          eobrun = (1 << r) + br.bits(r);
+          break;
+        }
+        k = correct(br, blk, k, se, r, p1);
+        if (value) blk[kNatural[k]] = static_cast<int16_t>(value);
+      }
+    }
+    if (eobrun > 0) {
+      correct(br, blk, k, se, -1, p1);
+      --eobrun;
+    }
+    return true;
+  }
+
+  // libjpeg-turbo's output of the coefficient buffers (jdcoefct.c): the
+  // ISLOW IDCT of every block, after block smoothing where the scans left
+  // some of the first nine AC coefficients (or, with none of them sent,
+  // the DC too) short of full precision (smoothing_ok).
+  Status prog_output() {
+    const bool smooth = smoothing_ok();
+    for (int c = 0; c < ncomp; ++c) {
+      Component& k = comp[c];
+      if (k.coef.empty())
+        k.coef.assign(static_cast<size_t>(k.plane_w / 8) * (k.plane_h / 8) *
+                          64, 0);
+      k.plane.assign(static_cast<size_t>(k.plane_w) * k.plane_h, 0);
+      const int bw = k.plane_w / 8, bh = k.plane_h / 8;
+      if (!smooth) {
+        for (int by = 0; by < bh; ++by)
+          for (int bx = 0; bx < bw; ++bx)
+            idct_islow(k.block(bx, by), k.q,
+                       k.plane.data() + (size_t(by) * k.plane_w + bx) * 8,
+                       static_cast<size_t>(k.plane_w));
+        continue;
+      }
+      smooth_component(k);
+    }
+    return kOk;
+  }
+
+  bool smoothing_ok() const {
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int c = 0; c < ncomp; ++c) {
+      const Component& k = comp[c];
+      if (!k.latched) return false;
+      for (int p : kPos)
+        if (k.q[p] == 0) return false;
+      if (k.coef_bits[0] < 0) return false;
+      for (int i = 1; i < 10; ++i)
+        if (k.coef_bits[i] != 0) useful = true;
+    }
+    return useful;
+  }
+
+  // jdcoefct.c decompress_smooth_data for one component: each block's
+  // first nine AC coefficients, where still zero and not known exactly,
+  // estimated from the DC values of its 5x5 neighbourhood (rows and
+  // columns clamped as libjpeg-turbo clamps them, its iMCU-row
+  // bookkeeping included).
+  void smooth_component(Component& k) {
+    const int wib = (k.ds_w + 7) / 8, hib = (k.ds_h + 7) / 8;
+    const int* bits = k.coef_bits;
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 &&
+                           bits[4] == -1 && bits[5] == -1 && bits[6] == -1 &&
+                           bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
+    const int64_t Q00 = k.q[0], Q01 = k.q[1], Q10 = k.q[8], Q20 = k.q[16],
+                  Q11 = k.q[9], Q02 = k.q[2], Q03 = k.q[3], Q12 = k.q[10],
+                  Q21 = k.q[17], Q30 = k.q[24];
+    const int rows = mcuy, v = ncomp == 1 ? k.v : k.v;
+    int16_t ws[64];
+    for (int R = 0; R < rows; ++R) {
+      int block_rows = v;
+      if (R == rows - 1 && hib % v) block_rows = hib % v;
+      const int image_rows = block_rows * rows;
+      for (int br = 0; br < block_rows; ++br) {
+        const int y = R * v + br, r = R * block_rows + br;
+        const int prev = r > 0 ? y - 1 : y;
+        const int pprev = r > 1 ? y - 2 : prev;
+        const int next = r < image_rows - 1 ? y + 1 : y;
+        const int nnext = r < image_rows - 2 ? y + 2 : next;
+        const int row_of[5] = {pprev, prev, y, next, nnext};
+        for (int x = 0; x < wib; ++x) {
+          int d[5][5];
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 5; ++j) {
+              int cx = std::min(std::max(x + j - 2, 0), wib - 1);
+              d[i][j] = k.block(cx, row_of[i])[0];
+            }
+#define DC(n) int64_t(d[((n) - 1) / 5][((n) - 1) % 5])
+          std::memcpy(ws, k.block(x, y), sizeof(ws));
+          int al;
+          if ((al = bits[1]) != 0 && ws[1] == 0)
+            ws[1] = estimate(Q00 * (change_dc
+                ? (-DC(1) - DC(2) + DC(4) + DC(5) - 3 * DC(6) + 13 * DC(7) -
+                   13 * DC(9) + 3 * DC(10) - 3 * DC(11) + 38 * DC(12) -
+                   38 * DC(14) + 3 * DC(15) - 3 * DC(16) + 13 * DC(17) -
+                   13 * DC(19) + 3 * DC(20) - DC(21) - DC(22) + DC(24) +
+                   DC(25))
+                : (-7 * DC(11) + 50 * DC(12) - 50 * DC(14) + 7 * DC(15))),
+                Q01, al);
+          if ((al = bits[2]) != 0 && ws[8] == 0)
+            ws[8] = estimate(Q00 * (change_dc
+                ? (-DC(1) - 3 * DC(2) - 3 * DC(3) - 3 * DC(4) - DC(5) -
+                   DC(6) + 13 * DC(7) + 38 * DC(8) + 13 * DC(9) - DC(10) +
+                   DC(16) - 13 * DC(17) - 38 * DC(18) - 13 * DC(19) +
+                   DC(20) + DC(21) + 3 * DC(22) + 3 * DC(23) + 3 * DC(24) +
+                   DC(25))
+                : (-7 * DC(3) + 50 * DC(8) - 50 * DC(18) + 7 * DC(23))),
+                Q10, al);
+          if ((al = bits[3]) != 0 && ws[16] == 0)
+            ws[16] = estimate(Q00 * (change_dc
+                ? (DC(3) + 2 * DC(7) + 7 * DC(8) + 2 * DC(9) - 5 * DC(12) -
+                   14 * DC(13) - 5 * DC(14) + 2 * DC(17) + 7 * DC(18) +
+                   2 * DC(19) + DC(23))
+                : (-DC(3) + 13 * DC(8) - 24 * DC(13) + 13 * DC(18) -
+                   DC(23))),
+                Q20, al);
+          if ((al = bits[4]) != 0 && ws[9] == 0)
+            ws[9] = estimate(Q00 * (change_dc
+                ? (-DC(1) + DC(5) + 9 * DC(7) - 9 * DC(9) - 9 * DC(17) +
+                   9 * DC(19) + DC(21) - DC(25))
+                : (DC(10) + DC(16) - 10 * DC(17) + 10 * DC(19) - DC(2) -
+                   DC(20) + DC(22) - DC(24) + DC(4) - DC(6) + 10 * DC(7) -
+                   10 * DC(9))),
+                Q11, al);
+          if ((al = bits[5]) != 0 && ws[2] == 0)
+            ws[2] = estimate(Q00 * (change_dc
+                ? (2 * DC(7) - 5 * DC(8) + 2 * DC(9) + DC(11) + 7 * DC(12) -
+                   14 * DC(13) + 7 * DC(14) + DC(15) + 2 * DC(17) -
+                   5 * DC(18) + 2 * DC(19))
+                : (-DC(11) + 13 * DC(12) - 24 * DC(13) + 13 * DC(14) -
+                   DC(15))),
+                Q02, al);
+          if (change_dc) {
+            if ((al = bits[6]) != 0 && ws[3] == 0)
+              ws[3] = estimate(Q00 * (DC(7) - DC(9) + 2 * DC(12) -
+                                      2 * DC(14) + DC(17) - DC(19)),
+                               Q03, al);
+            if ((al = bits[7]) != 0 && ws[10] == 0)
+              ws[10] = estimate(Q00 * (DC(7) - 3 * DC(8) + DC(9) - DC(17) +
+                                       3 * DC(18) - DC(19)),
+                                Q12, al);
+            if ((al = bits[8]) != 0 && ws[17] == 0)
+              ws[17] = estimate(Q00 * (DC(7) - DC(9) - 3 * DC(12) +
+                                       3 * DC(14) + DC(17) - DC(19)),
+                                Q21, al);
+            if ((al = bits[9]) != 0 && ws[24] == 0)
+              ws[24] = estimate(Q00 * (DC(7) + 2 * DC(8) + DC(9) - DC(17) -
+                                       2 * DC(18) - DC(19)),
+                                Q30, al);
+            ws[0] = estimate(Q00 * (
+                -2 * DC(1) - 6 * DC(2) - 8 * DC(3) - 6 * DC(4) - 2 * DC(5) -
+                6 * DC(6) + 6 * DC(7) + 42 * DC(8) + 6 * DC(9) - 6 * DC(10) -
+                8 * DC(11) + 42 * DC(12) + 152 * DC(13) + 42 * DC(14) -
+                8 * DC(15) - 6 * DC(16) + 6 * DC(17) + 42 * DC(18) +
+                6 * DC(19) - 6 * DC(20) - 2 * DC(21) - 6 * DC(22) -
+                8 * DC(23) - 6 * DC(24) - 2 * DC(25)),
+                Q00, 0);
+          }
+#undef DC
+          idct_islow(ws, k.q,
+                     k.plane.data() + (size_t(y) * k.plane_w + x) * 8,
+                     static_cast<size_t>(k.plane_w));
+        }
+      }
+    }
+  }
+
+  // One estimate: num / (256 q) rounded, its magnitude kept below 2^al
+  // when the coefficient is known to bit al (al > 0).
+  static int16_t estimate(int64_t num, int64_t q, int al) {
+    int pred = static_cast<int>(((q << 7) + (num >= 0 ? num : -num)) /
+                                (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return static_cast<int16_t>(num >= 0 ? pred : -pred);
   }
 
   // Walk the markers; with header_only stop at the frame header.
@@ -587,14 +939,13 @@ struct Decoder {
       const uint8_t* p = d + pos + 2;
       pos += 2 + len;
       if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-        if (m == 0xC0 || m == 0xC1) {
+        if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
           if (frame) return kCorrupt;
           Status st = parse_sof(m, p, len);
           if (st != kOk || header_only) return st;
           continue;
         }
         std::string sof = " (SOF" + std::to_string(m - 0xC0) + ")";
-        if (m == 0xC2) return refuse("progressive JPEG" + sof + " is not decoded");
         if (m == 0xC3) return refuse("lossless JPEG" + sof + " is not decoded");
         if (m == 0xC9)
           return refuse("arithmetic-coded sequential JPEG" + sof + " is not decoded");
@@ -648,8 +999,12 @@ struct Decoder {
           int blocks = 0;
           for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
           if (ns > 1 && blocks > 10) return kCorrupt;
+          const uint8_t* sp = p + 1 + 2 * ns;  // Ss, Se, Ah/Al
           BitReader br{d, n, pos};
-          Status st = decode_scan(br, sc, td, ta, ns);
+          Status st = progressive
+              ? decode_prog_scan(br, sc, td, ta, ns, sp[0], sp[1], sp[2] >> 4,
+                                 sp[2] & 15)
+              : decode_scan(br, sc, td, ta, ns);
           if (st != kOk) return st;
           any_scan = true;
           br.seek_marker();
@@ -662,9 +1017,11 @@ struct Decoder {
     }
     if (!frame) return kCorrupt;
     if (header_only) return kOk;
+    if (!any_scan) return kCorrupt;
+    if (progressive) return prog_output();
     for (int c = 0; c < ncomp; ++c)
       if (comp[c].plane.empty()) return kCorrupt;
-    return any_scan ? kOk : kCorrupt;
+    return kOk;
   }
 
   // jdsample.c: component c at full size (hmax x vmax) into out, a plane of
@@ -815,10 +1172,12 @@ int jpegdec_info(const uint8_t* data, int64_t n, int* h, int* w, char* msg,
 
 // Decode a JPEG in memory to h*w*3 RGB bytes.  0: done, *h and *w set;
 // 1: corrupt or truncated; 2: refused (msg names the process); 3: `cap`
-// is smaller than h*w*3.
-int jpegdec_decode(const uint8_t* data, int64_t n, uint8_t* rgb, int64_t cap,
-                   int* h, int* w, char* msg, int msg_len) {
+// is smaller than h*w*3.  With `lenient`, damaged or short entropy-coded
+// data of a sequential JPEG decodes as libjpeg-turbo decodes it.
+int jpegdec_decode(const uint8_t* data, int64_t n, int lenient, uint8_t* rgb,
+                   int64_t cap, int* h, int* w, char* msg, int msg_len) {
   Decoder dec(data, static_cast<size_t>(n));
+  dec.lenient = lenient != 0;
   Status st = dec.run(false);
   if (st == kOk) {
     *h = dec.height;

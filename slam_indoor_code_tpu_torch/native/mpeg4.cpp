@@ -15,19 +15,27 @@
 //     prediction under vop_rounding_type for luma and for chroma (the
 //     chroma vector's quarter positions taken to the half), unrestricted
 //     vectors by edge replication of the macroblock-aligned picture;
+//   - video packets (resync markers): the packet header's macroblock
+//     number, quantiser and header extension, and FFmpeg's slice rules for
+//     DC, AC and motion vector prediction across a packet's start;
 //   - FFmpeg's "simple" IDCT (simple_idct_template.c, 8-bit: 14-bit
-//     constants, the row DC shortcut, the column rounding folded into W4);
+//     constants, the row DC shortcut, the column rounding folded into W4),
+//     or its Xvid IDCT (xvididct.c) for a stream it takes to be Xvid's:
+//     one with `XviD` user data, or an Xvid fourcc and no encoder's user
+//     data (ff_mpeg4_workaround_bugs);
 //   - the crop of the macroblock-aligned picture to the VOL's size, and
-//     YUV 4:2:0 -> RGB as swscale's unscaled yuv420p->bgr24 converter does
-//     it on x86 (BT.601 limited range, 16-bit fixed point, one chroma
-//     sample per 2x2 block), which is what OpenCV's FFmpeg backend returns.
+//     YUV 4:2:0 -> RGB as OpenCV's FFmpeg backend returns it (swscale_rgb.h,
+//     chroma sited left as FFmpeg reports it for MPEG-4).
 // A tool it does not decode raises with the tool named: B-VOPs (low_delay
 // 0), quarter-pel, sprites/GMC, interlace, MPEG quantisation, INTER4V,
-// resync markers, data partitioning, RVLC, short video header, non-
-// rectangular shapes, not_8_bit, scalability, newpred, reduced resolution,
-// complexity estimation.  A VOP with vop_coded 0 gives no frame, as in
-// FFmpeg.  A corrupt or truncated VOP gives no frame and leaves the
-// reference as it was.
+// data partitioning, RVLC, short video header, non-rectangular shapes,
+// not_8_bit, scalability, newpred, reduced resolution, complexity
+// estimation.  Xvid's per-build bug workarounds (FF_BUG_EDGE, DC_CLIP,
+// ...) are not applied.  A VOP with vop_coded 0 gives no frame, as in
+// FFmpeg.  A VOP whose macroblocks are damaged or cut short gives a frame,
+// as FFmpeg's concealment does: its macroblocks from the damage on are
+// the reference's.  A sample without a VOP, or with a damaged VOP header,
+// gives no frame and leaves the reference as it was.
 //
 // C ABI; Python binds it through ctypes (io/mpeg4.py).  Build:
 //   g++ -O2 -fPIC -std=c++17 -shared -o libmpeg4dec.so mpeg4.cpp
@@ -370,10 +378,147 @@ inline void idct_col(const int16_t* col, uint8_t* dest, int stride,
   }
 }
 
-void idct(int16_t* block, uint8_t* dest, int stride, bool add) {
+void simple_idct(int16_t* block, uint8_t* dest, int stride, bool add) {
   for (int i = 0; i < 8; ++i) idct_row(block + 8 * i);
   for (int i = 0; i < 8; ++i) idct_col(block + i, dest + i, stride, add);
 }
+
+// FFmpeg's Xvid IDCT (xvididct.c, ff_xvid_idct): a row pass with a table
+// and rounding constant per row, then a column pass of 16-bit tangent
+// multiplies that keep the high half; the output is clamped (put) or
+// added and clamped (add).  Rows 3-7 that are all zero leave the column
+// pass's 4- and 3-row forms, which equal the 8-row form on zeros.
+namespace xvid {
+
+constexpr int kRowShift = 11, kColShift = 6;
+const uint32_t kTab04[7] = {22725, 21407, 19266, 16384, 12873, 8867, 4520};
+const uint32_t kTab17[7] = {31521, 29692, 26722, 22725, 17855, 12299, 6270};
+const uint32_t kTab26[7] = {29692, 27969, 25172, 21407, 16819, 11585, 5906};
+const uint32_t kTab35[7] = {26722, 25172, 22654, 19266, 15137, 10426, 5315};
+const uint32_t* const kRowTab[8] = {kTab04, kTab17, kTab26, kTab35,
+                                    kTab04, kTab35, kTab26, kTab17};
+const int kRowRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+
+inline int16_t sh(uint32_t v) {
+  return static_cast<int16_t>(static_cast<int32_t>(v) >> kRowShift);
+}
+
+void row(int16_t* in, const uint32_t* tab, int rnd) {
+  const uint32_t c1 = tab[0], c2 = tab[1], c3 = tab[2], c4 = tab[3],
+                 c5 = tab[4], c6 = tab[5], c7 = tab[6];
+  const int right = in[5] | in[6] | in[7];
+  const int left = in[1] | in[2] | in[3];
+  if (!(right | in[4])) {
+    const int k = static_cast<int>(c4 * in[0] + rnd);
+    if (left) {
+      const uint32_t a0 = k + c2 * in[2], a1 = k + c6 * in[2];
+      const uint32_t a2 = k - c6 * in[2], a3 = k - c2 * in[2];
+      const int b0 = static_cast<int>(c1 * in[1] + c3 * in[3]);
+      const int b1 = static_cast<int>(c3 * in[1] - c7 * in[3]);
+      const int b2 = static_cast<int>(c5 * in[1] - c1 * in[3]);
+      const int b3 = static_cast<int>(c7 * in[1] - c5 * in[3]);
+      in[0] = sh(a0 + b0);
+      in[7] = sh(a0 - b0);
+      in[1] = sh(a1 + b1);
+      in[6] = sh(a1 - b1);
+      in[2] = sh(a2 + b2);
+      in[5] = sh(a2 - b2);
+      in[3] = sh(a3 + b3);
+      in[4] = sh(a3 - b3);
+    } else {
+      const int a0 = k >> kRowShift;
+      if (a0)
+        for (int i = 0; i < 8; ++i) in[i] = static_cast<int16_t>(a0);
+    }
+  } else if (!(left | right)) {
+    const int16_t a0 = sh(rnd + c4 * (in[0] + in[4]));
+    const int16_t a1 = sh(rnd + c4 * (in[0] - in[4]));
+    in[0] = in[3] = in[4] = in[7] = a0;
+    in[1] = in[2] = in[5] = in[6] = a1;
+  } else {
+    const uint32_t k1 = c4 * in[0], k2 = c4 * in[4];
+    const uint32_t a0 = k1 + c2 * in[2] + k2 + c6 * in[6] + rnd;
+    const uint32_t a1 = k1 + c6 * in[2] - k2 - c2 * in[6] + rnd;
+    const uint32_t a2 = k1 - c6 * in[2] - k2 + c2 * in[6] + rnd;
+    const uint32_t a3 = k1 - c2 * in[2] + k2 - c6 * in[6] + rnd;
+    const uint32_t b0 = c1 * in[1] + c3 * in[3] + c5 * in[5] + c7 * in[7];
+    const uint32_t b1 = c3 * in[1] - c7 * in[3] - c1 * in[5] - c5 * in[7];
+    const uint32_t b2 = c5 * in[1] - c1 * in[3] + c7 * in[5] + c3 * in[7];
+    const uint32_t b3 = c7 * in[1] - c5 * in[3] + c3 * in[5] - c1 * in[7];
+    in[0] = sh(a0 + b0);
+    in[1] = sh(a1 + b1);
+    in[2] = sh(a2 + b2);
+    in[3] = sh(a3 + b3);
+    in[4] = sh(a3 - b3);
+    in[5] = sh(a2 - b2);
+    in[6] = sh(a1 - b1);
+    in[7] = sh(a0 - b0);
+  }
+}
+
+constexpr uint32_t kTan1 = 0x32EC, kTan2 = 0x6A0A, kTan3 = 0xAB0E,
+                   kSqrt2 = 0x5A82;
+inline int mult(uint32_t c, int x) {
+  return static_cast<int32_t>(c * static_cast<uint32_t>(x)) >> 16;
+}
+
+void col(int16_t* in) {
+  int mm0, mm1, mm2, mm3, mm4, mm5, mm6, mm7, t;
+  mm4 = in[7 * 8];
+  mm5 = in[5 * 8];
+  mm6 = in[3 * 8];
+  mm7 = in[1 * 8];
+  mm0 = mult(kTan1, mm4) + mm7;
+  mm1 = mult(kTan1, mm7) - mm4;
+  mm2 = mult(kTan3, mm5) + mm6;
+  mm3 = mult(kTan3, mm6) - mm5;
+  mm7 = mm0 + mm2;
+  mm4 = mm1 - mm3;
+  mm0 = mm0 - mm2;
+  mm1 = mm1 + mm3;
+  mm6 = mm0 + mm1;
+  mm5 = mm0 - mm1;
+  mm5 = 2 * mult(kSqrt2, mm5);
+  mm6 = 2 * mult(kSqrt2, mm6);
+  mm1 = in[2 * 8];
+  mm2 = in[6 * 8];
+  mm3 = mult(kTan2, mm2) + mm1;
+  mm2 = mult(kTan2, mm1) - mm2;
+  mm0 = in[0] + in[4 * 8];
+  mm1 = in[0] - in[4 * 8];
+  auto butf = [&t](int& a, int& b) {
+    t = a + b;
+    b = a - b;
+    a = t;
+  };
+  auto out = [](int v) { return static_cast<int16_t>(v >> kColShift); };
+  butf(mm0, mm3);
+  butf(mm0, mm7);
+  in[8 * 0] = out(mm0);
+  in[8 * 7] = out(mm7);
+  butf(mm3, mm4);
+  in[8 * 3] = out(mm3);
+  in[8 * 4] = out(mm4);
+  butf(mm1, mm2);
+  butf(mm1, mm6);
+  in[8 * 1] = out(mm1);
+  in[8 * 6] = out(mm6);
+  butf(mm2, mm5);
+  in[8 * 2] = out(mm2);
+  in[8 * 5] = out(mm5);
+}
+
+void idct(int16_t* block, uint8_t* dest, int stride, bool add) {
+  for (int i = 0; i < 8; ++i) row(block + 8 * i, kRowTab[i], kRowRnd[i]);
+  for (int i = 0; i < 8; ++i) col(block + i);
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x) {
+      uint8_t* d = dest + y * stride + x;
+      *d = clip8(add ? *d + block[8 * y + x] : block[8 * y + x]);
+    }
+}
+
+}  // namespace xvid
 
 // ---------------------------------------------------------------- decoder
 
@@ -455,10 +600,29 @@ void predict(Plane& ref, int sx, int sy, int dxy, int rnd, int bw, int bh,
   }
 }
 
+inline uint32_t upper4(uint32_t tag) {
+  uint32_t out = 0;
+  for (int i = 0; i < 4; ++i) {
+    uint32_t c = (tag >> (8 * i)) & 0xFF;
+    if (c >= 'a' && c <= 'z') c -= 'a' - 'A';
+    out |= c << (8 * i);
+  }
+  return out;
+}
+
+constexpr uint32_t fourcc(const char* s) {
+  return uint32_t(uint8_t(s[0])) | uint32_t(uint8_t(s[1])) << 8 |
+         uint32_t(uint8_t(s[2])) << 16 | uint32_t(uint8_t(s[3])) << 24;
+}
+
 class Decoder {
  public:
   int width = 0, height = 0;  // the VOL's size
   Picture cur, ref;
+
+  // `tag` is the container's fourcc (AVI strf, MP4 sample entry; little
+  // endian), which FFmpeg upper-cases and reads to tell Xvid's streams.
+  explicit Decoder(uint32_t tag) : tag_(upper4(tag)) {}
 
   // Headers (VOS/VO/VOL/GOV/user data) in `data`; a VOP, if present, is
   // decoded into `cur` (then swapped into `ref`).  Returns kFrame or
@@ -473,6 +637,8 @@ class Decoder {
       b.seek((p + 4) * 8);
       if (code >= 0x20 && code <= 0x2F) {
         parse_vol(b);
+      } else if (code == 0xB2) {
+        parse_user_data(b, p + 4, n);
       } else if (code == 0xB6) {
         if (headers_only) break;
         if (vop_seen) unsupported("packed bitstream (two VOPs in a sample)");
@@ -486,6 +652,11 @@ class Decoder {
     if (!vop_seen && !headers_only && n >= 3 && data[0] == 0 &&
         data[1] == 0 && (data[2] & 0xFC) == 0x80)
       unsupported("short video header (H.263 baseline)");
+    // A sample without a VOP is an error to FFmpeg, save a one-byte one
+    // from DivX or Xvid (a skipped frame).
+    if (!vop_seen && !headers_only &&
+        !(n == 1 && (divx_version_ >= 0 || xvid_build_ >= 0)))
+      corrupt("no VOP in the sample");
     return st;
   }
 
@@ -495,6 +666,17 @@ class Decoder {
   int mbw_ = 0, mbh_ = 0;
   int time_bits_ = 1;
   bool resync_ = false;
+  // the encoder, as FFmpeg tells it (decode_user_data,
+  // ff_mpeg4_workaround_bugs); -1: not seen
+  uint32_t tag_;
+  int xvid_build_ = -1, divx_version_ = -1, lavc_build_ = -1;
+  int vo_type_ = 0;
+  bool vol_control_ = false;
+  bool xvid_idct_ = false;
+  // the video packet (slice) being decoded: its first macroblock, and
+  // whether the current one lies in its first row of macroblocks
+  int resync_x_ = 0, resync_y_ = 0;
+  bool first_line_ = true;
   // per macroblock / block state
   std::vector<int16_t> dc_y_, dc_u_, dc_v_;   // reconstructed DC
   std::vector<int16_t> ac_y_, ac_u_, ac_v_;   // 16 per block
@@ -511,17 +693,71 @@ class Decoder {
     return -1;
   }
 
+  // User data: up to 255 bytes before the next start code, matched as
+  // FFmpeg's decode_user_data matches them.
+  void parse_user_data(const Bits& b, int64_t p, int64_t n) {
+    char buf[256];
+    int i = 0;
+    for (; i < 255 && p < n; ++i, ++p) {
+      if (b.byte(p) == 0 && b.byte(p + 1) == 0 && b.byte(p + 2) < 2) break;
+      buf[i] = static_cast<char>(b.byte(p));
+    }
+    buf[i] = 0;
+    int ver = 0, build = 0, ver2 = 0, ver3 = 0;
+    char last;
+    int e = std::sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
+    if (e < 2) e = std::sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
+    if (e >= 2) divx_version_ = ver;
+    e = std::sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+    if (e != 4)
+      e = std::sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver,
+                      &ver2, &ver3, &build);
+    if (e != 4) {
+      e = std::sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+      if (e > 1)
+        build = ((ver & 0xFF) << 16) + ((ver2 & 0xFF) << 8) + (ver3 & 0xFF);
+    }
+    if (e != 4 && std::strcmp(buf, "ffmpeg") == 0) lavc_build_ = 4600;
+    if (e == 4) lavc_build_ = build;
+    if (std::sscanf(buf, "XviD%d", &build) == 1) xvid_build_ = build;
+  }
+
+  // ff_mpeg4_workaround_bugs' choice of the IDCT: Xvid's for a stream
+  // with Xvid user data, or with an Xvid fourcc and no encoder's user
+  // data; once chosen it stays.  Xvid's per-build bug workarounds are not
+  // applied.
+  void choose_idct() {
+    if (xvid_build_ == -1 && divx_version_ == -1 && lavc_build_ == -1) {
+      if (tag_ == fourcc("XVID") || tag_ == fourcc("XVIX") ||
+          tag_ == fourcc("RMP4") || tag_ == fourcc("ZMP4") ||
+          tag_ == fourcc("SIPP"))
+        xvid_build_ = 0;
+      else if (tag_ == fourcc("DIVX") && vo_type_ == 0 && !vol_control_)
+        divx_version_ = 400;
+    }
+    if (xvid_build_ >= 0) xvid_idct_ = true;
+  }
+
+  void idct(int16_t* block, uint8_t* dest, int stride, bool add) const {
+    if (xvid_idct_)
+      xvid::idct(block, dest, stride, add);
+    else
+      simple_idct(block, dest, stride, add);
+  }
+
   void parse_vol(Bits& b) {
     b.skip(1);  // random_accessible_vol
     int type = b.get(8);
     if (type == 0x12) unsupported("fine granularity scalability");
+    vo_type_ = type;
     int verid = 1;
     if (b.get1()) {  // is_object_layer_identifier
       verid = b.get(4);
       b.skip(3);
     }
     if (b.get(4) == 15) b.skip(16);  // extended pixel aspect ratio
-    if (b.get1()) {                  // vol_control_parameters
+    vol_control_ = b.get1();
+    if (vol_control_) {
       if (b.get(2) != 1) unsupported("chroma format other than 4:2:0");
       if (!b.get1()) unsupported("B-VOPs (low_delay 0)");
       if (b.get1()) {  // vbv_parameters
@@ -596,20 +832,49 @@ class Decoder {
     if (fcode_ == 0) corrupt("vop_fcode_forward 0");
     if (type == 1 && !ref_ok_) corrupt("P-VOP without a reference");
     if (b.overrun()) corrupt("VOP header cut short");
+    choose_idct();
     reset_state();
-    for (int my = 0; my < mbh_; ++my) {
-      for (int mx = 0; mx < mbw_; ++mx) {
-        if (resync_) check_resync(b, type);
-        if (type == 0)
-          intra_mb(b, mx, my, false);
-        else
-          p_mb(b, mx, my);
-        if (b.overrun()) corrupt("VOP cut short");
+    resync_x_ = resync_y_ = 0;
+    first_line_ = true;
+    int mx = 0, my = 0;
+    try {
+      for (; my < mbh_; ++my, mx = 0) {
+        for (; mx < mbw_; ++mx) {
+          if (resync_ && (mx || my)) video_packet(b, type, mx, my);
+          if (mx == resync_x_ && my == resync_y_ + 1) first_line_ = false;
+          if (type == 0)
+            intra_mb(b, mx, my, false);
+          else
+            p_mb(b, mx, my);
+          if (b.overrun()) corrupt("VOP cut short");
+        }
       }
+    } catch (const Error& e) {
+      if (e.status != kCorrupt) throw;
+      conceal(mx, my);
     }
     std::swap(cur, ref);
     ref_ok_ = true;
     return kFrame;
+  }
+
+  // A VOP damaged from macroblock (mx, my) on, whose header was read: FFmpeg
+  // conceals the damage and gives the frame (and keeps it as the
+  // reference); here the macroblocks from there on are the reference's
+  // (grey without one).
+  void conceal(int mx, int my) {
+    for (; my < mbh_; ++my, mx = 0)
+      for (; mx < mbw_; ++mx) {
+        if (ref_ok_) {
+          skip_mb(mx, my);
+          continue;
+        }
+        for (int j = 0; j < 16; ++j) std::memset(cur.y.at(mx * 16, my * 16 + j), 128, 16);
+        for (int j = 0; j < 8; ++j) {
+          std::memset(cur.u.at(mx * 8, my * 8 + j), 128, 8);
+          std::memset(cur.v.at(mx * 8, my * 8 + j), 128, 8);
+        }
+      }
   }
 
   // Every block's DC and AC predictors start at 1024 and 0: what a
@@ -627,15 +892,70 @@ class Decoder {
     mv_.assign(nb * 2, 0);
   }
 
-  // A resync marker after the byte-alignment stuffing.
-  void check_resync(Bits& b, int type) {
+  // A video packet starting at macroblock (mx, my): MCBPC stuffing, the
+  // byte-alignment stuffing, then a resync marker (16 zeros for an I-VOP,
+  // 15 + vop_fcode for a P-VOP, then a one) and the packet header:
+  // macroblock_number, quant_scale and header_extension_code with the
+  // fields it repeats (read past, as FFmpeg's
+  // ff_mpeg4_decode_video_packet_header does).  The packet starts a slice:
+  // DC, AC and motion vector prediction do not reach across it (the
+  // slice's first row; ff_mpeg4_clean_buffers).
+  void video_packet(Bits& b, int type, int mx, int my) {
+    const int stuffing = type == 0 ? 9 : 10;
+    while (b.peek(stuffing) == 1) b.skip(stuffing);
     int64_t p = b.pos();
     int n = 8 - static_cast<int>(p & 7);
     if (b.peek(n) != (1u << (n - 1)) - 1) return;
     b.skip(n);
-    uint32_t v = b.peek(16 + type);
-    b.seek(p);
-    if (v == 1) unsupported("resync markers (video packets)");
+    int zeros = 0;
+    while (zeros < 32 && !b.get1()) ++zeros;
+    const int prefix = type == 0 ? 16 : 15 + fcode_;
+    if (zeros < prefix || b.overrun()) {
+      b.seek(p);
+      return;
+    }
+    if (zeros != prefix) corrupt("resync marker does not match vop_fcode");
+    int mb_num = mbw_ * mbh_, bits = 1;
+    while ((1 << bits) < mb_num) ++bits;
+    if (static_cast<int>(b.get(bits)) != my * mbw_ + mx)
+      corrupt("video packet does not start at the next macroblock");
+    int q = b.get(5);
+    if (q) qscale_ = q;
+    if (b.get1()) {  // header_extension_code
+      while (b.get1()) {
+        if (b.overrun()) corrupt("modulo_time_base runs past the end");
+      }
+      b.marker("video packet header");
+      b.skip(time_bits_);
+      b.marker("video packet header");
+      b.skip(2 + 3 + (type == 1 ? 3 : 0));  // type, dc threshold, fcode
+    }
+    if (b.overrun()) corrupt("video packet header cut short");
+    resync_x_ = mx;
+    resync_y_ = my;
+    first_line_ = true;
+    clean_ac(mx, my);
+  }
+
+  // ff_mpeg4_clean_buffers: the AC predictors of the blocks before the
+  // packet that its first macroblocks would read.  FFmpeg clears a run of
+  // its bordered arrays; these are the blocks of that run inside the
+  // picture.
+  void clean_ac(int mx, int my) {
+    auto clear = [](std::vector<int16_t>& v, int gw, int row, int c0,
+                    int c1) {
+      if (row < 0) return;
+      for (int c = std::max(c0, 0); c <= std::min(c1, gw - 1); ++c)
+        std::fill_n(&v[(size_t(row) * gw + c) * 16], 16, int16_t(0));
+    };
+    const int lw = 2 * mbw_;
+    clear(ac_y_, lw, 2 * my - 1, 2 * mx - 1, lw - 1);
+    clear(ac_y_, lw, 2 * my, 0, lw - 1);
+    clear(ac_y_, lw, 2 * my + 1, 0, 2 * mx - 1);
+    for (std::vector<int16_t>* v : {&ac_u_, &ac_v_}) {
+      clear(*v, mbw_, my - 1, mx - 1, mbw_ - 1);
+      clear(*v, mbw_, my, 0, mx - 1);
+    }
   }
 
   void p_mb(Bits& b, int mx, int my) {
@@ -658,17 +978,29 @@ class Decoder {
     int cbpy = t.cbpy.read(b, "CBPY") ^ 15;
     if (cbpc & 8) set_qscale(qscale_ + kDquant[b.get(2)]);
     int cbp = (cbpc & 3) | (cbpy << 2);
-    // 1MV: the median of left, top and top-right (the first row takes the
-    // left one, or none in the first column)
+    // 1MV: the median of left, top and top-right; in a slice's first row
+    // (ff_h263_pred_motion) the left one, none at the slice's first
+    // macroblock, and just left of it the median of left, 0 and top-right
     int px, py;
     int i = my * mbw_ + mx;
     auto mvat = [&](int x, int y, int c) {
       if (x < 0 || x >= mbw_ || y < 0) return 0;
       return static_cast<int>(mv_[2 * (size_t(y) * mbw_ + x) + c]);
     };
-    if (my == 0) {
-      px = mvat(mx - 1, my, 0);
-      py = mvat(mx - 1, my, 1);
+    if (first_line_) {
+      if (mx == resync_x_) {
+        px = py = 0;
+      } else if (mx + 1 == resync_x_) {
+        px = mvat(mx + 1, my - 1, 0);
+        py = mvat(mx + 1, my - 1, 1);
+        if (mx) {
+          px = median3(mvat(mx - 1, my, 0), 0, px);
+          py = median3(mvat(mx - 1, my, 1), 0, py);
+        }
+      } else {
+        px = mvat(mx - 1, my, 0);
+        py = mvat(mx - 1, my, 1);
+      }
     } else {
       px = median3(mvat(mx - 1, my, 0), mvat(mx, my - 1, 0),
                    mvat(mx + 1, my - 1, 0));
@@ -830,6 +1162,13 @@ class Decoder {
       return p ? static_cast<int>(*p) : 1024;
     };
     int a = dc(-1, 0), bb = dc(-1, -1), c = dc(0, -1);
+    // neighbours before the slice count as outside (ff_mpeg4_pred_dc)
+    if (first_line_ && n != 3) {
+      if (n != 2) bb = c = 1024;
+      if (n != 1 && mx == resync_x_) bb = a = 1024;
+    }
+    if (mx == resync_x_ && my == resync_y_ + 1 && (n == 0 || n == 4 || n == 5))
+      bb = 1024;
     int scale = n < 4 ? y_dc_scale(qscale_) : c_dc_scale(qscale_);
     int pred;
     if (std::abs(a - bb) < std::abs(bb - c)) {
@@ -970,11 +1309,12 @@ void put_msg(const std::string& s, char* msg, int msg_len) {
 extern "C" {
 
 // A decoder over the headers in `extra` (an MP4 esds DecoderSpecificInfo;
-// may be empty when the stream carries its headers in band).  0: *out set;
+// may be empty when the stream carries its headers in band) for a stream
+// the container tags `tag` (its fourcc as a little-endian word; 0: none).  0: *out set;
 // 2: a tool it does not decode (msg names it); 3: corrupt headers.
-int mpeg4dec_open(const uint8_t* extra, int64_t n, void** out, char* msg,
-                  int msg_len) {
-  Decoder* d = new Decoder();
+int mpeg4dec_open(const uint8_t* extra, int64_t n, uint32_t tag, void** out,
+                  char* msg, int msg_len) {
+  Decoder* d = new Decoder(tag);
   try {
     if (n > 0) d->feed(extra, n, true);
   } catch (const Error& e) {
@@ -986,9 +1326,10 @@ int mpeg4dec_open(const uint8_t* extra, int64_t n, void** out, char* msg,
   return kFrame;
 }
 
-// Decode one sample.  0: a frame, *w and *h set; 1: no frame (headers
-// only, or vop_coded 0); 2: a tool it does not decode (msg names it); 3:
-// corrupt or truncated (no frame; the reference stays).
+// Decode one sample.  0: a frame, *w and *h set (a concealed one too); 1:
+// no frame (vop_coded 0, a one-byte DivX/Xvid skip); 2: a tool it does
+// not decode (msg names it); 3: no VOP, or a corrupt or truncated VOP
+// header (no frame; the reference stays).
 int mpeg4dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,
                     int* h, char* msg, int msg_len) {
   Decoder* d = static_cast<Decoder*>(handle);
@@ -1009,7 +1350,7 @@ int mpeg4dec_rgb(void* handle, uint8_t* rgb, int64_t cap) {
   if (int64_t(d->width) * d->height * 3 > cap) return kSmall;
   Picture& p = d->ref;
   swscale_rgb::to_rgb(p.y.px.data(), p.y.w, p.u.px.data(), p.v.px.data(),
-                      p.u.w, d->width, d->height, rgb);
+                      p.u.w, d->width, d->height, rgb, true);
   return kFrame;
 }
 

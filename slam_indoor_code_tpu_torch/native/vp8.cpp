@@ -5,7 +5,7 @@
 // It gives the pixels FFmpeg's (and libvpx's) decoder gives, bit for bit:
 //   - the boolean decoder, read as FFmpeg's range coder reads it (two bytes
 //     at a time; a token partition that ends more than ten macroblocks
-//     early makes the frame corrupt);
+//     early stops the frame there);
 //   - the frame header: key-frame start code and size, colour space and
 //     clamping, segmentation with its map and quantiser/filter-level values
 //     (absolute or delta), simple or normal loop filter with level and
@@ -34,8 +34,11 @@
 //   - the crop to the frame's size and YUV 4:2:0 -> RGB as swscale does it
 //     for OpenCV (swscale_rgb.h).
 // A frame with show_frame 0 updates the references and gives no frame.  A
-// corrupt or truncated frame, and an inter frame before the first key
-// frame, give no frame and leave the references as they were.  A key frame
+// token partition that ends early stops the frame where FFmpeg stops it:
+// the frame is given (and kept as a reference) with its rows from there
+// on taken from the last frame.  A corrupt or truncated frame header, and
+// an inter frame before the first key frame, give no frame and leave the
+// references as they were.  A key frame
 // that changes the size, and the full-range flag (clamping_type 1, which
 // FFmpeg reads as full-range colour), raise with the feature named.
 //
@@ -1065,7 +1068,8 @@ class Decoder {
   void intra_luma(const MbInfo& m, int mx, int my);
   void intra_chroma(const MbInfo& m, int mx, int my);
   void inter(const MbInfo& m, int mx, int my);
-  void loop_filter();
+  void conceal(int mx, int my);
+  void loop_filter(int rows);
 
   MbInfo& mb(int mx, int my) { return mbs_[(my + 1) * (mbw_ + 1) + mx + 1]; }
 
@@ -1234,11 +1238,19 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
   lf_inner_.assign(size_t(mbw_) * mbh_, 0);
   std::vector<uint8_t> segmap = segmap_;
   std::vector<uint8_t> top_nnz(size_t(mbw_) * 9, 0);
-  for (int my = 0; my < mbh_; ++my) {
+  // FFmpeg tests the token partition at the start of each row and before
+  // each macroblock's coefficients; where it fails, FFmpeg stops the frame
+  // there (its rows above decoded and filtered, the rest undefined) and
+  // still gives it and keeps it as a reference.  The rest is taken from
+  // the last frame here.
+  int stop_x = -1, stop_y = mbh_;
+  for (int my = 0; my < mbh_ && stop_x < 0; ++my) {
     Bool& tb = parts_[my & (nparts_ - 1)];
-    // FFmpeg tests the token partition at the start of each row and before
-    // each macroblock's coefficients; where it stops, the frame is corrupt
-    if (tb.exhausted()) corrupt("a token partition ends early");
+    if (tb.exhausted()) {
+      stop_x = 0;
+      stop_y = my;
+      break;
+    }
     uint8_t left_nnz[9] = {};
     for (int mx = 0; mx < mbw_; ++mx) {
       MbInfo& m = mb(mx, my);
@@ -1247,7 +1259,11 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
       std::memset(coef_, 0, sizeof(coef_));
       uint8_t* top = &top_nnz[size_t(mx) * 9];
       if (!m.skip) {
-        if (tb.exhausted()) corrupt("a token partition ends early");
+        if (tb.exhausted()) {
+          stop_x = mx;
+          stop_y = my;
+          break;
+        }
         if (!read_tokens(tb, m, top, left_nnz)) m.skip = 1;
       } else {
         std::memset(top, 0, 8);
@@ -1275,7 +1291,8 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
       lf_inner_[size_t(my) * mbw_ + mx] = !y2 || !m.skip;
     }
   }
-  if (filter_level_) loop_filter();
+  if (stop_x >= 0 && refs_[1]) conceal(stop_x, stop_y);
+  if (filter_level_) loop_filter(stop_y);
 
   // the references
   const FramePtr old[4] = {cur_, refs_[1], refs_[2], refs_[3]};
@@ -1708,10 +1725,29 @@ void Decoder::inter(const MbInfo& m, int mx, int my) {
   }
 }
 
-void Decoder::loop_filter() {
+// The macroblocks from (mx, my) on in raster order, copied from the last
+// frame.
+void Decoder::conceal(int mx, int my) {
+  const Frame& src = *refs_[1];
+  Frame& f = *cur_;
+  for (; my < mbh_; ++my, mx = 0) {
+    const size_t y0 = size_t(my) * 16 * f.w + mx * 16;
+    for (int j = 0; j < 16; ++j)
+      std::memcpy(&f.y[y0 + j * f.w], &src.y[y0 + j * f.w], (mbw_ - mx) * 16);
+    const size_t c0 = size_t(my) * 8 * (f.w / 2) + mx * 8;
+    for (int j = 0; j < 8; ++j) {
+      const size_t o = c0 + j * (f.w / 2);
+      std::memcpy(&f.u[o], &src.u[o], (mbw_ - mx) * 8);
+      std::memcpy(&f.v[o], &src.v[o], (mbw_ - mx) * 8);
+    }
+  }
+}
+
+// The loop filter of the macroblock rows above `rows`.
+void Decoder::loop_filter(int rows) {
   Frame& f = *cur_;
   const int S = f.w, CS = f.w / 2;
-  for (int my = 0; my < mbh_; ++my)
+  for (int my = 0; my < rows; ++my)
     for (int mx = 0; mx < mbw_; ++mx) {
       const int level = lf_level_[size_t(my) * mbw_ + mx];
       if (!level) continue;
@@ -1785,10 +1821,10 @@ extern "C" {
 // A decoder (no headers: a VP8 stream carries them in its key frames).
 void* vp8dec_open() { return new Decoder(); }
 
-// Decode one frame.  0: a frame, *w and *h set; 1: no frame (show_frame
-// 0); 2: a feature it does not decode (msg names it); 3: corrupt,
-// truncated, or an inter frame before the first key frame (no frame; the
-// references stay).
+// Decode one frame.  0: a frame, *w and *h set (one whose token data
+// ended early too); 1: no frame (show_frame 0); 2: a feature it does not
+// decode (msg names it); 3: a corrupt or truncated header, or an inter
+// frame before the first key frame (no frame; the references stay).
 int vp8dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,
                   int* h, char* msg, int msg_len) {
   Decoder* d = static_cast<Decoder*>(handle);

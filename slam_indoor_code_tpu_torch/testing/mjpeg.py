@@ -1,11 +1,14 @@
-"""Writers of test media where no encoder is installed: a baseline JPEG
-encoder in numpy and a RIFF/AVI muxer for Motion-JPEG.
+"""Writers of test media where no encoder is installed: baseline and
+progressive JPEG encoders in numpy and a RIFF/AVI muxer for Motion-JPEG.
 
 ``encode_jpeg`` writes baseline JPEG at 4:2:0 (Y 2x2, Cb and Cr 1x1) with
 libjpeg's quality-scaled tables (``jpeg_quality_scaling``) and the Annex K
 Huffman tables; the DCT is a float one and the Huffman bit packing is
 vectorised over the whole frame.  With ``dht=False`` the file carries no
 DHT segment, as Motion-JPEG frames often do (decoders then use Annex K's).
+``encode_progressive_jpeg`` writes the same coefficients as a progressive
+JPEG in libjpeg's default scan script, with a Huffman table optimised for
+each scan in a DHT before it.
 ``write_avi`` muxes frames into an AVI 1.0 file: ``hdrl`` with one
 ``vids`` stream (fourcc MJPG for JPEG frames, or another such as XVID for
 MPEG-4 Part 2 samples), ``movi`` with one ``00dc`` chunk per frame, and an
@@ -117,8 +120,11 @@ def _categories(v: np.ndarray):
     return s, bits
 
 
-def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
-    """Baseline 4:2:0 JPEG of an HxWx3 uint8 RGB image."""
+def _coefficients(rgb: np.ndarray, quality: int):
+    """The quantised blocks of a 4:2:0 JPEG of an HxWx3 uint8 RGB image:
+    (H, W, luma table, chroma table, Y, Cb, Cr), each plane's blocks
+    (rows, cols, 64) in zig-zag order over the image padded to whole
+    16x16 MCUs by edge replication."""
     rgb = np.asarray(rgb, np.uint8)
     H, W = rgb.shape[:2]
     Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
@@ -141,14 +147,51 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
         zz = np.rint(d.reshape(d.shape[:2] + (64,)) / q)[..., ZIGZAG]
         return zz.astype(np.int64)
 
-    cy, ccb, ccr = coefs(y, qy), coefs(down(cb), qc), coefs(down(cr), qc)
-    my, mx = Hp // 16, Wp // 16
-    # MCU order: Y00 Y01 Y10 Y11 Cb Cr
+    return H, W, qy, qc, coefs(y, qy), coefs(down(cb), qc), \
+        coefs(down(cr), qc)
+
+
+def _mcu_blocks(cy, ccb, ccr):
+    """The blocks of every MCU in scan order (Y00 Y01 Y10 Y11 Cb Cr) and
+    the component of each."""
+    my, mx = ccb.shape[:2]
     ys = cy.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
         my * mx, 4, 64)
     blocks = np.concatenate([ys, ccb.reshape(-1, 1, 64),
                              ccr.reshape(-1, 1, 64)], axis=1).reshape(-1, 64)
-    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), my * mx)
+    return blocks, np.tile(np.array([0, 0, 0, 0, 1, 2]), my * mx)
+
+
+def _pack(keys, codes, lens) -> bytes:
+    """Entropy-coded data: the codes in the order of their keys, MSB first,
+    padded with one bits, 0xFF stuffed."""
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    code = np.concatenate(codes)[order]
+    length = np.concatenate(lens)[order]
+    length, code = length[length > 0], code[length > 0]
+    ends = np.cumsum(length)
+    total = int(ends[-1]) if len(ends) else 0
+    item = np.repeat(np.arange(len(code)), length)
+    shift = ends[item] - 1 - np.arange(total)  # bit position within item
+    bits = ((code[item] >> shift) & 1).astype(np.uint8)
+    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
+    data = np.packbits(bits)
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes()   # byte stuffing
+
+
+def _header(H: int, W: int, qy, qc, sof: int) -> list:
+    return [b"\xff\xd8", _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0"),
+            _segment(0xDB, bytes([0]) + bytes(qy[ZIGZAG].tolist())
+                     + bytes([1]) + bytes(qc[ZIGZAG].tolist())),
+            _segment(sof, struct.pack(">BHHB", 8, H, W, 3)
+                     + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))]
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
+    """Baseline 4:2:0 JPEG of an HxWx3 uint8 RGB image."""
+    H, W, qy, qc, cy, ccb, ccr = _coefficients(rgb, quality)
+    blocks, comp = _mcu_blocks(cy, ccb, ccr)
     chroma = comp > 0
     nb = len(blocks)
 
@@ -201,24 +244,7 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
     codes.append(hc)
     lens.append(hl)
 
-    order = np.argsort(np.concatenate(keys), kind="stable")
-    code = np.concatenate(codes)[order]
-    length = np.concatenate(lens)[order]
-    ends = np.cumsum(length)
-    total = int(ends[-1])
-    item = np.repeat(np.arange(len(code)), length)
-    shift = ends[item] - 1 - np.arange(total)  # bit position within item
-    bits = ((code[item] >> shift) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones(-total % 8, np.uint8)])
-    data = np.packbits(bits)
-    ff = np.flatnonzero(data == 0xFF)
-    data = np.insert(data, ff + 1, 0).tobytes()   # byte stuffing
-
-    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\0\x01\x01\0\0\x01\0\x01\0\0")]
-    out.append(_segment(0xDB, bytes([0]) + bytes(qy[ZIGZAG].tolist())
-                        + bytes([1]) + bytes(qc[ZIGZAG].tolist())))
-    out.append(_segment(0xC0, struct.pack(">BHHB", 8, H, W, 3)
-                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    out = _header(H, W, qy, qc, 0xC0)
     if dht:
         payload = b""
         for cls_id, spec in ((0x00, DC_LUMA), (0x10, AC_LUMA),
@@ -227,7 +253,259 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
         out.append(_segment(0xC4, payload))
     out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11,
                                      0, 63, 0])))
-    out += [data, b"\xff\xd9"]
+    out += [_pack(keys, codes, lens), b"\xff\xd9"]
+    return b"".join(out)
+
+
+# ------------------------------------------------------------ progressive
+
+# libjpeg's jpeg_simple_progression for YCbCr: (components, Ss, Se, Ah, Al)
+SIMPLE_PROGRESSION = (
+    ((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+    ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+    ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+    ((0,), 1, 63, 1, 0))
+
+
+def optimal_table(freq: np.ndarray):
+    """A Huffman table (bits, symbols) for symbol counts ``freq`` (256),
+    built as libjpeg's jpeg_gen_optimal_table does: Huffman's procedure
+    with a reserved pseudo-symbol, then code lengths cut to 16 bits."""
+    freq = [int(f) for f in freq] + [1]
+    codesize, others = [0] * 257, [-1] * 257
+    while True:
+        live = [i for i in range(257) if freq[i]]
+        if len(live) < 2:
+            break
+        # the smallest counts; of equal ones the larger symbol
+        c1 = min(live, key=lambda i: (freq[i], -i))
+        c2 = min((i for i in live if i != c1), key=lambda i: (freq[i], -i))
+        freq[c1] += freq[c2]
+        freq[c2] = 0
+        codesize[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            codesize[c1] += 1
+        others[c1] = c2
+        codesize[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            codesize[c2] += 1
+    bits = [0] * 33
+    for c in range(257):
+        if codesize[c]:
+            bits[codesize[c]] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    vals = [c for n in range(1, 33) for c in range(256) if codesize[c] == n]
+    return bits[1:17], vals
+
+
+def _shifted(v: np.ndarray, al: int) -> np.ndarray:
+    """A coefficient's point transform in an AC scan: its magnitude
+    shifted right by Al, the sign kept."""
+    return np.where(v < 0, -((-v) >> al), v >> al)
+
+
+def _eobrun_items(n: np.ndarray):
+    """(symbol, extra bits, extra length) of end-of-band runs of n blocks
+    (1..32767)."""
+    r = np.floor(np.log2(np.maximum(n, 1))).astype(np.int64)
+    return r << 4, n - (1 << r), r
+
+
+def _runs(pending: np.ndarray, keys: np.ndarray):
+    """Runs longer than 32767 blocks split into whole ones and the rest,
+    each with its key."""
+    if not (pending > 32767).any():
+        return pending, keys
+    n = [[32767] * (p // 32767) + ([p % 32767] if p % 32767 else [])
+         for p in pending.tolist()]
+    return (np.array([x for run in n for x in run], np.int64),
+            np.repeat(keys, [len(run) for run in n]))
+
+
+def _ac_first(blocks, ss, se, al):
+    """Items (key, symbol, extra bits, extra length) of an AC first scan
+    over ``blocks`` (n, 64) in scan order, with end-of-band runs as
+    libjpeg's encoder counts them (encode_mcu_AC_first)."""
+    band = _shifted(blocks[:, ss:se + 1], al)
+    n, L = band.shape
+    nz = band != 0
+    has = nz.any(axis=1)
+    lastk = np.where(has, L - 1 - np.argmax(nz[:, ::-1], axis=1), -1)
+    trail = (lastk < L - 1).astype(np.int64)
+    C = np.concatenate([[0], np.cumsum(trail)])
+    F = np.flatnonzero(has)
+    starts = np.concatenate([[0], F])
+    stops = np.concatenate([F, [n]])
+    pending = C[stops] - C[starts]
+    pkeys = stops * 1024                       # before the block's codes
+    keep = pending > 0
+    runs, rkeys = _runs(pending[keep], pkeys[keep])
+    sym, ext, elen = _eobrun_items(runs)
+    items = [(rkeys, sym, ext, elen)]
+    bi, kk = np.nonzero(nz)
+    v = band[bi, kk]
+    first = np.r_[True, bi[1:] != bi[:-1]] if len(bi) else np.zeros(0, bool)
+    prev = np.where(first, -1, np.r_[-1, kk[:-1]])
+    run = kk - prev - 1
+    zrl, r = run // 16, run % 16
+    s, vb = _categories(v)
+    items.append((bi * 1024 + (kk + 1) * 8 + 4, (r << 4) | s, vb, s))
+    zi = np.repeat(np.arange(len(bi)), zrl)
+    zj = np.arange(len(zi)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+    items.append((bi[zi] * 1024 + (kk[zi] + 1) * 8 + zj,
+                  np.full(len(zi), 0xF0), np.zeros(len(zi), np.int64),
+                  np.zeros(len(zi), np.int64)))
+    return items
+
+
+def _ac_refine(blocks, ss, se, al):
+    """Items of an AC refinement scan over ``blocks``: each newly nonzero
+    coefficient's run/size symbol and sign, the ZRLs, the correction bits
+    of the coefficients already nonzero after the symbol that follows
+    them (encode_mcu_AC_refine), and an end of band (a run of one block)
+    where a block's band ends before its last coefficient."""
+    a = np.abs(blocks[:, ss:se + 1]) >> al
+    n, L = a.shape
+    new, old, zero = a == 1, a > 1, a == 0
+    pos = np.arange(L)
+    eob = np.where(new.any(axis=1),
+                   L - 1 - np.argmax(new[:, ::-1], axis=1), -1)
+    zc = np.cumsum(zero, axis=1) - zero        # zeros before each position
+    lastnew = np.maximum.accumulate(np.where(new, pos, -1), axis=1)
+    lastnew = np.concatenate([np.full((n, 1), -1), lastnew[:, :-1]], axis=1)
+    base = np.where(lastnew >= 0,
+                    np.take_along_axis(zc, np.maximum(lastnew, 0), axis=1), 0)
+    S = zc - base                              # zeros since the last new one
+    bi, kk = np.nonzero((new | old) & (pos[None, :] <= eob[:, None]))
+    Sj = S[bi, kk]
+    same = np.r_[False, bi[1:] == bi[:-1]] if len(bi) else np.zeros(0, bool)
+    prev_old = same & np.r_[False, old[bi[:-1], kk[:-1]]] if len(bi) else same
+    Sprev = np.where(prev_old, np.r_[0, Sj[:-1]], 0)
+    cnt = Sj // 16 - Sprev // 16
+    is_new = new[bi, kk]
+    event = (cnt > 0) | is_new
+    eb, ek, ecnt, enew = bi[event], kk[event], cnt[event], is_new[event]
+
+    def key(b, k, sub, aux):
+        return ((b * 65 + k) * 8 + sub) * 64 + aux
+
+    items = []
+    # ZRLs: the first at sub 0, the rest at sub 2
+    zi = np.repeat(np.arange(len(eb)), ecnt)
+    zj = np.arange(len(zi)) - np.repeat(np.cumsum(ecnt) - ecnt, ecnt)
+    items.append((key(eb[zi], ek[zi], np.where(zj == 0, 0, 2), zj),
+                  np.full(len(zi), 0xF0), np.zeros(len(zi), np.int64),
+                  np.zeros(len(zi), np.int64)))
+    # newly nonzero: symbol (r << 4) | 1 and its sign
+    nb_, nk = eb[enew], ek[enew]
+    r = S[nb_, nk] % 16
+    sign = (blocks[nb_, ss + nk] > 0).astype(np.int64)
+    items.append((key(nb_, nk, 3, 0), (r << 4) | 1, sign,
+                  np.ones(len(nb_), np.int64)))
+    # correction bits: after the next event in the block, or the EOB
+    ob, ok = np.nonzero(old)
+    bit = a[ob, ok] & 1
+    g_event = eb * 64 + ek
+    idx = np.searchsorted(g_event, ob * 64 + ok, side="right")
+    before_eob = ok < eob[ob]
+    idx = np.minimum(idx, max(len(eb) - 1, 0))
+    at_cnt = np.where(before_eob, ecnt[idx] if len(eb) else 0, 0)
+    k_at = np.where(before_eob, ek[idx] if len(eb) else 0, 64)
+    sub = np.where(before_eob, np.where(at_cnt > 0, 1, 5), 1)
+    items.append((key(ob, k_at, sub, ok), np.full(len(ob), -1), bit,
+                  np.ones(len(ob), np.int64)))
+    # end of band: a run of one block
+    tb = np.flatnonzero(eob < L - 1)
+    items.append((key(tb, 64, 0, 0), np.zeros(len(tb), np.int64),
+                  np.zeros(len(tb), np.int64), np.zeros(len(tb), np.int64)))
+    return items
+
+
+def _scan_data(items, table):
+    """The entropy-coded bytes of a scan's items, each symbol coded by
+    ``table`` ((code, length) arrays by symbol); symbol -1 is a raw bit."""
+    code_of, len_of = table
+    keys, codes, lens = [], [], []
+    for k, sym, ext, elen in items:
+        raw = sym < 0
+        s = np.where(raw, 0, sym)
+        hc = np.where(raw, 0, code_of[s])
+        hl = np.where(raw, 0, len_of[s])
+        keys.append(np.asarray(k, np.int64))
+        codes.append((hc << elen) | ext)
+        lens.append(hl + elen)
+    return _pack(keys, codes, lens)
+
+
+def _dht(cls_id: int, table) -> bytes:
+    return bytes([cls_id] + list(table[0]) + list(table[1]))
+
+
+def encode_progressive_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """Progressive 4:2:0 JPEG of an HxWx3 uint8 RGB image in libjpeg's
+    default scan script (``SIMPLE_PROGRESSION``: 10 scans), with Huffman
+    tables optimised for each scan as libjpeg makes them; its
+    coefficients are ``encode_jpeg``'s, so both decode to the same
+    pixels."""
+    H, W, qy, qc, cy, ccb, ccr = _coefficients(rgb, quality)
+    planes = (cy, ccb, ccr)
+    real = [(-(-H // 8), -(-W // 8))] + [(-(-H // 16), -(-W // 16))] * 2
+    mcu, comp = _mcu_blocks(cy, ccb, ccr)
+    out = _header(H, W, qy, qc, 0xC2)
+    for comps, ss, se, ah, al in SIMPLE_PROGRESSION:
+        dht = b""
+        if ss == 0:
+            dc = mcu[:, 0] >> al
+            if ah == 0:
+                diff = np.empty_like(dc)
+                for c in range(3):
+                    sel = np.flatnonzero(comp == c)
+                    diff[sel] = np.diff(dc[sel], prepend=0)
+                s, vb = _categories(diff)
+                tabs = []
+                for t, sel in ((0, comp == 0), (1, comp > 0)):
+                    tab = optimal_table(np.bincount(s[sel], minlength=256))
+                    dht += _dht(t, tab)
+                    tabs.append(_huff_codes(tab))
+                chroma = comp > 0
+                hc = np.where(chroma, tabs[1][0][s], tabs[0][0][s])
+                hl = np.where(chroma, tabs[1][1][s], tabs[0][1][s])
+                data = _pack([np.arange(len(mcu))], [(hc << s) | vb],
+                             [hl + s])
+            else:
+                data = _pack([np.arange(len(mcu))], [dc & 1],
+                             [np.ones(len(mcu), np.int64)])
+            head = bytes([3, 1, 0x00, 2, 0x11, 3, 0x11])
+        else:
+            c = comps[0]
+            rows, cols = real[c]
+            blocks = planes[c][:rows, :cols].reshape(-1, 64)
+            items = (_ac_refine if ah else _ac_first)(blocks, ss, se, al)
+            syms = np.concatenate([it[1] for it in items])
+            tab = optimal_table(np.bincount(syms[syms >= 0], minlength=256))
+            t = 0 if c == 0 else 1
+            dht = _dht(0x10 | t, tab)
+            data = _scan_data(items, _huff_codes(tab))
+            head = bytes([1, c + 1, t])
+        if dht:
+            out.append(_segment(0xC4, dht))
+        out.append(_segment(0xDA, head + bytes([ss, se, (ah << 4) | al])))
+        out.append(data)
+    out.append(b"\xff\xd9")
     return b"".join(out)
 
 

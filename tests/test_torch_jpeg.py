@@ -56,10 +56,12 @@ def strip_dht(data: bytes) -> bytes:
     return bytes(out + data[pos:])
 
 
-def encode(img_rgb, quality=95, mode="420"):
+def encode(img_rgb, quality=95, mode="420", progressive=False):
     """cv2.imencode of an RGB image: ``mode`` a sampling ("444" ...),
-    "gray", "rst" (restart every 3 MCUs) or "opt" (optimized tables)."""
-    params = [cv2.IMWRITE_JPEG_QUALITY, quality]
+    "gray", "rst" (restart every 3 MCUs) or "opt" (optimized tables);
+    progressive in libjpeg's default scan script with ``progressive``."""
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality,
+              cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
     src = cv2.cvtColor(img_rgb, cv2.COLOR_RGB2BGR)
     if mode == "gray":
         src = cv2.cvtColor(img_rgb, cv2.COLOR_RGB2GRAY)
@@ -110,18 +112,32 @@ def test_decoder_equals_cv2_on_noise_and_wrapping_coefficients():
         np.testing.assert_array_equal(jpeg.decode(data), cv2_rgb(data))
 
 
-def _patch_sof(data: bytes, marker: int = None, precision: int = None):
-    i = data.index(b"\xff\xc0")
+def _patch_sof(data: bytes, marker: int = None, precision: int = None,
+               components: int = None):
+    i = data.index(b"\xff\xc2" if b"\xff\xc2" in data else b"\xff\xc0")
     b = bytearray(data)
     if marker is not None:
         b[i + 1] = marker
     if precision is not None:
         b[i + 4] = precision
+    if components is not None:
+        b[i + 9] = components
     return bytes(b)
 
 
+def test_progressive_decodes_to_cv2s_pixels(images):
+    """A progressive file (SOF2), refused before progressive decoding came
+    in, now decodes to cv2.imread's pixels (tests/test_torch_progjpeg.py
+    holds every variant)."""
+    data = encode_progressive(images[37, 53])
+    np.testing.assert_array_equal(jpeg.decode(data), cv2_rgb(data))
+
+
 @pytest.mark.parametrize("make,named", [
-    (lambda img: encode_progressive(img), "progressive JPEG (SOF2)"),
+    (lambda img: _patch_sof(encode_progressive(img), precision=12),
+     "12-bit sample precision (SOF2)"),
+    (lambda img: _patch_sof(encode(img), components=4),
+     "4-component (CMYK/YCCK) JPEG"),
     (lambda img: _patch_sof(encode(img), 0xC9),
      "arithmetic-coded sequential JPEG (SOF9)"),
     (lambda img: _patch_sof(encode(img), 0xCA),
@@ -255,7 +271,29 @@ def _fixture_specs():
         ("hall_411_q90.jpg", encode(hall[:64, :100], 90, "411")),
         ("hall_gray_q90.jpg", encode(hall[:120, :160], 90, "gray")),
         ("hall_420_q85_nodht.jpg", strip_dht(encode(hall[:120, :160], 85))),
+        ("hall_prog_420_q95.jpg", encode(hall, 95, progressive=True)),
+        ("hall_prog_420_q80_rst_cut3.jpg", _cut_after_scans(
+            encode(hall[:120, :160], 80, "rst", progressive=True), 3)),
+        ("noise_prog_422_q100_cut6.jpg", _cut_after_scans(
+            encode(noise, 100, "422", progressive=True), 6)),
     ]
+
+
+def _cut_after_scans(data: bytes, k: int) -> bytes:
+    """The first k scans of a progressive file, EOI appended (libjpeg
+    then smooths the blocks the cut script leaves short)."""
+    pos, seen = 2, 0
+    while True:
+        marker = data[pos + 1]
+        if marker == 0xDA:
+            seen += 1
+            if seen > k:
+                return data[:pos] + b"\xff\xd9"
+        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+        if marker == 0xDA:               # past the entropy-coded data
+            while not (data[pos] == 0xFF and data[pos + 1] not in (
+                    0x00, 0xFF, *range(0xD0, 0xD8))):
+                pos += 1
 
 
 def _sha(img: np.ndarray) -> str:
@@ -278,7 +316,7 @@ def test_committed_fixtures_hold_cv2s_decode_and_the_decoder_equals_it():
     and the port's decoder gives the same sha256: the check chip_smoke.py
     makes on the card, where there is no cv2."""
     table = json.loads((FIXTURES / "cv2_sha256.json").read_text())
-    assert len(table) == 7
+    assert len(table) == 10
     total = 0
     for name, want in table.items():
         data = (FIXTURES / name).read_bytes()
@@ -287,7 +325,7 @@ def test_committed_fixtures_hold_cv2s_decode_and_the_decoder_equals_it():
         got = jpeg.decode(data)
         assert list(got.shape) == want["shape"]
         assert _sha(got) == want["sha256"], name
-    assert total < 200_000
+    assert total < 300_000
 
 
 if __name__ == "__main__" and "--write-fixtures" in sys.argv:

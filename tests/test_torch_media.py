@@ -4,7 +4,9 @@ PNG and JPEG files written by cv2; the port's own PNG reader (the decoder
 where libpng cannot be built) over every colour type and row filter; the
 native build's failure; the video the port refuses (io/avi.py; the MJPEG
 reader itself is in tests/test_torch_video.py, the MPEG-4 one in
-tests/test_torch_mp4.py); and the gray plane the
+tests/test_torch_mp4.py), MPEG program and transport streams among it;
+uncompressed I420/IYUV/Y800 AVIs against cv2, odd heights (swscale's
+scaling path) against cv2 and sws_scale; and the gray plane the
 frames become, against the JAX package's."""
 
 import struct
@@ -227,6 +229,126 @@ def test_video_media_is_not_ported(tmp_path, case, error, match):
         path = tmp_path / "seq.mkv"
         path.write_bytes(b"\x1a\x45\xdf\xa3" + bytes(32))
     with pytest.raises(error, match=match):
+        MediaSource(video_path=str(path), use_photos=False)
+
+
+@pytest.mark.parametrize("fourcc,ext", [("MPEG", "mpg"), ("mpg2", "mpg"),
+                                        ("MPEG", "ts"), ("mpg2", "ts")])
+def test_mpeg_program_and_transport_streams_are_named(tmp_path, scene_frames,
+                                                     fourcc, ext):
+    """cv2's MPEG-1/2 writers into an MPEG program stream (.mpg) and a
+    transport stream (.ts), which cv2 reads back: NotImplementedError
+    naming the container (not the AVI reader's IOError)."""
+    path = tmp_path / f"seq.{ext}"
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 10.0,
+                         (128, 96))
+    for f in scene_frames[:4]:
+        vw.write(cv2.resize(f, (128, 96)))
+    vw.release()
+    cap = cv2.VideoCapture(str(path))
+    assert cap.read()[0]
+    name = ("MPEG program stream" if ext == "mpg"
+            else "MPEG transport stream")
+    with pytest.raises(NotImplementedError, match=name):
+        MediaSource(video_path=str(path), use_photos=False)
+
+
+def _cv2_frames(path):
+    cap = cv2.VideoCapture(str(path))
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            return out
+        out.append(np.ascontiguousarray(f[..., ::-1]))
+
+
+@pytest.mark.parametrize("fourcc", ["I420", "IYUV", "Y800", "zero"])
+@pytest.mark.parametrize("hw", [(96, 128), (36, 54), (480, 640)])
+def test_uncompressed_avi_equals_cv2(tmp_path, scene_frames, fourcc, hw):
+    """cv2's uncompressed writers (fourcc 0 is stored as I420; Y800 frames
+    are I420-sized, read as gray with 4-byte aligned rows where they fit,
+    as FFmpeg reads them): every frame equals cv2's bit for bit."""
+    path = tmp_path / "raw.avi"
+    code = 0 if fourcc == "zero" else cv2.VideoWriter_fourcc(*fourcc)
+    vw = cv2.VideoWriter(str(path), code, 10.0, hw[::-1])
+    for f in scene_frames[:5]:
+        vw.write(cv2.cvtColor(cv2.resize(f, hw[::-1]), cv2.COLOR_RGB2BGR))
+    vw.release()
+    want = _cv2_frames(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False,
+                           threads=3))
+    assert len(got) == len(want) == 5
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def _i420_avi(path, planes, w, h, fourcc=b"I420"):
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    mjpeg.write_avi(str(path), [b"".join(p.tobytes() for p in frame)
+                                for frame in planes], w, h, fourcc=fourcc)
+
+
+def _planes(rng, h, w):
+    c = ((h + 1) // 2, (w + 1) // 2)
+    return (rng.integers(0, 256, (h, w), np.uint8),
+            rng.integers(0, 256, c, np.uint8),
+            rng.integers(0, 256, c, np.uint8))
+
+
+@pytest.mark.parametrize("hw", [(37, 54), (95, 160), (201, 36), (37, 53),
+                                (1079, 1920)])
+def test_odd_height_i420_equals_cv2_and_swscale(tmp_path, hw):
+    """Hand-written I420 AVIs at odd heights (cv2's writer rounds sizes to
+    even): swscale's scaling path (bicubic chroma; full horizontal chroma
+    at an odd width), bit for bit cv2's frames and sws_scale's on the same
+    planes."""
+    from test_torch_mp4 import swscale_rgb
+
+    rng = np.random.default_rng(hw[0] + hw[1])
+    planes = [_planes(rng, *hw) for _ in range(2)]
+    path = tmp_path / "odd.avi"
+    _i420_avi(path, planes, hw[1], hw[0])
+    want = _cv2_frames(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want) == 2
+    for a, b, p in zip(got, want, planes):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, swscale_rgb(*p))
+
+
+def test_short_uncompressed_chunk_ends_the_video_as_cv2_does(tmp_path):
+    """An I420 chunk shorter than a frame: FFmpeg's rawvideo decoder
+    refuses it and cv2 stops there; so does the port."""
+    rng = np.random.default_rng(9)
+    planes = [_planes(rng, 48, 64) for _ in range(5)]
+    frames = [b"".join(p.tobytes() for p in f) for f in planes]
+    frames[2] = frames[2][:1000]
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    path = tmp_path / "short.avi"
+    mjpeg.write_avi(str(path), frames, 64, 48, fourcc=b"I420")
+    want = _cv2_frames(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fourcc", ["YUY2", "UYVY"])
+def test_packed_yuv_avi_is_refused_naming_the_fourcc(tmp_path, scene_frames,
+                                                     fourcc):
+    """cv2's YUY2 and UYVY writers make AVIs cv2 itself reads no frame of:
+    the port refuses them, naming the fourcc."""
+    path = tmp_path / "packed.avi"
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 10.0,
+                         (64, 48))
+    for f in scene_frames[:2]:
+        vw.write(cv2.resize(f, (64, 48)))
+    vw.release()
+    assert _cv2_frames(path) == []
+    with pytest.raises(NotImplementedError, match=fourcc):
         MediaSource(video_path=str(path), use_photos=False)
 
 

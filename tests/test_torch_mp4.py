@@ -18,11 +18,14 @@ files through cv2.
 
 Rewrite the fixtures with ``PYTHONPATH=. python tests/test_torch_mp4.py
 --write-fixture`` (needs cv2's FFmpeg ``mp4v`` writer and the libavcodec
-its wheel carries)."""
+its wheel carries), and the small ones the card also holds (video
+packets, an Xvid-tagged stream, odd heights, uncompressed AVIs, MJPEG in
+MOV) with ``--write-small-fixtures``."""
 
 import hashlib
 import json
 import pathlib
+import re
 import struct
 import sys
 
@@ -81,7 +84,7 @@ def cv2_luma(path, hw):
 
 
 def port_luma(video):
-    dec = mpeg4.Decoder(video.extradata)
+    dec = mpeg4.Decoder(video.extradata, video.fourcc)
     out = [dec.decode_yuv(video.read(f)) for f in video.frames]
     return [p[0] for p in out if p is not None]
 
@@ -280,6 +283,47 @@ def lavc_encode(codec_name: str, frames, options: dict,
     return out, (avu, ctx)
 
 
+def swscale_rgb(y, u, v, chroma_left=False):
+    """RGB of I420 planes through sws_scale yuv420p -> bgr24 at the same
+    size with SWS_BICUBIC, the libswscale cv2's wheel carries, called
+    through ctypes: what OpenCV's FFmpeg backend returns for a frame whose
+    decoder reports these planes (``chroma_left``: chroma sited left, as
+    FFmpeg's MPEG-4 decoder reports it)."""
+    import ctypes
+    import glob
+
+    libs = pathlib.Path(cv2.__file__).resolve().parent.parent / \
+        "opencv_python.libs"
+    avu = ctypes.CDLL(glob.glob(str(libs / "libavutil*"))[0],
+                      mode=ctypes.RTLD_GLOBAL)
+    sws = ctypes.CDLL(glob.glob(str(libs / "libswscale*"))[0],
+                      mode=ctypes.RTLD_GLOBAL)
+    vp = ctypes.c_void_p
+    sws.sws_alloc_context.restype = vp
+    sws.sws_init_context.argtypes = [vp, vp, vp]
+    sws.sws_scale.argtypes = [vp, vp, vp, ctypes.c_int, ctypes.c_int, vp, vp]
+    sws.sws_freeContext.argtypes = [vp]
+    avu.av_opt_set_int.argtypes = [vp, ctypes.c_char_p, ctypes.c_int64,
+                                   ctypes.c_int]
+    h, w = y.shape
+    ctx = sws.sws_alloc_context()
+    for k, val in (("srcw", w), ("srch", h), ("src_format", 0),  # yuv420p
+                   ("dstw", w), ("dsth", h), ("dst_format", 3),  # bgr24
+                   ("sws_flags", 4),                             # bicubic
+                   ("src_h_chr_pos", 0 if chroma_left else -513)):
+        assert avu.av_opt_set_int(ctx, k.encode(), val, 0) >= 0, k
+    assert sws.sws_init_context(ctx, None, None) >= 0
+    planes = [np.ascontiguousarray(p) for p in (y, u, v)]
+    src = (ctypes.c_void_p * 4)(*[p.ctypes.data for p in planes], 0)
+    stride = (ctypes.c_int * 4)(*[p.strides[0] for p in planes], 0)
+    out = np.zeros((h, w * 3 + 32), np.uint8)      # room to write past w
+    dst = (ctypes.c_void_p * 4)(out.ctypes.data, 0, 0, 0)
+    dstride = (ctypes.c_int * 4)(out.strides[0], 0, 0, 0)
+    assert sws.sws_scale(ctx, src, stride, 0, h, dst, dstride) == h
+    sws.sws_freeContext(ctx)
+    return np.ascontiguousarray(out[:, :w * 3].reshape(h, w, 3)[..., ::-1])
+
+
 def _stats_out_offset(avu, ctx) -> int:
     import ctypes
 
@@ -322,7 +366,7 @@ def write_fixture() -> None:
     mjpeg.write_avi(str(FIXTURE_AQ), _lavc_mpeg4(frames, {
         "flags": "+aic", "lumi_mask": "0.3", "scplx_mask": "0.3"}),
         128, 96, fourcc=b"XVID")
-    table = {}
+    table = json.loads(DIGESTS.read_text()) if DIGESTS.exists() else {}
     for path in (FIXTURE, FIXTURE_AQ):
         rgb = cv2_rgb(path)
         luma = cv2_luma(path, rgb[0].shape[:2])
@@ -387,6 +431,178 @@ def test_xvid_avi_of_the_fixture_samples_equals_the_mp4(tmp_path):
     got = list(MediaSource(video_path=str(path), use_photos=False))
     assert [_sha(f) for f in got] == table["rgb_sha256"]
     assert [_sha(f) for f in cv2_rgb(path)] == table["rgb_sha256"]
+
+
+# ------------------------------------------------------------ video packets
+@pytest.mark.parametrize("hw", [(96, 128), (240, 320)])
+@pytest.mark.parametrize("ps", [200, 600])
+def test_resync_marker_streams_equal_cv2(tmp_path, scene_frames, hw, ps):
+    """libavcodec's ``mpeg4`` with ``ps`` (a video packet, led by a resync
+    marker, every ``ps`` bytes or so), 12 frames with I-VOPs at 0 and 12
+    (``g`` 12) in an FMP4 AVI: cv2's frame count and pixels bit for bit in
+    RGB and Y, never a run of zero frames; the stream holds markers in
+    both I- and P-VOPs."""
+    frames = [np.ascontiguousarray(cv2.resize(f, hw[::-1]))
+              for f in scene_frames[:12]]
+    samples = _lavc_mpeg4(frames, {"ps": str(ps)})
+    path = tmp_path / "packets.avi"
+    mjpeg.write_avi(str(path), samples, hw[1], hw[0], fourcc=b"FMP4")
+    kinds = _vop_kinds(samples, _vol_time_bits(samples[0]))
+    assert kinds[0][0] == 0 and {k[0] for k in kinds[1:]} == {1}
+    # a resync marker: byte-aligned zeros (16 in an I-VOP, 15 + fcode in
+    # a P-VOP), then a one
+    vop = samples[0].index(b"\x00\x00\x01\xb6")
+    assert len(re.findall(b"\x00\x00[\x80-\xff]", samples[0][vop:])) >= 2
+    assert sum(len(re.findall(b"\x00\x00[\x02-\xff]", s))
+               for s in samples[1:]) >= 10
+    _check_equal_cv2(path, hw, 12)
+
+
+def _with_header_extension(sample: bytes, time_bits: int,
+                           mb_count: int) -> bytes:
+    """The VOP in ``sample`` with each video packet header's
+    header_extension_code set and the fields it repeats written after it
+    (modulo_time_base, vop_time_increment, vop_coding_type,
+    intra_dc_vlc_thr, vop_fcode_forward), the stuffing before each
+    resync marker and at the end recomputed."""
+    bits = "".join(f"{b:08b}" for b in sample)
+    vop = bits.index("0" * 23 + "1" + "10110110")
+    q = vop + 32
+    vtype = int(bits[q:q + 2], 2)
+    q += 2
+    while bits[q] == "1":                       # modulo_time_base
+        q += 1
+    q += 1 + 1 + time_bits + 1                  # 0, marker, time, marker
+    assert bits[q] == "1"                       # vop_coded
+    q += 1 + (vtype == 1)                       # rounding type
+    dc_thr = bits[q:q + 3]
+    q += 3 + 5                                  # quant
+    fcode = int(bits[q:q + 3], 2) if vtype == 1 else 1
+    prefix = 16 if vtype == 0 else 15 + fcode
+    mb_bits = (mb_count - 1).bit_length()
+    marks = [p for p in range(-(-q // 8) * 8, len(bits) - prefix, 8)
+             if bits[p:p + prefix + 1] == "0" * prefix + "1"]
+    ext = ("1" + "0" + "1" + "0" * time_bits + "1" + f"{vtype:02b}" + dc_thr
+           + (f"{fcode:03b}" if vtype == 1 else ""))
+
+    def aligned(b):
+        return b + "0" + "1" * (7 - len(b) % 8)
+
+    out, start = "", 0
+    for p in marks + [len(bits)]:
+        body = bits[start:p]
+        body = body[:body.rindex("0")]          # drop the stuffing
+        out = aligned(out + body)
+        if p == len(bits):
+            break
+        h = p + prefix + 1 + mb_bits + 5       # the header's HEC bit
+        assert bits[h] == "0"
+        out += bits[p:h] + ext
+        start = h + 1
+    return int(out, 2).to_bytes(len(out) // 8, "big")
+
+
+def test_resync_marker_packet_header_extension(tmp_path, scene_frames):
+    """Video packets whose headers repeat the VOP header
+    (header_extension_code 1: libavcodec never writes it, so it is written
+    here into a ``ps`` 200 stream, in I- and P-VOPs): the repeated fields
+    are read past, as FFmpeg reads past them, and the frames equal cv2's."""
+    frames = [np.ascontiguousarray(cv2.resize(f, (160, 96)))
+              for f in scene_frames[:6]]
+    samples = _lavc_mpeg4(frames, {"ps": "200"})
+    time_bits = _vol_time_bits(samples[0])
+    edited = [_with_header_extension(s, time_bits, 10 * 6) for s in samples]
+    assert all(len(e) > len(s) for e, s in zip(edited, samples))
+    path = tmp_path / "hec.avi"
+    mjpeg.write_avi(str(path), edited, 160, 96, fourcc=b"FMP4")
+    _check_equal_cv2(path, (96, 160), 6)
+
+
+def test_data_partitioned_packets_raise_naming_the_tool(tmp_path,
+                                                        scene_frames):
+    """Video packets with data partitioning (libavcodec's
+    ``data_partitioning``): a ValueError naming it, not frames."""
+    frames = [np.ascontiguousarray(cv2.resize(f, (128, 96)))
+              for f in scene_frames[:3]]
+    samples = _lavc_mpeg4(frames, {"ps": "200", "data_partitioning": "1"})
+    path = tmp_path / "dp.avi"
+    mjpeg.write_avi(str(path), samples, 128, 96, fourcc=b"FMP4")
+    assert len(cv2_rgb(path)) == 3
+    with pytest.raises(ValueError, match="data partitioning"):
+        list(MediaSource(video_path=str(path), use_photos=False))
+
+
+# ----------------------------------------------------------------- Xvid IDCT
+def _with_user_data(sample: bytes, user: bytes) -> bytes:
+    """The first sample with its user data (``Lavc...``), if any, replaced
+    by ``user`` (a whole user-data start code and text, or nothing)."""
+    if b"\x00\x00\x01\xb2" not in sample:
+        return sample
+    i = sample.index(b"\x00\x00\x01\xb2")
+    j = sample.index(b"\x00\x00\x01", i + 4)
+    return sample[:i] + user + sample[j:]
+
+
+@pytest.mark.parametrize("user,fourcc,xvid", [
+    (b"", b"XVID", True),                           # Xvid fourcc, no user data
+    (b"\x00\x00\x01\xb2XviD0050", b"XVID", True),   # Xvid's own user data
+    (b"\x00\x00\x01\xb2XviD0050", b"FMP4", True),
+    (b"\x00\x00\x01\xb2DivX503b1393p", b"XVID", False),
+    (b"", b"DIVX", False),
+    (b"", b"FMP4", False),
+    (None, b"XVID", False),                         # cv2's own Lavc user data
+])
+def test_xvid_streams_take_the_xvid_idct(tmp_path, scene_frames, user,
+                                         fourcc, xvid):
+    """FFmpeg's rule: a stream with ``XviD`` user data, or an Xvid fourcc
+    and no encoder's user data, is decoded with the Xvid IDCT, any other
+    with the simple IDCT.  An XVID AVI from cv2's writer (176x144, 8
+    frames) with its ``Lavc`` user data removed or replaced: every frame
+    equals cv2's bit for bit (the simple IDCT left them 3-5 grey levels
+    off in the Xvid cases), in RGB and Y."""
+    frames = [np.ascontiguousarray(cv2.resize(f, (176, 144)))
+              for f in scene_frames[:8]]
+    src = tmp_path / "src.avi"
+    write_cv2_video(src, frames, "XVID")
+    video = avi.AviVideo(str(src))
+    samples = [video.read(f) for f in video.frames]
+    video.close()
+    assert b"Lavc" in samples[0]
+    if user is not None:
+        samples[0] = _with_user_data(samples[0], user)
+    path = tmp_path / "tagged.avi"
+    mjpeg.write_avi(str(path), samples, 176, 144, fourcc=fourcc)
+    _check_equal_cv2(path, (144, 176), 8)
+    if xvid:       # the simple IDCT's frames are not cv2's
+        simple = tmp_path / "simple.avi"
+        mjpeg.write_avi(str(simple), [_with_user_data(samples[0], b"")]
+                        + samples[1:], 176, 144, fourcc=b"FMP4")
+        want = cv2_rgb(path)
+        got = list(MediaSource(video_path=str(simple), use_photos=False))
+        assert max(np.abs(a.astype(int) - b).max()
+                   for a, b in zip(got, want)) >= 2
+
+
+# ---------------------------------------------------------- odd frame height
+@pytest.mark.parametrize("hw", [(37, 54), (95, 161), (201, 36), (37, 53),
+                                (1079, 1920)])
+def test_odd_height_rgb_equals_cv2_and_swscale(tmp_path, scene_frames, hw):
+    """An odd frame height (libavcodec's ``mpeg4`` by ctypes; cv2's writers
+    make none): swscale takes its scaling path (bicubic chroma, sited left
+    as FFmpeg reports MPEG-4's; at an odd width also full horizontal
+    chroma), and every frame equals cv2's RGB bit for bit, and sws_scale's
+    on the port's own planes."""
+    n = 2 if hw[0] > 500 else 4
+    frames = [np.ascontiguousarray(cv2.resize(f, hw[::-1]))
+              for f in scene_frames[:n]]
+    samples = _lavc_mpeg4(frames, {})
+    path = tmp_path / "odd.avi"
+    mjpeg.write_avi(str(path), samples, hw[1], hw[0], fourcc=b"FMP4")
+    _check_equal_cv2(path, hw, n)
+    rgb, yuv = mpeg4.Decoder(b"", b"FMP4"), mpeg4.Decoder(b"", b"FMP4")
+    for s in samples:
+        np.testing.assert_array_equal(
+            rgb.decode(s), swscale_rgb(*yuv.decode_yuv(s), chroma_left=True))
 
 
 # ----------------------------------------------------------------- refusals
@@ -571,13 +787,30 @@ def test_webm_raises(tmp_path, scene_frames):
 
 # ------------------------------------------------------ damage, not coded
 
+def damaged_frame_holds_to_cv2(got, want, clean, tol_mean=8.0):
+    """A frame FFmpeg conceals against cv2's: equal in the macroblock rows
+    more than ceil(50 / macroblocks per row) rows above the first one
+    damaged (the first row where ``got`` departs from ``clean``, the port's
+    decode of the undamaged stream), since FFmpeg's error concealment
+    re-estimates up to 50 coded macroblocks before the damage; over the
+    whole frame a mean |difference| below ``tol_mean`` grey levels."""
+    h, w = got.shape[:2]
+    rows = np.flatnonzero((got != clean).any(axis=(1, 2)))
+    first = rows[0] // 16 if len(rows) else h // 16 + 1
+    exact = 16 * max(0, first - -(-50 // -(-w // 16)))
+    np.testing.assert_array_equal(got[:exact], want[:exact])
+    assert np.abs(got.astype(int) - want).mean() < tol_mean
+
+
 @pytest.mark.parametrize("where", ["vop_header", "mid_vop"])
 def test_truncated_avi(tmp_path, scene_frames, where):
     """An XVID AVI cut inside its next-to-last chunk ends without an error
-    after the frames before the cut, equal to cv2's.  Cut in the VOP
-    header, cv2 gives no frame for it either; cut deeper, FFmpeg conceals
-    the lost macroblocks and gives one frame more, which the port does not
-    (it has no error concealment: a damaged VOP is dropped)."""
+    after cv2's frame count.  Cut in the VOP header (two bytes: no VOP),
+    FFmpeg fails the sample and cv2 stops at 8 frames; so does the port.
+    Cut deeper, FFmpeg conceals the lost macroblocks and gives a ninth
+    frame; so does the port (its lost macroblocks are the reference's), as
+    ``damaged_frame_holds_to_cv2`` states.  The frames before the cut equal
+    cv2's."""
     frames = [np.ascontiguousarray(cv2.resize(f, (128, 96)))
               for f in scene_frames[:10]]
     path = tmp_path / "full.avi"
@@ -590,10 +823,56 @@ def test_truncated_avi(tmp_path, scene_frames, where):
     cut_path.write_bytes(path.read_bytes()[:cut])
     want = cv2_rgb(cut_path)
     got = list(MediaSource(video_path=str(cut_path), use_photos=False))
-    assert len(got) == 8
-    assert len(want) == (8 if where == "vop_header" else 9)
-    for a, b in zip(got, want):
+    assert len(got) == len(want) == (8 if where == "vop_header" else 9)
+    for a, b in zip(got[:8], want):
         np.testing.assert_array_equal(a, b)
+    if where == "mid_vop":
+        clean = list(MediaSource(video_path=str(path), use_photos=False))
+        damaged_frame_holds_to_cv2(got[8], want[8], clean[8])
+
+
+def _damage(data: bytes, how: str) -> bytes:
+    """A frame's bytes cut to half, to 90 %, to its first two bytes, or
+    with eight bytes flipped a third of the way in."""
+    if how == "half":
+        return data[:len(data) // 2]
+    if how == "90pct":
+        return data[:len(data) * 9 // 10]
+    if how == "2bytes":
+        return data[:2]
+    d = bytearray(data)
+    for i in range(len(d) // 3, len(d) // 3 + 8):
+        d[i] ^= 0x55
+    return bytes(d)
+
+
+@pytest.mark.parametrize("how", ["half", "90pct", "2bytes", "flip"])
+def test_damaged_vop_mid_stream_gives_cv2s_frame_count(tmp_path,
+                                                       scene_frames, how):
+    """The fifth VOP of ten in an XVID AVI at 240x320 damaged: cv2 reads
+    4 frames where the damage leaves no VOP (FFmpeg fails the sample and
+    its reader stops), else 10 (FFmpeg conceals); the port gives the same
+    count, the frames before the damage equal, the damaged one as
+    ``damaged_frame_holds_to_cv2`` states (the frames after it predict
+    from it, so they are not compared)."""
+    frames = [np.ascontiguousarray(cv2.resize(f, (320, 240)))
+              for f in scene_frames[:10]]
+    src = tmp_path / "full.avi"
+    write_cv2_video(src, frames, "XVID")
+    video = avi.AviVideo(str(src))
+    samples = [video.read(f) for f in video.frames]
+    video.close()
+    samples[4] = _damage(samples[4], how)
+    path = tmp_path / "damaged.avi"
+    mjpeg.write_avi(str(path), samples, 320, 240, fourcc=b"XVID")
+    want = cv2_rgb(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want) == (4 if how == "2bytes" else 10)
+    for a, b in zip(got[:4], want):
+        np.testing.assert_array_equal(a, b)
+    if how != "2bytes":
+        clean = list(MediaSource(video_path=str(src), use_photos=False))
+        damaged_frame_holds_to_cv2(got[4], want[4], clean[4])
 
 
 def test_truncated_mp4_does_not_open(tmp_path, scene_frames):
@@ -801,5 +1080,104 @@ def calibrate_against_jax(tmp_path, monkeypatch, fourcc: str,
     np.testing.assert_allclose(K, jK, rtol=1e-3, atol=0)
 
 
+# --------------------------------------------- small fixtures for the card
+# The inputs this suite holds to cv2 that the card must decode the same
+# way (it has no cv2): each file with the sha256 of cv2's RGB frames in
+# cv2_sha256.json.
+SMALL_FIXTURES = ("resync_fmp4.avi", "xvid_tagged.avi", "odd_vp8.webm",
+                  "odd_i420.avi", "y800.avi", "mjpeg.mov")
+
+
+def _small_fixture_bytes(name: str, path) -> None:
+    from test_torch_webm import write_mkv
+
+    sc = make_scene(n_points=400, n_frames=6, seed=5, baseline=0.3)
+    frames = [sc.render(i) for i in range(6)]
+
+    def sized(h, w, n):
+        return [np.ascontiguousarray(cv2.resize(f, (w, h)))
+                for f in frames[:n]]
+
+    if name == "resync_fmp4.avi":          # video packets, I- and P-VOPs
+        mjpeg.write_avi(str(path), _lavc_mpeg4(sized(96, 128, 6), {
+            "ps": "200", "g": "3"}), 128, 96, fourcc=b"FMP4")
+    elif name == "xvid_tagged.avi":        # Xvid's user data: its IDCT
+        tmp = path.with_suffix(".src.avi")
+        write_cv2_video(tmp, sized(144, 176, 4), "XVID")
+        video = avi.AviVideo(str(tmp))
+        samples = [video.read(f) for f in video.frames]
+        video.close()
+        tmp.unlink()
+        i = samples[0].index(b"\x00\x00\x01\xb2")
+        j = samples[0].index(b"\x00\x00\x01", i + 4)
+        samples[0] = (samples[0][:i] + b"\x00\x00\x01\xb2XviD0050"
+                      + samples[0][j:])
+        mjpeg.write_avi(str(path), samples, 176, 144, fourcc=b"XVID")
+    elif name == "odd_vp8.webm":           # swscale's scaling path
+        write_mkv(path, lavc_encode("libvpx", sized(37, 53, 4), {})[0],
+                  53, 37)
+    elif name == "odd_i420.avi":           # the same, uncompressed
+        rng = np.random.default_rng(16)
+        raw = []
+        for f in sized(37, 54, 2):
+            y = cv2.cvtColor(f, cv2.COLOR_RGB2GRAY)
+            c = rng.integers(64, 192, (2, 19, 27), np.uint8)
+            raw.append(y.tobytes() + c.tobytes())
+        mjpeg.write_avi(str(path), raw, 54, 37, fourcc=b"I420")
+    elif name == "y800.avi":               # gray rows read 4-byte aligned
+        vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"Y800"),
+                             10.0, (54, 36))
+        for f in sized(36, 54, 2):
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
+    elif name == "mjpeg.mov":              # Motion-JPEG in QuickTime
+        vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"),
+                             10.0, (128, 96))
+        for f in sized(96, 128, 3):
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
+
+
+def _small_fixture_cv2_rgb(path):
+    """cv2's frames of a small fixture: its default backend, save the
+    Motion-JPEG ones, which are libjpeg's decode of each sample."""
+    if path.suffix != ".mov":
+        return cv2_rgb(path)
+    video = mp4.Mp4Video(str(path))
+    out = [cv2.imdecode(np.frombuffer(video.read(f), np.uint8),
+                        cv2.IMREAD_COLOR)[..., ::-1] for f in video.frames]
+    video.close()
+    return [np.ascontiguousarray(f) for f in out]
+
+
+def write_small_fixtures() -> None:
+    table = json.loads(DIGESTS.read_text())
+    for name in SMALL_FIXTURES:
+        path = FIXTURES / name
+        _small_fixture_bytes(name, path)
+        rgb = _small_fixture_cv2_rgb(path)
+        table[name] = {"frames": len(rgb), "shape": list(rgb[0].shape),
+                       "rgb_sha256": [_sha(f) for f in rgb]}
+    DIGESTS.write_text(json.dumps(table, indent=1) + "\n")
+
+
+@pytest.mark.parametrize("name", SMALL_FIXTURES)
+def test_small_fixtures_hold_cv2s_decode_and_the_port_equals_it(name):
+    """The committed small fixtures (video packets, an Xvid-tagged stream,
+    odd heights in VP8 and I420, Y800, Motion-JPEG in MOV): cv2's decode
+    still gives the recorded sha256, and so does the port's through
+    MediaSource, frame by frame (what chip_smoke.py holds the card to)."""
+    table = json.loads(DIGESTS.read_text())[name]
+    path = FIXTURES / name
+    assert [_sha(f) for f in _small_fixture_cv2_rgb(path)
+            ] == table["rgb_sha256"]
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert [_sha(f) for f in got] == table["rgb_sha256"]
+    assert sum((FIXTURES / n).stat().st_size for n in SMALL_FIXTURES
+               ) < 250_000
+
+
 if __name__ == "__main__" and "--write-fixture" in sys.argv:
     write_fixture()
+if __name__ == "__main__" and "--write-small-fixtures" in sys.argv:
+    write_small_fixtures()

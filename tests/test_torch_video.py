@@ -4,7 +4,8 @@ for frame against ``cv2.VideoCapture(path, cv2.CAP_OPENCV_MJPEG)`` (whose
 frames are libjpeg's decode of each chunk) on files from
 ``cv2.VideoWriter(..., 'MJPG')`` and from the numpy writer chip_smoke.py
 uses; the RIFF walk through ``rec `` lists, other streams and ``AVIX``
-extensions; and ``slam_main`` on a 540x960 MJPEG AVI against the JAX
+extensions; a damaged frame, which keeps the default backend's frame
+count; Motion-JPEG in MOV and MP4; and ``slam_main`` on a 540x960 MJPEG AVI against the JAX
 package's video run (OpenCV's default backend, whose frames differ from
 libjpeg's by a few grey levels): the same frames read, the same number of
 cameras, ATE within 0.02 of the extent."""
@@ -140,6 +141,83 @@ def test_riff_walk_rec_lists_other_streams_and_avix(tmp_path, scene_frames):
     assert len(got) == 5
     for a, j in zip(got, jpegs):
         np.testing.assert_array_equal(a, jpeg.decode(j))
+
+
+# ------------------------------------------------- damaged Motion-JPEG
+@pytest.mark.parametrize("how", ["half", "90pct", "2bytes", "flip"])
+def test_damaged_mjpeg_frame_gives_cv2s_frame_count(tmp_path, scene_frames,
+                                                    how):
+    """The fifth of eight MJPEG frames (240x320) damaged.  OpenCV's default
+    backend (FFmpeg's decoder, which the JAX package reads through) gives a
+    frame unless the damage leaves no frame header: 8 frames, or 4 where
+    only two bytes are left; the port gives the same count.  The frames
+    before equal CAP_OPENCV_MJPEG's (libjpeg's decode); the damaged one is
+    libjpeg-turbo's reading of it: with bytes flipped, cv2.imdecode's
+    pixels; cut short (cv2.imdecode then refuses it), the undamaged frame's
+    pixels down to the cut and mid-grey in the last MCU row, as libjpeg
+    leaves the MCUs its data does not reach."""
+    frames = [np.ascontiguousarray(cv2.resize(f, (320, 240)))
+              for f in scene_frames]
+    jpegs = [mjpeg.encode_jpeg(f, 90) for f in frames]
+    clean = jpeg.decode(jpegs[4])
+    from test_torch_mp4 import _damage
+    jpegs[4] = _damage(jpegs[4], how)
+    path = tmp_path / "damaged.avi"
+    mjpeg.write_avi(str(path), jpegs, 320, 240)
+    cap = cv2.VideoCapture(str(path))
+    n_cv2 = 0
+    while cap.read()[0]:
+        n_cv2 += 1
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == n_cv2 == (4 if how == "2bytes" else 8)
+    libjpeg = opencv_mjpeg_frames(path)
+    for a, b in zip(got[:4], libjpeg):
+        np.testing.assert_array_equal(a, b)
+    if how == "2bytes":
+        return
+    if how == "flip":
+        want = cv2.imdecode(np.frombuffer(jpegs[4], np.uint8),
+                            cv2.IMREAD_COLOR)[..., ::-1]
+        np.testing.assert_array_equal(got[4], want)
+        return
+    assert cv2.imdecode(np.frombuffer(jpegs[4], np.uint8), 1) is None
+    rows = np.flatnonzero((got[4] != clean).any(axis=(1, 2)))
+    assert rows[0] >= (0.3 if how == "half" else 0.7) * 240   # cut there
+    assert (got[4][-16:] == 128).all()                         # the last MCUs
+
+
+# --------------------------------------------------- MJPEG in MOV and MP4
+@pytest.mark.parametrize("ext", ["mov", "mp4"])
+def test_mjpeg_in_mov_and_mp4_equals_cv2(tmp_path, scene_frames, ext):
+    """cv2's ``MJPG`` writer into ``.mov`` (sample entry ``jpeg``) and
+    ``.mp4`` (``mp4v`` with objectTypeIndication 0x6C): the port reads
+    cv2's frame count, each frame libjpeg's decode of its sample
+    (cv2.imdecode; FFmpeg's own MJPEG decoder differs by a few grey
+    levels, as in AVI), through the same thread pool as MJPEG AVIs."""
+    from slam_indoor_code_tpu_torch.io import mp4
+
+    path = tmp_path / f"seq.{ext}"
+    h, w = scene_frames[0].shape[:2]
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                         (w, h))
+    for f in scene_frames:
+        vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    vw.release()
+    video = mp4.Mp4Video(str(path))
+    assert video.codec == "mjpeg"
+    assert video.fourcc == (b"jpeg" if ext == "mov" else b"mp4v")
+    samples = [video.read(f) for f in video.frames]
+    video.close()
+    cap = cv2.VideoCapture(str(path))
+    n_cv2 = 0
+    while cap.read()[0]:
+        n_cv2 += 1
+    got = list(MediaSource(video_path=str(path), use_photos=False,
+                           threads=3))
+    assert len(got) == len(samples) == n_cv2 == len(scene_frames)
+    for a, s in zip(got, samples):
+        want = cv2.imdecode(np.frombuffer(s, np.uint8), cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(a, want[..., ::-1])
 
 
 def _cfg(mod, video, out):

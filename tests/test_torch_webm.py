@@ -36,7 +36,7 @@ from slam_indoor_code_tpu_torch.io import avi, matroska, native, vp8
 from slam_indoor_code_tpu_torch.io.media import MediaSource
 from slam_indoor_code_tpu_torch.testing import make_scene, mjpeg
 from test_torch_mp4 import (FIXTURE as MP4_FIXTURE, cv2_rgb, lavc_encode,
-                            pass1_stats, write_cv2_video)
+                            pass1_stats, swscale_rgb, write_cv2_video)
 
 torch.set_num_threads(1)
 
@@ -299,19 +299,25 @@ def test_frames_equal_cv2(tmp_path, scene_frames, size, hw):
     video.close()
 
 
-@pytest.mark.parametrize("hw", [(37, 53), (95, 161)])
+@pytest.mark.parametrize("hw", [(37, 53), (95, 161), (201, 36), (37, 54),
+                                (1079, 1920)])
 def test_odd_height_luma_equal_cv2(tmp_path, scene_frames, hw):
-    """An odd frame height (libvpx by ctypes; cv2's writer makes none):
-    the Y planes equal cv2's bit for bit.  The RGB frames do not: for an
-    odd height swscale does not take its unscaled yuv420p->bgr24
-    converter but its scaling path, which interpolates the chroma
-    vertically (bicubic), and the port converts as the unscaled one does
-    (ROADMAP, open items)."""
+    """An odd frame height (libvpx by ctypes; cv2's writers make none):
+    the Y planes equal cv2's bit for bit, and so do the RGB frames, which
+    swscale makes on its scaling path (bicubic chroma; at an odd width
+    full horizontal chroma too), not with its unscaled converter: they
+    equal sws_scale's on the port's own planes as well."""
+    n = 2 if hw[0] > 500 else 6
     frames = [np.ascontiguousarray(cv2.resize(f, hw[::-1]))
-              for f in scene_frames[:6]]
+              for f in scene_frames[:n]]
+    packets = lavc_encode("libvpx", frames, {})[0]
     path = tmp_path / "odd.webm"
-    write_mkv(path, lavc_encode("libvpx", frames, {})[0], hw[1], hw[0])
-    check_equal_cv2(path, hw, 6, rgb=False)
+    write_mkv(path, packets, hw[1], hw[0])
+    check_equal_cv2(path, hw, n)
+    rgb, yuv = vp8.Decoder(), vp8.Decoder()
+    for p in packets:
+        np.testing.assert_array_equal(rgb.decode(p),
+                                      swscale_rgb(*yuv.decode_yuv(p)))
 
 
 def test_moving_sequence_two_gops(tmp_path, scene_frames):
@@ -607,9 +613,9 @@ def test_content_encoding_raises(tmp_path):
 
 def test_size_change_and_leading_inter_frame(tmp_path):
     """A key frame of another size raises ValueError naming it.  An inter
-    frame before the first key frame gives no frame and the port reads on,
-    its frames equal to cv2's decode of the stream without it (cv2 stops
-    at the decode error and gives no frame at all)."""
+    frame before the first key frame fails to decode: cv2 stops there and
+    gives no frame at all, and so does the port; the stream without it
+    gives cv2's frames."""
     small = _encode_tool({}, _tool_frames(4))
     big = lavc_encode("libvpx", [np.zeros((64, 96, 3), np.uint8)] * 2,
                       {})[0]
@@ -620,8 +626,10 @@ def test_size_change_and_leading_inter_frame(tmp_path):
     write_mkv(tmp_path / "late.webm", small[1:2] + small, 160, 96)
     write_mkv(tmp_path / "ok.webm", small, 160, 96)
     assert cv2_rgb(tmp_path / "late.webm") == []
+    assert list(MediaSource(video_path=str(tmp_path / "late.webm"),
+                            use_photos=False)) == []
     want = cv2_rgb(tmp_path / "ok.webm")
-    got = list(MediaSource(video_path=str(tmp_path / "late.webm"),
+    got = list(MediaSource(video_path=str(tmp_path / "ok.webm"),
                            use_photos=False))
     assert len(got) == len(want) == 4
     for a, b in zip(got, want):
@@ -786,9 +794,11 @@ def test_truncated_frame(tmp_path, keep):
     Cut by 2 %, the token partition runs out in the last few macroblocks
     (FFmpeg's test passes them, reading zeros): the port gives the frame
     cv2 gives.  Cut by half, FFmpeg stops at the row where the data ends
-    and still gives a frame, whose rows below are undefined; the port
-    gives no frame and keeps its references: the uncut frame decoded next
-    is cv2's decode of the uncut stream."""
+    and still gives a frame, whose rows from there on are undefined; the
+    port gives it too (the rows from there on are the last frame's), and
+    it equals cv2's above the macroblock row where the port's frame departs
+    from its decode of the uncut frame (FFmpeg's filter has then left that
+    row's top edge unfiltered, as the port does)."""
     packets = _encode_tool({"g": "100"}, _tool_frames(10))
     cut = packets[-2][:int(len(packets[-2]) * keep)]
     path = tmp_path / "cut.avi"
@@ -796,19 +806,51 @@ def test_truncated_frame(tmp_path, keep):
                     fourcc=b"VP80")
     want = cv2_rgb(path)
     got = list(MediaSource(video_path=str(path), use_photos=False))
-    assert len(want) == 9 and len(got) == (9 if keep > 0.9 else 8)
-    for a, b in zip(got, want):
+    assert len(want) == len(got) == 9
+    for a, b in zip(got[:8], want):
         np.testing.assert_array_equal(a, b)
     if keep > 0.9:
+        np.testing.assert_array_equal(got[8], want[8])
         return
-    mjpeg.write_avi(str(tmp_path / "full.avi"), packets, 160, 96,
-                    fourcc=b"VP80")
     dec = vp8.Decoder()
     for p in packets[:-2]:
         dec.decode(p)
-    assert dec.decode(cut) is None
-    np.testing.assert_array_equal(dec.decode(packets[-2]),
-                                  cv2_rgb(tmp_path / "full.avi")[8])
+    clean = dec.decode(packets[-2])
+    rows = np.flatnonzero((got[8] != clean).any(axis=(1, 2)))
+    assert len(rows)
+    exact = 16 * (rows[0] // 16 + 1)
+    np.testing.assert_array_equal(got[8][:exact], want[8][:exact])
+
+
+@pytest.mark.parametrize("how", ["half", "90pct", "2bytes", "flip"])
+def test_damaged_frame_mid_stream_gives_cv2s_frame_count(tmp_path, how):
+    """The fifth frame of ten (VP80 AVI, 96x160) damaged: cv2 reads 4
+    frames where the damage breaks the frame header (FFmpeg fails it and
+    its reader stops), else 10; the port gives the same count, the frames
+    before equal; a frame with bytes flipped equals cv2's (the range coder
+    reads the damage as FFmpeg does), a cut one in the rows above where
+    the port's frame departs from its decode of the whole one."""
+    from test_torch_mp4 import _damage
+
+    packets = _encode_tool({"g": "100"}, _tool_frames(10))
+    damaged = list(packets)
+    damaged[4] = _damage(packets[4], how)
+    path = tmp_path / "damaged.avi"
+    mjpeg.write_avi(str(path), damaged, 160, 96, fourcc=b"VP80")
+    want = cv2_rgb(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want) == (4 if how == "2bytes" else 10)
+    for a, b in zip(got[:4], want):
+        np.testing.assert_array_equal(a, b)
+    if how == "flip":
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    elif how != "2bytes":
+        dec = vp8.Decoder()
+        clean = [dec.decode(p) for p in packets[:5]][4]
+        rows = np.flatnonzero((got[4] != clean).any(axis=(1, 2)))
+        exact = 16 * (rows[0] // 16 + 1) if len(rows) else 96
+        np.testing.assert_array_equal(got[4][:exact], want[4][:exact])
 
 
 def test_close_mid_stream_stops_the_decoding_thread():
