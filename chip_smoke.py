@@ -191,6 +191,24 @@ Phases, each followed by one flushed line with the elapsed seconds:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
+29. photos  — the photo readers the card has (io/photo.py: no libjpeg,
+              libpng, libtiff, libwebp or OpenCV): first every committed
+              fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
+              TIFF and WebP variant family and EXIF case) through
+              ``MediaSource``, held to the committed sha256 of cv2's
+              decode; then the 32 frames written by testing/photos.py as
+              one glob cycling P6 PPM, 24-bit BMP, tiled Deflate TIFF with
+              the predictor, PackBits TIFF strips, 16-bit PNG (x257) and
+              all-Paeth PNG, names of one length: every decoded frame
+              equal to the rendered one, then the CLI on the glob under the
+              counting wrapper (three decode workers): exit 0, 32/32
+              cameras, poses.txt equal to the cli phase's byte for byte,
+              the cli phase's ``top2_batch`` launches and no other kernel;
+              the jpeg phase's first frame with an EXIF Orientation 6
+              APP1 must decode to the untagged decode turned a quarter
+              clockwise (as cv2 turns it); prints the decode ms per FHD
+              frame of each format on one thread and with three workers
+              beside the tracking ms per frame.
 
 No path may call a kernel's plain version on the card (each phase counts
 those calls and fails on any).
@@ -1631,7 +1649,7 @@ def cli_path(card_line: str, scene, frames, logged_l2):
     (cli_counted's checks).  DIR must hold a trace naming
     ``top2_l2_kernel`` and ``steps.`` spans.  Prints whether its poses.txt
     equals phase 4's byte for byte (the same frames, K and seed) and times
-    the photo decode per frame in this process."""
+    the photo decode per frame in this process → (counts, poses.txt)."""
     import glob
 
     import numpy as np
@@ -1655,8 +1673,9 @@ def cli_path(card_line: str, scene, frames, logged_l2):
         if not native.available():
             why = [ln for ln in native.build_error().splitlines()
                    if "error" in ln] or ["?"]
-            decoder = (f"numpy PNG reader (io/png.py); the native build "
-                       f"failed: {why[0].strip()[:120]}")
+            decoder = (f"the port's PNG reader (io/png.py over "
+                       f"native/png.cpp); the native build failed: "
+                       f"{why[0].strip()[:120]}")
         t = time.perf_counter()
         src = MediaSource(photos_pattern=cfg.photosPathPattern, threads=3)
         decoded = list(src)
@@ -1683,6 +1702,7 @@ def cli_path(card_line: str, scene, frames, logged_l2):
           f"{decode_ms:.3f} ms per frame (3 workers, {os.cpu_count()} cores; "
           f"{decoder}); PNG writing {1e3 * write_s / len(frames):.1f} ms per "
           f"frame  [{card_line}]", flush=True)
+    return n, poses
 
 # ------------------------------------------------------------ media slice
 
@@ -2045,6 +2065,148 @@ def progjpeg_phase(card_line: str, scene, frames, decoded_jpeg, poses_jpeg):
           f"{os.cpu_count()} threads; phase "
           f"{time.perf_counter() - t0:.1f} s  [{card_line}]", flush=True)
     return n, decode_ms, one_ms, track_ms
+
+
+PHOTO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "slam_indoor_code_tpu_torch", "testing",
+                              "photo_fixtures")
+
+
+def photo_writers():
+    """The FHD glob's formats, cycled over the frames: (name, extension,
+    writer of testing/photos.py)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.testing import photos
+
+    return (
+        ("P6 PPM", "ppm", photos.encode_ppm),
+        ("24-bit BMP", "bmp", photos.encode_bmp),
+        ("tiled Deflate TIFF, predictor 2", "tif",
+         lambda f: photos.encode_tiff(f, compression="deflate", predictor=2,
+                                      tile=(256, 256))),
+        ("PackBits TIFF strips", "tif",
+         lambda f: photos.encode_tiff(f, compression="packbits",
+                                      rows_per_strip=64)),
+        ("16-bit PNG", "png",
+         lambda f: photos.encode_png16(f.astype(np.uint16) * 257)),
+        ("all-Paeth PNG", "png", photos.encode_png_paeth))
+
+
+def held_to_photo_fixtures() -> int:
+    """Each committed photo fixture through ``MediaSource`` on the card
+    against the committed sha256 of cv2's decode → fixtures held."""
+    import glob
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    with open(os.path.join(PHOTO_FIXTURES, "cv2_sha256.json")) as f:
+        table = json.load(f)
+    for name, want in table.items():
+        got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+               for img in MediaSource(photos_pattern=glob.escape(
+                   os.path.join(PHOTO_FIXTURES, name)))]
+        if got != [want["sha256"]]:
+            fail(f"photos: {name} decodes to {got}, cv2's is "
+                 f"{want['sha256']}")
+    return len(table)
+
+
+def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
+    """The committed photo fixtures held to cv2's decode; the 32 frames as
+    one mixed-format glob (photo_writers, cycled; names of one length so
+    that the natural sort keeps frame order): every frame decoded equal to
+    the rendered one, then the CLI on it (cli_counted): 32/32 cameras,
+    poses.txt equal to the cli phase's, its ``top2_batch`` launches; the
+    jpeg phase's first frame with EXIF Orientation 6 turned as cv2 turns
+    it; each format's decode timed on one thread and with three workers →
+    (counts, {format: (ms on one thread, ms with 3 workers)}, tracking
+    ms per frame)."""
+    import glob
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import native, photo
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg, photos
+
+    t0 = time.perf_counter()
+    held = held_to_photo_fixtures()
+    decoder = "native (libjpeg/libpng)" if native.available() else \
+        "the port's readers (io/photo.py)"
+    kinds = photo_writers()
+    with tempfile.TemporaryDirectory() as root:
+        mixed = os.path.join(root, "photos")
+        os.makedirs(mixed)
+        by_kind = [os.path.join(root, f"kind{k}") for k in range(len(kinds))]
+        for d in by_kind:
+            os.makedirs(d)
+        t = time.perf_counter()
+        for i, f in enumerate(frames):
+            k = i % len(kinds)
+            data = kinds[k][2](f)
+            name = f"frame_{i:02d}.{kinds[k][1]}"
+            for d in (mixed, by_kind[k]):
+                with open(os.path.join(d, name), "wb") as fh:
+                    fh.write(data)
+        write_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+        pattern = os.path.join(mixed, "frame_*")
+        decoded = list(MediaSource(photos_pattern=pattern, threads=3))
+        if len(decoded) != len(frames) or not all(
+                np.array_equal(a, b) for a, b in zip(decoded, frames)):
+            fail(f"photos: {len(decoded)} frames decoded for {len(frames)}, "
+                 "or one differs from its rendered frame")
+        del decoded
+        cfg = dataclasses.replace(headline_config(os.path.join(root, "out")),
+                                  photosPathPattern=pattern)
+        n, n_cams, ate_pct, poses, run_s = cli_counted("photos", cfg, root,
+                                                       scene)
+        times = {}
+        for k, (name, _, _) in enumerate(kinds):
+            paths = sorted(glob.glob(os.path.join(by_kind[k], "*")))
+            t = time.perf_counter()
+            for p in paths:
+                photo.imread_rgb(p)
+            one_ms = 1e3 * (time.perf_counter() - t) / len(paths)
+            t = time.perf_counter()
+            got = list(MediaSource(photos_pattern=os.path.join(by_kind[k],
+                                                               "*"),
+                                   threads=3))
+            three_ms = 1e3 * (time.perf_counter() - t) / len(paths)
+            if len(got) != len(paths):
+                fail(f"photos: {name}: {len(got)} frames for {len(paths)}")
+            times[name] = (one_ms, three_ms)
+    if n_cams != N_FRAMES:
+        fail(f"photos: {n_cams}/{N_FRAMES} cameras")
+    if poses != cli_poses:
+        fail("photos: poses.txt differs from the cli phase's")
+    if n["top2_batch"] != cli_counts["top2_batch"]:
+        fail(f"photos: {n['top2_batch']} top2_batch launches, the cli "
+             f"phase's {cli_counts['top2_batch']}")
+    jpg = mjpeg.encode_jpeg(frames[0], 95)
+    plain = photo.decode(jpg)
+    turned = photo.decode(photos.insert_exif(jpg, 6))
+    if plain is None or turned is None or not np.array_equal(
+            turned, np.rot90(plain, -1)):
+        fail("photos: EXIF Orientation 6 does not turn the FHD JPEG a "
+             "quarter clockwise")
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    per = "; ".join(f"{name} {a:.3f} ms on one thread, {b:.3f} ms with 3 "
+                    f"workers" for name, (a, b) in times.items())
+    print(f"photos: {held} fixtures equal cv2's decode (sha256) through "
+          f"MediaSource ({decoder}); {len(frames)} FHD frames in six formats "
+          f"decode to the rendered frames; exit 0, cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  poses.txt equals the cli phase's byte "
+          f"for byte  launches {json.dumps(n)}  EXIF 6 turns the FHD JPEG "
+          f"to {turned.shape[1]}x{turned.shape[0]} as cv2 does; decode per "
+          f"FHD frame ({os.cpu_count()} cores): {per}; tracking "
+          f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s; numpy "
+          f"writing {write_ms:.1f} ms per frame; phase "
+          f"{time.perf_counter() - t0:.1f} s  [{card_line}]", flush=True)
+    return n, times, track_ms
 
 
 SMALL_VIDEO_FIXTURES = ("resync_fmp4.avi", "xvid_tagged.avi", "odd_vp8.webm",
@@ -2875,7 +3037,7 @@ def main() -> None:
         n = telemetry_path(card_line, scene, frames, gd_l2, logged_l2)
         by_path["telemetry"] = n["top2_batch"]
         phase("telemetry", top2_batch_launches=n["top2_batch"])
-        cli_path(card_line, scene, frames, logged_l2)
+        cli_counts, cli_poses = cli_path(card_line, scene, frames, logged_l2)
         phase("cli")
         n, poses_jpeg, jpegs, decoded = jpeg_phase(card_line, scene, frames,
                                                    gd_l2)
@@ -2948,6 +3110,13 @@ def main() -> None:
                                   "hybrid path, run 2")
         same_run("hybrid path", gd_hybrid, again)
         phase("repro", runs=12)
+        n, times, track_ms = photos_phase(card_line, scene, frames,
+                                          cli_counts, cli_poses)
+        by_path["photos (cli)"] = n["top2_batch"]
+        phase("photos", top2_batch_launches=n["top2_batch"],
+              tracking_ms_per_frame=f"{track_ms:.3f}", **{
+                  name.split(",")[0].replace(" ", "_"):
+                  f"{a:.3f}/{b:.3f}ms" for name, (a, b) in times.items()})
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001 — every phase failure fails the run

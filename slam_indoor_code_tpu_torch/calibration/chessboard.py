@@ -212,19 +212,14 @@ def calibrate_camera(obj_points: np.ndarray, image_points: list[np.ndarray],
 def _save_corner_overlay(img: np.ndarray, corners: np.ndarray, path: str):
     """Headless stand-in for the reference's visualCalibration corner display
     (drawChessboardCorners + imshow): save an overlay artifact instead,
-    with PIL where it is installed, else with the port's PNG writer."""
+    with the port's PNG writer."""
+    from ..io.png import write_png
+
     out = np.array(img, copy=True)
     for u, v in corners:
         ui, vi = int(round(u)), int(round(v))
         out[max(0, vi - 2):vi + 3, max(0, ui - 2):ui + 3] = [255, 0, 0]
-    try:
-        from PIL import Image
-    except ImportError:
-        from ..io.png import write_png
-
-        write_png(path, out)
-        return
-    Image.fromarray(out).save(path)
+    write_png(path, out)
 
 
 def _calibrate_and_save(obj, img_pts, save_path: str, device=None):

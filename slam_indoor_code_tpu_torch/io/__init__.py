@@ -1,8 +1,9 @@
 """Host-side IO: reference-format txt logs, OpenCV-XML calibration files,
-photo-glob media (native or numpy decoding; baseline and progressive
-JPEG), video (AVI, MP4/QuickTime and Matroska/WebM containers;
-Motion-JPEG, MPEG-4 Part 2, VP8 and uncompressed I420/Y800 decoded without
-OpenCV or FFmpeg) and the in-memory frame source."""
+photo-glob media (native decoding, or the port's own readers of JPEG,
+PNG, BMP, Netpbm, TIFF and lossy WebP with EXIF orientation), video (AVI,
+MP4/QuickTime and Matroska/WebM containers; Motion-JPEG, MPEG-4 Part 2,
+VP8 and uncompressed I420/Y800 decoded without OpenCV or FFmpeg) and the
+in-memory frame source."""
 
 from .logs import (
     GlobalData,

@@ -13,7 +13,9 @@ lossless, hierarchical and 12-bit JPEG raise ``ValueError`` naming the
 process; a corrupt or truncated stream decodes to None, or, with
 ``lenient`` (a Motion-JPEG frame, which FFmpeg gives whenever its headers
 are whole), to libjpeg-turbo's reading of its damaged entropy-coded data.
-EXIF orientation is not applied.
+This module applies no EXIF orientation: io/photo.py applies it to a JPEG
+photo (io/exif.py), as ``cv2.imread`` does, and Motion-JPEG video frames
+are left as stored, as OpenCV's video readers leave them.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
 the package (ignored by git).  If the build fails, every decode raises

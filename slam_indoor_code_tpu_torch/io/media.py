@@ -5,17 +5,22 @@ Photos are globbed, sorted naturally (shorter names first, then
 lexicographic, as the reference's ``sortGlobs``, src/misc/IOmisc.cpp:36-51)
 and decoded in order by ``threadsCount`` workers a bounded number of frames
 ahead: by the native sequence reader (io/native.py, libjpeg/libpng) where
-it builds, else by the port's own PNG and JPEG readers (io/png.py,
-io/jpeg.py) in a thread pool.  Video (``usePhotosCycle=false``) is opened
+it builds, else by the port's own photo readers (io/photo.py: JPEG, PNG,
+BMP, PBM/PGM/PPM/PAM, TIFF and lossy WebP, EXIF orientation applied, as
+``cv2.imread`` reads them) in a thread pool, which skips a file that does
+not decode and passes on the ``NotImplementedError`` of a format it does
+not read.  Video (``usePhotosCycle=false``) is opened
 by io/avi.py (AVI; MP4 through io/mp4.py; Matroska/WebM through
 io/matroska.py): Motion-JPEG and uncompressed frames are decoded the same
-way as photos, each by io/jpeg.py or io/rawvideo.py; MPEG-4 Part 2
+way as photos, each by io/jpeg.py or io/rawvideo.py (no EXIF orientation,
+as OpenCV's video readers apply none); MPEG-4 Part 2
 (io/mpeg4.py) and VP8 (io/vp8.py) frames, each of which predicts from
 those before it, in order on one producer thread a bounded number of
 frames ahead.  A video ends at its first frame that fails to decode, where
 OpenCV's reader stops; a damaged frame that FFmpeg still gives (a frame
 whose data ends early) is given too.  The JAX package reads any codec
-through OpenCV's VideoCapture.
+through OpenCV's VideoCapture, and any photo OpenCV reads where its
+native reader does not.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Generator, Iterator, Optional
 
 import numpy as np
 
-from . import avi, jpeg, mpeg4, native, png, vp8
+from . import avi, mpeg4, native, photo, vp8
 
 
 def natural_sort_paths(paths: list[str]) -> list[str]:
@@ -40,21 +45,12 @@ def natural_sort_paths(paths: list[str]) -> list[str]:
 
 
 def _imread_rgb(path: str) -> Optional[np.ndarray]:
-    """Decode one image to HxWx3 uint8 RGB; None if it does not decode.
-    Without the native decoder, JPEG goes to io/jpeg.py (which raises for
-    the processes it does not read, and when it does not build)."""
+    """Decode one photo to HxWx3 uint8 RGB; None if it does not decode.
+    Without the native decoder, io/photo.py reads it (and raises for a
+    format it does not read, and when a decoder does not build)."""
     if native.available():
         return native.imread_rgb(path)
-    with open(path, "rb") as fh:
-        magic = fh.read(8)
-    if magic == png.SIGNATURE:
-        try:
-            return png.read_png(path)
-        except (ValueError, OSError):
-            return None
-    if magic[:2] == b"\xff\xd8":
-        return jpeg.imread_rgb(path)
-    return None
+    return photo.imread_rgb(path)
 
 
 class _PooledSequence:
@@ -62,7 +58,9 @@ class _PooledSequence:
     at most ``capacity`` frames ahead; undecodable frames (None) are
     skipped, as the native reader skips photos, or, with ``stop_on_none``
     (a video), end the sequence, as OpenCV's reader stops at the first
-    frame that fails.  ``on_close`` runs once the pool has stopped."""
+    frame that fails.  An exception of ``decode`` closes the pool and is
+    raised by the ``next_frame`` that reaches its frame.  ``on_close``
+    runs once the pool has stopped."""
 
     def __init__(self, items: list, capacity: int, threads: int,
                  decode=_imread_rgb, on_close=None,
@@ -83,7 +81,11 @@ class _PooledSequence:
 
     def next_frame(self) -> Optional[np.ndarray]:
         while self._ahead:
-            img = self._ahead.popleft().result()
+            try:
+                img = self._ahead.popleft().result()
+            except BaseException:
+                self.close()
+                raise
             if img is not None:
                 self._top_up()
                 return img

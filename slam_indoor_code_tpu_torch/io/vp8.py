@@ -5,14 +5,14 @@ It decodes what RFC 6386 defines (key and inter frames, segmentation,
 1-8 token partitions, the simple and normal loop filters, the 6-tap and
 bilinear predictors of versions 0-3, golden and altref references, hidden
 frames) to FFmpeg's pixels bit for bit, and converts to RGB as OpenCV's
-FFmpeg backend does (native/swscale_rgb.h).  A frame with ``show_frame`` 0
-gives no frame (None) and updates the references.  A frame whose token
-data ends early is given where FFmpeg gives it, decoded to where FFmpeg
-stops (the rest is the last frame's); one with a corrupt or truncated
-header gives None, sets ``failed`` and leaves the references as they
-were.  A key frame
-that changes the size, and full-range colour, raise ``ValueError`` naming
-them.
+FFmpeg backend does (native/swscale_rgb.h), or, for a lossy WebP photo's
+key frame (io/webp.py), as libwebp does (``decode_webp``).  A frame with
+``show_frame`` 0 gives no frame (None) and updates the references.  A
+frame whose token data ends early is given where FFmpeg gives it, decoded
+to where FFmpeg stops (the rest is the last frame's); one with a corrupt
+or truncated header gives None, sets ``failed`` and leaves the references
+as they were.  A key frame that changes the size, and full-range colour,
+raise ``ValueError`` naming them.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
 the package (ignored by git).  If the build fails, every decoder raises
@@ -56,6 +56,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.vp8dec_decode.restype = I
     lib.vp8dec_rgb.argtypes = [ctypes.c_void_p, U8, I64]
     lib.vp8dec_rgb.restype = I
+    lib.vp8dec_webp_rgb.argtypes = [ctypes.c_void_p, U8, I64]
+    lib.vp8dec_webp_rgb.restype = I
     lib.vp8dec_planes.argtypes = [ctypes.c_void_p, U8, U8, U8, I64, I64]
     lib.vp8dec_planes.restype = I
     lib.vp8dec_close.argtypes = [ctypes.c_void_p]
@@ -113,6 +115,16 @@ class Decoder:
             return None
         out = np.empty(hw + (3,), np.uint8)
         self._lib.vp8dec_rgb(self._handle, _u8(out), out.nbytes)
+        return out
+
+    def decode_webp(self, frame: bytes) -> Optional[np.ndarray]:
+        """HxWx3 uint8 RGB of ``frame`` as libwebp outputs a lossy WebP
+        (its fancy upsampler and YUV->RGB), or None as ``decode``."""
+        hw = self._decode(frame)
+        if hw is None:
+            return None
+        out = np.empty(hw + (3,), np.uint8)
+        self._lib.vp8dec_webp_rgb(self._handle, _u8(out), out.nbytes)
         return out
 
     def decode_yuv(self, frame: bytes):

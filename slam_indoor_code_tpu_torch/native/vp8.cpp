@@ -32,7 +32,8 @@
 //     thresholds, the interior limit from sharpness, inner edges skipped
 //     in macroblocks with no coefficient that are not B_PRED or SPLITMV;
 //   - the crop to the frame's size and YUV 4:2:0 -> RGB as swscale does it
-//     for OpenCV (swscale_rgb.h).
+//     for OpenCV (swscale_rgb.h), or, for a lossy WebP photo's key frame,
+//     as libwebp does it (webp_rgb below: its fancy upsampler).
 // A frame with show_frame 0 updates the references and gives no frame.  A
 // token partition that ends early stops the frame where FFmpeg stops it:
 // the frame is given (and kept as a reference) with its rows from there
@@ -1816,6 +1817,100 @@ int copy_table(const A& t, int32_t* out, int cap) {
 
 }  // namespace
 
+// libwebp's output stage for lossy images (src/dsp/yuv.h, upsampling.c,
+// src/dec/io_dec.c EmitFancyRGB): each chroma sample is upsampled by the
+// 9-3-3-1 "fancy" filter, the first and last rows and columns mirrored,
+// and converted with VP8YUVToR/G/B's 14-bit constants.
+namespace webp_rgb {
+
+inline int mult_hi(int v, int coeff) { return (v * coeff) >> 8; }
+
+inline uint8_t clip8(int v) {
+  return (v & ~16383) == 0 ? static_cast<uint8_t>(v >> 6)
+                           : (v < 0 ? 0 : 255);
+}
+
+inline void put(int y, int u, int v, uint8_t* rgb) {
+  rgb[0] = clip8(mult_hi(y, 19077) + mult_hi(v, 26149) - 14234);
+  rgb[1] = clip8(mult_hi(y, 19077) - mult_hi(u, 6419) - mult_hi(v, 13320)
+                 + 8708);
+  rgb[2] = clip8(mult_hi(y, 19077) + mult_hi(u, 33050) - 17685);
+}
+
+// UpsampleRgbLinePair: the rows top_y (and bot_y, if not null) of len
+// pixels between the chroma rows top_* and cur_*; u and v travel packed
+// in one word, as in libwebp.
+void line_pair(const uint8_t* top_y, const uint8_t* bot_y,
+               const uint8_t* top_u, const uint8_t* top_v,
+               const uint8_t* cur_u, const uint8_t* cur_v, uint8_t* top_dst,
+               uint8_t* bot_dst, int len) {
+  auto load = [](uint8_t u, uint8_t v) { return uint32_t(u) | (uint32_t(v) << 16); };
+  const int last_pair = (len - 1) >> 1;
+  uint32_t tl_uv = load(top_u[0], top_v[0]);
+  uint32_t l_uv = load(cur_u[0], cur_v[0]);
+  {
+    const uint32_t uv0 = (3 * tl_uv + l_uv + 0x00020002u) >> 2;
+    put(top_y[0], uv0 & 0xff, (uv0 >> 16), top_dst);
+  }
+  if (bot_y != nullptr) {
+    const uint32_t uv0 = (3 * l_uv + tl_uv + 0x00020002u) >> 2;
+    put(bot_y[0], uv0 & 0xff, (uv0 >> 16), bot_dst);
+  }
+  for (int x = 1; x <= last_pair; ++x) {
+    const uint32_t t_uv = load(top_u[x], top_v[x]);
+    const uint32_t uv = load(cur_u[x], cur_v[x]);
+    const uint32_t avg = tl_uv + t_uv + l_uv + uv + 0x00080008u;
+    const uint32_t diag_12 = (avg + 2 * (t_uv + l_uv)) >> 3;
+    const uint32_t diag_03 = (avg + 2 * (tl_uv + uv)) >> 3;
+    {
+      const uint32_t uv0 = (diag_12 + tl_uv) >> 1;
+      const uint32_t uv1 = (diag_03 + t_uv) >> 1;
+      put(top_y[2 * x - 1], uv0 & 0xff, (uv0 >> 16), top_dst + (2 * x - 1) * 3);
+      put(top_y[2 * x], uv1 & 0xff, (uv1 >> 16), top_dst + (2 * x) * 3);
+    }
+    if (bot_y != nullptr) {
+      const uint32_t uv0 = (diag_03 + l_uv) >> 1;
+      const uint32_t uv1 = (diag_12 + uv) >> 1;
+      put(bot_y[2 * x - 1], uv0 & 0xff, (uv0 >> 16), bot_dst + (2 * x - 1) * 3);
+      put(bot_y[2 * x], uv1 & 0xff, (uv1 >> 16), bot_dst + (2 * x) * 3);
+    }
+    tl_uv = t_uv;
+    l_uv = uv;
+  }
+  if (!(len & 1)) {
+    {
+      const uint32_t uv0 = (3 * tl_uv + l_uv + 0x00020002u) >> 2;
+      put(top_y[len - 1], uv0 & 0xff, (uv0 >> 16), top_dst + (len - 1) * 3);
+    }
+    if (bot_y != nullptr) {
+      const uint32_t uv0 = (3 * l_uv + tl_uv + 0x00020002u) >> 2;
+      put(bot_y[len - 1], uv0 & 0xff, (uv0 >> 16), bot_dst + (len - 1) * 3);
+    }
+  }
+}
+
+// EmitFancyRGB over the whole picture: row 0 against its own chroma row,
+// then rows (2k-1, 2k) between chroma rows k-1 and k, and at an even
+// height the last row against the last chroma row alone.
+void to_rgb(const uint8_t* y, int ys, const uint8_t* u, const uint8_t* v,
+            int cs, int w, int h, uint8_t* rgb) {
+  const int64_t row = int64_t(w) * 3;
+  line_pair(y, nullptr, u, v, u, v, rgb, nullptr, w);
+  int k = 1;
+  for (; 2 * k < h; ++k)
+    line_pair(y + int64_t(2 * k - 1) * ys, y + int64_t(2 * k) * ys,
+              u + int64_t(k - 1) * cs, v + int64_t(k - 1) * cs,
+              u + int64_t(k) * cs, v + int64_t(k) * cs,
+              rgb + (2 * k - 1) * row, rgb + (2 * k) * row, w);
+  if (!(h & 1) && h > 1) {
+    const int64_t c = int64_t(h / 2 - 1) * cs;
+    line_pair(y + int64_t(h - 1) * ys, nullptr, u + c, v + c, u + c, v + c,
+              rgb + (h - 1) * row, nullptr, w);
+  }
+}
+
+}  // namespace webp_rgb
+
 extern "C" {
 
 // A decoder (no headers: a VP8 stream carries them in its key frames).
@@ -1849,6 +1944,18 @@ int vp8dec_rgb(void* handle, uint8_t* rgb, int64_t cap) {
   const Frame& f = *d->shown;
   swscale_rgb::to_rgb(f.y.data(), f.w, f.u.data(), f.v.data(), f.w / 2,
                       d->width, d->height, rgb);
+  return kFrame;
+}
+
+// The last frame as h*w*3 RGB bytes the way libwebp outputs a lossy WebP
+// (the still-image use of VP8): its "fancy" chroma upsampler and its
+// 14-bit YUV->RGB (webp_rgb below).  0: done; 4: cap too small.
+int vp8dec_webp_rgb(void* handle, uint8_t* rgb, int64_t cap) {
+  Decoder* d = static_cast<Decoder*>(handle);
+  if (!d->shown || int64_t(d->width) * d->height * 3 > cap) return kSmall;
+  const Frame& f = *d->shown;
+  webp_rgb::to_rgb(f.y.data(), f.w, f.u.data(), f.v.data(), f.w / 2,
+                   d->width, d->height, rgb);
   return kFrame;
 }
 

@@ -1,6 +1,7 @@
 """The port stands alone: every module of slam_indoor_code_tpu_torch imports
-with ``jax`` and ``slam_indoor_code_tpu`` blocked, no port source (nor
-the card scripts chip_smoke.py and profile_main.py) imports OpenCV or JAX,
+with ``jax``, ``slam_indoor_code_tpu``, ``cv2``, ``PIL`` and ``imageio``
+blocked, no port source (nor the card scripts chip_smoke.py and
+profile_main.py) imports OpenCV, Pillow, imageio or JAX,
 and every kernel source builds with plain nvcc: no PyTorch headers."""
 
 import os
@@ -16,7 +17,8 @@ PKG = ROOT / "slam_indoor_code_tpu_torch"
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for blocked in ("jax", "jaxlib", "slam_indoor_code_tpu", "cv2"):
+for blocked in ("jax", "jaxlib", "slam_indoor_code_tpu", "cv2", "PIL",
+                "imageio"):
     sys.modules[blocked] = None      # any import of these now raises
 import slam_indoor_code_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -38,6 +40,8 @@ def test_every_port_module_imports_without_jax():
     r"^\s*(import|from)\s+cv2\b",
     r"^\s*(import|from)\s+jax\b",
     r"^\s*(import|from)\s+slam_indoor_code_tpu\b(?!_torch)",
+    r"^\s*(import|from)\s+PIL\b",
+    r"^\s*(import|from)\s+imageio\b",
 ])
 def test_no_port_source_imports(pattern):
     rx = re.compile(pattern, re.M)

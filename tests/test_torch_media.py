@@ -135,10 +135,14 @@ def test_png_reader_equals_cv2_on_its_files(scene_frames, tmp_path):
 
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
+    """A 16-bit PNG, once refused, now decodes to cv2's pixels (each
+    sample's high byte; tests/test_torch_photos.py covers every depth and
+    colour type); a file that is not a PNG is still refused."""
     p = tmp_path / "deep.png"
-    cv2.imwrite(str(p), np.zeros((4, 5, 3), np.uint16))
-    with pytest.raises(ValueError, match="bit depth 16"):
-        png.read_png(str(p))
+    deep = np.random.default_rng(0).integers(0, 65536, (4, 5, 3))
+    cv2.imwrite(str(p), deep.astype(np.uint16))
+    np.testing.assert_array_equal(png.read_png(str(p)),
+                                  cv2.imread(str(p))[:, :, ::-1])
     (tmp_path / "no.png").write_bytes(b"GIF89a" + bytes(20))
     with pytest.raises(ValueError, match="not a PNG"):
         png.read_png(str(tmp_path / "no.png"))
