@@ -125,7 +125,17 @@ Phases, each followed by one flushed line with the elapsed seconds:
               then the CLI with ``usePhotosCycle=false`` on the .mp4: the
               jpeg phase's checks; prints the parse time and the decode ms
               per frame beside the tracking ms per frame.
-20. webm    — the committed fixture testing/video_fixtures/headline_vp8.webm
+20. asp     — MPEG-4 Advanced Simple Profile: the committed fixture
+              testing/video_fixtures/headline_asp_packed.avi (the 32
+              frames coded by libavcodec with B-VOPs, 4MV, quarter-pel and
+              MPEG quantisation, packed as DivX packs B-VOPs, DX50) and
+              eight small ASP fixtures held frame by frame to the committed
+              sha256 of cv2's RGB frames and Y planes, in display order;
+              the FHD decode timed on one thread; then the CLI with
+              ``usePhotosCycle=false`` on the AVI: the jpeg phase's checks;
+              prints the decode ms per FHD frame beside the tracking ms per
+              frame.
+21. webm    — the committed fixture testing/video_fixtures/headline_vp8.webm
               (the 32 frames as OpenCV's ``VP80`` writer makes them): the
               Matroska container parsed and timed, every frame decoded by
               io/vp8.py on one thread and held to the committed sha256 of
@@ -134,14 +144,14 @@ Phases, each followed by one flushed line with the elapsed seconds:
               then the CLI with ``usePhotosCycle=false`` on the .webm: the
               jpeg phase's checks; prints the parse time and the decode ms
               per FHD frame beside the tracking ms per frame.
-21. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+22. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-22. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+23. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -159,25 +169,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rms < 0.3 px; prints the detection ms per FHD photo with and
               without a board, each branch's K and its solve's seconds on
               the card.
-23. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+24. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-24. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+25. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-25. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+26. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-26. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+27. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-27. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+28. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -187,11 +197,11 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-28. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+29. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
-29. photos  — the photo readers the card has (io/photo.py: no libjpeg,
+30. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp or OpenCV): first every committed
               fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
               TIFF and WebP variant family and EXIF case) through
@@ -2297,6 +2307,106 @@ def mp4_phase(card_line: str, scene):
     return n
 
 
+ASP_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                           "headline_asp_packed.avi")
+# MPEG-4 Advanced Simple Profile, small: B-VOPs with video packets;
+# 4MV, quarter-pel and B-VOPs at 38x54; loaded MPEG quantisation
+# matrices; DivX's packed bitstream; Xvid 5's and DivX 5.01's per-build
+# workarounds; FFmpeg's inexact 8-wide no-rounding average; B-frames in
+# MP4 (ctts, an edit list).
+ASP_SMALL_FIXTURES = ("asp_b_resync.avi", "asp_qpel_mv4_odd.avi",
+                      "asp_mpeg_matrices.avi", "asp_packed_divx.avi",
+                      "asp_xvid_edge.avi", "asp_divx_qpel_chroma.avi",
+                      "asp_zero_no_rnd.avi", "asp_ctts.mp4")
+
+
+def asp_phase(card_line: str, scene):
+    """MPEG-4 Advanced Simple Profile, as Xvid and DivX code it: the small
+    ASP fixtures and the committed FHD one (the 32 headline frames coded by
+    libavcodec with B-VOPs, 4MV, quarter-pel and MPEG quantisation, packed
+    as DivX packs B-VOPs into a DX50 AVI: the card has no encoder) held
+    frame by frame to the committed sha256 of cv2's RGB frames (through
+    ``MediaSource``) and Y planes (through the decoder, in display
+    order); the FHD fixture decoded on one thread and timed; then the CLI
+    on it with ``usePhotosCycle=false`` (cli_counted) → (counts, decode ms
+    per frame, tracking ms per frame)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi, mpeg4
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def shown(video, dec, decode, flush):
+        """The frames the container shows, in display order."""
+        out = []
+        for i, fr in enumerate(video.frames):
+            img = decode(video.read(fr), i)
+            if dec.failed:
+                return out
+            if img is not None and video.frames[dec.tag][2]:
+                out.append(img)
+        img = flush()
+        if img is not None and video.frames[dec.tag][2]:
+            out.append(img)
+        return out
+
+    fixtures = os.path.dirname(ASP_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    names = ASP_SMALL_FIXTURES + (os.path.basename(ASP_FIXTURE),)
+    for name in names:
+        path, want = os.path.join(fixtures, name), tables[name]
+        got = [sha(f) for f in MediaSource(video_path=path,
+                                           use_photos=False)]
+        if got != want["rgb_sha256"]:
+            fail(f"asp: {name}: {len(got)} frames, RGB sha256 differ from "
+                 f"cv2's {want['frames']}")
+        video = avi.open_video(path)
+        dec = mpeg4.Decoder(video.extradata, video.fourcc)
+        luma = [p[0] for p in shown(video, dec, dec.decode_yuv,
+                                    dec.flush_yuv)]
+        dec.close()
+        video.close()
+        if [sha(y) for y in luma] != want["y_sha256"]:
+            fail(f"asp: {name}: the Y planes differ from cv2's (sha256)")
+    t = time.perf_counter()
+    video = avi.open_video(ASP_FIXTURE)
+    parse_ms = 1e3 * (time.perf_counter() - t)
+    dec = mpeg4.Decoder(video.extradata, video.fourcc)
+    packed = sum(video.read(fr).count(b"\0\0\1\xb6") == 2
+                 for fr in video.frames)
+    t = time.perf_counter()
+    rgb = shown(video, dec, dec.decode, dec.flush)
+    decode_ms = 1e3 * (time.perf_counter() - t) / max(len(rgb), 1)
+    dec.close()
+    video.close()
+    table = tables[os.path.basename(ASP_FIXTURE)]
+    if len(rgb) != N_FRAMES or [sha(f) for f in rgb] != table["rgb_sha256"]:
+        fail(f"asp: the FHD fixture decodes to {len(rgb)} frames that "
+             "differ from cv2's (sha256)")
+    with tempfile.TemporaryDirectory() as root:
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=ASP_FIXTURE)
+        n, n_cams, ate_pct, _, run_s = cli_counted("asp", cfg, root, scene)
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"asp: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(ASP_FIXTURE) / 1e6:.2f} MB DX50 AVI, MPEG-4 "
+          f"ASP: B-VOPs, 4MV, quarter-pel, MPEG quantisation, {packed} "
+          f"samples packing a B-VOP behind a P-VOP) equal to cv2's decode "
+          f"(sha256 of RGB and Y), {len(names) - 1} small ASP fixtures too; "
+          f"cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  "
+          f"launches {json.dumps(n)}  container parse {parse_ms:.3f} ms; "
+          f"decode {decode_ms:.3f} ms per FHD frame on one thread; tracking "
+          f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s  "
+          f"[{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
 WEBM_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
                             "headline_vp8.webm")
 
@@ -2646,7 +2756,7 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
 
 
 def calibrate_pixels(card_line: str, scene, frames):
-    """Calibration from pixels through the CLI (phase 22's second part)."""
+    """Calibration from pixels through the CLI (phase 23's second part)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.calibration import chessboard as cb
@@ -3057,6 +3167,11 @@ def main() -> None:
         n = mp4_phase(card_line, scene)
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])
+        n, decode_ms, track_ms = asp_phase(card_line, scene)
+        by_path["asp (cli)"] = n["top2_batch"]
+        phase("asp", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
         n, decode_ms, track_ms = webm_phase(card_line, scene)
         by_path["webm (cli)"] = n["top2_batch"]
         phase("webm", top2_batch_launches=n["top2_batch"],

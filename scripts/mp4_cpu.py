@@ -5,7 +5,10 @@
 32 headline frames as OpenCV's ``mp4v`` writer makes them) parsed by
 io/mp4.py and decoded by io/mpeg4.py on one thread; with ``--webm``,
 headline_vp8.webm (the same frames as OpenCV's ``VP80`` writer makes
-them) parsed by io/matroska.py and decoded by io/vp8.py: ms for the
+them) parsed by io/matroska.py and decoded by io/vp8.py; with ``--asp``,
+headline_asp_packed.avi (the same frames coded with every MPEG-4 Advanced
+Simple tool and packed as DivX packs B-VOPs) parsed by io/avi.py and
+decoded by io/mpeg4.py, frames in display order: ms for the
 parse, and ms per frame to I420 planes and to RGB, best of ``--reps``
 passes.
 
@@ -16,7 +19,7 @@ per seed with cameras and ATE as a share of the trajectory extent.  The
 JAX package's numbers move with Python's hash seed and with the process's
 history, so run it under several ``PYTHONHASHSEED`` values:
 
-    python scripts/mp4_cpu.py decode [--webm]
+    python scripts/mp4_cpu.py decode [--webm | --asp]
     PYTHONHASHSEED=1 JAX_PLATFORMS=cpu python scripts/mp4_cpu.py ate jax
     python scripts/mp4_cpu.py ate torch
 
@@ -35,15 +38,20 @@ sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 FIXTURE = os.path.join(ROOT, "slam_indoor_code_tpu_torch", "testing",
                        "video_fixtures", "headline_mp4v.mp4")
 FIXTURE_WEBM = os.path.join(os.path.dirname(FIXTURE), "headline_vp8.webm")
+FIXTURE_ASP = os.path.join(os.path.dirname(FIXTURE),
+                           "headline_asp_packed.avi")
 
 
-def decode(reps: int, webm: bool) -> None:
-    from slam_indoor_code_tpu_torch.io import matroska, mp4, mpeg4, vp8
+def decode(reps: int, webm: bool, asp: bool) -> None:
+    from slam_indoor_code_tpu_torch.io import avi, matroska, mp4, mpeg4, vp8
 
     t = time.perf_counter()
     if webm:
         video = matroska.MkvVideo(FIXTURE_WEBM)
         make = vp8.Decoder
+    elif asp:
+        video = avi.AviVideo(FIXTURE_ASP)
+        make = lambda: mpeg4.Decoder(b"", video.fourcc)  # noqa: E731
     else:
         video = mp4.Mp4Video(FIXTURE)
         make = lambda: mpeg4.Decoder(video.extradata)  # noqa: E731
@@ -57,6 +65,8 @@ def decode(reps: int, webm: bool) -> None:
             t = time.perf_counter()
             for s in samples:
                 run(s)
+            if asp:             # the reference held back
+                dec.flush_yuv() if name == "yuv" else dec.flush()
             ms = 1e3 * (time.perf_counter() - t) / len(samples)
             best[name] = min(best.get(name, ms), ms)
     print(f"{video.codec}: parse {parse_ms:.3f} ms; decode {best['yuv']:.3f} "
@@ -103,12 +113,14 @@ def main() -> None:
     sub = ap.add_subparsers(dest="what", required=True)
     d = sub.add_parser("decode")
     d.add_argument("--reps", type=int, default=3)
-    d.add_argument("--webm", action="store_true")
+    g = d.add_mutually_exclusive_group()
+    g.add_argument("--webm", action="store_true")
+    g.add_argument("--asp", action="store_true")
     a = sub.add_parser("ate")
     a.add_argument("package", choices=["jax", "torch"])
     args = ap.parse_args()
     if args.what == "decode":
-        decode(args.reps, args.webm)
+        decode(args.reps, args.webm, args.asp)
     else:
         ate(args.package)
 

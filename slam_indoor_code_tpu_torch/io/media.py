@@ -107,17 +107,27 @@ class _PooledSequence:
 
 
 def _decoded(video, dec) -> Generator[np.ndarray, None, None]:
-    """The shown frames of ``video``, each predicting from those before
-    it, decoded in order by ``dec`` (which it closes); a frame the decoder
-    gives none for, or the container hides, is still decoded; the first
+    """The shown frames of ``video`` in display order, each predicting from
+    those before it in decode order, decoded by ``dec`` (which it closes).
+    An MPEG-4 decoder gives each frame with the tag of the sample it was
+    decoded from, whose container flag (an MP4 edit) tells whether it is
+    shown, and holds the last reference of a stream with B-VOPs back until
+    ``flush``; a VP8 frame is its own sample's.  A frame the decoder gives
+    none for, or the container hides, is still decoded; the first sample
     that fails ends the sequence, as OpenCV's reader stops there."""
+    delayed = isinstance(dec, mpeg4.Decoder)
     try:
-        for frame in video.frames:
-            img = dec.decode(video.read(frame))
+        for i, frame in enumerate(video.frames):
+            sample = video.read(frame)
+            img = dec.decode(sample, i) if delayed else dec.decode(sample)
             if dec.failed:
                 return
-            if img is not None and frame[2]:
+            if img is not None and video.frames[dec.tag if delayed
+                                                else i][2]:
                 yield img
+        img = dec.flush() if delayed else None
+        if img is not None and video.frames[dec.tag][2]:
+            yield img
     finally:
         dec.close()
 

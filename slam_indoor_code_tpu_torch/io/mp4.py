@@ -9,8 +9,10 @@ entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
 samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
 ``co64`` (chunk offsets) and ``stsc`` (samples per chunk); ``stts`` and
 ``ctts`` give their times.  An ``edts/elst`` edit is applied as FFmpeg's
-mov demuxer applies it: samples before its media time are decoded but not
-shown, samples past its end are not read.  This is what OpenCV's
+mov demuxer applies it: reading starts at the sync sample (``stss``)
+before its media time, samples presented outside it are decoded but not
+shown, and reading stops after the first sync sample past its end (the
+second with ``ctts``, for the B-frames after it).  This is what OpenCV's
 ``VideoWriter(..., 'mp4v')`` writes.  Other sample entries (H.264, HEVC,
 VP9, AV1, Motion-JPEG format A/B, ...) raise ``NotImplementedError`` naming
 the codec.
@@ -198,15 +200,54 @@ class Mp4Video:
         self._sample_entry(tables.get(b"stsd", b""))
         sizes = self._sizes(tables)
         offsets = self._offsets(tables, sizes)
-        times = self._times(tables, len(sizes))
+        dts, times = self._times(tables, len(sizes))
         edit = self._edit(data, start, end, movie_scale, media_scale)
         self.frames: list[tuple[int, int, bool]] = []
-        for off, size, t in zip(offsets, sizes, times):
-            if edit is not None and t >= edit[1]:
-                continue                       # past the edit: not read
-            shown = edit is None or t >= edit[0]
-            self.frames.append((off, size, shown))
+        if edit is None:
+            self.frames = [(o, n, True) for o, n in zip(offsets, sizes)]
+            return True
+        keys = self._sync(tables, len(sizes))
+        ctts = b"ctts" in tables
+        first, stop = edit
+        after = False
+        for i in range(self._edit_start(dts, times, keys, first),
+                       len(offsets)):
+            t = times[i]
+            self.frames.append((offsets[i], sizes[i], first <= t < stop))
+            dur = dts[i + 1] - dts[i] if i + 1 < len(dts) else stop - first
+            if t + dur >= stop and keys[i]:
+                if ctts and not after:   # B-frames may follow it in the edit
+                    after = True
+                    continue
+                break
         return True
+
+    @staticmethod
+    def _sync(tables: dict, n: int) -> list[bool]:
+        """Whether each sample is a sync sample (``stss``; all without
+        one)."""
+        if b"stss" not in tables:
+            return [True] * n
+        _, rest = _full(tables[b"stss"])
+        count = struct.unpack(">I", rest[:4])[0]
+        keys = [False] * n
+        for k in struct.unpack(f">{count}I", rest[4:4 + 4 * count]):
+            if 0 < k <= n:
+                keys[k - 1] = True
+        return keys
+
+    @staticmethod
+    def _edit_start(dts: list[int], times: list[int], keys: list[bool],
+                    first: int) -> int:
+        """The sample FFmpeg's mov demuxer starts an edit at
+        (find_prev_closest_index): the last sync sample whose decode time
+        is at most the edit's media time, then back to one whose
+        presentation time is too; 0 when there is none."""
+        i = max((k for k in range(len(dts)) if dts[k] <= first and keys[k]),
+                default=-1)
+        while i >= 0 and not (times[i] <= first and keys[i]):
+            i -= 1
+        return max(i, 0)
 
     def _path(self, data, box, kinds):
         for kind in kinds:
@@ -297,8 +338,10 @@ class Mp4Video:
         return offsets
 
     @staticmethod
-    def _times(tables: dict, n: int) -> list[int]:
-        """Presentation time of each sample in media units."""
+    def _times(tables: dict, n: int) -> tuple[list[int], list[int]]:
+        """Decode and presentation time of each sample in media units, both
+        moved up by the largest negative ``ctts`` offset, as FFmpeg's
+        dts_shift moves them."""
         _, rest = _full(tables.get(b"stts", bytes(8)))
         count = struct.unpack(">I", rest[:4])[0]
         dts, t = [], 0
@@ -310,6 +353,7 @@ class Mp4Video:
             if len(dts) == n:
                 break
         dts += [t] * (n - len(dts))
+        pts = list(dts)
         if b"ctts" in tables:
             v, rest = _full(tables[b"ctts"])
             count = struct.unpack(">I", rest[:4])[0]
@@ -321,9 +365,12 @@ class Mp4Video:
                                        rest[4 + 8 * j:12 + 8 * j])
                 end = min(i + k, n)
                 for m in range(i, end):
-                    dts[m] += off
+                    pts[m] += off
                 i = end
-        return dts
+            shift = max(0, max((d - p for d, p in zip(dts, pts)), default=0))
+            dts = [d + shift for d in dts]
+            pts = [p + shift for p in pts]
+        return dts, pts
 
     def _edit(self, data: bytes, start: int, end: int, movie_scale: int,
               media_scale: int) -> Optional[tuple[int, int]]:

@@ -1,26 +1,33 @@
 """MPEG-4 Part 2 video decoding without FFmpeg: a ctypes binding of
 ``native/mpeg4.cpp``, which needs nothing but the C++ standard library.
 
-It gives FFmpeg's decode bit for bit (the simple IDCT, or the Xvid IDCT
-for a stream FFmpeg takes to be Xvid's; H.263 quantisation, half-pel
-prediction under ``vop_rounding_type``, edge replication of the
-macroblock-aligned picture, video packets) for Simple Profile streams as
-FFmpeg's ``mpeg4`` encoder writes them, which is what OpenCV's ``mp4v``
-(MP4) and ``XVID``/``DIVX`` (AVI) writers record, and converts to RGB as
-OpenCV's FFmpeg backend does (native/swscale_rgb.h).  B-VOPs, quarter-pel,
-GMC, interlace, MPEG quantisation, 4MV, data partitioning, RVLC and the
-other tools it does not decode raise ``ValueError`` naming the tool.  A
-VOP whose macroblock data is damaged or cut short gives a frame, as
-FFmpeg's concealment does (the macroblocks from the damage on are the
-reference's); a sample without a VOP, or with a damaged VOP header, gives
-None and sets ``failed``; a VOP with ``vop_coded`` 0 gives no frame (None),
-as in FFmpeg.
+It gives FFmpeg's decode bit for bit for Simple and Advanced Simple
+Profile streams, as FFmpeg's ``mpeg4`` encoder writes them (OpenCV's
+``mp4v`` and ``XVID``/``DIVX`` writers) and as Xvid and DivX code them:
+I-, P- and B-VOPs (direct, interpolated, forward and backward
+macroblocks; output in display order with FFmpeg's one-frame delay, the
+last reference given by ``flush``), DivX's packed bitstream (a B-VOP held
+after a P-VOP in one sample, decoded in place of the N-VOP that follows),
+INTER4V, quarter-pel, H.263 or MPEG quantisation (default or loaded
+matrices), video packets, the simple IDCT or Xvid's for a stream FFmpeg
+takes to be Xvid's, and the workarounds FFmpeg applies by the encoder
+build the user data names (FF_BUG_EDGE, DC_CLIP, QPEL_CHROMA(2)), with
+the x86 build's inexact 8-wide averages and its SSE2 Xvid IDCT; and
+converts to RGB as OpenCV's FFmpeg backend does
+(native/swscale_rgb.h).  Interlace, data partitioning, RVLC, sprites/GMC,
+the short video header and the other tools it does not decode raise
+``ValueError`` naming the tool.  A VOP whose macroblock data is damaged
+or cut short gives a frame, as FFmpeg's concealment does (the
+macroblocks from the damage on are predicted from the references); a
+sample without a VOP, or with a damaged VOP header, gives None and sets
+``failed``; a VOP with ``vop_coded`` 0 gives no frame (None), as in
+FFmpeg.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
 the package (ignored by git).  If the build fails, every decoder raises
 with the compiler's message.  The calls release the GIL.  A decoder holds
-the reference frame, so one decoder reads one stream, in decode order, on
-one thread at a time.
+the reference frames, so one decoder reads one stream, in decode order,
+on one thread at a time.
 """
 
 from __future__ import annotations
@@ -55,8 +62,11 @@ def _bind(lib: ctypes.CDLL) -> None:
                                   P(ctypes.c_void_p), ctypes.c_char_p, I]
     lib.mpeg4dec_open.restype = I
     lib.mpeg4dec_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, I64,
-                                    P(I), P(I), ctypes.c_char_p, I]
+                                    I64, P(I), P(I), P(I64),
+                                    ctypes.c_char_p, I]
     lib.mpeg4dec_decode.restype = I
+    lib.mpeg4dec_flush.argtypes = [ctypes.c_void_p, P(I), P(I), P(I64)]
+    lib.mpeg4dec_flush.restype = I
     lib.mpeg4dec_rgb.argtypes = [ctypes.c_void_p, U8, I64]
     lib.mpeg4dec_rgb.restype = I
     lib.mpeg4dec_planes.argtypes = [ctypes.c_void_p, U8, U8, U8, I64, I64]
@@ -75,11 +85,13 @@ class Decoder:
     stream carries them in its first sample.  ``fourcc`` is the
     container's tag for the stream (AVI ``strf``, MP4 sample entry), from
     which, with the user data, the decoder tells an Xvid stream as FFmpeg
-    does.  ``failed`` tells whether the last sample failed (no VOP, or a
-    damaged VOP header), which ends a stream where OpenCV's reader ends
-    it."""
+    does.  Samples go in in decode order; frames come out in display
+    order, each with ``tag``, the tag of the sample it was decoded from.
+    ``failed`` tells whether the last sample failed (no VOP, or a damaged
+    VOP header), which ends a stream where OpenCV's reader ends it."""
 
     failed = False
+    tag = -1
 
     def __init__(self, extradata: bytes = b"", fourcc: bytes = b""):
         self._lib = load()
@@ -94,33 +106,35 @@ class Decoder:
             text = msg.value.decode(errors="replace")
             raise ValueError(text) if rc == _UNSUPPORTED else IOError(text)
 
-    def _decode(self, sample: bytes) -> Optional[tuple[int, int]]:
+    def _call(self, sample: Optional[bytes], tag: int
+              ) -> Optional[tuple[int, int]]:
         if not self._handle:
             raise ValueError("decoder is closed")
-        w, h = ctypes.c_int(), ctypes.c_int()
-        msg = ctypes.create_string_buffer(_MSG_LEN)
-        rc = self._lib.mpeg4dec_decode(self._handle, sample, len(sample),
-                                       ctypes.byref(w), ctypes.byref(h), msg,
-                                       _MSG_LEN)
-        if rc == _UNSUPPORTED:
-            raise ValueError(msg.value.decode(errors="replace"))
+        w, h, out = ctypes.c_int(), ctypes.c_int(), ctypes.c_int64()
+        if sample is None:
+            rc = self._lib.mpeg4dec_flush(self._handle, ctypes.byref(w),
+                                          ctypes.byref(h), ctypes.byref(out))
+        else:
+            msg = ctypes.create_string_buffer(_MSG_LEN)
+            rc = self._lib.mpeg4dec_decode(
+                self._handle, sample, len(sample), tag, ctypes.byref(w),
+                ctypes.byref(h), ctypes.byref(out), msg, _MSG_LEN)
+            if rc == _UNSUPPORTED:
+                raise ValueError(msg.value.decode(errors="replace"))
         self.failed = rc == _FAILED
-        return (h.value, w.value) if rc == _FRAME else None
+        if rc != _FRAME:
+            return None
+        self.tag = out.value
+        return h.value, w.value
 
-    def decode(self, sample: bytes) -> Optional[np.ndarray]:
-        """HxWx3 uint8 RGB of the VOP in ``sample``; None when it gives no
-        frame (``vop_coded`` 0, or ``failed``)."""
-        hw = self._decode(sample)
+    def _rgb(self, hw) -> Optional[np.ndarray]:
         if hw is None:
             return None
         out = np.empty(hw + (3,), np.uint8)
         self._lib.mpeg4dec_rgb(self._handle, _u8(out), out.nbytes)
         return out
 
-    def decode_yuv(self, sample: bytes):
-        """(Y, U, V) uint8 planes of the VOP in ``sample`` (U and V at half
-        size, rounded up), or None as ``decode``."""
-        hw = self._decode(sample)
+    def _yuv(self, hw):
         if hw is None:
             return None
         h, w = hw
@@ -130,6 +144,26 @@ class Decoder:
         self._lib.mpeg4dec_planes(self._handle, _u8(y), _u8(u), _u8(v),
                                   y.nbytes, u.nbytes)
         return y, u, v
+
+    def decode(self, sample: bytes, tag: int = -1) -> Optional[np.ndarray]:
+        """HxWx3 uint8 RGB of the frame ``sample`` gives (its own VOP's, or,
+        with B-VOPs, the reference before it); None when it gives none
+        (``vop_coded`` 0, a reference held back, or ``failed``)."""
+        return self._rgb(self._call(sample, tag))
+
+    def decode_yuv(self, sample: bytes, tag: int = -1):
+        """(Y, U, V) uint8 planes (U and V at half size, rounded up) of the
+        frame ``sample`` gives, or None as ``decode``."""
+        return self._yuv(self._call(sample, tag))
+
+    def flush(self) -> Optional[np.ndarray]:
+        """At the end of the stream, the RGB of the reference a stream with
+        B-VOPs holds back; None when there is none."""
+        return self._rgb(self._call(None, -1))
+
+    def flush_yuv(self):
+        """``flush`` as (Y, U, V) planes."""
+        return self._yuv(self._call(None, -1))
 
     def close(self) -> None:
         if self._handle:

@@ -1,6 +1,7 @@
-// mpeg4 — an MPEG-4 Part 2 video decoder (Simple Profile, as FFmpeg's
-// `mpeg4` encoder writes it: OpenCV's `mp4v` and `XVID` recordings) with no
-// library but the C++ standard library.
+// mpeg4 — an MPEG-4 Part 2 video decoder (Simple and Advanced Simple
+// Profile, as FFmpeg's `mpeg4` encoder, OpenCV's `mp4v` and `XVID`
+// writers, Xvid and DivX write them) with no library but the C++ standard
+// library.
 //
 // It gives the pixels FFmpeg's decoder gives for such a stream, bit for bit:
 //   - I-VOPs: MCBPC, ac_pred_flag, CBPY, DQUANT; intra DC by its own VLC or
@@ -9,33 +10,57 @@
 //     DC prediction (reconstructed DC values, 1024 outside the VOP and in
 //     non-intra macroblocks) and AC prediction (quantised levels, the
 //     predictor rescaled when the neighbour's quantiser differs, with
-//     FFmpeg's ROUNDED_DIV); H.263 inverse quantisation;
-//   - P-VOPs: not_coded skips, 1MV with the median predictor (the first
-//     row special-cased), the f_code range and its wrap; half-pel bilinear
-//     prediction under vop_rounding_type for luma and for chroma (the
-//     chroma vector's quarter positions taken to the half), unrestricted
-//     vectors by edge replication of the macroblock-aligned picture;
-//   - video packets (resync markers): the packet header's macroblock
-//     number, quantiser and header extension, and FFmpeg's slice rules for
-//     DC, AC and motion vector prediction across a packet's start;
+//     FFmpeg's ROUNDED_DIV); H.263 inverse quantisation, or MPEG's
+//     (quant_type 1: the default matrices or those the VOL loads, FFmpeg's
+//     mpeg2 unquantisers, mismatch control on inter blocks only);
+//   - P-VOPs: not_coded skips, 1MV and INTER4V (a vector per 8x8 block,
+//     each with its own median predictor, the chroma vector from their sum
+//     by H.263's sixteenth table) with the first row of a slice
+//     special-cased, the f_code range and its wrap; half-pel bilinear or
+//     quarter-pel (MPEG-4's mirrored 8-tap filter) prediction under
+//     vop_rounding_type, the chroma vector derived as FFmpeg derives it;
+//     unrestricted vectors by edge replication of the macroblock-aligned
+//     picture, with FFmpeg's tests for when a block needs it and its clip
+//     of 8x8 sources to the VOL's size;
+//   - B-VOPs: two references; modb, mb_type, cbpb, dbquant; direct mode
+//     (the co-located vectors of the newer reference, 1MV or INTER4V,
+//     scaled by TRB/TRD from vop_time_increment, modulo_time_base and the
+//     GOV time code, plus a delta), forward, backward and interpolated
+//     prediction (the rounded mean); a macroblock not coded in the newer
+//     reference skipped (the older one's pixels); frames given in display
+//     order with FFmpeg's one-frame delay and its end-of-stream flush; a
+//     B-VOP out of order or without two references skipped, as FFmpeg
+//     skips it;
+//   - DivX's packed bitstream (user data `DivX...p`): the VOP a sample holds
+//     after its own is decoded in place of the next sample (the N-VOP
+//     placeholder), as FFmpeg's decoder does; without `p` the second VOP
+//     of a sample is not decoded;
+//   - video packets (resync markers) in I-, P- and B-VOPs: the packet
+//     header's macroblock number, quantiser and header extension, and
+//     FFmpeg's slice rules for DC, AC and motion vector prediction across
+//     a packet's start;
 //   - FFmpeg's "simple" IDCT (simple_idct_template.c, 8-bit: 14-bit
 //     constants, the row DC shortcut, the column rounding folded into W4),
 //     or its Xvid IDCT (xvididct.c) for a stream it takes to be Xvid's:
 //     one with `XviD` user data, or an Xvid fourcc and no encoder's user
-//     data (ff_mpeg4_workaround_bugs);
+//     data; and the other workarounds ff_mpeg4_workaround_bugs applies by
+//     the build the user data names: FF_BUG_EDGE (edges at the VOL's
+//     size), DC_CLIP, QPEL_CHROMA and QPEL_CHROMA2;
+//   - FFmpeg's x86 half-pel averages, including the inexact ones it uses
+//     for 8-wide blocks without rounding;
 //   - the crop of the macroblock-aligned picture to the VOL's size, and
 //     YUV 4:2:0 -> RGB as OpenCV's FFmpeg backend returns it (swscale_rgb.h,
 //     chroma sited left as FFmpeg reports it for MPEG-4).
-// A tool it does not decode raises with the tool named: B-VOPs (low_delay
-// 0), quarter-pel, sprites/GMC, interlace, MPEG quantisation, INTER4V,
-// data partitioning, RVLC, short video header, non-rectangular shapes,
-// not_8_bit, scalability, newpred, reduced resolution, complexity
-// estimation.  Xvid's per-build bug workarounds (FF_BUG_EDGE, DC_CLIP,
-// ...) are not applied.  A VOP with vop_coded 0 gives no frame, as in
-// FFmpeg.  A VOP whose macroblocks are damaged or cut short gives a frame,
-// as FFmpeg's concealment does: its macroblocks from the damage on are
-// the reference's.  A sample without a VOP, or with a damaged VOP header,
-// gives no frame and leaves the reference as it was.
+// A tool it does not decode raises with the tool named: interlace, data
+// partitioning, RVLC, sprites/GMC (S-VOPs), the short video header,
+// non-rectangular shapes, not_8_bit, scalability, newpred, reduced
+// resolution, complexity estimation, OBMC, and quarter-pel from libavcodec
+// builds before 4653 (its old filter).  A VOP with vop_coded 0 gives no
+// frame, as in FFmpeg.  A VOP whose macroblocks are damaged or cut short
+// gives a frame, as FFmpeg's concealment does: its macroblocks from the
+// damage on are predicted from the references.  A sample without a VOP, or
+// with a damaged VOP header, gives no frame and leaves the references as
+// they were.
 //
 // C ABI; Python binds it through ctypes (io/mpeg4.py).  Build:
 //   g++ -O2 -fPIC -std=c++17 -shared -o libmpeg4dec.so mpeg4.cpp
@@ -383,11 +408,16 @@ void simple_idct(int16_t* block, uint8_t* dest, int stride, bool add) {
   for (int i = 0; i < 8; ++i) idct_col(block + i, dest + i, stride, add);
 }
 
-// FFmpeg's Xvid IDCT (xvididct.c, ff_xvid_idct): a row pass with a table
-// and rounding constant per row, then a column pass of 16-bit tangent
-// multiplies that keep the high half; the output is clamped (put) or
-// added and clamped (add).  Rows 3-7 that are all zero leave the column
-// pass's 4- and 3-row forms, which equal the 8-row form on zeros.
+// FFmpeg's Xvid IDCT as its x86 build runs it (xvididct.asm,
+// ff_xvid_idct_sse2; the C ff_xvid_idct gives the same but where noted):
+// a row pass with a table and rounding constant per row, each output
+// saturated to 16 bits, then a column pass of 16-bit tangent multiplies
+// that keep the high half; the output is clamped (put) or added and
+// clamped (add).  The C version leaves a row whose only coefficient is its
+// first as it was when that row's output rounds to 0 (row 0 = {-4, 0,
+// ...}); the SSE2 one zeroes it, as here.  Rows 3-7 that are all zero
+// leave the column pass's 4- and 3-row forms, which equal the 8-row form
+// on zeros.
 namespace xvid {
 
 constexpr int kRowShift = 11, kColShift = 6;
@@ -399,8 +429,9 @@ const uint32_t* const kRowTab[8] = {kTab04, kTab17, kTab26, kTab35,
                                     kTab04, kTab35, kTab26, kTab17};
 const int kRowRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
 
-inline int16_t sh(uint32_t v) {
-  return static_cast<int16_t>(static_cast<int32_t>(v) >> kRowShift);
+inline int16_t sh(uint32_t v) {  // psrad 11, packssdw
+  return static_cast<int16_t>(
+      std::clamp(static_cast<int32_t>(v) >> kRowShift, -32768, 32767));
 }
 
 void row(int16_t* in, const uint32_t* tab, int rnd) {
@@ -426,9 +457,8 @@ void row(int16_t* in, const uint32_t* tab, int rnd) {
       in[3] = sh(a3 + b3);
       in[4] = sh(a3 - b3);
     } else {
-      const int a0 = k >> kRowShift;
-      if (a0)
-        for (int i = 0; i < 8; ++i) in[i] = static_cast<int16_t>(a0);
+      const int16_t a0 = sh(static_cast<uint32_t>(k));
+      for (int i = 0; i < 8; ++i) in[i] = a0;
     }
   } else if (!(left | right)) {
     const int16_t a0 = sh(rnd + c4 * (in[0] + in[4]));
@@ -520,7 +550,8 @@ void idct(int16_t* block, uint8_t* dest, int stride, bool add) {
 
 }  // namespace xvid
 
-// ---------------------------------------------------------------- decoder
+
+// ---------------------------------------------------------------- pictures
 
 struct Plane {
   int w = 0, h = 0;
@@ -531,10 +562,14 @@ struct Plane {
     px.assign(size_t(w) * h, 0);
   }
   uint8_t* at(int x, int y) { return px.data() + int64_t(y) * w + x; }
+  const uint8_t* at(int x, int y) const {
+    return px.data() + int64_t(y) * w + x;
+  }
 };
 
 struct Picture {
   Plane y, u, v;
+  int64_t tag = -1;  // the caller's tag of the sample it was decoded from
   void init(int mbw, int mbh) {
     y.init(mbw * 16, mbh * 16);
     u.init(mbw * 8, mbh * 8);
@@ -544,6 +579,19 @@ struct Picture {
 
 const uint8_t kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};
 const int kDquant[4] = {-1, -2, 1, 2};
+
+// The default MPEG quantisation matrices (ISO/IEC 14496-2 6.3.3), raster
+// order.
+const uint8_t kDefaultIntraMatrix[64] = {
+    8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
+    20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
+    22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45};
+const uint8_t kDefaultInterMatrix[64] = {
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24,
+    18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24, 26, 27,
+    20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
 
 inline int y_dc_scale(int q) {
   return q < 5 ? 8 : q < 9 ? 2 * q : q < 25 ? q + 8 : 2 * q - 16;
@@ -557,47 +605,165 @@ inline int median3(int a, int b, int c) {
 inline int rounded_div(int a, int b) {
   return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b;
 }
+// The chroma vector of a 4MV macroblock from the sum of its four luma
+// vectors, in half-pel units (H.263's sixteenth rounding table).
+inline int round_chroma(int x) {
+  static const uint8_t tab[16] = {0, 0, 0, 1, 1, 1, 1, 1,
+                                  1, 1, 1, 1, 1, 1, 2, 2};
+  return tab[x & 15] + ((x >> 3) & ~1);
+}
 
-// Half-pel prediction of a bw x bh block at integer position (sx, sy) of
-// `ref` with half-pel flags dxy (bit 0: x, bit 1: y); positions outside
-// the plane take its nearest edge pixel.  rnd = vop_rounding_type.
-void predict(Plane& ref, int sx, int sy, int dxy, int rnd, int bw, int bh,
-             uint8_t* dst, int dstride) {
-  uint8_t tmp[17 * 17];
-  const uint8_t* src;
-  int ss;
-  int ex = bw + (dxy & 1), ey = bh + (dxy >> 1);
-  if (sx >= 0 && sy >= 0 && sx + ex <= ref.w && sy + ey <= ref.h) {
-    src = ref.at(sx, sy);
-    ss = ref.w;
-  } else {
-    for (int j = 0; j < ey; ++j) {
-      int yy = std::clamp(sy + j, 0, ref.h - 1);
-      for (int i = 0; i < ex; ++i)
-        tmp[j * 17 + i] = *ref.at(std::clamp(sx + i, 0, ref.w - 1), yy);
+// ---------------------------------------------------------- prediction
+// The block copies FFmpeg's mpegvideo_motion.c makes, each with its own
+// test for reading past the picture's edge: in place when the block lies
+// within [0, ew) x [0, eh) (the macroblock-aligned picture, or the VOL's
+// size under FFmpeg's FF_BUG_EDGE), else through emulated_edge_mc, which
+// takes each position outside to the nearest one inside.
+
+constexpr int kWin = 24;  // row stride of an emulated window
+
+const uint8_t* window(const Plane& p, int x, int y, int w, int h, int ew,
+                      int eh, bool emu, uint8_t* buf, int* stride) {
+  if (!emu) {
+    if (x >= 0 && y >= 0 && x + w <= p.w && y + h <= p.h) {
+      *stride = p.w;
+      return p.at(x, y);
     }
-    src = tmp;
-    ss = 17;
+    ew = p.w;  // never read outside the plane
+    eh = p.h;
   }
+  for (int j = 0; j < h; ++j) {
+    const uint8_t* row = p.at(0, std::clamp(y + j, 0, eh - 1));
+    for (int i = 0; i < w; ++i)
+      buf[j * kWin + i] = row[std::clamp(x + i, 0, ew - 1)];
+  }
+  *stride = kWin;
+  return buf;
+}
+
+// How a prediction is written: put (rounded), put without rounding
+// (vop_rounding_type 1), or averaged with what the block holds (FFmpeg's
+// avg ops: the rounded mean of it and the rounded prediction; B-VOPs).
+enum Op { kPut, kPutNoRnd, kAvg };
+
+template <typename F>
+inline void store(Op op, int bw, int bh, uint8_t* d, int ds, F value) {
   for (int j = 0; j < bh; ++j) {
-    const uint8_t* s0 = src + j * ss;
-    const uint8_t* s1 = s0 + ss;
-    uint8_t* d = dst + j * dstride;
-    switch (dxy) {
-      case 0:
-        std::memcpy(d, s0, static_cast<size_t>(bw));
+    uint8_t* o = d + j * ds;
+    if (op == kAvg)
+      for (int i = 0; i < bw; ++i) o[i] = (o[i] + value(i, j) + 1) >> 1;
+    else
+      for (int i = 0; i < bw; ++i) o[i] = static_cast<uint8_t>(value(i, j));
+  }
+}
+
+// Half-pel prediction of a bw x bh block from s (dxy: bit 0 x, bit 1 y).
+// FFmpeg's x86 build predicts an 8-wide block without rounding (INTER4V
+// luma, every chroma block of a P-VOP with vop_rounding_type 1) by its
+// MMXEXT put_no_rnd_pixels8_x2/_y2, which are inexact unless the codec is
+// bit-exact (OpenCV does not ask): pavgb of one operand less one,
+// saturated -- the left pixel, or the pixel of the odd source row -- so
+// where that pixel is 0 the result rounds up.  The 16-wide ones are exact.
+void hpel(const uint8_t* s, int ss, int dxy, Op op, int bw, int bh,
+          uint8_t* d, int ds) {
+  const int r = op == kPutNoRnd ? 0 : 1;
+  switch (dxy) {
+    case 0:
+      store(op, bw, bh, d, ds, [&](int i, int j) { return s[j * ss + i]; });
+      break;
+    case 1:
+      if (op == kPutNoRnd && bw == 8) {
+        store(op, bw, bh, d, ds, [&](int i, int j) {
+          const uint8_t* p = s + j * ss + i;
+          return (std::max(p[0] - 1, 0) + p[1] + 1) >> 1;
+        });
         break;
-      case 1:
-        for (int i = 0; i < bw; ++i) d[i] = (s0[i] + s0[i + 1] + 1 - rnd) >> 1;
+      }
+      store(op, bw, bh, d, ds, [&](int i, int j) {
+        const uint8_t* p = s + j * ss + i;
+        return (p[0] + p[1] + r) >> 1;
+      });
+      break;
+    case 2:
+      if (op == kPutNoRnd && bw == 8) {
+        store(op, bw, bh, d, ds, [&](int i, int j) {
+          const uint8_t* p = s + j * ss + i;
+          int a = p[0], b = p[ss];
+          if (j & 1) a = std::max(a - 1, 0); else b = std::max(b - 1, 0);
+          return (a + b + 1) >> 1;
+        });
         break;
-      case 2:
-        for (int i = 0; i < bw; ++i) d[i] = (s0[i] + s1[i] + 1 - rnd) >> 1;
-        break;
-      default:
-        for (int i = 0; i < bw; ++i)
-          d[i] = (s0[i] + s0[i + 1] + s1[i] + s1[i + 1] + 2 - rnd) >> 2;
+      }
+      store(op, bw, bh, d, ds, [&](int i, int j) {
+        const uint8_t* p = s + j * ss + i;
+        return (p[0] + p[ss] + r) >> 1;
+      });
+      break;
+    default:
+      store(op, bw, bh, d, ds, [&](int i, int j) {
+        const uint8_t* p = s + j * ss + i;
+        return (p[0] + p[1] + p[ss] + p[ss + 1] + 1 + r) >> 2;
+      });
+  }
+}
+
+// MPEG-4's quarter-pel half-sample filter (-1, 3, -6, 20, 20, -6, 3, -1)/32
+// over N outputs from N + 1 inputs s[0], s[step], ..., mirrored at both
+// ends (FFmpeg's mpeg4_qpel*_h/v_lowpass); r = 16, or 15 without rounding.
+template <int N>
+inline void lowpass(const uint8_t* s, int step, int r, uint8_t* o,
+                    int ostep) {
+  int v[N + 7];
+  for (int k = -3; k <= N + 3; ++k) {
+    const int m = k < 0 ? -k - 1 : k > N ? 2 * N + 1 - k : k;
+    v[k + 3] = s[m * step];
+  }
+  for (int i = 0; i < N; ++i) {
+    const int a = v[i + 3] + v[i + 4], b = v[i + 2] + v[i + 5],
+              c = v[i + 1] + v[i + 6], e = v[i] + v[i + 7];
+    o[i * ostep] = clip8((20 * a - 6 * b + 3 * c - e + r) >> 5);
+  }
+}
+
+// Quarter-pel prediction of an N x N block (N = 8 or 16) from the
+// (N + 1) x (N + 1) window s, at dxy = (y quarter << 2) | x quarter, as
+// FFmpeg's qpeldsp computes it: the horizontal position first (the
+// filtered half sample, averaged with the nearer full one at a quarter),
+// then the vertical one over those rows in the same way; the averages
+// round unless the prediction does not.
+template <int N>
+void qpel(const uint8_t* s, int ss, int dxy, Op op, uint8_t* d, int ds) {
+  const bool no_rnd = op == kPutNoRnd;
+  const int r = no_rnd ? 15 : 16, ra = no_rnd ? 0 : 1;
+  const int x = dxy & 3, y = dxy >> 2;
+  uint8_t hh[(N + 1) * N], vv[N * N];
+  const int rows = y ? N + 1 : N;
+  for (int j = 0; j < rows; ++j) {
+    const uint8_t* row = s + j * ss;
+    uint8_t* h = hh + j * N;
+    if (x == 0) {
+      std::memcpy(h, row, N);
+      continue;
+    }
+    lowpass<N>(row, 1, r, h, 1);
+    if (x != 2) {
+      const uint8_t* full = row + (x == 3);
+      for (int i = 0; i < N; ++i) h[i] = (h[i] + full[i] + ra) >> 1;
     }
   }
+  if (y == 0) {
+    store(op, N, N, d, ds, [&](int i, int j) { return hh[j * N + i]; });
+    return;
+  }
+  for (int i = 0; i < N; ++i) lowpass<N>(hh + i, N, r, vv + i, N);
+  if (y == 2) {
+    store(op, N, N, d, ds, [&](int i, int j) { return vv[j * N + i]; });
+    return;
+  }
+  const uint8_t* near = hh + (y == 3 ? N : 0);
+  store(op, N, N, d, ds, [&](int i, int j) {
+    return (near[j * N + i] + vv[j * N + i] + ra) >> 1;
+  });
 }
 
 inline uint32_t upper4(uint32_t tag) {
@@ -615,75 +781,133 @@ constexpr uint32_t fourcc(const char* s) {
          uint32_t(uint8_t(s[2])) << 16 | uint32_t(uint8_t(s[3])) << 24;
 }
 
+// FFmpeg's per-encoder workarounds (ff_mpeg4_workaround_bugs) that change
+// the pixels of the tools decoded here.
+enum Bug {
+  kBugEdge = 1,             // edges replicated at the VOL's size
+  kBugDcClip = 2,           // DC predictors above 2047 kept
+  kBugQpelChroma = 4,       // quarter-pel chroma vector rounded up
+  kBugQpelChroma2 = 8,      // ... by DivX 5.02+'s table
+  kBugStdQpel = 16          // libavcodec's old quarter-pel filter
+};
+
+constexpr int kMaxNvopSize = 19;  // FFmpeg's MAX_NVOP_SIZE
+
+// ---------------------------------------------------------------- decoder
+
 class Decoder {
  public:
   int width = 0, height = 0;  // the VOL's size
-  Picture cur, ref;
+  const Picture* out = nullptr;  // the frame last given
+  int64_t out_tag = -1;          // and the tag it goes by
 
   // `tag` is the container's fourcc (AVI strf, MP4 sample entry; little
   // endian), which FFmpeg upper-cases and reads to tell Xvid's streams.
   explicit Decoder(uint32_t tag) : tag_(upper4(tag)) {}
 
-  // Headers (VOS/VO/VOL/GOV/user data) in `data`; a VOP, if present, is
-  // decoded into `cur` (then swapped into `ref`).  Returns kFrame or
-  // kNoFrame.
-  Status feed(const uint8_t* data, int64_t n, bool headers_only) {
+  // Headers (VOS/VO/VOL/GOV/user data) out of band.
+  void headers(const uint8_t* data, int64_t n) {
     Bits b(data, n);
-    int64_t p = 0;
-    bool vop_seen = false;
-    Status st = kNoFrame;
-    while ((p = next_start_code(b, p, n)) >= 0) {
-      int code = b.byte(p + 3);
-      b.seek((p + 4) * 8);
-      if (code >= 0x20 && code <= 0x2F) {
-        parse_vol(b);
-      } else if (code == 0xB2) {
-        parse_user_data(b, p + 4, n);
-      } else if (code == 0xB6) {
-        if (headers_only) break;
-        if (vop_seen) unsupported("packed bitstream (two VOPs in a sample)");
-        vop_seen = true;
-        st = decode_vop(b);
-        p = (b.pos() + 7) >> 3;
-        continue;
+    parse(b, n, true, -1, nullptr);
+  }
+
+  // One sample: its headers, then its VOP (or, under DivX's packed
+  // bitstream, the one the sample before held after its own).  kFrame
+  // when a frame is given (`out`, in display order), else kNoFrame.
+  Status decode(const uint8_t* data, int64_t n, int64_t tag) {
+    skipped_last_ = false;
+    last_tag_ = tag;
+    std::vector<uint8_t> pending;
+    pending.swap(pending_);
+    const uint8_t* buf = data;
+    int64_t len = n;
+    bool from_pending = false;
+    if (!pending.empty()) {
+      // ff_mpeg4_decode_picture_header: the held VOP is decoded in place of
+      // this sample (an N-VOP placeholder), unless a VOS starts it
+      bool keep = true;
+      if (divx_packed_)
+        for (int64_t i = 0; i + 3 < n; ++i)
+          if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1) {
+            keep = data[i + 3] != 0xB0;
+            break;
+          }
+      if (keep && (divx_packed_ || n <= kMaxNvopSize)) {
+        buf = pending.data();
+        len = static_cast<int64_t>(pending.size());
+        from_pending = true;
       }
-      p += 4;
     }
-    if (!vop_seen && !headers_only && n >= 3 && data[0] == 0 &&
-        data[1] == 0 && (data[2] & 0xFC) == 0x80)
-      unsupported("short video header (H.263 baseline)");
-    // A sample without a VOP is an error to FFmpeg, save a one-byte one
-    // from DivX or Xvid (a skipped frame).
-    if (!vop_seen && !headers_only &&
-        !(n == 1 && (divx_version_ >= 0 || xvid_build_ >= 0)))
-      corrupt("no VOP in the sample");
+    Bits b(buf, len);
+    int64_t vop_end = -1;
+    Status st = parse(b, len, false, tag, &vop_end);
+    if (vop_end >= 0 && divx_packed_)
+      hold_packed(data, n, from_pending ? 0 : vop_end >> 3);
     return st;
+  }
+
+  // The end of the stream: the last reference, which the one-frame delay
+  // of a stream with B-VOPs (or one that ended on a not-coded VOP) holds.
+  Status flush() {
+    if ((!low_delay_ || skipped_last_) && has_next_) {
+      out = next_;
+      out_tag = skipped_last_ ? last_tag_ : next_->tag;
+      has_next_ = false;
+      return kFrame;
+    }
+    return kNoFrame;
   }
 
  private:
   bool have_vol_ = false;
-  bool ref_ok_ = false;  // ref holds a decoded picture of this size
   int mbw_ = 0, mbh_ = 0;
-  int time_bits_ = 1;
+  int time_bits_ = 1, time_res_ = 1;
   bool resync_ = false;
+  bool low_delay_ = true;
+  bool quarter_ = false, mpeg_quant_ = false;
+  uint8_t intra_matrix_[64] = {}, inter_matrix_[64] = {};
   // the encoder, as FFmpeg tells it (decode_user_data,
   // ff_mpeg4_workaround_bugs); -1: not seen
   uint32_t tag_;
-  int xvid_build_ = -1, divx_version_ = -1, lavc_build_ = -1;
+  int xvid_build_ = -1, divx_version_ = -1, divx_build_ = -1,
+      lavc_build_ = -1;
+  bool divx_packed_ = false;
   int vo_type_ = 0;
   bool vol_control_ = false;
   bool xvid_idct_ = false;
+  int bugs_ = 0;
+  int picture_number_ = 0;
+  // the pictures: cur_ is decoded into; last_ and next_ are the older and
+  // the newer reference (FFmpeg's last_pic and next_pic)
+  Picture pic_[3];
+  Picture* cur_ = &pic_[0];
+  Picture* last_ = &pic_[1];
+  Picture* next_ = &pic_[2];
+  bool has_last_ = false, has_next_ = false;
+  int edge_w_ = 0, edge_h_ = 0;  // FFmpeg's h_edge_pos, v_edge_pos
+  // the DivX packed bitstream: the VOP a sample held after its own
+  std::vector<uint8_t> pending_;
+  bool skipped_last_ = false;
+  int64_t last_tag_ = -1;
+  // time (decode_vop_header): seconds, and ticks of vop_time_increment
+  int64_t time_base_ = 0, last_time_base_ = 0, time_ = 0,
+          last_non_b_time_ = 0;
+  int pp_time_ = 0, pb_time_ = 0;
   // the video packet (slice) being decoded: its first macroblock, and
   // whether the current one lies in its first row of macroblocks
   int resync_x_ = 0, resync_y_ = 0;
   bool first_line_ = true;
-  // per macroblock / block state
+  // per macroblock / block state of the I- or P-VOP being decoded, and,
+  // once decoded, of next_ (the co-located macroblocks of B-VOPs)
   std::vector<int16_t> dc_y_, dc_u_, dc_v_;   // reconstructed DC
   std::vector<int16_t> ac_y_, ac_u_, ac_v_;   // 16 per block
   std::vector<int8_t> qs_;                    // quantiser per macroblock
-  std::vector<int16_t> mv_;                   // (x, y) per macroblock
+  std::vector<int16_t> mv_;                   // (x, y) per 8x8 block
+  std::vector<uint8_t> four_mv_, skipped_;    // per macroblock
+  // B-VOP motion vector predictors: forward, backward
+  int last_mv_[2][2] = {};
   // VOP state
-  int qscale_ = 1, rnd_ = 0, fcode_ = 1, dc_thr_ = 99;
+  int qscale_ = 1, rnd_ = 0, fcode_ = 1, bcode_ = 1, dc_thr_ = 99;
   bool ac_pred_ = false;
 
   static int64_t next_start_code(const Bits& b, int64_t p, int64_t n) {
@@ -691,6 +915,51 @@ class Decoder {
       if (b.byte(p) == 0 && b.byte(p + 1) == 0 && b.byte(p + 2) == 1)
         return p;
     return -1;
+  }
+
+  // The headers in b, then its first VOP (decoded; *vop_end set to the
+  // bit after its macroblocks when a picture was decoded).
+  Status parse(Bits& b, int64_t n, bool headers_only, int64_t tag,
+               int64_t* vop_end) {
+    int64_t p = 0;
+    bool vol_seen = false;
+    while ((p = next_start_code(b, p, n)) >= 0) {
+      int code = b.byte(p + 3);
+      b.seek((p + 4) * 8);
+      if (code >= 0x20 && code <= 0x2F) {
+        if (!vol_seen) parse_vol(b);  // FFmpeg ignores a second one
+        vol_seen = true;
+      } else if (code == 0xB2) {
+        parse_user_data(b, p + 4, n);
+      } else if (code == 0xB3) {
+        parse_gov(b);
+      } else if (code == 0xB6) {
+        if (headers_only) break;
+        return decode_vop(b, tag, vop_end);
+      }
+      p += 4;
+    }
+    if (headers_only) return kNoFrame;
+    if (n >= 3 && b.byte(0) == 0 && b.byte(1) == 0 &&
+        (b.byte(2) & 0xFC) == 0x80)
+      unsupported("short video header (H.263 baseline)");
+    // A sample without a VOP is an error to FFmpeg, save a one-byte one
+    // from DivX or Xvid (a skipped frame).
+    if (!(n == 1 && (divx_version_ >= 0 || xvid_build_ >= 0)))
+      corrupt("no VOP in the sample");
+    return kNoFrame;
+  }
+
+  // ff_mpeg4_frame_end: under DivX's packed bitstream, the rest of the
+  // sample from byte `pos` is held when its next VOP is an I- or B-VOP.
+  void hold_packed(const uint8_t* data, int64_t n, int64_t pos) {
+    if (n - pos <= 7) return;
+    for (int64_t i = pos; i < n - 4; ++i)
+      if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1 &&
+          data[i + 3] == 0xB6) {
+        if (!(data[i + 4] & 0x40)) pending_.assign(data + pos, data + n);
+        return;
+      }
   }
 
   // User data: up to 255 bytes before the next start code, matched as
@@ -707,7 +976,11 @@ class Decoder {
     char last;
     int e = std::sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last);
     if (e < 2) e = std::sscanf(buf, "DivX%db%d%c", &ver, &build, &last);
-    if (e >= 2) divx_version_ = ver;
+    if (e >= 2) {
+      divx_version_ = ver;
+      divx_build_ = build;
+      divx_packed_ = e == 3 && last == 'p';
+    }
     e = std::sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
     if (e != 4)
       e = std::sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver,
@@ -722,11 +995,25 @@ class Decoder {
     if (std::sscanf(buf, "XviD%d", &build) == 1) xvid_build_ = build;
   }
 
-  // ff_mpeg4_workaround_bugs' choice of the IDCT: Xvid's for a stream
-  // with Xvid user data, or with an Xvid fourcc and no encoder's user
-  // data; once chosen it stays.  Xvid's per-build bug workarounds are not
-  // applied.
-  void choose_idct() {
+  // The GOV header's time code sets the time base (seconds).
+  void parse_gov(Bits& b) {
+    if (!b.peek(23)) return;
+    int hours = b.get(5), minutes = b.get(6);
+    b.skip(1);
+    int seconds = b.get(6);
+    time_base_ = seconds + 60 * (minutes + 60 * hours);
+  }
+
+  // ff_mpeg4_workaround_bugs, after each VOP header: the encoder from the
+  // fourcc when no user data names it, then the workarounds its build
+  // needs and the IDCT (Xvid's for an Xvid stream; once chosen it stays).
+  // xvid_build <= 3 and DivX 5.01 build 20020416 also set FFmpeg's
+  // padding-bug score, which only decides how a VOP whose end does not
+  // parse is concealed: this decoder conceals such a VOP its own way.
+  // FF_BUG_DIRECT_BLOCKSIZE (DivX, libavcodec before build 4655) is set
+  // too, but FFmpeg's direct mode reads the caller's flags, not these,
+  // so it never applies (OpenCV sets none).
+  void workaround_bugs() {
     if (xvid_build_ == -1 && divx_version_ == -1 && lavc_build_ == -1) {
       if (tag_ == fourcc("XVID") || tag_ == fourcc("XVIX") ||
           tag_ == fourcc("RMP4") || tag_ == fourcc("ZMP4") ||
@@ -735,6 +1022,18 @@ class Decoder {
       else if (tag_ == fourcc("DIVX") && vo_type_ == 0 && !vol_control_)
         divx_version_ = 400;
     }
+    if (xvid_build_ >= 0 && divx_version_ >= 0)
+      divx_version_ = divx_build_ = -1;
+    auto u = [](int v) { return static_cast<unsigned>(v); };
+    if (divx_version_ >= 500 && divx_build_ < 1814) bugs_ |= kBugQpelChroma;
+    if (divx_version_ > 502 && divx_build_ < 1814) bugs_ |= kBugQpelChroma2;
+    if (u(xvid_build_) <= 1) bugs_ |= kBugQpelChroma;
+    if (u(xvid_build_) <= 12) bugs_ |= kBugEdge;
+    if (u(xvid_build_) <= 32) bugs_ |= kBugDcClip;
+    if (u(lavc_build_) < 4653) bugs_ |= kBugStdQpel;
+    if (u(lavc_build_) < 4670) bugs_ |= kBugEdge;
+    if (u(lavc_build_) <= 4712) bugs_ |= kBugDcClip;
+    if (u(divx_version_) < 500) bugs_ |= kBugEdge;
     if (xvid_build_ >= 0) xvid_idct_ = true;
   }
 
@@ -743,6 +1042,19 @@ class Decoder {
       xvid::idct(block, dest, stride, add);
     else
       simple_idct(block, dest, stride, add);
+  }
+
+  // A quantisation matrix sent in the VOL: up to 64 values in zigzag
+  // order, a 0 ending it early and the last value repeated after it.
+  void load_matrix(Bits& b, uint8_t* m) {
+    const uint8_t* zz = tables().zigzag;
+    int i = 0, last = 0;
+    for (; i < 64; ++i) {
+      int v = b.get(8);
+      if (v == 0) break;
+      m[zz[i]] = static_cast<uint8_t>(last = v);
+    }
+    for (; i < 64; ++i) m[zz[i]] = static_cast<uint8_t>(last);
   }
 
   void parse_vol(Bits& b) {
@@ -759,23 +1071,23 @@ class Decoder {
     vol_control_ = b.get1();
     if (vol_control_) {
       if (b.get(2) != 1) unsupported("chroma format other than 4:2:0");
-      if (!b.get1()) unsupported("B-VOPs (low_delay 0)");
+      low_delay_ = b.get1();
       if (b.get1()) {  // vbv_parameters
         b.skip(15); b.marker("VOL"); b.skip(15); b.marker("VOL");
         b.skip(15); b.marker("VOL"); b.skip(3); b.skip(11);
         b.marker("VOL"); b.skip(15); b.marker("VOL");
       }
-    } else if (type != 1 && type != 17) {
+    } else if (picture_number_ == 0) {
       // low_delay is 1 only for the Simple and Advanced Simple types
-      unsupported("B-VOPs (low_delay 0)");
+      low_delay_ = type == 1 || type == 17;
     }
     if (b.get(2) != 0) unsupported("non-rectangular shape");
     b.marker("VOL");
-    int res = b.get(16);
-    if (res == 0) corrupt("vop_time_increment_resolution 0");
+    time_res_ = b.get(16);
+    if (time_res_ == 0) corrupt("vop_time_increment_resolution 0");
     b.marker("VOL");
     time_bits_ = 1;
-    while ((1 << time_bits_) < res) ++time_bits_;
+    while ((1 << time_bits_) < time_res_) ++time_bits_;
     if (b.get1()) b.skip(time_bits_);  // fixed_vop_rate
     b.marker("VOL");
     int w = b.get(13);
@@ -786,8 +1098,14 @@ class Decoder {
     if (!b.get1()) unsupported("OBMC (obmc_disable 0)");
     if (b.get(verid == 1 ? 1 : 2)) unsupported("sprites/GMC");
     if (b.get1()) unsupported("not_8_bit");
-    if (b.get1()) unsupported("MPEG quantisation (quant_type 1)");
-    if (verid != 1 && b.get1()) unsupported("quarter-pel");
+    mpeg_quant_ = b.get1();
+    if (mpeg_quant_) {
+      std::memcpy(intra_matrix_, kDefaultIntraMatrix, 64);
+      std::memcpy(inter_matrix_, kDefaultInterMatrix, 64);
+      if (b.get1()) load_matrix(b, intra_matrix_);
+      if (b.get1()) load_matrix(b, inter_matrix_);
+    }
+    quarter_ = verid != 1 && b.get1();
     if (!b.get1()) unsupported("complexity estimation header");
     resync_ = !b.get1();
     if (b.get1()) {
@@ -799,40 +1117,106 @@ class Decoder {
       if (b.get1()) unsupported("reduced-resolution VOPs");
     }
     if (b.get1()) unsupported("scalability");
+    if (b.overrun()) corrupt("VOL cut short");
     if (w <= 0 || h <= 0) corrupt("VOL size 0");
     if (!have_vol_ || w != width || h != height) {
       width = w;
       height = h;
       mbw_ = (w + 15) / 16;
       mbh_ = (h + 15) / 16;
-      cur.init(mbw_, mbh_);
-      ref.init(mbw_, mbh_);
-      ref_ok_ = false;
+      for (Picture& p : pic_) p.init(mbw_, mbh_);
+      has_last_ = has_next_ = false;
+      out = nullptr;
+      edge_w_ = mbw_ * 16;
+      edge_h_ = mbh_ * 16;
+      reset_state();
     }
     have_vol_ = true;
   }
 
-  Status decode_vop(Bits& b) {
+  Status decode_vop(Bits& b, int64_t tag, int64_t* vop_end) {
     if (!have_vol_) corrupt("VOP before any VOL header");
-    int type = b.get(2);
-    if (type == 2) unsupported("B-VOPs");
+    const int type = b.get(2);
     if (type == 3) unsupported("sprites/GMC (S-VOP)");
+    if (type == 2 && low_delay_ && !vol_control_) low_delay_ = false;
+    int incr = 0;
     while (b.get1()) {
+      ++incr;
       if (b.overrun()) corrupt("modulo_time_base runs past the end");
     }
     b.marker("VOP");
-    b.skip(time_bits_);
+    const int64_t ticks = b.get(time_bits_);
+    // TRD and TRB (pp_time, pb_time), as FFmpeg counts them
+    if (type != 2) {
+      last_time_base_ = time_base_;
+      time_base_ += incr;
+      time_ = time_base_ * time_res_ + ticks;
+      pp_time_ = static_cast<int>(time_ - last_non_b_time_);
+      last_non_b_time_ = time_;
+    } else {
+      time_ = (last_time_base_ + incr) * time_res_ + ticks;
+      pb_time_ = static_cast<int>(pp_time_ - (last_non_b_time_ - time_));
+      if (pp_time_ <= pb_time_ || pp_time_ <= pp_time_ - pb_time_ ||
+          pp_time_ <= 0)
+        return kNoFrame;  // out of order: FFmpeg skips the B-VOP
+    }
     b.marker("VOP");
-    if (!b.get1()) return kNoFrame;  // vop_coded 0
+    if (!b.get1()) {  // vop_coded 0
+      skipped_last_ = true;
+      return kNoFrame;
+    }
     rnd_ = type == 1 ? b.get1() : 0;
     dc_thr_ = kDcThreshold[b.get(3)];
     qscale_ = b.get(5);
     if (qscale_ == 0) corrupt("vop_quant 0");
-    fcode_ = type == 1 ? b.get(3) : 1;
+    fcode_ = type != 0 ? b.get(3) : 1;
     if (fcode_ == 0) corrupt("vop_fcode_forward 0");
-    if (type == 1 && !ref_ok_) corrupt("P-VOP without a reference");
+    bcode_ = type == 2 ? b.get(3) : 1;
+    if (bcode_ == 0) corrupt("vop_fcode_backward 0");
     if (b.overrun()) corrupt("VOP header cut short");
-    choose_idct();
+    // divx4/old Xvid/OpenDivX streams that leave low_delay 0
+    if (vo_type_ == 0 && !vol_control_ && divx_version_ == -1 &&
+        picture_number_ == 0)
+      low_delay_ = true;
+    ++picture_number_;
+    if (bugs_ & kBugEdge) {  // set by the VOPs before this one
+      edge_w_ = width;
+      edge_h_ = height;
+    }
+    workaround_bugs();
+    if (quarter_ && (bugs_ & kBugStdQpel))
+      unsupported("quarter-pel of libavcodec builds before 4653 (the old "
+                  "filter FFmpeg applies as FF_BUG_STD_QPEL)");
+    if (type == 1 && !has_next_) corrupt("P-VOP without a reference");
+    if (type == 2 && !has_last_) return kNoFrame;  // FFmpeg skips it
+    cur_->tag = tag;
+    if (type == 2)
+      decode_b(b);
+    else
+      decode_ip(b, type);
+    *vop_end = b.pos();
+    if (type == 2) {
+      out = cur_;
+      out_tag = tag;
+      return kFrame;
+    }
+    Picture* free = last_;
+    last_ = next_;
+    has_last_ = has_next_;
+    next_ = cur_;
+    has_next_ = true;
+    cur_ = free;
+    // FFmpeg's one-frame delay unless low_delay: a reference is given
+    // once the next one is decoded
+    if (low_delay_ || has_last_) {
+      out = low_delay_ ? next_ : last_;
+      out_tag = out->tag;
+      return kFrame;
+    }
+    return kNoFrame;
+  }
+
+  void decode_ip(Bits& b, int type) {
     reset_state();
     resync_x_ = resync_y_ = 0;
     first_line_ = true;
@@ -851,28 +1235,47 @@ class Decoder {
       }
     } catch (const Error& e) {
       if (e.status != kCorrupt) throw;
-      conceal(mx, my);
+      conceal(mx, my, false);
     }
-    std::swap(cur, ref);
-    ref_ok_ = true;
-    return kFrame;
+  }
+
+  void decode_b(Bits& b) {
+    resync_x_ = resync_y_ = 0;
+    std::memset(last_mv_, 0, sizeof(last_mv_));
+    int mx = 0, my = 0;
+    try {
+      for (; my < mbh_; ++my, mx = 0) {
+        for (; mx < mbw_; ++mx) {
+          if (resync_ && (mx || my)) video_packet(b, 2, mx, my);
+          if (mx == 0) std::memset(last_mv_, 0, sizeof(last_mv_));
+          b_mb(b, mx, my);
+          if (b.overrun()) corrupt("VOP cut short");
+        }
+      }
+    } catch (const Error& e) {
+      if (e.status != kCorrupt) throw;
+      conceal(mx, my, true);
+    }
   }
 
   // A VOP damaged from macroblock (mx, my) on, whose header was read: FFmpeg
-  // conceals the damage and gives the frame (and keeps it as the
-  // reference); here the macroblocks from there on are the reference's
-  // (grey without one).
-  void conceal(int mx, int my) {
+  // conceals the damage and gives the frame; here the macroblocks from
+  // there on are the newer reference's (grey without one), or, in a B-VOP,
+  // predicted in direct mode with no delta.
+  void conceal(int mx, int my, bool b_vop) {
     for (; my < mbh_; ++my, mx = 0)
       for (; mx < mbw_; ++mx) {
-        if (ref_ok_) {
-          skip_mb(mx, my);
-          continue;
-        }
-        for (int j = 0; j < 16; ++j) std::memset(cur.y.at(mx * 16, my * 16 + j), 128, 16);
-        for (int j = 0; j < 8; ++j) {
-          std::memset(cur.u.at(mx * 8, my * 8 + j), 128, 8);
-          std::memset(cur.v.at(mx * 8, my * 8 + j), 128, 8);
+        if (b_vop) {
+          direct_mb(mx, my, 0, 0);
+        } else if (has_next_) {
+          copy_mb(*next_, mx, my);
+        } else {
+          for (int j = 0; j < 16; ++j)
+            std::memset(cur_->y.at(mx * 16, my * 16 + j), 128, 16);
+          for (int j = 0; j < 8; ++j) {
+            std::memset(cur_->u.at(mx * 8, my * 8 + j), 128, 8);
+            std::memset(cur_->v.at(mx * 8, my * 8 + j), 128, 8);
+          }
         }
       }
   }
@@ -889,27 +1292,35 @@ class Decoder {
     ac_u_.assign(nb * 16, 0);
     ac_v_.assign(nb * 16, 0);
     qs_.assign(nb, 0);
-    mv_.assign(nb * 2, 0);
+    mv_.assign(nb * 4 * 2, 0);
+    four_mv_.assign(nb, 0);
+    skipped_.assign(nb, 0);
   }
 
-  // A video packet starting at macroblock (mx, my): MCBPC stuffing, the
-  // byte-alignment stuffing, then a resync marker (16 zeros for an I-VOP,
-  // 15 + vop_fcode for a P-VOP, then a one) and the packet header:
+  // A video packet starting at macroblock (mx, my): MCBPC stuffing (I- and
+  // P-VOPs), the byte-alignment stuffing, then a resync marker (16 zeros
+  // for an I-VOP, 15 + vop_fcode for a P-VOP, 15 + the larger of the two
+  // fcodes and 2 for a B-VOP, then a one) and the packet header:
   // macroblock_number, quant_scale and header_extension_code with the
   // fields it repeats (read past, as FFmpeg's
   // ff_mpeg4_decode_video_packet_header does).  The packet starts a slice:
   // DC, AC and motion vector prediction do not reach across it (the
-  // slice's first row; ff_mpeg4_clean_buffers).
+  // slice's first row; ff_mpeg4_clean_buffers).  A B-VOP's skipped
+  // macroblocks take no bits, so a packet may start at a later one.
   void video_packet(Bits& b, int type, int mx, int my) {
-    const int stuffing = type == 0 ? 9 : 10;
-    while (b.peek(stuffing) == 1) b.skip(stuffing);
+    if (type != 2) {
+      const int stuffing = type == 0 ? 9 : 10;
+      while (b.peek(stuffing) == 1) b.skip(stuffing);
+    }
     int64_t p = b.pos();
     int n = 8 - static_cast<int>(p & 7);
     if (b.peek(n) != (1u << (n - 1)) - 1) return;
     b.skip(n);
     int zeros = 0;
     while (zeros < 32 && !b.get1()) ++zeros;
-    const int prefix = type == 0 ? 16 : 15 + fcode_;
+    const int prefix = type == 0   ? 16
+                       : type == 1 ? 15 + fcode_
+                                   : 15 + std::max({fcode_, bcode_, 2});
     if (zeros < prefix || b.overrun()) {
       b.seek(p);
       return;
@@ -917,8 +1328,15 @@ class Decoder {
     if (zeros != prefix) corrupt("resync marker does not match vop_fcode");
     int mb_num = mbw_ * mbh_, bits = 1;
     while ((1 << bits) < mb_num) ++bits;
-    if (static_cast<int>(b.get(bits)) != my * mbw_ + mx)
+    const int here = my * mbw_ + mx;
+    const int at = static_cast<int>(b.get(bits));
+    if (at != here) {
+      if (type == 2 && at > here && skipped_[here]) {
+        b.seek(p);
+        return;
+      }
       corrupt("video packet does not start at the next macroblock");
+    }
     int q = b.get(5);
     if (q) qscale_ = q;
     if (b.get1()) {  // header_extension_code
@@ -928,13 +1346,15 @@ class Decoder {
       b.marker("video packet header");
       b.skip(time_bits_);
       b.marker("video packet header");
-      b.skip(2 + 3 + (type == 1 ? 3 : 0));  // type, dc threshold, fcode
+      // type, dc threshold, fcodes
+      b.skip(2 + 3 + (type != 0 ? 3 : 0) + (type == 2 ? 3 : 0));
     }
     if (b.overrun()) corrupt("video packet header cut short");
     resync_x_ = mx;
     resync_y_ = my;
     first_line_ = true;
-    clean_ac(mx, my);
+    std::memset(last_mv_, 0, sizeof(last_mv_));
+    if (type != 2) clean_ac(mx, my);
   }
 
   // ff_mpeg4_clean_buffers: the AC predictors of the blocks before the
@@ -958,87 +1378,68 @@ class Decoder {
     }
   }
 
-  void p_mb(Bits& b, int mx, int my) {
-    const Tables& t = tables();
-    int cbpc;
-    for (;;) {
-      if (b.get1()) {  // not_coded
-        skip_mb(mx, my);
-        return;
-      }
-      cbpc = t.inter_mcbpc.read(b, "MCBPC");
-      if (cbpc != 20) break;
-      if (b.overrun()) corrupt("stuffing runs past the end");
-    }
-    if (cbpc & 16) unsupported("INTER4V (4MV) macroblocks");
-    if (cbpc & 4) {
-      intra_mb(b, mx, my, true, cbpc);
-      return;
-    }
-    int cbpy = t.cbpy.read(b, "CBPY") ^ 15;
-    if (cbpc & 8) set_qscale(qscale_ + kDquant[b.get(2)]);
-    int cbp = (cbpc & 3) | (cbpy << 2);
-    // 1MV: the median of left, top and top-right; in a slice's first row
-    // (ff_h263_pred_motion) the left one, none at the slice's first
-    // macroblock, and just left of it the median of left, 0 and top-right
-    int px, py;
-    int i = my * mbw_ + mx;
-    auto mvat = [&](int x, int y, int c) {
-      if (x < 0 || x >= mbw_ || y < 0) return 0;
-      return static_cast<int>(mv_[2 * (size_t(y) * mbw_ + x) + c]);
-    };
-    if (first_line_) {
-      if (mx == resync_x_) {
-        px = py = 0;
-      } else if (mx + 1 == resync_x_) {
-        px = mvat(mx + 1, my - 1, 0);
-        py = mvat(mx + 1, my - 1, 1);
-        if (mx) {
-          px = median3(mvat(mx - 1, my, 0), 0, px);
-          py = median3(mvat(mx - 1, my, 1), 0, py);
-        }
-      } else {
-        px = mvat(mx - 1, my, 0);
-        py = mvat(mx - 1, my, 1);
-      }
-    } else {
-      px = median3(mvat(mx - 1, my, 0), mvat(mx, my - 1, 0),
-                   mvat(mx + 1, my - 1, 0));
-      py = median3(mvat(mx - 1, my, 1), mvat(mx, my - 1, 1),
-                   mvat(mx + 1, my - 1, 1));
-    }
-    int vx = motion(b, px), vy = motion(b, py);
-    mv_[2 * i] = static_cast<int16_t>(vx);
-    mv_[2 * i + 1] = static_cast<int16_t>(vy);
-    qs_[i] = static_cast<int8_t>(qscale_);
-    // prediction
-    int dxy = ((vy & 1) << 1) | (vx & 1);
-    int sx = mx * 16 + (vx >> 1), sy = my * 16 + (vy >> 1);
-    predict(ref.y, sx, sy, dxy, rnd_, 16, 16, cur.y.at(mx * 16, my * 16),
-            cur.y.w);
-    int uvdxy = dxy | (vy & 2) | ((vx & 2) >> 1);
-    predict(ref.u, sx >> 1, sy >> 1, uvdxy, rnd_, 8, 8,
-            cur.u.at(mx * 8, my * 8), cur.u.w);
-    predict(ref.v, sx >> 1, sy >> 1, uvdxy, rnd_, 8, 8,
-            cur.v.at(mx * 8, my * 8), cur.v.w);
-    // residual
-    int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
-    for (int n = 0; n < 6; ++n) {
-      if (!(cbp & (32 >> n))) continue;
-      int16_t block[64] = {};
-      inter_block(b, block, qmul, qadd);
-      uint8_t* dst;
-      int stride;
-      block_dest(cur, mx, my, n, &dst, &stride);
-      idct(block, dst, stride, true);
-    }
+  // ---------------------------------------------------- motion vectors
+
+  int16_t* mv_at(int bx, int by) {
+    return &mv_[2 * (size_t(by) * 2 * mbw_ + bx)];
+  }
+  // The vector of 8x8 block (bx, by) of this VOP; 0 outside the picture.
+  int mv_or0(int bx, int by, int c) {
+    if (bx < 0 || bx >= 2 * mbw_ || by < 0) return 0;
+    return mv_at(bx, by)[c];
   }
 
-  int motion(Bits& b, int pred) {
+  // ff_h263_pred_motion: the predictor of block `blk` of macroblock
+  // (mx, my) (0 for a 1MV macroblock): the median of the blocks left (A),
+  // above (B) and above right (C), with the special cases of a slice's
+  // first row.  Block 2 of a slice's first macroblock zeroes A, and FFmpeg
+  // stores that zero into the left macroblock's block 3.
+  void pred_motion(int mx, int my, int blk, int* px, int* py) {
+    static const int off[4] = {2, 1, 1, -1};
+    const int bx = 2 * mx + (blk & 1), by = 2 * my + (blk >> 1);
+    int a0 = mv_or0(bx - 1, by, 0), a1 = mv_or0(bx - 1, by, 1);
+    if (first_line_ && blk < 3) {
+      if (blk == 0) {
+        if (mx == resync_x_) {
+          *px = *py = 0;
+        } else if (mx + 1 == resync_x_) {
+          int c0 = mv_or0(bx + 2, by - 1, 0), c1 = mv_or0(bx + 2, by - 1, 1);
+          *px = mx == 0 ? c0 : median3(a0, 0, c0);
+          *py = mx == 0 ? c1 : median3(a1, 0, c1);
+        } else {
+          *px = a0;
+          *py = a1;
+        }
+        return;
+      }
+      if (blk == 1) {
+        if (mx + 1 == resync_x_) {
+          *px = median3(a0, 0, mv_or0(bx + 1, by - 1, 0));
+          *py = median3(a1, 0, mv_or0(bx + 1, by - 1, 1));
+        } else {
+          *px = a0;
+          *py = a1;
+        }
+        return;
+      }
+      if (mx == resync_x_) {
+        a0 = a1 = 0;
+        if (bx > 0) mv_at(bx - 1, by)[0] = mv_at(bx - 1, by)[1] = 0;
+      }
+      *px = median3(a0, mv_or0(bx, by - 1, 0), mv_or0(bx + 1, by - 1, 0));
+      *py = median3(a1, mv_or0(bx, by - 1, 1), mv_or0(bx + 1, by - 1, 1));
+      return;
+    }
+    const int cx = bx + off[blk];
+    *px = median3(a0, mv_or0(bx, by - 1, 0), mv_or0(cx, by - 1, 0));
+    *py = median3(a1, mv_or0(bx, by - 1, 1), mv_or0(cx, by - 1, 1));
+  }
+
+  int motion(Bits& b, int pred, int fcode) {
     int code = tables().mv.read(b, "motion vector");
     if (code == 0) return pred;
     int sign = b.get1();
-    int shift = fcode_ - 1;
+    int shift = fcode - 1;
     int val = code;
     if (shift) {
       val = (val - 1) << shift;
@@ -1047,22 +1448,303 @@ class Decoder {
     }
     if (sign) val = -val;
     val += pred;
-    int bits = 5 + fcode_;  // wrap into [-2^(bits-1), 2^(bits-1))
+    int bits = 5 + fcode;  // wrap into [-2^(bits-1), 2^(bits-1))
     val = static_cast<int>(static_cast<unsigned>(val) << (32 - bits)) >>
           (32 - bits);
     return val;
   }
 
-  void skip_mb(int mx, int my) {
-    int i = my * mbw_ + mx;
-    mv_[2 * i] = mv_[2 * i + 1] = 0;
-    qs_[i] = static_cast<int8_t>(qscale_);
+  void set_mb_mv(int mx, int my, int vx, int vy) {
+    for (int k = 0; k < 4; ++k) {
+      int16_t* m = mv_at(2 * mx + (k & 1), 2 * my + (k >> 1));
+      m[0] = static_cast<int16_t>(vx);
+      m[1] = static_cast<int16_t>(vy);
+    }
+  }
+
+  // ------------------------------------------------- motion compensation
+
+  // One vector for the macroblock (FFmpeg's mpeg_motion, or qpel_motion
+  // under quarter-pel), luma and chroma.
+  void mc16(const Picture& ref, int mx, int my, int vx, int vy, Op op) {
+    uint8_t buf[3][kWin * kWin];
+    int ys, us, vs;
+    const int ew = edge_w_, eh = edge_h_;
+    int sx, sy, ux, uy, dxy, uvdxy;
+    bool emu;
+    if (quarter_) {
+      dxy = ((vy & 3) << 2) | (vx & 3);
+      sx = mx * 16 + (vx >> 2);
+      sy = my * 16 + (vy >> 2);
+      int cx, cy;
+      if (bugs_ & kBugQpelChroma2) {
+        static const int rtab[8] = {0, 0, 1, 1, 0, 0, 0, 1};
+        cx = (vx >> 1) + rtab[vx & 7];
+        cy = (vy >> 1) + rtab[vy & 7];
+      } else if (bugs_ & kBugQpelChroma) {
+        cx = (vx >> 1) | (vx & 1);
+        cy = (vy >> 1) | (vy & 1);
+      } else {
+        cx = vx / 2;
+        cy = vy / 2;
+      }
+      cx = (cx >> 1) | (cx & 1);
+      cy = (cy >> 1) | (cy & 1);
+      uvdxy = (cx & 1) | ((cy & 1) << 1);
+      ux = mx * 8 + (cx >> 1);
+      uy = my * 8 + (cy >> 1);
+      emu = unsigned(sx) >= unsigned(std::max(ew - (vx & 3) - 15, 0)) ||
+            unsigned(sy) >= unsigned(std::max(eh - (vy & 3) - 15, 0));
+    } else {
+      dxy = ((vy & 1) << 1) | (vx & 1);
+      sx = mx * 16 + (vx >> 1);
+      sy = my * 16 + (vy >> 1);
+      uvdxy = dxy | (vy & 2) | ((vx & 2) >> 1);
+      ux = sx >> 1;
+      uy = sy >> 1;
+      emu = unsigned(sx) >= unsigned(std::max(ew - (vx & 1) - 15, 0)) ||
+            unsigned(sy) >= unsigned(std::max(eh - (vy & 1) - 15, 0));
+    }
+    const uint8_t* y = window(ref.y, sx, sy, 17, 17, ew, eh, emu, buf[0], &ys);
+    const uint8_t* u = window(ref.u, ux, uy, 9, 9, ew >> 1, eh >> 1, emu,
+                              buf[1], &us);
+    const uint8_t* v = window(ref.v, ux, uy, 9, 9, ew >> 1, eh >> 1, emu,
+                              buf[2], &vs);
+    Picture& d = *cur_;
+    if (quarter_)
+      qpel<16>(y, ys, dxy, op, d.y.at(mx * 16, my * 16), d.y.w);
+    else
+      hpel(y, ys, dxy, op, 16, 16, d.y.at(mx * 16, my * 16), d.y.w);
+    hpel(u, us, uvdxy, op, 8, 8, d.u.at(mx * 8, my * 8), d.u.w);
+    hpel(v, vs, uvdxy, op, 8, 8, d.v.at(mx * 8, my * 8), d.v.w);
+  }
+
+  // Four vectors, one per 8x8 luma block, and the chroma vector from their
+  // sum (FFmpeg's apply_8x8 with hpel_motion and chroma_4mv_motion): each
+  // block's source clipped to [-16, width] (chroma [-8, width/2]), its
+  // fraction dropped at the clip's far end.
+  void mc8x8(const Picture& ref, int mx, int my, const int (*mv)[2],
+             Op op) {
+    uint8_t buf[kWin * kWin];
+    int ss;
+    const int ew = edge_w_, eh = edge_h_;
+    Picture& d = *cur_;
+    int cx = 0, cy = 0;
+    for (int i = 0; i < 4; ++i) {
+      const int vx = mv[i][0], vy = mv[i][1];
+      uint8_t* dst = d.y.at(mx * 16 + (i & 1) * 8, my * 16 + (i >> 1) * 8);
+      int sx, sy, dxy;
+      bool emu;
+      if (quarter_) {
+        dxy = ((vy & 3) << 2) | (vx & 3);
+        sx = std::clamp(mx * 16 + (vx >> 2) + (i & 1) * 8, -16, width);
+        if (sx == width) dxy &= ~3;
+        sy = std::clamp(my * 16 + (vy >> 2) + (i >> 1) * 8, -16, height);
+        if (sy == height) dxy &= ~12;
+        emu = unsigned(sx) >= unsigned(std::max(ew - (vx & 3) - 7, 0)) ||
+              unsigned(sy) >= unsigned(std::max(eh - (vy & 3) - 7, 0));
+        const uint8_t* s = window(ref.y, sx, sy, 9, 9, ew, eh, emu, buf, &ss);
+        qpel<8>(s, ss, dxy, op, dst, d.y.w);
+        cx += vx / 2;
+        cy += vy / 2;
+      } else {
+        dxy = 0;
+        sx = std::clamp(mx * 16 + (i & 1) * 8 + (vx >> 1), -16, width);
+        if (sx != width) dxy |= vx & 1;
+        sy = std::clamp(my * 16 + (i >> 1) * 8 + (vy >> 1), -16, height);
+        if (sy != height) dxy |= (vy & 1) << 1;
+        emu = unsigned(sx) >= unsigned(std::max(ew - (vx & 1) - 7, 0)) ||
+              unsigned(sy) >= unsigned(std::max(eh - (vy & 1) - 7, 0));
+        const uint8_t* s = window(ref.y, sx, sy, 9, 9, ew, eh, emu, buf, &ss);
+        hpel(s, ss, dxy, op, 8, 8, dst, d.y.w);
+        cx += vx;
+        cy += vy;
+      }
+    }
+    cx = round_chroma(cx);
+    cy = round_chroma(cy);
+    int dxy = ((cy & 1) << 1) | (cx & 1);
+    int ux = std::clamp(mx * 8 + (cx >> 1), -8, width >> 1);
+    if (ux == (width >> 1)) dxy &= ~1;
+    int uy = std::clamp(my * 8 + (cy >> 1), -8, height >> 1);
+    if (uy == (height >> 1)) dxy &= ~2;
+    const bool emu =
+        unsigned(ux) >= unsigned(std::max((ew >> 1) - (dxy & 1) - 7, 0)) ||
+        unsigned(uy) >= unsigned(std::max((eh >> 1) - (dxy >> 1) - 7, 0));
+    const uint8_t* s =
+        window(ref.u, ux, uy, 9, 9, ew >> 1, eh >> 1, emu, buf, &ss);
+    hpel(s, ss, dxy, op, 8, 8, d.u.at(mx * 8, my * 8), d.u.w);
+    s = window(ref.v, ux, uy, 9, 9, ew >> 1, eh >> 1, emu, buf, &ss);
+    hpel(s, ss, dxy, op, 8, 8, d.v.at(mx * 8, my * 8), d.v.w);
+  }
+
+  void copy_mb(const Picture& ref, int mx, int my) {
     int x = mx * 16, y = my * 16;
     for (int j = 0; j < 16; ++j)
-      std::memcpy(cur.y.at(x, y + j), ref.y.at(x, y + j), 16);
+      std::memcpy(cur_->y.at(x, y + j), ref.y.at(x, y + j), 16);
     for (int j = 0; j < 8; ++j) {
-      std::memcpy(cur.u.at(x / 2, y / 2 + j), ref.u.at(x / 2, y / 2 + j), 8);
-      std::memcpy(cur.v.at(x / 2, y / 2 + j), ref.v.at(x / 2, y / 2 + j), 8);
+      std::memcpy(cur_->u.at(x / 2, y / 2 + j), ref.u.at(x / 2, y / 2 + j), 8);
+      std::memcpy(cur_->v.at(x / 2, y / 2 + j), ref.v.at(x / 2, y / 2 + j), 8);
+    }
+  }
+
+  // ------------------------------------------------------- macroblocks
+
+  void p_mb(Bits& b, int mx, int my) {
+    const Tables& t = tables();
+    const int i = my * mbw_ + mx;
+    int cbpc;
+    for (;;) {
+      if (b.get1()) {  // not_coded: a zero vector, through the edge test
+        set_mb_mv(mx, my, 0, 0);
+        qs_[i] = static_cast<int8_t>(qscale_);
+        skipped_[i] = 1;
+        mc16(*next_, mx, my, 0, 0, kPut);
+        return;
+      }
+      cbpc = t.inter_mcbpc.read(b, "MCBPC");
+      if (cbpc != 20) break;
+      if (b.overrun()) corrupt("stuffing runs past the end");
+    }
+    if (cbpc & 4) {
+      intra_mb(b, mx, my, true, cbpc);
+      return;
+    }
+    int cbpy = t.cbpy.read(b, "CBPY") ^ 15;
+    if (cbpc & 8) set_qscale(qscale_ + kDquant[b.get(2)]);
+    int cbp = (cbpc & 3) | (cbpy << 2);
+    qs_[i] = static_cast<int8_t>(qscale_);
+    const Op op = rnd_ ? kPutNoRnd : kPut;
+    if (cbpc & 16) {  // INTER4V: a vector per 8x8 block
+      int mv[4][2];
+      for (int k = 0; k < 4; ++k) {
+        int px, py;
+        pred_motion(mx, my, k, &px, &py);
+        mv[k][0] = motion(b, px, fcode_);
+        mv[k][1] = motion(b, py, fcode_);
+        int16_t* m = mv_at(2 * mx + (k & 1), 2 * my + (k >> 1));
+        m[0] = static_cast<int16_t>(mv[k][0]);
+        m[1] = static_cast<int16_t>(mv[k][1]);
+      }
+      four_mv_[i] = 1;
+      mc8x8(*next_, mx, my, mv, op);
+    } else {
+      int px, py;
+      pred_motion(mx, my, 0, &px, &py);
+      int vx = motion(b, px, fcode_), vy = motion(b, py, fcode_);
+      set_mb_mv(mx, my, vx, vy);
+      mc16(*next_, mx, my, vx, vy, op);
+    }
+    residual(b, mx, my, cbp);
+  }
+
+  // The coded blocks of an inter macroblock, added to its prediction.
+  void residual(Bits& b, int mx, int my, int cbp) {
+    int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
+    if (mpeg_quant_) qmul = 1, qadd = 0;
+    for (int n = 0; n < 6; ++n) {
+      if (!(cbp & (32 >> n))) continue;
+      int16_t block[64] = {};
+      tcoef(b, tables().inter, block, tables().zigzag, 0, qmul, qadd);
+      if (mpeg_quant_) dequant_inter_mpeg(block);
+      uint8_t* dst;
+      int stride;
+      block_dest(*cur_, mx, my, n, &dst, &stride);
+      idct(block, dst, stride, true);
+    }
+  }
+
+  // MPEG inverse quantisation of an inter block (FFmpeg's
+  // dct_unquantize_mpeg2_inter: ((2|level| + 1) * 2q * W) >> 5, and the
+  // mismatch control: the sum's parity toggles coefficient 63).
+  void dequant_inter_mpeg(int16_t* block) const {
+    const int q = 2 * qscale_;
+    int sum = -1;
+    for (int k = 0; k < 64; ++k) {
+      int level = block[k];
+      if (!level) continue;
+      int a = ((2 * std::abs(level) + 1) * q * inter_matrix_[k]) >> 5;
+      level = level < 0 ? -a : a;
+      block[k] = static_cast<int16_t>(level);
+      sum += level;
+    }
+    block[63] = static_cast<int16_t>(block[63] ^ (sum & 1));
+  }
+
+  // A B-VOP macroblock: skipped where the newer reference's is not coded
+  // (the older reference's pixels); else modb, mb_type, cbpb and dbquant,
+  // then direct (the co-located vectors scaled by TRB/TRD, plus a delta),
+  // interpolated, backward or forward prediction and the residual.
+  void b_mb(Bits& b, int mx, int my) {
+    const int i = my * mbw_ + mx;
+    if (skipped_[i]) {
+      mc16(*last_, mx, my, 0, 0, kPut);
+      return;
+    }
+    int cbp = 0, mode = 0;  // 0 direct, 1 interpolate, 2 backward, 3 forward
+    bool delta = false;
+    if (!b.get1()) {  // modb: more than a direct macroblock without data
+      const bool no_cbp = b.get1();
+      while (mode < 4 && !b.get1()) ++mode;
+      if (mode == 4) corrupt("invalid B macroblock type");
+      if (!no_cbp) cbp = b.get(6);
+      if (mode != 0 && cbp && b.get1())  // dbquant
+        set_qscale(qscale_ + (b.get1() ? 2 : -2));
+      delta = mode == 0;
+    }
+    if (mode == 0) {
+      int dx = 0, dy = 0;
+      if (delta) {
+        dx = motion(b, 0, 1);
+        dy = motion(b, 0, 1);
+      }
+      direct_mb(mx, my, dx, dy);
+    } else {
+      int f[2] = {}, w[2] = {};
+      if (mode == 1 || mode == 3) {
+        f[0] = last_mv_[0][0] = motion(b, last_mv_[0][0], fcode_);
+        f[1] = last_mv_[0][1] = motion(b, last_mv_[0][1], fcode_);
+      }
+      if (mode == 1 || mode == 2) {
+        w[0] = last_mv_[1][0] = motion(b, last_mv_[1][0], bcode_);
+        w[1] = last_mv_[1][1] = motion(b, last_mv_[1][1], bcode_);
+      }
+      if (mode != 2) mc16(*last_, mx, my, f[0], f[1], kPut);
+      if (mode != 3) mc16(*next_, mx, my, w[0], w[1], mode == 1 ? kAvg : kPut);
+    }
+    residual(b, mx, my, cbp);
+  }
+
+  // Direct mode (ff_mpeg4_set_direct_mv): per 8x8 block of the co-located
+  // macroblock in the newer reference (one vector for a 1MV one), its
+  // vector p gives the forward vector p * TRB / TRD + delta and the
+  // backward one p * (TRB - TRD) / TRD, or forward - p with a delta (C's
+  // division toward zero).  Four 8x8 predictions for a 4MV co-located
+  // macroblock, and under quarter-pel for any.
+  void direct_mb(int mx, int my, int dx, int dy) {
+    const int i = my * mbw_ + mx;
+    int fwd[4][2], bwd[4][2];
+    const int nblk = four_mv_[i] ? 4 : 1;
+    for (int k = 0; k < nblk; ++k) {
+      const int16_t* p = mv_at(2 * mx + (k & 1), 2 * my + (k >> 1));
+      for (int c = 0; c < 2; ++c) {
+        const int d = c ? dy : dx, pv = p[c];
+        fwd[k][c] = pv * pb_time_ / pp_time_ + d;
+        bwd[k][c] = d ? fwd[k][c] - pv : pv * (pb_time_ - pp_time_) / pp_time_;
+      }
+    }
+    for (int k = nblk; k < 4; ++k)
+      for (int c = 0; c < 2; ++c) {
+        fwd[k][c] = fwd[0][c];
+        bwd[k][c] = bwd[0][c];
+      }
+    const bool eight = four_mv_[i] || quarter_;
+    if (eight) {
+      mc8x8(*last_, mx, my, fwd, kPut);
+      mc8x8(*next_, mx, my, bwd, kAvg);
+    } else {
+      mc16(*last_, mx, my, fwd[0][0], fwd[0][1], kPut);
+      mc16(*next_, mx, my, bwd[0][0], bwd[0][1], kAvg);
     }
   }
 
@@ -1130,31 +1812,36 @@ class Decoder {
     bool dc_vlc = qscale_ < dc_thr_;
     if (dquant) set_qscale(qscale_ + kDquant[b.get(2)]);
     int i = my * mbw_ + mx;
-    mv_[2 * i] = mv_[2 * i + 1] = 0;
+    set_mb_mv(mx, my, 0, 0);
     qs_[i] = static_cast<int8_t>(qscale_);
     int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
     for (int n = 0; n < 6; ++n) {
       int16_t block[64] = {};
       intra_block(b, block, mx, my, n, (cbp & (32 >> n)) != 0, dc_vlc);
-      // H.263 inverse quantisation (intra)
       block[0] = static_cast<int16_t>(block[0] *
                                       (n < 4 ? y_dc_scale(qscale_)
                                              : c_dc_scale(qscale_)));
       for (int k = 1; k < 64; ++k) {
         int level = block[k];
-        if (level)
-          block[k] = static_cast<int16_t>(level < 0 ? level * qmul - qadd
-                                                    : level * qmul + qadd);
+        if (!level) continue;
+        if (mpeg_quant_) {  // FFmpeg's dct_unquantize_mpeg2_intra
+          int a = (std::abs(level) * 2 * qscale_ * intra_matrix_[k]) >> 4;
+          level = level < 0 ? -a : a;
+        } else {  // H.263
+          level = level < 0 ? level * qmul - qadd : level * qmul + qadd;
+        }
+        block[k] = static_cast<int16_t>(level);
       }
       uint8_t* dst;
       int stride;
-      block_dest(cur, mx, my, n, &dst, &stride);
+      block_dest(*cur_, mx, my, n, &dst, &stride);
       idct(block, dst, stride, false);
     }
   }
 
   // DC prediction: returns the quantised DC (`diff` plus the predictor),
-  // stores its reconstruction; *dir = 1 when predicted from the top.
+  // stores its reconstruction (clipped to [0, 2047]; kept above 2047 under
+  // FFmpeg's FF_BUG_DC_CLIP); *dir = 1 when predicted from the top.
   int pred_dc(int mx, int my, int n, int diff, int* dir) {
     std::vector<int16_t>& v = n < 4 ? dc_y_ : (n == 4 ? dc_u_ : dc_v_);
     auto dc = [&](int dx, int dy) {
@@ -1181,7 +1868,7 @@ class Decoder {
     pred = (pred + (scale >> 1)) / scale;
     int level = diff + pred;
     int rec = level * scale;
-    if (rec & ~2047) rec = rec < 0 ? 0 : 2047;
+    if (rec & ~2047) rec = rec < 0 ? 0 : (bugs_ & kBugDcClip) ? rec : 2047;
     *dc_ptr(mx, my, n) = static_cast<int16_t>(rec);
     return level;
   }
@@ -1216,13 +1903,9 @@ class Decoder {
     pred_ac(block, mx, my, n, dir);
   }
 
-  void inter_block(Bits& b, int16_t* block, int qmul, int qadd) {
-    tcoef(b, tables().inter, block, tables().zigzag, 0, qmul, qadd);
-  }
-
   // TCOEF run/level pairs from scan position `pos` until `last`; levels
   // are scaled by qmul/qadd (1/0 for intra, which is dequantised after AC
-  // prediction).
+  // prediction, and under MPEG quantisation).
   void tcoef(Bits& b, const RunLevel& rl, int16_t* block, const uint8_t* scan,
              int pos, int qmul, int qadd) {
     for (;;) {
@@ -1316,7 +1999,7 @@ int mpeg4dec_open(const uint8_t* extra, int64_t n, uint32_t tag, void** out,
                   char* msg, int msg_len) {
   Decoder* d = new Decoder(tag);
   try {
-    if (n > 0) d->feed(extra, n, true);
+    if (n > 0) d->headers(extra, n);
   } catch (const Error& e) {
     put_msg(e.msg, msg, msg_len);
     delete d;
@@ -1326,17 +2009,22 @@ int mpeg4dec_open(const uint8_t* extra, int64_t n, uint32_t tag, void** out,
   return kFrame;
 }
 
-// Decode one sample.  0: a frame, *w and *h set (a concealed one too); 1:
-// no frame (vop_coded 0, a one-byte DivX/Xvid skip); 2: a tool it does
-// not decode (msg names it); 3: no VOP, or a corrupt or truncated VOP
-// header (no frame; the reference stays).
-int mpeg4dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,
-                    int* h, char* msg, int msg_len) {
+// Decode one sample, tagged `tag` by the caller.  0: a frame is given
+// (display order: with B-VOPs, a reference once the next one is decoded),
+// *w, *h and *out_tag (the tag of the sample it was decoded from) set; 1:
+// no frame (vop_coded 0, a one-byte DivX/Xvid skip, a reference held back,
+// a B-VOP FFmpeg skips); 2: a tool it does not decode (msg names it); 3:
+// no VOP, or a corrupt or truncated VOP header (no frame; the references
+// stay).
+int mpeg4dec_decode(void* handle, const uint8_t* data, int64_t n, int64_t tag,
+                    int* w, int* h, int64_t* out_tag, char* msg,
+                    int msg_len) {
   Decoder* d = static_cast<Decoder*>(handle);
   try {
-    Status st = d->feed(data, n, false);
+    Status st = d->decode(data, n, tag);
     *w = d->width;
     *h = d->height;
+    *out_tag = d->out_tag;
     return st;
   } catch (const Error& e) {
     put_msg(e.msg, msg, msg_len);
@@ -1344,24 +2032,37 @@ int mpeg4dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,
   }
 }
 
-// The last decoded frame as h*w*3 RGB bytes.  0: done; 4: cap too small.
+// The end of the stream: 0 and the frame held back (as mpeg4dec_decode),
+// or 1 when none is.
+int mpeg4dec_flush(void* handle, int* w, int* h, int64_t* out_tag) {
+  Decoder* d = static_cast<Decoder*>(handle);
+  Status st = d->flush();
+  *w = d->width;
+  *h = d->height;
+  *out_tag = d->out_tag;
+  return st;
+}
+
+// The frame last given as h*w*3 RGB bytes.  0: done; 4: cap too small or
+// no frame.
 int mpeg4dec_rgb(void* handle, uint8_t* rgb, int64_t cap) {
   Decoder* d = static_cast<Decoder*>(handle);
-  if (int64_t(d->width) * d->height * 3 > cap) return kSmall;
-  Picture& p = d->ref;
+  if (!d->out || int64_t(d->width) * d->height * 3 > cap) return kSmall;
+  const Picture& p = *d->out;
   swscale_rgb::to_rgb(p.y.px.data(), p.y.w, p.u.px.data(), p.v.px.data(),
                       p.u.w, d->width, d->height, rgb, true);
   return kFrame;
 }
 
-// The last decoded frame's I420 planes, cropped: y (h*w), u and v
-// (ceil(h/2)*ceil(w/2) each).  0: done; 4: a cap too small.
+// The frame last given as I420 planes, cropped: y (h*w), u and v
+// (ceil(h/2)*ceil(w/2) each).  0: done; 4: a cap too small or no frame.
 int mpeg4dec_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v,
                     int64_t ycap, int64_t ccap) {
   Decoder* d = static_cast<Decoder*>(handle);
   int w = d->width, h = d->height, cw = (w + 1) / 2, ch = (h + 1) / 2;
-  if (int64_t(w) * h > ycap || int64_t(cw) * ch > ccap) return kSmall;
-  Picture& p = d->ref;
+  if (!d->out || int64_t(w) * h > ycap || int64_t(cw) * ch > ccap)
+    return kSmall;
+  const Picture& p = *d->out;
   for (int j = 0; j < h; ++j) std::memcpy(y + int64_t(j) * w, p.y.at(0, j), w);
   for (int j = 0; j < ch; ++j) {
     std::memcpy(u + int64_t(j) * cw, p.u.at(0, j), cw);

@@ -12,7 +12,9 @@ each scan in a DHT before it.
 ``write_avi`` muxes frames into an AVI 1.0 file: ``hdrl`` with one
 ``vids`` stream (fourcc MJPG for JPEG frames, or another such as XVID for
 MPEG-4 Part 2 samples), ``movi`` with one ``00dc`` chunk per frame, and an
-``idx1`` index.
+``idx1`` index.  ``pack_divx`` packs decode-order MPEG-4 Part 2 samples
+with B-VOPs as DivX 5 stores them in AVI (each B-VOP's chunk a display
+slot earlier, N-VOP placeholders filling the slots left over).
 """
 
 from __future__ import annotations
@@ -544,3 +546,81 @@ def write_avi(path: str, frames: list, width: int, height: int,
                                                         b"".join(index))
     with open(path, "wb") as fh:
         fh.write(b"RIFF" + struct.pack("<I", len(body) + 4) + b"AVI " + body)
+
+
+def vop_time_bits(sample: bytes) -> int:
+    """vop_time_increment's width from the VOL in ``sample``."""
+    data = sample[sample.index(b"\0\0\1\x20") + 4:]
+    bits = "".join(f"{b:08b}" for b in data[:16])
+    q = 9                                   # random_accessible, type
+    if bits[q] == "1":                      # is_object_layer_identifier
+        q += 7
+    q += 1
+    if bits[q:q + 4] == "1111":             # extended pixel aspect ratio
+        q += 16
+    q += 4
+    if bits[q] == "1":                      # vol_control_parameters
+        q += 3
+        if bits[q + 1] == "1":              # vbv_parameters
+            q += 79
+        q += 1
+    q += 1 + 2 + 1                          # shape, marker
+    res = int(bits[q:q + 16], 2)
+    return max(1, (res - 1).bit_length())
+
+
+def with_user_data(sample: bytes, user: bytes) -> bytes:
+    """``sample`` with its user data replaced by ``user`` (the text), or
+    ``user`` put in front of its first VOP when it has none."""
+    ud = b"\0\0\1\xb2"
+    if ud in sample:
+        i = sample.index(ud)
+        j = sample.index(b"\0\0\1", i + 4)
+        return sample[:i] + ud + user + sample[j:]
+    i = sample.index(b"\0\0\1\xb6")
+    return sample[:i] + ud + user + sample[i:]
+
+
+def n_vop(vop: bytes, time_bits: int) -> bytes:
+    """An N-VOP: the header of the VOP in ``vop`` as a P-VOP with
+    vop_coded 0 (its modulo_time_base and vop_time_increment kept),
+    stuffed to a byte."""
+    start = vop.index(b"\0\0\1\xb6")
+    bits = "".join(f"{b:08b}" for b in vop[start + 4:start + 16])
+    q = 2
+    while bits[q] == "1":                   # modulo_time_base
+        q += 1
+    out = "01" + bits[2:q + 1 + 1 + time_bits + 1] + "0"
+    out += "0" + "1" * (-(len(out) + 1) % 8)
+    return b"\0\0\1\xb6" + int(out, 2).to_bytes(len(out) // 8, "big")
+
+
+def pack_divx(samples: list, user_data: bytes = b"DivX503b1393p",
+              nvop: bool = True) -> list:
+    """Decode-order MPEG-4 Part 2 samples (one VOP each, the VOL in the
+    first) packed as DivX 5 stores B-VOPs in AVI: an I- or P-VOP that B-VOPs
+    follow shares its chunk with the first of them, each further B-VOP
+    takes a chunk of its own, and an N-VOP fills the chunk left over (none
+    with ``nvop`` False), so each chunk stands for one display slot.
+    ``user_data`` (None: left as it is) becomes the first sample's user
+    data; DivX's ends in ``p``, which tells a decoder the stream is
+    packed."""
+    time_bits = vop_time_bits(samples[0])
+    kinds = [s[s.index(b"\0\0\1\xb6") + 4] >> 6 for s in samples]
+    out, i = [], 0
+    while i < len(samples):
+        j = i + 1
+        while j < len(samples) and kinds[j] == 2:
+            j += 1
+        bs = samples[i + 1:j]
+        if kinds[i] == 2 or not bs:
+            out.append(samples[i])
+        else:
+            out.append(samples[i] + bs[0])
+            out += bs[1:]
+            if nvop:
+                out.append(n_vop(bs[-1], time_bits))
+        i = j
+    if user_data is not None:
+        out[0] = with_user_data(out[0], user_data)
+    return out

@@ -9,9 +9,11 @@ sequence with three I-VOPs and both rounding types); the committed
 fixtures (the FHD headline as cv2 writes mp4v; a small XVID AVI coded with
 AC prediction and DQUANT, which cv2's writer does not use), whose cv2
 decode must still equal its recorded sha256 (the card holds the port to
-them); refusals (an ``avc1`` sample entry, a VP9 WebM, VOL
-headers asking for B-VOPs, quarter-pel, interlace and MPEG quantisation, a
-B-VOP); truncated files and a not-coded VOP as cv2 reads them; and, end to
+them); refusals (an ``avc1`` sample entry, a VP9 WebM, a VOL header
+asking for interlace) and the Advanced Simple tools a VOL or VOP header
+switches on (low_delay 0, quarter-pel, MPEG quantisation, a B-VOP) held
+to cv2 (tests/test_torch_mpeg4_asp.py holds each ASP tool to it);
+truncated files and a not-coded VOP as cv2 reads them; and, end to
 end, ``slam_main`` on a 540x960 ``mp4v`` file and the video calibration on
 an ``mp4v`` file of board renders against the JAX package reading the same
 files through cv2.
@@ -20,7 +22,8 @@ Rewrite the fixtures with ``PYTHONPATH=. python tests/test_torch_mp4.py
 --write-fixture`` (needs cv2's FFmpeg ``mp4v`` writer and the libavcodec
 its wheel carries), and the small ones the card also holds (video
 packets, an Xvid-tagged stream, odd heights, uncompressed AVIs, MJPEG in
-MOV) with ``--write-small-fixtures``."""
+MOV) with ``--write-small-fixtures``; each also rewrites its MPEG-4 ASP
+counterparts (tests/test_torch_mpeg4_asp.py)."""
 
 import hashlib
 import json
@@ -84,9 +87,20 @@ def cv2_luma(path, hw):
 
 
 def port_luma(video):
+    """The Y planes of the frames the port shows, in display order (as
+    ``MediaSource`` gives their RGB)."""
     dec = mpeg4.Decoder(video.extradata, video.fourcc)
-    out = [dec.decode_yuv(video.read(f)) for f in video.frames]
-    return [p[0] for p in out if p is not None]
+    out = []
+    for i, f in enumerate(video.frames):
+        planes = dec.decode_yuv(video.read(f), i)
+        if dec.failed:
+            return out
+        if planes is not None and video.frames[dec.tag][2]:
+            out.append(planes[0])
+    planes = dec.flush_yuv()
+    if planes is not None and video.frames[dec.tag][2]:
+        out.append(planes[0])
+    return out
 
 
 def _sha(a) -> str:
@@ -144,19 +158,8 @@ class _Bits:
 
 
 def _vol_time_bits(extradata: bytes) -> int:
-    """vop_time_increment's width from a VOL written as cv2 writes it."""
-    b = _Bits(extradata[extradata.index(b"\0\0\1\x20") + 4:])
-    b.get(9)
-    if b.get(1):
-        b.get(7)
-    if b.get(4) == 15:
-        b.get(16)
-    if b.get(1):
-        b.get(3)
-        assert b.get(1) == 0          # no vbv_parameters
-    b.get(3)
-    res = b.get(16)
-    return max(1, (res - 1).bit_length())
+    """vop_time_increment's width from a VOL."""
+    return mjpeg.vop_time_bits(extradata)
 
 
 def _vop_kinds(samples, time_bits):
@@ -191,13 +194,17 @@ def test_moving_sequence_two_gops_both_roundings(tmp_path, scene_frames):
 
 
 def lavc_encode(codec_name: str, frames, options: dict,
-                stats_in: bytes = None, pts: bool = True):
+                stats_in: bytes = None, pts: bool = True,
+                matrices: tuple = None):
     """``frames`` (RGB) coded by encoder ``codec_name`` of the
     libavcodec that cv2's wheel carries, through ctypes, with encoder
     ``options`` (AVOptions) that cv2's writer does not pass: (the coded
     packets, the codec context).  ``stats_in`` is a first pass's
     statistics (``pass1_stats``) for a second pass.  With ``pts`` the
-    frames are stamped 0, 1, 2, ..."""
+    frames are stamped 0, 1, 2, ...  ``matrices`` (intra, inter: 64
+    values each in raster order, or None) are the quantisation matrices
+    of an MPEG-quantised stream (``mpeg_quant``), which the encoder sends
+    in its VOL."""
     import ctypes
     import glob
 
@@ -240,6 +247,17 @@ def lavc_encode(codec_name: str, frames, options: dict,
         off = _stats_out_offset(avu, ctx) + 8
         ctypes.c_void_p.from_address(ctx + off).value = \
             ctypes.addressof(keep)
+    if matrices is not None:
+        # AVCodecContext's intra_matrix and inter_matrix: the pointers
+        # after mb_decision (AVOption "mbd"); the context keeps them
+        keep_m = [None if m is None else (ctypes.c_uint16 * 64)(*m)
+                  for m in matrices]
+        opt = avu.av_opt_find(ctx, b"mbd", None, 0, 0)
+        off = (ctypes.c_int.from_address(opt + 16).value + 4 + 7) & ~7
+        for k, m in enumerate(keep_m):
+            if m is not None:
+                ctypes.c_void_p.from_address(ctx + off + 8 * k).value = \
+                    ctypes.addressof(m)
     assert avc.avcodec_open2(ctx, codec, None) == 0
     frame = avu.av_frame_alloc()
     # AVFrame: data[8], linesize[8], extended_data, width, height,
@@ -374,6 +392,9 @@ def write_fixture() -> None:
                             "rgb_sha256": [_sha(f) for f in rgb],
                             "y_sha256": [_sha(f) for f in luma]}
     DIGESTS.write_text(json.dumps(table, indent=1) + "\n")
+    import test_torch_mpeg4_asp
+
+    test_torch_mpeg4_asp.write_headline()   # the ASP one
 
 
 @pytest.mark.parametrize("name", ["headline_mp4v.mp4",
@@ -685,21 +706,34 @@ def test_vol_writer_reproduces_the_fixture_vol():
 ])
 def test_vol_tools_not_decoded_raise(tmp_path, fields, tool):
     """The fixture's VOL with one tool switched on, in the MP4's esds and
-    in band in an XVID AVI: ValueError naming the tool."""
+    in band in an XVID AVI (its first four samples).  Interlace, which the
+    port does not decode: ValueError naming it.  The Advanced Simple tools
+    it decodes (low_delay 0: the one-frame delay of a stream with B-VOPs;
+    quarter-pel and MPEG quantisation read into samples coded without
+    them): every frame equals cv2's."""
     video = mp4.Mp4Video(str(FIXTURE))
     extra = _swap_vol(video.extradata, vol(**fields))
-    first = video.read(video.frames[0])
+    samples = [video.read(f) for f in video.frames[:4]]
     video.close()
     path = tmp_path / "tool.mp4"
     _with_entry(FIXTURE, path,
                 lambda k, f, kids: _box(k, f + _esds(extra)))
-    with pytest.raises(ValueError, match=tool):
-        MediaSource(video_path=str(path), use_photos=False)
-    path = tmp_path / "tool.avi"
-    mjpeg.write_avi(str(path), [extra + first], 1920, 1080, fourcc=b"XVID")
-    src = MediaSource(video_path=str(path), use_photos=False)
-    with pytest.raises(ValueError, match=tool):
-        src.next_frame()
+    avi_path = tmp_path / "tool.avi"
+    mjpeg.write_avi(str(avi_path), [extra + samples[0]] + samples[1:], 1920,
+                    1080, fourcc=b"XVID")
+    if tool == "interlace":
+        with pytest.raises(ValueError, match=tool):
+            MediaSource(video_path=str(path), use_photos=False)
+        src = MediaSource(video_path=str(avi_path), use_photos=False)
+        with pytest.raises(ValueError, match=tool):
+            src.next_frame()
+        return
+    for p, n in ((path, 32), (avi_path, 4)):
+        want = cv2_rgb(p)
+        got = list(MediaSource(video_path=str(p), use_photos=False))
+        assert len(got) == len(want) == n
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_resync_enabled_vol_without_markers_decodes(tmp_path, scene_frames):
@@ -744,21 +778,27 @@ def test_edit_list_applied_as_ffmpeg(tmp_path, scene_frames, duration,
 
 
 def test_b_vop_raises(tmp_path, scene_frames):
+    """B-VOPs, which the port now decodes: a P-VOP of cv2's mp4v stream
+    turned into a B-VOP by its coding type, whose time does not lie
+    between its references' (FFmpeg skips such a B-VOP: five frames), and
+    libavcodec's ``bf`` 1 stream (display order, one frame late): every
+    frame equals cv2's, in RGB and Y."""
     frames = [np.ascontiguousarray(cv2.resize(f, (64, 48)))
-              for f in scene_frames[:3]]
+              for f in scene_frames[:6]]
     path = tmp_path / "b.mp4"
     write_cv2_video(path, frames, "mp4v")
-    video = mp4.Mp4Video(str(path))
-    samples = [video.read(f) for f in video.frames]
-    dec = mpeg4.Decoder(video.extradata)
-    video.close()
-    assert dec.decode(samples[0]) is not None
-    p = samples[1]
-    i = p.index(b"\0\0\1\xb6") + 4
-    assert p[i] >> 6 == 1                         # a P-VOP
-    b_vop = p[:i] + bytes([p[i] ^ 0xC0]) + p[i + 1:]
-    with pytest.raises(ValueError, match="B-VOPs"):
-        dec.decode(b_vop)
+    samples = xvid_avi_from_mp4(path, tmp_path / "p.avi")
+    heads = [s.index(b"\0\0\1\xb6") + 4 for s in samples]
+    k = next(k for k in range(2, 6) if samples[k][heads[k]] >> 6 == 1)
+    p, i = samples[k], heads[k]                   # a P-VOP after two VOPs
+    samples[k] = p[:i] + bytes([p[i] ^ 0xC0]) + p[i + 1:]
+    flipped = tmp_path / "flipped.avi"
+    mjpeg.write_avi(str(flipped), samples, 64, 48, fourcc=b"XVID")
+    _check_equal_cv2(flipped, (48, 64), 5)
+    bf = tmp_path / "bf.avi"
+    mjpeg.write_avi(str(bf), lavc_encode("mpeg4", frames, {"bf": "1"})[0],
+                    64, 48, fourcc=b"XVID")
+    _check_equal_cv2(bf, (48, 64), 6)
 
 
 @pytest.mark.parametrize("kind,codec", [(b"avc1", "H.264"),
@@ -991,12 +1031,14 @@ def test_slam_main_on_mp4v_against_jax_video_run(tmp_path):
     slam_main_against_jax(tmp_path, "mp4v", "mp4")
 
 
-def slam_main_against_jax(tmp_path, fourcc: str, ext: str) -> None:
+def slam_main_against_jax(tmp_path, fourcc: str, ext: str,
+                          write=None) -> None:
     """``slam_main`` on 14 frames at 540x960 written by cv2's ``fourcc``
-    writer into a .``ext`` file: the port's frames equal the JAX package's
-    (cv2's) bit for bit, the cameras as many as each of the JAX package's
-    RANSAC seeds 0-2 give, the ATE within 0.02 of the extent of their
-    median (run in a process of its own with ``PYTHONHASHSEED=0``)."""
+    writer into a .``ext`` file (or by ``write(path, frames)``): the
+    port's frames equal the JAX package's (cv2's) bit for bit, the cameras
+    as many as each of the JAX package's RANSAC seeds 0-2 give, the ATE
+    within 0.02 of the extent of their median (run in a process of its own
+    with ``PYTHONHASHSEED=0``)."""
     import os
     import subprocess
     import types
@@ -1009,7 +1051,11 @@ def slam_main_against_jax(tmp_path, fourcc: str, ext: str) -> None:
     scene = make_scene(n_points=700, n_frames=14, image_size=(540, 960),
                        seed=5, baseline=0.3)
     path = tmp_path / f"seq.{ext}"
-    write_cv2_video(path, [scene.render(i) for i in range(14)], fourcc)
+    frames = [scene.render(i) for i in range(14)]
+    if write is None:
+        write_cv2_video(path, frames, fourcc)
+    else:
+        write(path, frames)
     f_j = list(JMediaSource(video_path=str(path), use_photos=False))
     f_t = list(MediaSource(video_path=str(path), use_photos=False))
     assert len(f_t) == len(f_j) == 14
@@ -1159,6 +1205,9 @@ def write_small_fixtures() -> None:
         table[name] = {"frames": len(rgb), "shape": list(rgb[0].shape),
                        "rgb_sha256": [_sha(f) for f in rgb]}
     DIGESTS.write_text(json.dumps(table, indent=1) + "\n")
+    import test_torch_mpeg4_asp
+
+    test_torch_mpeg4_asp.write_small()      # the ASP ones
 
 
 @pytest.mark.parametrize("name", SMALL_FIXTURES)
