@@ -144,14 +144,27 @@ Phases, each followed by one flushed line with the elapsed seconds:
               then the CLI with ``usePhotosCycle=false`` on the .webm: the
               jpeg phase's checks; prints the parse time and the decode ms
               per FHD frame beside the tracking ms per frame.
-22. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+22. vp9     — the committed fixture testing/video_fixtures/headline_vp9.webm
+              (the 32 frames coded by libvpx-vp9 in two passes: hidden
+              alt-ref frames in superframes, compound prediction, 4 tile
+              columns, backward adaptation) and seven small VP9 fixtures
+              (cv2's VP90 writer in WebM, AVI and MP4; lossless;
+              segmentation; error-resilient; an odd size): the container
+              parsed and timed, every FHD frame decoded by io/vp9.py on one
+              thread, timed, and held to the committed sha256 of cv2's RGB
+              frames and Y planes, the small ones too; the FHD packets
+              muxed into a VP90 AVI whose frames equal the WebM's through
+              ``MediaSource``; then the CLI with ``usePhotosCycle=false`` on
+              the .webm: the jpeg phase's checks; prints the parse time and
+              the decode ms per FHD frame beside the tracking ms per frame.
+23. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-23. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+24. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -169,25 +182,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rms < 0.3 px; prints the detection ms per FHD photo with and
               without a board, each branch's K and its solve's seconds on
               the card.
-24. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+25. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-25. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+26. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-26. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+27. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-27. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+28. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-28. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+29. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -197,11 +210,11 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-29. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+30. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
-30. photos  — the photo readers the card has (io/photo.py: no libjpeg,
+31. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp or OpenCV): first every committed
               fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
               TIFF and WebP variant family and EXIF case) through
@@ -2484,6 +2497,118 @@ def webm_phase(card_line: str, scene):
     return n, decode_ms, track_ms
 
 
+VP9_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                           "headline_vp9.webm")
+# VP9, small: cv2's VP90 writer into WebM, AVI and MP4 (vp09); lossless;
+# segmentation (aq-mode 3); error-resilient and frame-parallel; 97x131
+VP9_SMALL_FIXTURES = ("vp9_cv2.webm", "vp9_cv2.avi", "vp9_cv2.mp4",
+                      "vp9_lossless.webm", "vp9_aq.webm", "vp9_er_fp.webm",
+                      "vp9_odd.webm")
+
+
+def vp9_phase(card_line: str, scene):
+    """The committed fixture (the 32 headline frames coded by libvpx-vp9 in
+    two passes, muxed into WebM: the card has no encoder): the Matroska
+    container parsed and timed; every packet decoded on one thread, timed,
+    and held to the committed sha256 of cv2's RGB frames and Y planes; the
+    small VP9 fixtures held to theirs (RGB through ``MediaSource``, Y
+    through the decoder); the same packets muxed into a VP90 AVI
+    (testing/mjpeg.py), whose frames through ``MediaSource`` must equal
+    the WebM's; then the CLI on the .webm with ``usePhotosCycle=false``
+    (cli_counted) → (counts, decode ms per frame, tracking ms per
+    frame)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi, matroska, vp9
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def luma(path):
+        video = avi.open_video(path)
+        dec = vp9.Decoder()
+        out = []
+        for fr in video.frames:
+            planes = dec.decode_yuv(video.read(fr))
+            if dec.failed:
+                break
+            if planes is not None:
+                out.append(planes[0])
+        video.close()
+        dec.close()
+        return out
+
+    fixtures = os.path.dirname(VP9_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    table = tables[os.path.basename(VP9_FIXTURE)]
+    t = time.perf_counter()
+    video = matroska.MkvVideo(VP9_FIXTURE)
+    parse_ms = 1e3 * (time.perf_counter() - t)
+    data = [video.read(fr) for fr in video.frames]
+    codec, w, h = video.codec, video.width, video.height
+    video.close()
+    if (codec != "vp9" or len(data) != table["frames"]
+            or (h, w) != tuple(table["shape"][:2])):
+        fail(f"vp9: the fixture parses to {len(data)} {codec} packets at "
+             f"{h}x{w}")
+    dec = vp9.Decoder()
+    t = time.perf_counter()
+    rgb = [dec.decode(d) for d in data]
+    decode_ms = 1e3 * (time.perf_counter() - t) / len(data)
+    stats = dec.stats()
+    dec.close()
+    if any(f is None for f in rgb) or [sha(f) for f in rgb
+                                       ] != table["rgb_sha256"]:
+        fail("vp9: the decoded RGB frames differ from cv2's (sha256)")
+    if [sha(y) for y in luma(VP9_FIXTURE)] != table["y_sha256"]:
+        fail("vp9: the decoded Y planes differ from cv2's (sha256)")
+    if not (stats["hidden"] > 0 and stats["compound_blocks"] > 0
+            and stats["tile_cols"] == 4 and stats["adapted"] > 0):
+        fail(f"vp9: the fixture does not use its tools: {stats}")
+    for name in VP9_SMALL_FIXTURES:
+        path = os.path.join(fixtures, name)
+        want = tables[name]
+        got = [sha(f) for f in MediaSource(video_path=path, use_photos=False)]
+        if got != want["rgb_sha256"] or [sha(y) for y in luma(path)
+                                         ] != want["y_sha256"]:
+            fail(f"vp9: the small fixture {name} differs from cv2's decode "
+                 f"(sha256)")
+    with tempfile.TemporaryDirectory() as root:
+        avi_path = os.path.join(root, "seq.avi")
+        mjpeg.write_avi(avi_path, data, w, h, fourcc=b"VP90")
+        from_avi = list(MediaSource(video_path=avi_path, use_photos=False))
+        from_webm = list(MediaSource(video_path=VP9_FIXTURE,
+                                     use_photos=False))
+        if len(from_avi) != len(rgb) or not all(
+                np.array_equal(a, b) for a, b in zip(from_avi, rgb)):
+            fail("vp9: the VP90 AVI's frames differ from the WebM's")
+        if len(from_webm) != len(rgb) or not all(
+                np.array_equal(a, b) for a, b in zip(from_webm, rgb)):
+            fail("vp9: MediaSource's frames differ from the decoder's")
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=VP9_FIXTURE)
+        n, n_cams, ate_pct, _, run_s = cli_counted("vp9", cfg, root, scene)
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"vp9: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(VP9_FIXTURE) / 1e6:.2f} MB WebM, VP9 profile "
+          f"0: {stats['hidden']} hidden alt-ref frames, "
+          f"{stats['compound_blocks']} compound blocks, {stats['tile_cols']} "
+          f"tile columns) equal to cv2's decode (sha256 of RGB and Y; the "
+          f"{len(VP9_SMALL_FIXTURES)} small fixtures' too), the VP90 AVI's "
+          f"equal the WebM's; cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  container "
+          f"parse {parse_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame "
+          f"on one thread; tracking {track_ms:.3f} ms per frame; subprocess "
+          f"{run_s:.3f} s  [{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
 # The real-texture scene at FHD: 24 frames (the JAX package's default
 # sweep, 0.12 per frame), two procedural textures from seeds, rendered on
 # the card.  The good-frame rule keeps the head-most best-matched frame of
@@ -2756,7 +2881,7 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
 
 
 def calibrate_pixels(card_line: str, scene, frames):
-    """Calibration from pixels through the CLI (phase 23's second part)."""
+    """Calibration from pixels through the CLI (phase 24's second part)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.calibration import chessboard as cb
@@ -3175,6 +3300,11 @@ def main() -> None:
         n, decode_ms, track_ms = webm_phase(card_line, scene)
         by_path["webm (cli)"] = n["top2_batch"]
         phase("webm", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, decode_ms, track_ms = vp9_phase(card_line, scene)
+        by_path["vp9 (cli)"] = n["top2_batch"]
+        phase("vp9", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
         n = realtex_phase(card_line)

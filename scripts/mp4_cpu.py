@@ -1,11 +1,14 @@
-"""MPEG-4 Part 2 and VP8 video on the CPU, two measurements:
+"""MPEG-4 Part 2, VP8 and VP9 video on the CPU, two measurements:
 
 ``decode``: the committed FHD fixture
 (slam_indoor_code_tpu_torch/testing/video_fixtures/headline_mp4v.mp4, the
 32 headline frames as OpenCV's ``mp4v`` writer makes them) parsed by
 io/mp4.py and decoded by io/mpeg4.py on one thread; with ``--webm``,
 headline_vp8.webm (the same frames as OpenCV's ``VP80`` writer makes
-them) parsed by io/matroska.py and decoded by io/vp8.py; with ``--asp``,
+them) parsed by io/matroska.py and decoded by io/vp8.py; with ``--vp9``,
+headline_vp9.webm (the same frames coded by libvpx-vp9 in two passes:
+hidden alt-ref frames in superframes, compound prediction, 4 tile
+columns) parsed by io/matroska.py and decoded by io/vp9.py; with ``--asp``,
 headline_asp_packed.avi (the same frames coded with every MPEG-4 Advanced
 Simple tool and packed as DivX packs B-VOPs) parsed by io/avi.py and
 decoded by io/mpeg4.py, frames in display order: ms for the
@@ -19,7 +22,7 @@ per seed with cameras and ATE as a share of the trajectory extent.  The
 JAX package's numbers move with Python's hash seed and with the process's
 history, so run it under several ``PYTHONHASHSEED`` values:
 
-    python scripts/mp4_cpu.py decode [--webm | --asp]
+    python scripts/mp4_cpu.py decode [--webm | --vp9 | --asp]
     PYTHONHASHSEED=1 JAX_PLATFORMS=cpu python scripts/mp4_cpu.py ate jax
     python scripts/mp4_cpu.py ate torch
 
@@ -40,15 +43,20 @@ FIXTURE = os.path.join(ROOT, "slam_indoor_code_tpu_torch", "testing",
 FIXTURE_WEBM = os.path.join(os.path.dirname(FIXTURE), "headline_vp8.webm")
 FIXTURE_ASP = os.path.join(os.path.dirname(FIXTURE),
                            "headline_asp_packed.avi")
+FIXTURE_VP9 = os.path.join(os.path.dirname(FIXTURE), "headline_vp9.webm")
 
 
-def decode(reps: int, webm: bool, asp: bool) -> None:
-    from slam_indoor_code_tpu_torch.io import avi, matroska, mp4, mpeg4, vp8
+def decode(reps: int, webm: bool, asp: bool, vp9_: bool = False) -> None:
+    from slam_indoor_code_tpu_torch.io import (avi, matroska, mp4, mpeg4, vp8,
+                                               vp9)
 
     t = time.perf_counter()
     if webm:
         video = matroska.MkvVideo(FIXTURE_WEBM)
         make = vp8.Decoder
+    elif vp9_:
+        video = matroska.MkvVideo(FIXTURE_VP9)
+        make = vp9.Decoder
     elif asp:
         video = avi.AviVideo(FIXTURE_ASP)
         make = lambda: mpeg4.Decoder(b"", video.fourcc)  # noqa: E731
@@ -116,11 +124,12 @@ def main() -> None:
     g = d.add_mutually_exclusive_group()
     g.add_argument("--webm", action="store_true")
     g.add_argument("--asp", action="store_true")
+    g.add_argument("--vp9", action="store_true")
     a = sub.add_parser("ate")
     a.add_argument("package", choices=["jax", "torch"])
     args = ap.parse_args()
     if args.what == "decode":
-        decode(args.reps, args.webm, args.asp)
+        decode(args.reps, args.webm, args.asp, args.vp9)
     else:
         ate(args.package)
 

@@ -10,11 +10,12 @@ webcams) decodes each chunk by io/jpeg.py, in any order; MPEG-4 Part 2
 (``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``mp4v``: OpenCV's ``XVID``
 writer) decodes the chunks in order by io/mpeg4.py, which finds the VOL
 headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
-in order by io/vp8.py; uncompressed planar 4:2:0 and gray (``I420``,
-``IYUV``, ``Y800``; OpenCV's writer stores fourcc 0 as ``I420``) each by
-io/rawvideo.py.  ``open_video`` reads any of the three containers, and
-names MPEG program and transport streams in its refusal; other codecs
-raise ``NotImplementedError`` naming them.
+in order by io/vp8.py; VP9 (``VP90``: OpenCV's ``VP90`` writer into
+``.avi``) in order by io/vp9.py; uncompressed planar 4:2:0 and gray
+(``I420``, ``IYUV``, ``Y800``; OpenCV's writer stores fourcc 0 as
+``I420``) each by io/rawvideo.py.  ``open_video`` reads any of the three
+containers, and names MPEG program and transport streams in its refusal;
+other codecs raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
                  b"fmp4", b"mp4v", b"MP4V")
 VP8_FOURCCS = (b"VP80", b"vp80")
+VP9_FOURCCS = (b"VP90", b"vp90")
 
 
 def open_video(path: str):
@@ -93,8 +95,8 @@ def _chunks(fh, start: int, end: int):
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
     shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4",
-    "vp8" or "raw" (``pix_fmt`` "yuv420p" or "gray"); ``read`` reads one
-    chunk and ``decode_frame`` decodes a Motion-JPEG or uncompressed one
+    "vp8", "vp9" or "raw" (``pix_fmt`` "yuv420p" or "gray"); ``read`` reads
+    one chunk and ``decode_frame`` decodes a Motion-JPEG or uncompressed one
     (thread-safe: ``os.pread`` on one descriptor)."""
 
     extradata = b""     # MPEG-4 streams in AVI carry their VOL in band
@@ -126,6 +128,8 @@ class AviVideo:
             self.codec = "mpeg4"
         elif self.fourcc in VP8_FOURCCS:
             self.codec = "vp8"
+        elif self.fourcc in VP9_FOURCCS:
+            self.codec = "vp9"
         elif self.fourcc in rawvideo.FOURCCS:
             self.codec = "raw"
             self.pix_fmt = rawvideo.FOURCCS[self.fourcc]
@@ -134,8 +138,8 @@ class AviVideo:
                 f"{path}: video codec {self.fourcc.decode(errors='replace')!r}"
                 " needs a decoder the port does not have; in AVI only "
                 "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
-                "FMP4, mp4v), VP8 (VP80) and uncompressed I420, IYUV and "
-                "Y800 are decoded")
+                "FMP4, mp4v), VP8 (VP80), VP9 (VP90) and uncompressed "
+                "I420, IYUV and Y800 are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 
     def _riff(self, fh, start: int, end: int) -> None:

@@ -13,10 +13,11 @@ MediaRecorder writes, which has no Cues) ends at the first element that
 cannot be its child.  A block that runs past the end of the file is
 dropped, as FFmpeg's demuxer drops it.
 
-Codecs: ``V_VP8`` is "vp8" (io/vp8.py), ``V_MPEG4/ISO/SP|ASP|AP`` "mpeg4"
+Codecs: ``V_VP8`` is "vp8" (io/vp8.py), ``V_VP9`` "vp9" (io/vp9.py),
+``V_MPEG4/ISO/SP|ASP|AP`` "mpeg4"
 with CodecPrivate as its VOL headers (io/mpeg4.py), ``V_MJPEG`` "mjpeg"
 (io/jpeg.py); ``V_MS/VFW/FOURCC`` takes the codec of its bitmap header's
-fourcc, as in AVI.  Every other CodecID (VP9, AV1, FFV1, H.264, HEVC, ...)
+fourcc, as in AVI.  Every other CodecID (AV1, FFV1, H.264, HEVC, ...)
 and any ContentEncoding (header stripping, compression, encryption) raise
 ``NotImplementedError`` naming it.  ``MkvVideo`` has the interface of
 ``avi.AviVideo`` and ``mp4.Mp4Video``.
@@ -43,7 +44,7 @@ _SIMPLE_BLOCK, _BLOCK_GROUP, _BLOCK = 0xA3, 0xA0, 0xA1
 _UNKNOWN = -1
 
 _MPEG4 = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
-_CODEC_NAMES = {"V_VP9": "VP9", "V_AV1": "AV1", "V_FFV1": "FFV1",
+_CODEC_NAMES = {"V_AV1": "AV1", "V_FFV1": "FFV1",
                 "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
                 "V_MPEG1": "MPEG-1 video", "V_MPEG2": "MPEG-2 video",
                 "V_THEORA": "Theora", "V_PRORES": "ProRes",
@@ -284,7 +285,8 @@ class MkvVideo:
             self.extradata = b""
             for codec, fourccs in (("mjpeg", avi.MJPEG_FOURCCS),
                                    ("mpeg4", avi.MPEG4_FOURCCS),
-                                   ("vp8", avi.VP8_FOURCCS)):
+                                   ("vp8", avi.VP8_FOURCCS),
+                                   ("vp9", avi.VP9_FOURCCS)):
                 if fourcc in fourccs:
                     self.codec = codec
                     self.extradata = extra if codec == "mpeg4" else b""
@@ -295,6 +297,8 @@ class MkvVideo:
                 "port does not have")
         if cid == "V_VP8":
             self.codec = "vp8"
+        elif cid == "V_VP9":
+            self.codec = "vp9"
         elif cid in _MPEG4:
             self.codec = "mpeg4"
         elif cid == "V_MJPEG":
@@ -303,8 +307,8 @@ class MkvVideo:
             name = _CODEC_NAMES.get(cid, cid)
             raise NotImplementedError(
                 f"{self.path}: {name} video ({cid}) needs a decoder the port "
-                "does not have; in Matroska/WebM only VP8, MPEG-4 Part 2 "
-                "and Motion-JPEG are decoded")
+                "does not have; in Matroska/WebM only VP8, VP9, MPEG-4 "
+                "Part 2 and Motion-JPEG are decoded")
 
     # --------------------------------------------------------------- blocks
 

@@ -1,11 +1,14 @@
-"""MPEG-4 Part 2 and Motion-JPEG video in MP4/QuickTime: the ISO BMFF
-boxes parsed in Python, each sample decoded by io/mpeg4.py or io/jpeg.py.
+"""MPEG-4 Part 2, VP9 and Motion-JPEG video in MP4/QuickTime: the ISO
+BMFF boxes parsed in Python, each sample decoded by io/mpeg4.py, io/vp9.py
+or io/jpeg.py.
 
 The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
 entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
 (MPEG-4 Visual), whose DecoderSpecificInfo holds the VOS/VOL headers, or
 0x6C (Motion-JPEG, what OpenCV's ``MJPG`` writer puts in ``.mp4``), or
-``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer into ``.mov``).  The
+``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer into ``.mov``), or
+``vp09`` (VP9, OpenCV's ``vp09`` writer; its ``vpcC`` must name profile 0,
+8-bit, or ``ValueError`` names what it holds).  The
 samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
 ``co64`` (chunk offsets) and ``stsc`` (samples per chunk); ``stts`` and
 ``ctts`` give their times.  An ``edts/elst`` edit is applied as FFmpeg's
@@ -14,7 +17,7 @@ before its media time, samples presented outside it are decoded but not
 shown, and reading stops after the first sync sample past its end (the
 second with ``ctts``, for the B-frames after it).  This is what OpenCV's
 ``VideoWriter(..., 'mp4v')`` writes.  Other sample entries (H.264, HEVC,
-VP9, AV1, Motion-JPEG format A/B, ...) raise ``NotImplementedError`` naming
+VP8, AV1, Motion-JPEG format A/B, ...) raise ``NotImplementedError`` naming
 the codec.
 """
 
@@ -249,6 +252,21 @@ class Mp4Video:
             i -= 1
         return max(i, 0)
 
+    def _vpcc(self, entry: bytes) -> None:
+        """A ``vp09`` entry's ``vpcC`` (VP Codec Configuration, version 1:
+        profile, level, bit depth, chroma subsampling, full range): a
+        stream the decoder refuses is refused here by the same name, before
+        any sample is read.  The frames' own headers decide the rest."""
+        box = _find(entry, 86, len(entry), b"vpcC")
+        if box is None or box[1] - box[0] < 7:
+            return
+        cfg = entry[box[0]:box[1]]
+        profile, depth = cfg[4], cfg[6] >> 4
+        if profile != 0 or depth not in (0, 8):
+            raise ValueError(f"{self.path}: VP9 profile {profile} "
+                             f"({depth}-bit) is not decoded; only profile 0 "
+                             "(8-bit 4:2:0) is")
+
     def _path(self, data, box, kinds):
         for kind in kinds:
             box = _find(data, *box, kind)
@@ -262,16 +280,20 @@ class Mp4Video:
             raise IOError(f"Video wasn't opened: {self.path} (no stsd)")
         entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
         kind = self.fourcc = entry[4:8]
-        if kind not in (b"mp4v", b"jpeg"):
+        if kind not in (b"mp4v", b"jpeg", b"vp09"):
             fourcc = kind.decode(errors="replace")
             raise NotImplementedError(
                 f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
                 f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
-                "only MPEG-4 Part 2 (mp4v) and Motion-JPEG (jpeg, mp4v "
-                "0x6C) are decoded")
+                "only MPEG-4 Part 2 (mp4v), VP9 (vp09) and Motion-JPEG "
+                "(jpeg, mp4v 0x6C) are decoded")
         self.width, self.height = struct.unpack(">HH", entry[32:36])
         if kind == b"jpeg":
             self.codec = "mjpeg"
+            return
+        if kind == b"vp09":
+            self.codec = "vp9"
+            self._vpcc(entry)
             return
         esds = _find(entry, 86, len(entry), b"esds")
         if esds is None:

@@ -32,7 +32,8 @@ import numpy as np
 from .native import _PKG_DIR, load_shared
 
 SOURCE = _PKG_DIR / "native" / "vp8.cpp"
-HEADERS = (_PKG_DIR / "native" / "swscale_rgb.h",)
+HEADERS = (_PKG_DIR / "native" / "swscale_rgb.h",
+           _PKG_DIR / "native" / "vpx_rac.h")
 LIBRARY = _PKG_DIR / "_build" / "libvp8dec.so"
 _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()

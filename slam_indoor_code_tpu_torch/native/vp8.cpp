@@ -84,6 +84,7 @@
 #include <vector>
 
 #include "swscale_rgb.h"
+#include "vpx_rac.h"
 
 namespace {
 
@@ -588,83 +589,8 @@ const int8_t kBmodeTree[18] = {-B_DC_PRED, 2, -B_TM_PRED, 4, -B_VE_PRED, 6,
 const uint8_t kImpliedBmode[4] = {B_DC_PRED, B_VE_PRED, B_HE_PRED,
                                   B_TM_PRED};
 
-// ---------------------------------------------------------------- bool
-// RFC 6386's boolean decoder, read as FFmpeg's range coder reads it: a
-// 24-bit window refilled two bytes at a time, bytes past the partition's
-// end taken from the frame that follows it and zeros past the frame.
-class Bool {
- public:
-  void init(const uint8_t* p, int64_t n, const uint8_t* frame_end) {
-    frame_end_ = frame_end;
-    buf_ = p;
-    end_ = p + std::max<int64_t>(n, 0);
-    high_ = 255;
-    bits_ = -16;
-    end_reached_ = 0;
-    code_ = (uint32_t(byte(buf_)) << 16) | (uint32_t(byte(buf_ + 1)) << 8) |
-            byte(buf_ + 2);
-    buf_ += 3;
-  }
-
-  inline int get(int prob) {
-    int shift = __builtin_clz(static_cast<unsigned>(high_)) - 24;
-    high_ <<= shift;
-    code_ <<= shift;
-    bits_ += shift;
-    if (bits_ >= 0 && buf_ < end_) {
-      code_ |= ((uint32_t(byte(buf_)) << 8) | byte(buf_ + 1)) << bits_;
-      buf_ += 2;
-      bits_ -= 16;
-    }
-    uint32_t low = 1 + ((static_cast<uint32_t>(high_ - 1) * prob) >> 8);
-    uint32_t low_shift = low << 16;
-    if (code_ >= low_shift) {
-      high_ -= low;
-      code_ -= low_shift;
-      return 1;
-    }
-    high_ = low;
-    return 0;
-  }
-
-  int literal(int n) {
-    int v = 0;
-    while (n--) v = (v << 1) | get(128);
-    return v;
-  }
-
-  // A flag, an n-bit magnitude and a sign; 0 without the flag.
-  int signed_literal(int n) {
-    if (!get(128)) return 0;
-    int v = literal(n);
-    return get(128) ? -v : v;
-  }
-
-  int tree(const int8_t* t, const uint8_t* probs) {
-    int i = 0;
-    while ((i = t[i + get(probs[i >> 1])]) > 0) {
-    }
-    return -i;
-  }
-
-  // FFmpeg's test at each macroblock: the partition read to its end more
-  // than ten times.
-  bool exhausted() {
-    if (end_ <= buf_ && bits_ >= 0) ++end_reached_;
-    return end_reached_ > 10;
-  }
-
- private:
-  inline uint8_t byte(const uint8_t* p) const {
-    return p < frame_end_ ? *p : 0;
-  }
-
-  const uint8_t* buf_ = nullptr;
-  const uint8_t* end_ = nullptr;
-  const uint8_t* frame_end_ = nullptr;
-  int high_ = 255, bits_ = -16, end_reached_ = 0;
-  uint32_t code_ = 0;
-};
+// RFC 6386's boolean decoder, as FFmpeg reads it (vpx_rac.h).
+using vpx_rac::Bool;
 
 // ---------------------------------------------------------------- frames
 

@@ -209,7 +209,7 @@ def test_video_media_is_not_ported(tmp_path, case, error, match):
     """The video the port does not read: a file that does not open (an MP4
     without its moov box, or an EBML magic and nothing after it, too)
     raises the JAX package's ``IOError``; a codec other than Motion-JPEG,
-    MPEG-4 Part 2 and VP8 (here VP9 in a Matroska track),
+    MPEG-4 Part 2, VP8 and VP9 (here AV1 in a Matroska track),
     ``NotImplementedError`` naming it (MP4's other codecs:
     tests/test_torch_mp4.py; Matroska's: tests/test_torch_webm.py)."""
     path = tmp_path / "seq.avi"
@@ -224,7 +224,7 @@ def test_video_media_is_not_ported(tmp_path, case, error, match):
         def el(eid: bytes, body: bytes) -> bytes:
             return eid + bytes([0x80 | len(body)]) + body
         entry = (el(b"\xd7", b"\x01") + el(b"\x83", b"\x01")
-                 + el(b"\x86", b"V_VP9"))
+                 + el(b"\x86", b"V_AV1"))
         path = tmp_path / "seq.mkv"
         path.write_bytes(el(b"\x1a\x45\xdf\xa3", el(b"\x42\x82", b"webm"))
                          + el(b"\x18\x53\x80\x67",

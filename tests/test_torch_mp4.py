@@ -814,14 +814,17 @@ def test_other_mp4_codecs_raise(tmp_path, kind, codec):
 
 
 def test_webm_raises(tmp_path, scene_frames):
-    """A WebM file in a codec the port does not decode (cv2's ``VP90``
-    writer; VP8 WebM is read, tests/test_torch_webm.py):
-    NotImplementedError naming the codec."""
+    """A WebM file in a codec the port does not decode: cv2's ``VP90``
+    writer's file (read now, tests/test_torch_vp9.py) with its track's
+    CodecID turned to ``V_AV1``: NotImplementedError naming the codec."""
     path = tmp_path / "v.webm"
     write_cv2_video(path, [cv2.resize(f, (64, 48)) for f in scene_frames[:2]],
                     "VP90")
     assert len(cv2_rgb(path)) == 2
-    with pytest.raises(NotImplementedError, match="VP9"):
+    data = path.read_bytes()
+    assert data.count(b"V_VP9") == 1
+    path.write_bytes(data.replace(b"V_VP9", b"V_AV1"))
+    with pytest.raises(NotImplementedError, match="AV1"):
         MediaSource(video_path=str(path), use_photos=False)
 
 

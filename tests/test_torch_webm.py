@@ -13,7 +13,7 @@ error-resilience), muxed into WebM by ``write_mkv`` here.  The committed
 fixture (the 32 headline FHD frames as cv2's ``VP80`` writer makes them)
 against its recorded sha256, and rewritten with unknown-size Segment and
 Clusters and no Cues; Xiph, EBML and fixed lacing; ``VP80`` in AVI,
-``mp4v`` and ``MJPG`` in .mkv; refusals (VP9, FFV1, H.264, header
+``mp4v`` and ``MJPG`` in .mkv; refusals (VP9 profile 1, FFV1, H.264, header
 stripping, a key frame that changes the size); truncation and damage;
 the decoder's tables against the bytes of libavcodec's; and, end to end,
 ``slam_main`` on a 540x960 VP8 WebM and the video calibration from a VP8
@@ -566,12 +566,30 @@ def test_mjpeg_in_mkv_equals_cv2_imdecode(tmp_path, scene_frames):
 @pytest.mark.parametrize("fourcc,codec", [("VP90", "VP9"),
                                           ("FFV1", "FFV1")])
 def test_other_codecs_raise(tmp_path, scene_frames, fourcc, codec):
-    """cv2's VP90 (WebM) and FFV1 (.mkv) writers: NotImplementedError
-    naming the codec."""
+    """cv2's FFV1 (.mkv) writer: NotImplementedError naming the codec.
+    cv2's VP90 (WebM) writer is read now (tests/test_torch_vp9.py), and
+    the same file with its first frame marked VP9 profile 1 (4:4:4, which
+    the decoder does not read) raises ValueError naming the profile."""
     path = tmp_path / ("v.webm" if fourcc == "VP90" else "v.mkv")
     write_cv2_video(path, [cv2.resize(f, (64, 48)) for f in scene_frames[:2]],
                     fourcc)
-    assert len(cv2_rgb(path)) == 2
+    want = cv2_rgb(path)
+    assert len(want) == 2
+    if fourcc == "VP90":
+        got = list(MediaSource(video_path=str(path), use_photos=False))
+        assert len(got) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        video = matroska.MkvVideo(str(path))
+        offset = video.frames[0][0]
+        video.close()
+        data = bytearray(path.read_bytes())
+        assert data[offset] >> 6 == 2                # VP9's frame marker
+        data[offset] |= 0x20                         # profile_low_bit
+        path.write_bytes(bytes(data))
+        with pytest.raises(ValueError, match=f"{codec} profile 1"):
+            list(MediaSource(video_path=str(path), use_photos=False))
+        return
     with pytest.raises(NotImplementedError, match=codec):
         MediaSource(video_path=str(path), use_photos=False)
 
