@@ -157,14 +157,33 @@ Phases, each followed by one flushed line with the elapsed seconds:
               ``MediaSource``; then the CLI with ``usePhotosCycle=false`` on
               the .webm: the jpeg phase's checks; prints the parse time and
               the decode ms per FHD frame beside the tracking ms per frame.
-23. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+23. mpeg2   — MPEG-2 video in a transport stream: the committed fixture
+              testing/video_fixtures/headline_mpeg2.ts (the 32 frames coded
+              by libavcodec's mpeg2video as a broadcast or HDV encoder
+              codes them: B pictures, open GOPs, field DCT and field
+              prediction, alternate scan, B-15 intra VLCs, non-linear
+              quantiser scale, 10-bit intra DC, BT.709, with a PAT, a PMT
+              and an audio PID beside the video) and nine small fixtures
+              (cv2's mpg1 and MPEG writers in .mpg, .avi, .mkv, .mp4 and
+              .mov; an M2TS; a VOB-like PAL program stream with navigation
+              packs, audio and padding; a transport stream cut mid-GOP):
+              the transport stream demuxed and timed, every FHD picture
+              decoded by io/mpeg12.py on one thread, timed, and held to the
+              committed sha256 of cv2's RGB frames and Y planes (cv2's Y
+              read of a BT.709 frame goes through RGB: mpeg12.luma_read),
+              the small ones too; the decoder's statistics must show the
+              headline's tools; then the CLI with ``usePhotosCycle=false``
+              on the .ts: the jpeg phase's checks; prints the demux time
+              and the decode ms per FHD frame beside the tracking ms per
+              frame.
+24. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-24. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+25. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -182,25 +201,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               rms < 0.3 px; prints the detection ms per FHD photo with and
               without a board, each branch's K and its solve's seconds on
               the card.
-25. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+26. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-26. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+27. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-27. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+28. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-28. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+29. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-29. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+30. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -210,11 +229,11 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-30. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+31. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
-31. photos  — the photo readers the card has (io/photo.py: no libjpeg,
+32. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp or OpenCV): first every committed
               fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
               TIFF and WebP variant family and EXIF case) through
@@ -2609,6 +2628,121 @@ def vp9_phase(card_line: str, scene):
     return n, decode_ms, track_ms
 
 
+MPEG2_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                             "headline_mpeg2.ts")
+# MPEG-1/2, small: cv2's mpg1 and MPEG writers into each container; an
+# M2TS with BT.709; a VOB-like PAL program stream; a TS cut mid-GOP
+MPEG2_SMALL_FIXTURES = ("mpeg1_cv2.mpg", "mpeg2_cv2.mpg", "mpeg2_cv2.avi",
+                        "mpeg2_cv2.mkv", "mpeg2_cv2.mp4", "mpeg1_cv2.mov",
+                        "mpeg2_bt709.m2ts", "mpeg2_pal.vob", "mpeg2_cut.ts")
+
+
+def mpeg2_frames(path: str, timed: bool = False):
+    """Every frame the port gives for the MPEG-1/2 video at ``path`` in
+    display order, decoded on one thread → (RGB frames, Y planes as cv2
+    reads them, decoder statistics, ms per decoded picture or None)."""
+    from slam_indoor_code_tpu_torch.io import avi, mpeg12
+
+    video = avi.open_video(path)
+    data = [video.read(fr) for fr in video.frames]
+    dec = mpeg12.Decoder(video.extradata, video.width, video.height)
+    video.close()
+    rgb, luma = [], []
+
+    def keep(planes):
+        if planes is not None:
+            rgb.append(dec.rgb())
+            luma.append(planes[0])
+
+    t = time.perf_counter()
+    for i, d in enumerate(data):
+        keep(dec.decode_yuv(d, i))
+        if dec.failed:
+            fail(f"mpeg2: {os.path.basename(path)}: picture {i} fails")
+    keep(dec.flush_yuv())
+    ms = 1e3 * (time.perf_counter() - t) / len(data) if timed else None
+    stats = dec.stats()
+    dec.close()
+    if stats["matrix_coefficients"] == 1:     # cv2 reads Y through RGB
+        luma = [mpeg12.luma_read(f) for f in rgb]
+    return rgb, luma, stats, ms
+
+
+def mpeg2_phase(card_line: str, scene):
+    """The committed fixtures (the card has no encoder and no cv2): the
+    headline transport stream demuxed and timed; every picture decoded on
+    one thread, timed, and held to the committed sha256 of cv2's RGB frames
+    and Y planes, with the decoder's statistics showing its tools; the
+    small MPEG-1/2 fixtures held to theirs; ``MediaSource``'s frames equal
+    to the decoder's; then the CLI on the .ts with
+    ``usePhotosCycle=false`` (cli_counted) → (counts, decode ms per frame,
+    tracking ms per frame)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import mpegts
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    fixtures = os.path.dirname(MPEG2_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    table = tables[os.path.basename(MPEG2_FIXTURE)]
+    t = time.perf_counter()
+    video = mpegts.open_video(MPEG2_FIXTURE)
+    demux_ms = 1e3 * (time.perf_counter() - t)
+    n_pictures, codec = len(video.frames), video.codec
+    video.close()
+    if codec != "mpeg12" or n_pictures != table["frames"]:
+        fail(f"mpeg2: the fixture demuxes to {n_pictures} {codec} pictures")
+    rgb, luma, stats, decode_ms = mpeg2_frames(MPEG2_FIXTURE, timed=True)
+    if ([sha(f) for f in rgb] != table["rgb_sha256"]
+            or rgb[0].shape != tuple(table["shape"])):
+        fail("mpeg2: the decoded RGB frames differ from cv2's (sha256)")
+    if [sha(y) for y in luma] != table["y_sha256"]:
+        fail("mpeg2: the Y planes differ from cv2's Y read (sha256)")
+    if not (stats["b_pictures"] >= 16 and stats["field_dct_mbs"] > 0
+            and stats["field_mc_mbs"] > 0 and stats["alternate_scan"] == 32
+            and stats["intra_vlc"] == 32 and stats["non_linear_quant"] == 32
+            and stats["max_dc_precision"] == 2
+            and stats["matrix_coefficients"] == 1):
+        fail(f"mpeg2: the fixture does not use its tools: {stats}")
+    for name in MPEG2_SMALL_FIXTURES:
+        path = os.path.join(fixtures, name)
+        want = tables[name]
+        got = [sha(f) for f in MediaSource(video_path=path, use_photos=False)]
+        _, small_luma, _, _ = mpeg2_frames(path)
+        if got != want["rgb_sha256"] or [sha(y) for y in small_luma
+                                         ] != want["y_sha256"]:
+            fail(f"mpeg2: the small fixture {name} differs from cv2's decode "
+                 f"(sha256)")
+    from_ts = list(MediaSource(video_path=MPEG2_FIXTURE, use_photos=False))
+    if len(from_ts) != len(rgb) or not all(
+            np.array_equal(a, b) for a, b in zip(from_ts, rgb)):
+        fail("mpeg2: MediaSource's frames differ from the decoder's")
+    with tempfile.TemporaryDirectory() as root:
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=MPEG2_FIXTURE)
+        n, n_cams, ate_pct, _, run_s = cli_counted("mpeg2", cfg, root, scene)
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"mpeg2: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(MPEG2_FIXTURE) / 1e6:.2f} MB transport stream, "
+          f"MPEG-2 {stats['b_pictures']} B pictures, "
+          f"{stats['field_dct_mbs']} field-DCT and {stats['field_mc_mbs']} "
+          f"field-predicted macroblocks, BT.709) equal to cv2's decode "
+          f"(sha256 of RGB and Y; the {len(MPEG2_SMALL_FIXTURES)} small "
+          f"fixtures' too); cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  demux "
+          f"{demux_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
+          f"one thread; tracking {track_ms:.3f} ms per frame; subprocess "
+          f"{run_s:.3f} s  [{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
 # The real-texture scene at FHD: 24 frames (the JAX package's default
 # sweep, 0.12 per frame), two procedural textures from seeds, rendered on
 # the card.  The good-frame rule keeps the head-most best-matched frame of
@@ -3305,6 +3439,11 @@ def main() -> None:
         n, decode_ms, track_ms = vp9_phase(card_line, scene)
         by_path["vp9 (cli)"] = n["top2_batch"]
         phase("vp9", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, decode_ms, track_ms = mpeg2_phase(card_line, scene)
+        by_path["mpeg2 (cli)"] = n["top2_batch"]
+        phase("mpeg2", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
         n = realtex_phase(card_line)

@@ -1,9 +1,10 @@
 """Host-side IO: reference-format txt logs, OpenCV-XML calibration files,
 photo-glob media (native decoding, or the port's own readers of JPEG,
 PNG, BMP, Netpbm, TIFF and lossy WebP with EXIF orientation), video (AVI,
-MP4/QuickTime and Matroska/WebM containers; Motion-JPEG, MPEG-4 Part 2,
-VP8 and uncompressed I420/Y800 decoded without OpenCV or FFmpeg) and the
-in-memory frame source."""
+MP4/QuickTime, Matroska/WebM, MPEG program and transport streams;
+Motion-JPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9 and uncompressed
+I420/Y800 decoded without OpenCV or FFmpeg) and the in-memory frame
+source."""
 
 from .logs import (
     GlobalData,

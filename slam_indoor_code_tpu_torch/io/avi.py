@@ -11,11 +11,14 @@ webcams) decodes each chunk by io/jpeg.py, in any order; MPEG-4 Part 2
 writer) decodes the chunks in order by io/mpeg4.py, which finds the VOL
 headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
 in order by io/vp8.py; VP9 (``VP90``: OpenCV's ``VP90`` writer into
-``.avi``) in order by io/vp9.py; uncompressed planar 4:2:0 and gray
-(``I420``, ``IYUV``, ``Y800``; OpenCV's writer stores fourcc 0 as
-``I420``) each by io/rawvideo.py.  ``open_video`` reads any of the three
-containers, and names MPEG program and transport streams in its refusal;
-other codecs raise ``NotImplementedError`` naming them.
+``.avi``) in order by io/vp9.py; MPEG-1/2 video (``MPEG``, ``mpg1``,
+``mpg2``, ``PIM1``, ...: OpenCV's writers of those fourccs) in order by
+io/mpeg12.py, each chunk a picture with its headers; uncompressed planar
+4:2:0 and gray (``I420``, ``IYUV``, ``Y800``; OpenCV's writer stores
+fourcc 0 as ``I420``) each by io/rawvideo.py.  ``open_video`` reads any
+of the three containers, MPEG program streams (io/mpegps.py), MPEG
+transport streams (io/mpegts.py) and MPEG-1/2 video elementary streams
+(io/mpeg12.py); other codecs raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -26,51 +29,65 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, matroska, mp4, rawvideo
+from . import jpeg, matroska, mp4, mpeg12, mpegps, mpegts, rawvideo
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
                  b"fmp4", b"mp4v", b"MP4V")
 VP8_FOURCCS = (b"VP80", b"vp80")
 VP9_FOURCCS = (b"VP90", b"vp90")
+MPEG12_FOURCCS = (b"MPEG", b"mpeg", b"mpg1", b"MPG1", b"PIM1", b"mpg2",
+                  b"MPG2", b"PIM2", b"mpgv", b"MMES", b"LMP2", b"EM2V")
 
 
 def open_video(path: str):
     """The video of an AVI (``AviVideo``), MP4/QuickTime
-    (``mp4.Mp4Video``) or Matroska/WebM file (``matroska.MkvVideo``);
-    ``IOError`` when it does not open, ``NotImplementedError`` for a codec
-    the port does not read."""
+    (``mp4.Mp4Video``) or Matroska/WebM file (``matroska.MkvVideo``), an
+    MPEG program or transport stream or an MPEG-1/2 elementary stream
+    (``mpeg12.EsVideo``); ``IOError`` when it does not open,
+    ``NotImplementedError`` for a codec the port does not read."""
     try:
         with open(path, "rb") as fh:
-            magic = fh.read(12)
-            fh.seek(0)
-            head = fh.read(_TS_PACKET * 4)
+            head = fh.read(_HEAD)
     except OSError as e:
         raise IOError(f"Video wasn't opened: {path}") from e
-    if matroska.is_matroska(magic):
+    if matroska.is_matroska(head):
         return matroska.MkvVideo(path)
-    if mp4.is_mp4(magic):
+    if mp4.is_mp4(head):
         return mp4.Mp4Video(path)
+    if head[:4] == mpeg12.ES_MAGIC:
+        return mpeg12.EsVideo.open(path)
     container = mpeg_container(head)
-    if container is not None:
-        raise NotImplementedError(
-            f"{path}: the {container} container needs a demuxer the port "
-            "does not have; AVI, MP4/QuickTime and Matroska/WebM are read")
+    if container == "MPEG program stream":
+        return mpegps.open_video(path)
+    if container == "MPEG transport stream":
+        return mpegts.open_video(path)
+    if container == "MPEG video elementary stream":
+        return mpeg12.EsVideo.open(path)
     return AviVideo(path)
 
 
-_TS_PACKET = 188
+_HEAD = 1 << 16       # a DVD pack is 2048 bytes; a TS layout needs ~2 kB
 
 
 def mpeg_container(head: bytes) -> Optional[str]:
-    """"MPEG program stream" for data starting with a pack header
-    (``00 00 01 BA``), "MPEG transport stream" where the sync byte 0x47
-    starts every 188-byte packet of ``head`` (at least two), else None."""
-    if head[:4] == b"\x00\x00\x01\xba":
+    """"MPEG program stream" for data that starts with a pack header
+    (``00 00 01 BA``), "MPEG transport stream" where sync bytes 0x47 repeat
+    every 188, 192 or 204 bytes from one of the first packet's bytes (at
+    least three), "MPEG program stream" again for other data holding a
+    pack header (a program stream cut mid-pack), "MPEG video elementary
+    stream" for data holding a sequence header and a picture (one joined
+    mid-way), else None; an AVI's ``RIFF`` is none of them."""
+    if head[:4] == b"RIFF":
+        return None
+    if head[:4] == mpegps.PACK_START:
         return "MPEG program stream"
-    n = min(len(head) // _TS_PACKET, 4)
-    if n >= 2 and all(head[i * _TS_PACKET] == 0x47 for i in range(n)):
+    if mpegts.is_transport_stream(head[:9 * 204]):
         return "MPEG transport stream"
+    if mpegps.is_program_stream(head):
+        return "MPEG program stream"
+    if mpeg12.is_elementary_stream(head):
+        return "MPEG video elementary stream"
     return None
 
 
@@ -95,11 +112,11 @@ def _chunks(fh, start: int, end: int):
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
     shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4",
-    "vp8", "vp9" or "raw" (``pix_fmt`` "yuv420p" or "gray"); ``read`` reads
-    one chunk and ``decode_frame`` decodes a Motion-JPEG or uncompressed one
-    (thread-safe: ``os.pread`` on one descriptor)."""
+    "mpeg12", "vp8", "vp9" or "raw" (``pix_fmt`` "yuv420p" or "gray");
+    ``read`` reads one chunk and ``decode_frame`` decodes a Motion-JPEG or
+    uncompressed one (thread-safe: ``os.pread`` on one descriptor)."""
 
-    extradata = b""     # MPEG-4 streams in AVI carry their VOL in band
+    extradata = b""     # MPEG-4 and MPEG-1/2 in AVI carry headers in band
 
     def __init__(self, path: str):
         self.path = path
@@ -130,6 +147,8 @@ class AviVideo:
             self.codec = "vp8"
         elif self.fourcc in VP9_FOURCCS:
             self.codec = "vp9"
+        elif self.fourcc in MPEG12_FOURCCS:
+            self.codec = "mpeg12"
         elif self.fourcc in rawvideo.FOURCCS:
             self.codec = "raw"
             self.pix_fmt = rawvideo.FOURCCS[self.fourcc]
@@ -138,7 +157,8 @@ class AviVideo:
                 f"{path}: video codec {self.fourcc.decode(errors='replace')!r}"
                 " needs a decoder the port does not have; in AVI only "
                 "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
-                "FMP4, mp4v), VP8 (VP80), VP9 (VP90) and uncompressed "
+                "FMP4, mp4v), MPEG-1/2 (MPEG, mpg1, mpg2, PIM1), VP8 "
+                "(VP80), VP9 (VP90) and uncompressed "
                 "I420, IYUV and Y800 are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 

@@ -15,7 +15,9 @@ dropped, as FFmpeg's demuxer drops it.
 
 Codecs: ``V_VP8`` is "vp8" (io/vp8.py), ``V_VP9`` "vp9" (io/vp9.py),
 ``V_MPEG4/ISO/SP|ASP|AP`` "mpeg4"
-with CodecPrivate as its VOL headers (io/mpeg4.py), ``V_MJPEG`` "mjpeg"
+with CodecPrivate as its VOL headers (io/mpeg4.py), ``V_MPEG1`` and
+``V_MPEG2`` "mpeg12" with CodecPrivate as its sequence header
+(io/mpeg12.py), ``V_MJPEG`` "mjpeg"
 (io/jpeg.py); ``V_MS/VFW/FOURCC`` takes the codec of its bitmap header's
 fourcc, as in AVI.  Every other CodecID (AV1, FFV1, H.264, HEVC, ...)
 and any ContentEncoding (header stripping, compression, encryption) raise
@@ -46,7 +48,6 @@ _UNKNOWN = -1
 _MPEG4 = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
 _CODEC_NAMES = {"V_AV1": "AV1", "V_FFV1": "FFV1",
                 "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
-                "V_MPEG1": "MPEG-1 video", "V_MPEG2": "MPEG-2 video",
                 "V_THEORA": "Theora", "V_PRORES": "ProRes",
                 "V_UNCOMPRESSED": "uncompressed video",
                 "V_MPEG4/MS/V3": "MS-MPEG4 v3", "V_REAL/RV40": "RealVideo 4"}
@@ -84,7 +85,7 @@ def _uint(data: bytes) -> int:
 class MkvVideo:
     """The first video track of a Matroska or WebM file: ``frames`` lists
     (offset, size, shown) of each frame in file order, ``codec`` is "vp8",
-    "mpeg4" or "mjpeg", ``extradata`` its CodecPrivate; ``read`` reads one
+    "vp9", "mpeg4", "mpeg12" or "mjpeg", ``extradata`` its CodecPrivate; ``read`` reads one
     frame and ``decode_frame`` decodes a Motion-JPEG one (thread-safe:
     ``os.pread`` on one descriptor); ``fourcc`` is a VfW track's fourcc."""
 
@@ -285,11 +286,13 @@ class MkvVideo:
             self.extradata = b""
             for codec, fourccs in (("mjpeg", avi.MJPEG_FOURCCS),
                                    ("mpeg4", avi.MPEG4_FOURCCS),
+                                   ("mpeg12", avi.MPEG12_FOURCCS),
                                    ("vp8", avi.VP8_FOURCCS),
                                    ("vp9", avi.VP9_FOURCCS)):
                 if fourcc in fourccs:
                     self.codec = codec
-                    self.extradata = extra if codec == "mpeg4" else b""
+                    self.extradata = (extra if codec in ("mpeg4", "mpeg12")
+                                      else b"")
                     return
             raise NotImplementedError(
                 f"{self.path}: video codec "
@@ -301,6 +304,8 @@ class MkvVideo:
             self.codec = "vp9"
         elif cid in _MPEG4:
             self.codec = "mpeg4"
+        elif cid in ("V_MPEG1", "V_MPEG2"):
+            self.codec = "mpeg12"
         elif cid == "V_MJPEG":
             self.codec = "mjpeg"
         else:
@@ -308,7 +313,7 @@ class MkvVideo:
             raise NotImplementedError(
                 f"{self.path}: {name} video ({cid}) needs a decoder the port "
                 "does not have; in Matroska/WebM only VP8, VP9, MPEG-4 "
-                "Part 2 and Motion-JPEG are decoded")
+                "Part 2, MPEG-1/2 and Motion-JPEG are decoded")
 
     # --------------------------------------------------------------- blocks
 

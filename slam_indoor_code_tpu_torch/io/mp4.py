@@ -1,12 +1,15 @@
-"""MPEG-4 Part 2, VP9 and Motion-JPEG video in MP4/QuickTime: the ISO
-BMFF boxes parsed in Python, each sample decoded by io/mpeg4.py, io/vp9.py
-or io/jpeg.py.
+"""MPEG-4 Part 2, MPEG-1/2, VP9 and Motion-JPEG video in MP4/QuickTime:
+the ISO BMFF boxes parsed in Python, each sample decoded by io/mpeg4.py,
+io/mpeg12.py, io/vp9.py or io/jpeg.py.
 
 The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
 entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
-(MPEG-4 Visual), whose DecoderSpecificInfo holds the VOS/VOL headers, or
-0x6C (Motion-JPEG, what OpenCV's ``MJPG`` writer puts in ``.mp4``), or
-``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer into ``.mov``), or
+(MPEG-4 Visual), whose DecoderSpecificInfo holds the VOS/VOL headers,
+0x60-0x65 (MPEG-2 video: OpenCV's ``MPEG`` writer into ``.mp4``) or 0x6A
+(MPEG-1 video), or 0x6C (Motion-JPEG, what OpenCV's ``MJPG`` writer puts
+in ``.mp4``), or ``m2v1``/``m1v `` (MPEG-2/MPEG-1 video, OpenCV's ``MPEG``
+writer into ``.mov``), or ``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer
+into ``.mov``), or
 ``vp09`` (VP9, OpenCV's ``vp09`` writer; its ``vpcC`` must name profile 0,
 8-bit, or ``ValueError`` names what it holds).  The
 samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
@@ -43,6 +46,10 @@ _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
                  0x63: "MPEG-2 video", 0x64: "MPEG-2 video",
                  0x65: "MPEG-2 video", 0x6A: "MPEG-1 video",
                  0x6C: "Motion-JPEG"}
+# MPEG-1/2 video: esds object types and QuickTime sample entries
+MPEG12_OBJECT_TYPES = (0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A)
+MPEG12_ENTRIES = (b"m1v ", b"m1v1", b"m2v1", b"mp1v", b"mp2v", b"hdv2",
+                  b"hdv3", b"hdv6")
 _TOP = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot",
         b"uuid", b"meta")
 
@@ -151,8 +158,9 @@ def _full(body: bytes) -> tuple[int, bytes]:
 
 class Mp4Video:
     """The video track of an MP4/QuickTime file: ``frames`` lists (offset,
-    size, shown) of each sample in decode order, ``codec`` "mpeg4" or
-    "mjpeg", ``extradata`` its VOS/VOL headers, ``width``/``height`` its
+    size, shown) of each sample in decode order, ``codec`` "mpeg4",
+    "mpeg12", "vp9" or "mjpeg", ``extradata`` its VOS/VOL headers (an
+    MPEG-1/2 sequence header), ``width``/``height`` its
     sample entry's size; ``decode_frame`` decodes a Motion-JPEG sample
     (thread-safe: ``os.pread`` on one descriptor)."""
 
@@ -280,14 +288,17 @@ class Mp4Video:
             raise IOError(f"Video wasn't opened: {self.path} (no stsd)")
         entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
         kind = self.fourcc = entry[4:8]
-        if kind not in (b"mp4v", b"jpeg", b"vp09"):
+        if kind not in (b"mp4v", b"jpeg", b"vp09") + MPEG12_ENTRIES:
             fourcc = kind.decode(errors="replace")
             raise NotImplementedError(
                 f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
                 f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
-                "only MPEG-4 Part 2 (mp4v), VP9 (vp09) and Motion-JPEG "
-                "(jpeg, mp4v 0x6C) are decoded")
+                "only MPEG-4 Part 2 (mp4v), MPEG-1/2 (mp4v, m1v, m2v1), VP9 "
+                "(vp09) and Motion-JPEG (jpeg, mp4v 0x6C) are decoded")
         self.width, self.height = struct.unpack(">HH", entry[32:36])
+        if kind in MPEG12_ENTRIES:
+            self.codec = "mpeg12"
+            return
         if kind == b"jpeg":
             self.codec = "mjpeg"
             return
@@ -304,13 +315,16 @@ class Mp4Video:
             self.codec = "mjpeg"
             return
         self.extradata = extradata
+        if oti in MPEG12_OBJECT_TYPES:
+            self.codec = "mpeg12"
+            return
         if oti != 0x20:
             name = _OBJECT_TYPES.get(oti, f"object type 0x{oti:02x}")
             raise NotImplementedError(
                 f"{self.path}: video codec {name} (mp4v, objectType"
                 f"Indication 0x{oti:02x}) needs a decoder the port does not "
-                "have; only MPEG-4 Part 2 (0x20) and Motion-JPEG (0x6C) "
-                "are decoded")
+                "have; only MPEG-4 Part 2 (0x20), MPEG-1/2 (0x60-0x65, "
+                "0x6A) and Motion-JPEG (0x6C) are decoded")
 
     def _sizes(self, tables: dict) -> list[int]:
         if b"stsz" in tables:

@@ -41,7 +41,8 @@ import numpy as np
 from .native import _PKG_DIR, load_shared
 
 SOURCE = _PKG_DIR / "native" / "mpeg4.cpp"
-HEADERS = (_PKG_DIR / "native" / "swscale_rgb.h",)
+HEADERS = tuple(_PKG_DIR / "native" / h
+                for h in ("mpegvideo_dsp.h", "swscale_rgb.h"))
 LIBRARY = _PKG_DIR / "_build" / "libmpeg4dec.so"
 _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()

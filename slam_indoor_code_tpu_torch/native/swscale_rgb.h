@@ -1,10 +1,12 @@
 // swscale_rgb.h — YUV 4:2:0 -> packed RGB as OpenCV's FFmpeg backend
-// returns it (sws_scale yuv420p -> bgr24, SWS_BICUBIC, same size, on x86),
-// written with R first: at an even height libswscale's unscaled converter
-// (BT.601 limited range, 16-bit fixed point, one chroma sample per 2x2
-// block); at an odd height its scaling path, bicubic chroma.  Shared by
-// the decoders of this directory (mpeg4.cpp, vp8.cpp, rawvideo.cpp);
-// header-only, no library but the C++ standard one.
+// returns it (sws_scale yuv420p -> bgr24, SWS_BICUBIC, same size, on x86,
+// with sws_setColorspaceDetails given the frame's matrix), written with R
+// first: at an even height libswscale's unscaled converter (limited range,
+// 16-bit fixed point, one chroma sample per 2x2 block); at an odd height
+// its scaling path, bicubic chroma.  The matrix is BT.601 (unknown,
+// BT.470BG and SMPTE 170M take it too) or BT.709.  Shared by the decoders
+// of this directory (mpeg4.cpp, mpeg12.cpp, vp8.cpp, vp9.cpp,
+// rawvideo.cpp); header-only, no library but the C++ standard one.
 
 #ifndef SLAM_NATIVE_SWSCALE_RGB_H_
 #define SLAM_NATIVE_SWSCALE_RGB_H_
@@ -27,6 +29,14 @@ inline uint8_t clip8(int v) {
 // ff_yuv2rgb_c_init_tables for BT.601, limited range, default contrast and
 // saturation, rounded to 16 bits.
 
+// libswscale's ff_yuv2rgb_coeffs (crv, cbu, cgu, cgv) for a matrix.
+enum Matrix { kBt601 = 0, kBt709 = 1 };
+inline const int64_t* coeffs(Matrix m) {
+  static const int64_t k[2][4] = {{104597, 132201, 25675, 53279},
+                                  {117489, 138438, 13975, 34925}};
+  return k[m];
+}
+
 inline int round16(int64_t f) {
   int64_t r = (f + (1 << 15)) >> 16;
   return static_cast<int>(std::clamp<int64_t>(r, -0x8000, 0x7FFF));
@@ -34,8 +44,9 @@ inline int round16(int64_t f) {
 
 struct Colour {
   int y_coeff, y_offset, v2r, u2g, v2g, u2b;
-  Colour() {
-    const int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+  explicit Colour(Matrix m = kBt601) {
+    const int64_t* c = coeffs(m);
+    const int64_t crv = c[0], cbu = c[1], cgu = -c[2], cgv = -c[3];
     const int64_t cy = (int64_t(1 << 16) * 255) / 219, oy = 16 << 16;
     y_coeff = round16(cy * (1 << 13));
     y_offset = round16(oy * (1 << 3));
@@ -51,9 +62,15 @@ inline int mulhi(int a, int b) { return (a * b) >> 16; }
 // Per pixel: R = lum[Y] + cr[V], G = lum[Y] + cg[U][V] (one paddsw of
 // the two chroma products), B = lum[Y] + cb[U], each packed to 0..255
 // (`clip`); no sum leaves 16 bits, so paddsw's saturation never acts.
+inline const Colour& colour(Matrix m) {
+  static const Colour k[2] = {Colour(kBt601), Colour(kBt709)};
+  return k[m];
+}
+
 inline void unscaled(const uint8_t* py, int ys, const uint8_t* pu,
-                     const uint8_t* pv, int cs, int w, int h, uint8_t* out) {
-  static const Colour k;
+                     const uint8_t* pv, int cs, int w, int h, uint8_t* out,
+                     Matrix m) {
+  const Colour& k = colour(m);
   int lum[256], cr[256], cb[256], ug[256], vg[256];
   // the sums reach -224 (Y 0, V 0) and 534 (Y 255, U 255)
   uint8_t clip_[2048];
@@ -217,19 +234,20 @@ inline Filter init_filter(int src, int dst, int64_t x_inc, int align, int one,
 
 inline int16_t wrap16(int v) { return static_cast<int16_t>(v); }
 
-// swscale's C yuv->rgb tables (ff_yuv2rgb_c_init_tables, 24 bits, BT.601
-// limited range): R = y[off_r + (V * crv >> 16) + Y] and so on.
+// swscale's C yuv->rgb tables (ff_yuv2rgb_c_init_tables, 24 bits, limited
+// range): R = y[off_r + (V * crv >> 16) + Y] and so on.
 struct Tables {
   uint8_t y[2048];
   int64_t crv, cbu, cgu, cgv;
   static constexpr int kYoffs = 326 + 512;
-  Tables() {
+  explicit Tables(Matrix m = kBt601) {
+    const int64_t* c = coeffs(m);
     const int64_t cy = (int64_t(1) << 16) * 255 / 219, oy = 16 << 16;
-    auto scale = [&](int64_t c) { return (c * (1 << 16) + 0x8000) / cy; };
-    crv = scale(104597);
-    cbu = scale(132201);
-    cgu = scale(-25675);
-    cgv = scale(-53279);
+    auto scale = [&](int64_t v) { return (v * (1 << 16) + 0x8000) / cy; };
+    crv = scale(c[0]);
+    cbu = scale(c[1]);
+    cgu = scale(-c[2]);
+    cgv = scale(-c[3]);
     int64_t yb = -(384LL << 16) - 512 * cy - oy;
     for (int i = 0; i < 2048; ++i, yb += cy) y[i] = clip8(static_cast<int>((yb + 0x8000) >> 16));
   }
@@ -265,9 +283,10 @@ inline void hscale(const uint8_t* p, int cs, int ch, int cw, const Filter& hf,
 
 inline void scaled_even_width(const uint8_t* py, int ys, const uint8_t* pu,
                               const uint8_t* pv, int cs, int w, int h,
-                              bool chroma_left, uint8_t* out) {
-  static const Colour k;
-  static const Tables t;
+                              bool chroma_left, uint8_t* out, Matrix m) {
+  static const Tables tables[2] = {Tables(kBt601), Tables(kBt709)};
+  const Colour& k = colour(m);
+  const Tables& t = tables[m];
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
   const Filter vf = init_filter(ch, h, ((int64_t(ch) << 16) + (h >> 1)) / h,
                                 2, 4096, true);
@@ -325,8 +344,8 @@ inline void scaled_even_width(const uint8_t* py, int ys, const uint8_t* pu,
 // (yuv2rgb_full_X_c: 10-bit scaled sums, 30-bit RGB clipped and shifted).
 inline void scaled_full_chroma(const uint8_t* py, int ys, const uint8_t* pu,
                                const uint8_t* pv, int cs, int w, int h,
-                               bool chroma_left, uint8_t* out) {
-  static const Colour k0;
+                               bool chroma_left, uint8_t* out, Matrix m) {
+  const Colour& k0 = colour(m);
   const int ch = (h + 1) / 2, cw = (w + 1) / 2;
   const Filter hf = init_filter(cw, w, ((int64_t(cw) << 16) + (w >> 1)) / w,
                                 4, 1 << 14, false, chroma_left ? 64 : 128);
@@ -377,16 +396,16 @@ inline void scaled_full_chroma(const uint8_t* py, int ys, const uint8_t* pu,
 // `chroma_left`: the decoder reports its chroma sited left of each pixel
 // pair (FFmpeg's MPEG-4 decoder does), which OpenCV passes on to the
 // scaled path.  Odd heights below 9 take swscale's other vertical paths
-// and are not matched.
+// and are not matched.  `m`: the frame's matrix.
 inline void to_rgb(const uint8_t* py, int ys, const uint8_t* pu,
                    const uint8_t* pv, int cs, int w, int h, uint8_t* out,
-                   bool chroma_left = false) {
+                   bool chroma_left = false, Matrix m = kBt601) {
   if (!(h & 1))
-    unscaled(py, ys, pu, pv, cs, w, h, out);
+    unscaled(py, ys, pu, pv, cs, w, h, out, m);
   else if (!(w & 1))
-    scaled_even_width(py, ys, pu, pv, cs, w, h, chroma_left, out);
+    scaled_even_width(py, ys, pu, pv, cs, w, h, chroma_left, out, m);
   else
-    scaled_full_chroma(py, ys, pu, pv, cs, w, h, chroma_left, out);
+    scaled_full_chroma(py, ys, pu, pv, cs, w, h, chroma_left, out, m);
 }
 
 }  // namespace swscale_rgb

@@ -46,14 +46,15 @@
 //     after a key frame, counts saturated; the uncoded high-precision bit
 //     counted as 1, as libvpx counts it);
 //   - the crop to the frame's size and YUV 4:2:0 -> RGB as swscale does it
-//     for OpenCV (swscale_rgb.h).
+//     for OpenCV (swscale_rgb.h), with the key frame's matrix: BT.601
+//     (colour space unknown, BT.601, SMPTE 170M) or BT.709.
 // A frame with show_frame 0 updates the references and gives no frame.  A
 // frame that is corrupt (a bad marker, sync code or tile size, a missing
 // reference) gives no frame and leaves the references as they were, which
 // ends the video where OpenCV's reader ends it.  Profiles 1-3, intra-only
 // frames, a size change, a reference of another size (scaled prediction)
-// and colour other than BT.601 limited range raise with the feature
-// named.
+// and colour other than BT.601 or BT.709 limited range (SMPTE 240M,
+// BT.2020, sRGB, full range) raise with the feature named.
 //
 // The constant tables are libvpx's (vp9_tables.h, under its BSD notice);
 // the default probabilities libvpx keeps in code are written out below.
@@ -296,6 +297,7 @@ struct Frame {
   int w = 0, h = 0;     // the picture
   int stride = 0;       // luma stride; chroma's is half
   int rows = 0;         // luma rows allocated
+  bool bt709 = false;   // the colour space of the key frame before it
   std::vector<uint8_t> y, u, v;
   void alloc(int width, int height) {
     w = width;
@@ -363,6 +365,7 @@ class Decoder {
  public:
   int width = 0, height = 0;
   FramePtr shown;  // the last frame given
+  bool bt709_ = false;  // the last key frame's colour space
 
   Status decode(const uint8_t* data, int64_t n);
 
@@ -521,15 +524,16 @@ int Decoder::uncompressed_header(Bits& r) {
   use_prev_mvs_ = !error_res_ && !last_invisible;
   if (key_) {
     if (r.lit(24) != 0x498342) corrupt("sync code");
-    // OpenCV converts BT.601 limited-range pictures (colour space unknown,
-    // BT.601 or SMPTE 170M) as swscale_rgb.h does; others it converts
-    // with their own matrix or range, which is not reproduced here
+    // OpenCV converts limited-range pictures with the colour space's
+    // matrix as swscale_rgb.h does: BT.601 (unknown, BT.601, SMPTE 170M)
+    // or BT.709; the other matrices and full range are not reproduced
     static const char* const kSpaces[8] = {
         "unknown", "BT.601", "BT.709", "SMPTE 170M", "SMPTE 240M",
         "BT.2020", "reserved", "sRGB"};
     const int cs = r.lit(3);
-    if (cs != 0 && cs != 1 && cs != 3)
+    if (cs != 0 && cs != 1 && cs != 2 && cs != 3)
       unsupported(std::string(kSpaces[cs]) + " colour space");
+    bt709_ = cs == 2;
     if (r.bit()) unsupported("full-range colour");
     const int w = r.lit(16) + 1, h = r.lit(16) + 1;
     if (r.bit()) r.lit(32);  // render size
@@ -2063,6 +2067,7 @@ Status Decoder::decode_one(const uint8_t* data, size_t n, const uint8_t* end) {
   compressed_header(b);
   cur_ = std::make_shared<Frame>();
   cur_->alloc(width, height);
+  cur_->bt709 = bt709_;
   const size_t cells = size_t(mi_cols_) * mi_rows_;
   mi_.assign(cells, MI{});
   cur_mvs_.assign(cells, MvRef{});
@@ -2222,7 +2227,8 @@ int vp9dec_rgb(void* handle, uint8_t* rgb, int64_t cap) {
   if (!d->shown || int64_t(d->shown->w) * d->shown->h * 3 > cap) return kSmall;
   const Frame& f = *d->shown;
   swscale_rgb::to_rgb(f.y.data(), f.stride, f.u.data(), f.v.data(),
-                      f.stride / 2, f.w, f.h, rgb);
+                      f.stride / 2, f.w, f.h, rgb, false,
+                      f.bt709 ? swscale_rgb::kBt709 : swscale_rgb::kBt601);
   return kFrame;
 }
 

@@ -4,7 +4,8 @@ PNG and JPEG files written by cv2; the port's own PNG reader (the decoder
 where libpng cannot be built) over every colour type and row filter; the
 native build's failure; the video the port refuses (io/avi.py; the MJPEG
 reader itself is in tests/test_torch_video.py, the MPEG-4 one in
-tests/test_torch_mp4.py), MPEG program and transport streams among it;
+tests/test_torch_mp4.py); MPEG program and transport streams, named by
+their container and read (tests/test_torch_mpeg2.py holds them in full);
 uncompressed I420/IYUV/Y800 AVIs against cv2, odd heights (swscale's
 scaling path) against cv2 and sws_scale; and the gray plane the
 frames become, against the JAX package's."""
@@ -241,20 +242,27 @@ def test_video_media_is_not_ported(tmp_path, case, error, match):
 def test_mpeg_program_and_transport_streams_are_named(tmp_path, scene_frames,
                                                      fourcc, ext):
     """cv2's MPEG-1/2 writers into an MPEG program stream (.mpg) and a
-    transport stream (.ts), which cv2 reads back: NotImplementedError
-    naming the container (not the AVI reader's IOError)."""
+    transport stream (.ts), which cv2 reads back: ``avi.mpeg_container``
+    names the container, and the port reads its frames equal to cv2's
+    (tests/test_torch_mpeg2.py holds the demuxers and the decoder in
+    full)."""
     path = tmp_path / f"seq.{ext}"
     vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 10.0,
                          (128, 96))
     for f in scene_frames[:4]:
         vw.write(cv2.resize(f, (128, 96)))
     vw.release()
-    cap = cv2.VideoCapture(str(path))
-    assert cap.read()[0]
+    from slam_indoor_code_tpu_torch.io import avi
+
+    want = _cv2_frames(path)
+    assert len(want) == 4
     name = ("MPEG program stream" if ext == "mpg"
             else "MPEG transport stream")
-    with pytest.raises(NotImplementedError, match=name):
-        MediaSource(video_path=str(path), use_photos=False)
+    assert avi.mpeg_container(path.read_bytes()[:2048]) == name
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def _cv2_frames(path):

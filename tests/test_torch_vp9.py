@@ -536,15 +536,20 @@ def _two_sizes(tmp_path):
 
 @pytest.mark.parametrize("feature", ["profile_1", "profile_2",
                                      "intra_only", "size_change",
-                                     "scaled_reference", "bt709",
-                                     "full_range"])
+                                     "scaled_reference", "smpte240m",
+                                     "bt2020", "srgb", "full_range"])
 def test_refusals_name_the_feature(tmp_path, feature):
     """What the decoder does not read raises ValueError naming it: a key
     frame marked profile 1 or 2, an intra-only frame (a hidden inter frame
     with intra_only set), a key frame of another size, an inter frame of
-    another size than its references, BT.709 and full-range colour
-    (OpenCV converts them another way)."""
+    another size than its references, the SMPTE 240M, BT.2020 and sRGB
+    colour spaces (written into a key frame's header by hand) and
+    full-range colour (OpenCV converts them with coefficients
+    swscale_rgb.h does not carry)."""
     a, b = _two_sizes(tmp_path)
+    spaces = {"smpte240m": ("100", "SMPTE 240M"), "bt2020": ("101",
+                                                             "BT.2020"),
+              "srgb": ("111", "sRGB")}
     if feature in ("profile_1", "profile_2"):
         k = int(feature[-1])
         packets = [with_bits(a[0], 2, f"{k & 1}{k >> 1}")] + a[1:]
@@ -560,16 +565,46 @@ def test_refusals_name_the_feature(tmp_path, feature):
     elif feature == "scaled_reference":
         packets = a[:2] + [with_explicit_size(a[2], 96, 64)]
         match = "VP9 scaled reference"
+    elif feature in spaces:
+        # colour_space: the three bits after the key frame's sync code
+        bits, name = spaces[feature]
+        packets = [with_bits(a[0], 32, bits)] + a[1:]
+        match = f"VP9 {name} colour space"
     else:
-        options = ({"colorspace": "bt709"} if feature == "bt709"
-                   else {"color_range": "pc"})
-        packets = encode(pan(2), options)
-        match = ("VP9 BT.709 colour space" if feature == "bt709"
-                 else "VP9 full-range colour")
+        packets = encode(pan(2), {"color_range": "pc"})
+        match = "VP9 full-range colour"
     path = tmp_path / "refused.webm"
     write_webm(path, packets, 96, 160)
     with pytest.raises(ValueError, match=match):
         list(MediaSource(video_path=str(path), use_photos=False))
+
+
+def test_bt709_read_with_its_matrix(tmp_path):
+    """libvpx-vp9 with ``colorspace bt709`` (colour space 2 in the key
+    frame): every frame equals cv2's in RGB, converted with BT.709's
+    coefficients, and cv2's Y read equals the port's Y plane as OpenCV's
+    swscale call turns it (through RGB, ``swscale_y_read``); the RGB
+    differs from the same stream untagged."""
+    from test_torch_mpeg2 import swscale_y_read
+
+    packets = encode(pan(6), {"colorspace": "bt709"})
+    assert header(packets[0])["colour_space"] == 2
+    path = tmp_path / "bt709.webm"
+    write_webm(path, packets, 96, 160)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    want_rgb = cv2_rgb(path)
+    assert len(got) == len(want_rgb) == 6
+    for a, b in zip(got, want_rgb):
+        np.testing.assert_array_equal(a, b)
+    dec = vp9.Decoder()
+    planes = [dec.decode_yuv(p) for p in packets_of(path)]
+    want = cv2_luma(path)
+    assert len(want) == len(planes) == 6
+    for p, y in zip(planes, want):
+        np.testing.assert_array_equal(swscale_y_read(*p, 1), y)
+    plain = tmp_path / "plain.webm"
+    write_webm(plain, encode(pan(6), {}), 96, 160)
+    assert np.abs(cv2_rgb(path)[0].astype(int) - cv2_rgb(plain)[0]).max() > 2
 
 
 def test_bt601_colour_spaces_are_read(tmp_path):
