@@ -176,50 +176,68 @@ Phases, each followed by one flushed line with the elapsed seconds:
               on the .ts: the jpeg phase's checks; prints the demux time
               and the decode ms per FHD frame beside the tracking ms per
               frame.
-24. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+24. h263    — H.263 in a 3GPP file: the committed fixture
+              testing/video_fixtures/headline_h263p.3gp (the 32 frames
+              coded by libavcodec's h263p at 1920x1080, a custom picture
+              format, with every annex it writes: unrestricted vectors,
+              4MV and OBMC, advanced intra coding, deblocking, slices, the
+              alternative inter VLC and modified quantisation, at a fixed
+              quantiser of 8) and eight small fixtures (cv2's H263 writer
+              in .avi, .3gp, .3g2, .mov and .mkv; a 4CIF baseline stream
+              with 4MV, OBMC and GOB headers; a raw H.263+ stream with
+              every annex at quantiser 2; a U263 AVI): the 3GP demuxed and
+              timed, every FHD picture decoded by io/h263.py on one thread,
+              timed, and held to the committed sha256 of cv2's RGB frames
+              and Y planes, the small ones too; the decoder's counts must
+              show each annex in every picture and each annex's tool in
+              use; then the CLI with ``usePhotosCycle=false`` on the .3gp:
+              the jpeg phase's checks; prints the demux time and the decode
+              ms per FHD frame beside the tracking ms per frame.
+25. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-25. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+26. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
               the same views; the XML written and reloaded; the solve's
-              seconds.  Then from pixels: 20 FHD views rendered on the card
-              by testing/board.py through the same K and distortion with
-              noise of 2 gray levels, held host-side to the projection
-              (calibration/corners.py: all 20 found, corners within median
-              0.1 / max 0.5 px), a board-free frame and a board cut by the
-              frame edge giving None; the views as PNG photos and as one
-              MJPEG AVI (each q95 frame written ten times: the branch
-              takes every tenth) through the CLI as subprocesses
-              (``calibrate``, default device): exit 0, 20 views in the
-              XML, fx/fy within 1 %, cx/cy within 1 % of the image size,
-              rms < 0.3 px; prints the detection ms per FHD photo with and
-              without a board, each branch's K and its solve's seconds on
-              the card.
-26. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+              seconds.  Then from pixels: 12 FHD views (BOARD_VIEWS)
+              rendered on the card by testing/board.py through the same K
+              and distortion with noise of 2 gray levels, held host-side
+              to the projection (calibration/corners.py: all 12 found,
+              corners within median 0.1 / max 0.5 px), a board-free frame
+              and a board cut by the frame edge giving None; the views as
+              PNG photos and as one MJPEG AVI (each q95 frame, encoded on a
+              thread per core, written ten times: the branch takes every
+              tenth) through the CLI, the two runs one after the other in
+              one subprocess (``calibrate``, default device): exit 0, 12
+              views in each XML, fx/fy within 1 %, cx/cy within 1 % of the
+              image size, rms < 0.3 px; prints the detection ms per FHD
+              photo with and without a board, each branch's K and its
+              solve's seconds on the card.
+27. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-27. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+28. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-28. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+29. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-29. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+30. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-30. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+31. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -229,11 +247,11 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-31. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+32. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
-32. photos  — the photo readers the card has (io/photo.py: no libjpeg,
+33. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp or OpenCV): first every committed
               fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
               TIFF and WebP variant family and EXIF case) through
@@ -2743,6 +2761,127 @@ def mpeg2_phase(card_line: str, scene):
     return n, decode_ms, track_ms
 
 
+H263_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                            "headline_h263p.3gp")
+# H.263, small: cv2's H263 writer into each container; a 4CIF baseline
+# stream with 4MV, OBMC and GOB headers; a raw H.263+ stream with every
+# annex at quantiser 2; a U263 AVI
+H263_SMALL_FIXTURES = ("h263_cv2.avi", "h263_cv2.3gp", "h263_cv2.3g2",
+                       "h263_cv2.mov", "h263_cv2.mkv", "h263_4cif_obmc.avi",
+                       "h263p_annexes.h263", "h263p_u263.avi")
+# the decoder's counts that show each annex of the headline in use: the
+# pictures coded with each mode of OPPTYPE, and what each mode did
+H263_MODES = ("umv_pictures", "obmc_pictures", "aic_pictures",
+              "loop_filter_pictures", "slice_pictures", "aiv_pictures",
+              "mq_pictures")
+H263_TOOLS = ("umv_codes", "long_vectors", "umv_outside", "inter4v_mbs",
+              "obmc_mbs", "aic_blocks", "deblocked_edges", "slice_headers",
+              "alt_vlc_blocks", "mq_chroma_mbs", "no_rounding_pictures")
+
+
+def h263_frames(path: str, timed: bool = False):
+    """Every frame the port gives for the H.263 video at ``path``, decoded
+    on one thread → (RGB frames, Y planes, decoder statistics, ms per
+    picture or None)."""
+    from slam_indoor_code_tpu_torch.io import avi, h263
+
+    video = avi.open_video(path)
+    data = [video.read(fr) for fr in video.frames]
+    dec = h263.Decoder()
+    video.close()
+    rgb, luma = [], []
+    t = time.perf_counter()
+    for i, d in enumerate(data):
+        planes = dec.decode_yuv(d)
+        if dec.failed:
+            fail(f"h263: {os.path.basename(path)}: picture {i} fails")
+        rgb.append(dec.rgb())
+        luma.append(planes[0])
+    ms = 1e3 * (time.perf_counter() - t) / len(data) if timed else None
+    stats = dec.stats()
+    dec.close()
+    return rgb, luma, stats, ms
+
+
+def h263_phase(card_line: str, scene):
+    """The committed fixtures (the card has no encoder and no cv2): the
+    headline 3GP demuxed and timed; every picture decoded on one thread,
+    timed, and held to the committed sha256 of cv2's RGB frames and Y
+    planes, with the decoder's counts showing each annex in use; the small
+    H.263 fixtures held to theirs; ``MediaSource``'s frames equal to the
+    decoder's; then the CLI on the .3gp with ``usePhotosCycle=false``
+    (cli_counted) → (counts, decode ms per frame, tracking ms per
+    frame)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    fixtures = os.path.dirname(H263_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    table = tables[os.path.basename(H263_FIXTURE)]
+    t = time.perf_counter()
+    video = avi.open_video(H263_FIXTURE)
+    demux_ms = 1e3 * (time.perf_counter() - t)
+    n_pictures, codec = len(video.frames), video.codec
+    video.close()
+    if codec != "h263" or n_pictures != table["frames"]:
+        fail(f"h263: the fixture demuxes to {n_pictures} {codec} pictures")
+    rgb, luma, stats, decode_ms = h263_frames(H263_FIXTURE, timed=True)
+    if ([sha(f) for f in rgb] != table["rgb_sha256"]
+            or rgb[0].shape != tuple(table["shape"])):
+        fail("h263: the decoded RGB frames differ from cv2's (sha256)")
+    if [sha(y) for y in luma] != table["y_sha256"]:
+        fail("h263: the Y planes differ from cv2's Y read (sha256)")
+    if not (all(stats[k] == N_FRAMES for k in H263_MODES)
+            and all(stats[k] > 0 for k in H263_TOOLS)
+            and stats["custom_format"] == N_FRAMES):
+        fail(f"h263: the fixture does not use its annexes: {stats}")
+    for name in H263_SMALL_FIXTURES:
+        path = os.path.join(fixtures, name)
+        want = tables[name]
+        got = [sha(f) for f in MediaSource(video_path=path, use_photos=False)]
+        _, small_luma, _, _ = h263_frames(path)
+        if got != want["rgb_sha256"] or [sha(y) for y in small_luma
+                                         ] != want["y_sha256"]:
+            fail(f"h263: the small fixture {name} differs from cv2's decode "
+                 f"(sha256)")
+    from_3gp = list(MediaSource(video_path=H263_FIXTURE, use_photos=False))
+    if len(from_3gp) != len(rgb) or not all(
+            np.array_equal(a, b) for a, b in zip(from_3gp, rgb)):
+        fail("h263: MediaSource's frames differ from the decoder's")
+    with tempfile.TemporaryDirectory() as root:
+        cfg = dataclasses.replace(
+            headline_config(os.path.join(root, "out")),
+            usePhotosCycle=False, videoSourcePath=H263_FIXTURE)
+        n, n_cams, ate_pct, _, run_s = cli_counted("h263", cfg, root, scene)
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"h263: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(H263_FIXTURE) / 1e6:.2f} MB 3GP, H.263+ "
+          f"1920x1080 custom format, annexes D F I J K S T: "
+          f"{stats['umv_codes']} reversible vector codes, "
+          f"{stats['inter4v_mbs']} 4MV and {stats['obmc_mbs']} OBMC "
+          f"macroblocks, {stats['aic_blocks']} advanced-intra blocks, "
+          f"{stats['deblocked_edges']} deblocked edges, "
+          f"{stats['slice_headers']} slice headers, "
+          f"{stats['alt_vlc_blocks']} alternative-VLC blocks, "
+          f"{stats['mq_chroma_mbs']} macroblocks on Annex T's chroma "
+          f"quantiser) equal to cv2's decode (sha256 of RGB and Y; the "
+          f"{len(H263_SMALL_FIXTURES)} small fixtures' too); cameras "
+          f"{n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  launches "
+          f"{json.dumps(n)}  demux {demux_ms:.3f} ms; decode "
+          f"{decode_ms:.3f} ms per FHD frame on one thread; tracking "
+          f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s  "
+          f"[{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
 # The real-texture scene at FHD: 24 frames (the JAX package's default
 # sweep, 0.12 per frame), two procedural textures from seeds, rendered on
 # the card.  The good-frame rule keeps the head-most best-matched frame of
@@ -2891,13 +3030,14 @@ def calibrate_phase(card_line: str, scene):
 
 
 # ``python -m slam_indoor_code_tpu_torch`` with ``calibrate`` through runpy,
-# reporting each corner detection's host seconds and whether it found a
-# board, and the solve's seconds (card synchronised), rms and view count.
+# once per configuration given, in one process, reporting for each run its
+# corner detections' host seconds and whether each found a board, and the
+# solve's seconds (card synchronised), rms and view count.
 CLI_CALIBRATE = r"""
-import atexit, json, runpy, sys, time
+import json, runpy, sys, time
 import torch
 from slam_indoor_code_tpu_torch.calibration import chessboard as cb
-seen = {"detect_s": [], "found": [], "solve_s": [], "rms": [], "views": []}
+seen = {}
 find, solve = cb.find_chessboard_corners, cb.calibrate_camera
 def timed_find(*a, **kw):
     t = time.perf_counter()
@@ -2915,12 +3055,24 @@ def timed_solve(obj, pts, *a, **kw):
     seen["views"].append(len(pts))
     return out
 cb.find_chessboard_corners, cb.calibrate_camera = timed_find, timed_solve
-atexit.register(lambda: print("calib: " + json.dumps(seen), flush=True))
-sys.argv = ["slam_indoor_code_tpu_torch"] + sys.argv[1:]
-runpy.run_module("slam_indoor_code_tpu_torch", run_name="__main__",
-                 alter_sys=True)
+for cfg in sys.argv[1:]:
+    seen.update(detect_s=[], found=[], solve_s=[], rms=[], views=[])
+    sys.argv = ["slam_indoor_code_tpu_torch", cfg]
+    try:
+        runpy.run_module("slam_indoor_code_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    print("calib: " + json.dumps(seen), flush=True)
+    if code:
+        sys.exit(code)
 """
 
+# The views of the calibration from pixels (cut from 20: each view costs
+# a render, a host detection, a PNG, a numpy JPEG encode of ~1.3 s and two
+# detections in the CLI; 12 still put fx/fy well inside 1 %).
+BOARD_VIEWS = 12
 BOARD_DIST = (0.08, -0.15, 0.001, -0.0005, 0.0)
 BOARD_NOISE = 2.0
 
@@ -2967,34 +3119,42 @@ def rendered_board_views(K, n_views: int, seed: int = 5,
     return views, truth, spent / n_views
 
 
-def cli_calibrate(what: str, cfg, root: str):
-    """The CLI module with ``calibrate`` in a subprocess under
-    CLI_CALIBRATE: exit 0, the XML's K and 20 views → (K, the run's report
-    of detections and solves)."""
+def cli_calibrate(runs: dict, root: str) -> dict:
+    """The CLI module with ``calibrate`` for each configuration of ``runs``
+    (name → Config), one after the other in one subprocess under
+    CLI_CALIBRATE: exit 0, each XML's K and BOARD_VIEWS views → name → (K,
+    that run's report of detections and solves)."""
     import re
 
     from slam_indoor_code_tpu_torch.config import dump_config
     from slam_indoor_code_tpu_torch.io.xmlio import load_matrix_from_xml
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    cfg_path = os.path.join(root, f"{what}.json")
-    with open(cfg_path, "w") as f:
-        f.write(dump_config(cfg))
-    r = subprocess.run([sys.executable, "-c", CLI_CALIBRATE, cfg_path],
+    paths = []
+    for what, cfg in runs.items():
+        paths.append(os.path.join(root, f"{what}.json"))
+        with open(paths[-1], "w") as f:
+            f.write(dump_config(cfg))
+    r = subprocess.run([sys.executable, "-c", CLI_CALIBRATE, *paths],
                        capture_output=True, text=True, timeout=600, cwd=repo,
                        env=dict(os.environ, PYTHONPATH=repo))
     if r.returncode != 0:
-        fail(f"calibrate ({what}): exit {r.returncode}: {r.stderr[-2000:]}")
-    c = re.search(r"^calib: (.*)$", r.stdout, re.M)
-    if c is None:
-        fail(f"calibrate ({what}): no report in {r.stdout[-500:]!r}")
-    seen = json.loads(c.group(1))
-    K = load_matrix_from_xml(cfg.calibrationPath, "K")
-    n_views = load_matrix_from_xml(cfg.calibrationPath, "R").shape[0]
-    if n_views != 20 or seen["views"] != [20]:
-        fail(f"calibrate ({what}): {n_views} views in the XML, "
-             f"{seen['views']} solved; 20 expected")
-    return K, seen
+        fail(f"calibrate ({', '.join(runs)}): exit {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    reports = re.findall(r"^calib: (.*)$", r.stdout, re.M)
+    if len(reports) != len(runs):
+        fail(f"calibrate: {len(reports)} reports for {len(runs)} runs in "
+             f"{r.stdout[-500:]!r}")
+    out = {}
+    for (what, cfg), report in zip(runs.items(), reports):
+        seen = json.loads(report)
+        K = load_matrix_from_xml(cfg.calibrationPath, "K")
+        n_views = load_matrix_from_xml(cfg.calibrationPath, "R").shape[0]
+        if n_views != BOARD_VIEWS or seen["views"] != [BOARD_VIEWS]:
+            fail(f"calibrate ({what}): {n_views} views in the XML, "
+                 f"{seen['views']} solved; {BOARD_VIEWS} expected")
+        out[what] = (K, seen)
+    return out
 
 
 def hold_k(what: str, K, K_true, size, rms) -> None:
@@ -3015,7 +3175,10 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
 
 
 def calibrate_pixels(card_line: str, scene, frames):
-    """Calibration from pixels through the CLI (phase 24's second part)."""
+    """Calibration from pixels through the CLI (the calibrate phase's
+    second part)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from slam_indoor_code_tpu_torch.calibration import chessboard as cb
@@ -3025,7 +3188,7 @@ def calibrate_pixels(card_line: str, scene, frames):
     from slam_indoor_code_tpu_torch.testing import board, mjpeg
 
     size = (1080, 1920)
-    views, truth, render_s = rendered_board_views(scene.K, 20)
+    views, truth, render_s = rendered_board_views(scene.K, BOARD_VIEWS)
     # host-side detection, held to the projection
     errs, board_s = [], []
     for img, want in zip(views, truth):
@@ -3059,24 +3222,25 @@ def calibrate_pixels(card_line: str, scene, frames):
         for i, img in enumerate(views):
             write_png(os.path.join(photos, f"board_{i:02d}.png"),
                       np.repeat(img[..., None], 3, axis=2))
-        jpegs = [mjpeg.encode_jpeg(np.repeat(img[..., None], 3, axis=2))
-                 for img in views]
+        with ThreadPoolExecutor(os.cpu_count()) as pool:
+            jpegs = list(pool.map(lambda img: mjpeg.encode_jpeg(
+                np.repeat(img[..., None], 3, axis=2)), views))
         avi = os.path.join(root, "board.avi")
         mjpeg.write_avi(avi, [j for j in jpegs for _ in range(10)], size[1],
                         size[0])
-        runs = {}
-        for what, use_photos in (("photos", True), ("video", False)):
-            cfg = Config(calibrate=True, usePhotosCycle=use_photos,
+        runs = cli_calibrate({
+            what: Config(calibrate=True, usePhotosCycle=use_photos,
                          photosPathPattern=os.path.join(photos, "*.png"),
                          videoSourcePath=avi,
                          calibrationPath=os.path.join(root, f"{what}.xml"),
                          outputDataDir=os.path.join(root, "out"))
-            Kc, seen = cli_calibrate(what, cfg, root)
+            for what, use_photos in (("photos", True), ("video", False))},
+            root)
+        for what, (Kc, seen) in runs.items():
             hold_k(what, Kc, K, size, seen["rms"][0])
-            if what == "photos" and sum(seen["found"]) != 20:
-                fail(f"calibrate (photos): {sum(seen['found'])}/20 boards "
-                     "found")
-            runs[what] = (Kc, seen)
+            if what == "photos" and sum(seen["found"]) != BOARD_VIEWS:
+                fail(f"calibrate (photos): {sum(seen['found'])}/"
+                     f"{BOARD_VIEWS} boards found")
     lines = []
     for what, (Kc, seen) in runs.items():
         lines.append(
@@ -3085,8 +3249,8 @@ def calibrate_pixels(card_line: str, scene, frames):
             f"{sum(seen['found'])}/{len(seen['found'])} boards found, "
             f"detection {1e3 * np.mean(seen['detect_s']):.1f} ms per frame "
             f"in the CLI, solve {seen['solve_s'][0]:.4f} s on the card")
-    print(f"calibrate (pixels): 20 FHD views rendered on the card "
-          f"({1e3 * render_s:.1f} ms each), corners {np.median(errs):.4f} px "
+    print(f"calibrate (pixels): {BOARD_VIEWS} FHD views rendered on the "
+          f"card ({1e3 * render_s:.1f} ms each), corners {np.median(errs):.4f} px "
           f"median / {errs.max():.4f} px max from the projection; detection "
           f"{1e3 * np.mean(board_s):.1f} ms per FHD photo with a board "
           f"(max {1e3 * max(board_s):.1f}), {1e3 * empty_s:.1f} ms without "
@@ -3444,6 +3608,11 @@ def main() -> None:
         n, decode_ms, track_ms = mpeg2_phase(card_line, scene)
         by_path["mpeg2 (cli)"] = n["top2_batch"]
         phase("mpeg2", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, decode_ms, track_ms = h263_phase(card_line, scene)
+        by_path["h263 (cli)"] = n["top2_batch"]
+        phase("h263", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
         n = realtex_phase(card_line)

@@ -11,14 +11,18 @@ webcams) decodes each chunk by io/jpeg.py, in any order; MPEG-4 Part 2
 writer) decodes the chunks in order by io/mpeg4.py, which finds the VOL
 headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
 in order by io/vp8.py; VP9 (``VP90``: OpenCV's ``VP90`` writer into
-``.avi``) in order by io/vp9.py; MPEG-1/2 video (``MPEG``, ``mpg1``,
-``mpg2``, ``PIM1``, ...: OpenCV's writers of those fourccs) in order by
-io/mpeg12.py, each chunk a picture with its headers; uncompressed planar
+``.avi``) in order by io/vp9.py; H.263 and H.263+ (``H263``, ``U263``
+and the other tags FFmpeg's riff.c gives them: OpenCV's ``H263`` writer)
+in order by io/h263.py, each chunk a picture; MPEG-1/2 video (``MPEG``,
+``mpg1``, ``mpg2``, ``PIM1``, ...: OpenCV's writers of those fourccs) in
+order by io/mpeg12.py, each chunk a picture with its headers; uncompressed planar
 4:2:0 and gray (``I420``, ``IYUV``, ``Y800``; OpenCV's writer stores
 fourcc 0 as ``I420``) each by io/rawvideo.py.  ``open_video`` reads any
 of the three containers, MPEG program streams (io/mpegps.py), MPEG
-transport streams (io/mpegts.py) and MPEG-1/2 video elementary streams
-(io/mpeg12.py); other codecs raise ``NotImplementedError`` naming them.
+transport streams (io/mpegts.py), MPEG-1/2 video elementary streams
+(io/mpeg12.py) and raw H.263 streams (io/h263.py); other codecs raise
+``NotImplementedError`` naming them, Intel's ``I263`` and Sorenson's
+``FLV1`` (H.263 dialects) by name.
 """
 
 from __future__ import annotations
@@ -29,13 +33,22 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg, matroska, mp4, mpeg12, mpegps, mpegts, rawvideo
+from . import h263, jpeg, matroska, mp4, mpeg12, mpegps, mpegts, rawvideo
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
                  b"fmp4", b"mp4v", b"MP4V")
 VP8_FOURCCS = (b"VP80", b"vp80")
 VP9_FOURCCS = (b"VP90", b"vp90")
+# the tags FFmpeg's riff.c maps to H.263 or H.263+ (U263), as it matches
+# them: upper-cased, save lsvm
+H263_FOURCCS = (b"H263", b"h263", b"X263", b"x263", b"T263", b"t263",
+                b"L263", b"l263", b"M263", b"m263", b"VX1K", b"vx1k",
+                b"lsvm", b"U263", b"u263")
+# H.263 dialects FFmpeg decodes with decoders of their own
+H263_DIALECTS = {b"I263": "Intel H.263", b"i263": "Intel H.263",
+                 b"FLV1": "Sorenson Spark (Flash Video H.263)",
+                 b"flv1": "Sorenson Spark (Flash Video H.263)"}
 MPEG12_FOURCCS = (b"MPEG", b"mpeg", b"mpg1", b"MPG1", b"PIM1", b"mpg2",
                   b"MPG2", b"PIM2", b"mpgv", b"MMES", b"LMP2", b"EM2V")
 
@@ -44,7 +57,9 @@ def open_video(path: str):
     """The video of an AVI (``AviVideo``), MP4/QuickTime
     (``mp4.Mp4Video``) or Matroska/WebM file (``matroska.MkvVideo``), an
     MPEG program or transport stream or an MPEG-1/2 elementary stream
-    (``mpeg12.EsVideo``); ``IOError`` when it does not open,
+    (``mpeg12.EsVideo``) or a raw H.263 stream (``h263.EsVideo``: one
+    that starts with a picture start code, or named ``.h263``/``.263``);
+    ``IOError`` when it does not open,
     ``NotImplementedError`` for a codec the port does not read."""
     try:
         with open(path, "rb") as fh:
@@ -57,6 +72,9 @@ def open_video(path: str):
         return mp4.Mp4Video(path)
     if head[:4] == mpeg12.ES_MAGIC:
         return mpeg12.EsVideo.open(path)
+    if (h263.is_elementary_stream(head)
+            or path.lower().endswith((".h263", ".263"))):
+        return h263.EsVideo.open(path)
     container = mpeg_container(head)
     if container == "MPEG program stream":
         return mpegps.open_video(path)
@@ -112,7 +130,8 @@ def _chunks(fh, start: int, end: int):
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
     shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4",
-    "mpeg12", "vp8", "vp9" or "raw" (``pix_fmt`` "yuv420p" or "gray");
+    "mpeg12", "vp8", "vp9", "h263" or "raw" (``pix_fmt`` "yuv420p" or
+    "gray");
     ``read`` reads one chunk and ``decode_frame`` decodes a Motion-JPEG or
     uncompressed one (thread-safe: ``os.pread`` on one descriptor)."""
 
@@ -149,17 +168,21 @@ class AviVideo:
             self.codec = "vp9"
         elif self.fourcc in MPEG12_FOURCCS:
             self.codec = "mpeg12"
+        elif self.fourcc in H263_FOURCCS:
+            self.codec = "h263"
         elif self.fourcc in rawvideo.FOURCCS:
             self.codec = "raw"
             self.pix_fmt = rawvideo.FOURCCS[self.fourcc]
         else:
+            name = H263_DIALECTS.get(self.fourcc, "video codec")
             raise NotImplementedError(
-                f"{path}: video codec {self.fourcc.decode(errors='replace')!r}"
+                f"{path}: {name} {self.fourcc.decode(errors='replace')!r}"
                 " needs a decoder the port does not have; in AVI only "
                 "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
                 "FMP4, mp4v), MPEG-1/2 (MPEG, mpg1, mpg2, PIM1), VP8 "
-                "(VP80), VP9 (VP90) and uncompressed "
-                "I420, IYUV and Y800 are decoded")
+                "(VP80), VP9 (VP90), H.263 (H263, U263, X263, T263, L263, "
+                "M263, VX1K, lsvm) and uncompressed I420, IYUV and Y800 "
+                "are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 
     def _riff(self, fh, start: int, end: int) -> None:

@@ -19,7 +19,8 @@ with CodecPrivate as its VOL headers (io/mpeg4.py), ``V_MPEG1`` and
 ``V_MPEG2`` "mpeg12" with CodecPrivate as its sequence header
 (io/mpeg12.py), ``V_MJPEG`` "mjpeg"
 (io/jpeg.py); ``V_MS/VFW/FOURCC`` takes the codec of its bitmap header's
-fourcc, as in AVI.  Every other CodecID (AV1, FFV1, H.264, HEVC, ...)
+fourcc, as in AVI (H.263 among them: OpenCV's ``H263`` writer into
+``.mkv``).  Every other CodecID (AV1, FFV1, H.264, HEVC, ...)
 and any ContentEncoding (header stripping, compression, encryption) raise
 ``NotImplementedError`` naming it.  ``MkvVideo`` has the interface of
 ``avi.AviVideo`` and ``mp4.Mp4Video``.
@@ -288,14 +289,16 @@ class MkvVideo:
                                    ("mpeg4", avi.MPEG4_FOURCCS),
                                    ("mpeg12", avi.MPEG12_FOURCCS),
                                    ("vp8", avi.VP8_FOURCCS),
-                                   ("vp9", avi.VP9_FOURCCS)):
+                                   ("vp9", avi.VP9_FOURCCS),
+                                   ("h263", avi.H263_FOURCCS)):
                 if fourcc in fourccs:
                     self.codec = codec
                     self.extradata = (extra if codec in ("mpeg4", "mpeg12")
                                       else b"")
                     return
+            name = avi.H263_DIALECTS.get(fourcc, "video codec")
             raise NotImplementedError(
-                f"{self.path}: video codec "
+                f"{self.path}: {name} "
                 f"{fourcc.decode(errors='replace')!r} needs a decoder the "
                 "port does not have")
         if cid == "V_VP8":

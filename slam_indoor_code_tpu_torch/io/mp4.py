@@ -1,6 +1,7 @@
-"""MPEG-4 Part 2, MPEG-1/2, VP9 and Motion-JPEG video in MP4/QuickTime:
-the ISO BMFF boxes parsed in Python, each sample decoded by io/mpeg4.py,
-io/mpeg12.py, io/vp9.py or io/jpeg.py.
+"""MPEG-4 Part 2, MPEG-1/2, VP9, H.263 and Motion-JPEG video in
+MP4/QuickTime/3GPP: the ISO BMFF boxes parsed in Python, each sample
+decoded by io/mpeg4.py, io/mpeg12.py, io/vp9.py, io/h263.py or
+io/jpeg.py.
 
 The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
 entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
@@ -9,7 +10,9 @@ entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
 (MPEG-1 video), or 0x6C (Motion-JPEG, what OpenCV's ``MJPG`` writer puts
 in ``.mp4``), or ``m2v1``/``m1v `` (MPEG-2/MPEG-1 video, OpenCV's ``MPEG``
 writer into ``.mov``), or ``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer
-into ``.mov``), or
+into ``.mov``), or ``s263`` (H.263 in 3GP, 3G2 and MP4: OpenCV's
+``H263`` writer into ``.3gp``/``.3g2``, phones' clips) or ``h263``
+(H.263 in QuickTime, OpenCV's ``H263`` writer into ``.mov``), or
 ``vp09`` (VP9, OpenCV's ``vp09`` writer; its ``vpcC`` must name profile 0,
 8-bit, or ``ValueError`` names what it holds).  The
 samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
@@ -38,7 +41,7 @@ from . import jpeg
 _CODECS = {b"avc1": "H.264", b"avc3": "H.264", b"hvc1": "HEVC",
            b"hev1": "HEVC", b"vp08": "VP8", b"vp09": "VP9", b"av01": "AV1",
            b"mjpa": "Motion-JPEG format A", b"mjpb": "Motion-JPEG format B",
-           b"s263": "H.263", b"apch": "ProRes", b"apcn": "ProRes",
+           b"apch": "ProRes", b"apcn": "ProRes",
            b"ap4h": "ProRes"}
 # esds objectTypeIndication -> codec
 _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
@@ -46,6 +49,8 @@ _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
                  0x63: "MPEG-2 video", 0x64: "MPEG-2 video",
                  0x65: "MPEG-2 video", 0x6A: "MPEG-1 video",
                  0x6C: "Motion-JPEG"}
+# H.263: the 3GPP and QuickTime sample entries
+H263_ENTRIES = (b"s263", b"h263", b"H263")
 # MPEG-1/2 video: esds object types and QuickTime sample entries
 MPEG12_OBJECT_TYPES = (0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A)
 MPEG12_ENTRIES = (b"m1v ", b"m1v1", b"m2v1", b"mp1v", b"mp2v", b"hdv2",
@@ -159,7 +164,7 @@ def _full(body: bytes) -> tuple[int, bytes]:
 class Mp4Video:
     """The video track of an MP4/QuickTime file: ``frames`` lists (offset,
     size, shown) of each sample in decode order, ``codec`` "mpeg4",
-    "mpeg12", "vp9" or "mjpeg", ``extradata`` its VOS/VOL headers (an
+    "mpeg12", "vp9", "h263" or "mjpeg", ``extradata`` its VOS/VOL headers (an
     MPEG-1/2 sequence header), ``width``/``height`` its
     sample entry's size; ``decode_frame`` decodes a Motion-JPEG sample
     (thread-safe: ``os.pread`` on one descriptor)."""
@@ -288,14 +293,19 @@ class Mp4Video:
             raise IOError(f"Video wasn't opened: {self.path} (no stsd)")
         entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
         kind = self.fourcc = entry[4:8]
-        if kind not in (b"mp4v", b"jpeg", b"vp09") + MPEG12_ENTRIES:
+        if kind not in ((b"mp4v", b"jpeg", b"vp09") + MPEG12_ENTRIES
+                        + H263_ENTRIES):
             fourcc = kind.decode(errors="replace")
             raise NotImplementedError(
                 f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
                 f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
                 "only MPEG-4 Part 2 (mp4v), MPEG-1/2 (mp4v, m1v, m2v1), VP9 "
-                "(vp09) and Motion-JPEG (jpeg, mp4v 0x6C) are decoded")
+                "(vp09), H.263 (s263, h263) and Motion-JPEG (jpeg, mp4v "
+                "0x6C) are decoded")
         self.width, self.height = struct.unpack(">HH", entry[32:36])
+        if kind in H263_ENTRIES:
+            self.codec = "h263"
+            return
         if kind in MPEG12_ENTRIES:
             self.codec = "mpeg12"
             return

@@ -15,7 +15,9 @@ build the user data names (FF_BUG_EDGE, DC_CLIP, QPEL_CHROMA(2)), with
 the x86 build's inexact 8-wide averages and its SSE2 Xvid IDCT; and
 converts to RGB as OpenCV's FFmpeg backend does
 (native/swscale_rgb.h).  Interlace, data partitioning, RVLC, sprites/GMC,
-the short video header and the other tools it does not decode raise
+the short video header (H.263 pictures in an MPEG-4 stream, which
+FFmpeg's mpeg4 decoder refuses too; io/h263.py reads them where the
+container names them H.263) and the other tools it does not decode raise
 ``ValueError`` naming the tool.  A VOP whose macroblock data is damaged
 or cut short gives a frame, as FFmpeg's concealment does (the
 macroblocks from the damage on are predicted from the references); a
@@ -42,7 +44,8 @@ from .native import _PKG_DIR, load_shared
 
 SOURCE = _PKG_DIR / "native" / "mpeg4.cpp"
 HEADERS = tuple(_PKG_DIR / "native" / h
-                for h in ("mpegvideo_dsp.h", "swscale_rgb.h"))
+                for h in ("mpegvideo_bits.h", "mpegvideo_dsp.h",
+                          "swscale_rgb.h"))
 LIBRARY = _PKG_DIR / "_build" / "libmpeg4dec.so"
 _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()
