@@ -115,6 +115,15 @@ Phases, each followed by one flushed line with the elapsed seconds:
               frame equals the baseline one (else where they part); prints
               the decode ms per FHD frame with three workers and with one
               beside the tracking ms per frame.
+    fixture-clis — the CLI with ``usePhotosCycle=false`` on each committed
+              headline video of phases 19-25, one run after another in
+              one subprocess (each with the jpeg phase's checks, its counts
+              set to 0 before it and 600 s of its own), which pays the
+              interpreter's, PyTorch's and the card's start once: lossless
+              first (a cold run, as a user's), then mp4, asp, webm, vp9,
+              mpeg2 and h263 (warm), then lossless again (warm, to measure
+              what the shared process saves); each phase below holds its
+              run and prints whether it was cold or warm.
 19. mp4     — the committed fixture testing/video_fixtures/headline_mp4v.mp4
               (the 32 frames as OpenCV's ``mp4v`` writer makes them; the
               card has no encoder): the container parsed and timed, every
@@ -193,14 +202,33 @@ Phases, each followed by one flushed line with the elapsed seconds:
               use; then the CLI with ``usePhotosCycle=false`` on the .3gp:
               the jpeg phase's checks; prints the demux time and the decode
               ms per FHD frame beside the tracking ms per frame.
-25. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
+25. lossless — FFV1 and HuffYUV: the committed fixture
+              testing/video_fixtures/headline_ffv1.mkv (the 32 rendered
+              frames through OpenCV's own ``FFV1`` writer: version 3,
+              BGRA, Golomb-Rice slices with CRCs) demuxed and timed, every
+              frame decoded by io/ffv1.py on one thread, timed, equal to
+              the rendered frames (lossless) and to the committed sha256 of
+              cv2's decode; nine small FFV1 and HuffYUV fixtures (cv2's
+              FFV1 writer in .avi and .mov, its HFYU writer in .avi and
+              .mkv, its FFVH writer in .avi; FFV1 level 3 with slice CRCs
+              and a custom state table; Golomb-Rice FFV1; huffyuv 4:2:2
+              with median prediction; FFVHuff with tables in every frame)
+              held to theirs through ``MediaSource``, and the headline's
+              first frame through OpenCV's ``FFVH`` writer decoded by
+              io/huffyuv.py on one thread, timed; then the CLI run on the
+              .mkv (cold): the jpeg phase's checks, and its poses.txt must
+              equal phase 4's byte for byte, and its warm repeat's poses.txt
+              and launches the cold run's; prints the demux time and the
+              decode ms per FHD frame of both codecs beside the tracking ms
+              per frame, cold and warm.
+26. realtex — testing/realtex.py's two-plane scene at 1080x1920, 24
               frames, two procedural textures from seeds, rendered on the
               card (frame 0 equal to the CPU render), through ``slam_main``
               at the headline configuration: cameras >= 12/24 at ATE < 5 %
               against the scene's exact centres, one L2 ``top2_batch``
               launch per scan step and bootstrap match; prints the render
               ms per frame.
-26. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
+27. calibrate — ``calibrate_camera`` on CUDA over 20 synthetic views of
               the 7x7 board through the headline's FHD K (distortion, 0.1 px
               noise, from a seed): fx and fy within 1 % of the truth, rms
               < 0.3 px, K within 2e-3 relative of the port's CPU result on
@@ -219,25 +247,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               image size, rms < 0.3 px; prints the detection ms per FHD
               photo with and without a board, each branch's K and its
               solve's seconds on the card.
-27. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
+28. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
               launches per call; ``ShardedBA`` at the headline's BA shape
               (8 frames, 4096 window points, Huber 2, 10 LM iterations) is
               held to ``bundle_adjust_window`` with tests/test_parallel.py's
               rule (cams 5e-3, cost 5 %, points 0.15 / median 0.05).
-28. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
+29. mesh    — ``slam_main`` on the headline with ``tpu.mesh_shape=(cards,)``:
               on one card it must equal phase 4 bit for bit.
-29. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
+30. sequences — ``run_sequences_parallel`` on two 32-frame FHD sequences
               (the headline scene and the same hallway from seed 8), one
               thread and CUDA stream each: each equals its own solo run bit
               for bit; prints the parallel wall beside the two solo walls.
-30. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
+31. distributed — two processes of ``parallel/worker.py ba`` (gloo, both
               ranks on cuda:0; NCCL where each has a card) solve
               ``ShardedBA`` across the process boundary at the headline's
               BA shape: final cost within 1e-3 relative and cameras within
               5e-4 of a one-process solve.
-31. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
+32. 4k      — bench.py's 4K operating point (config #4: 2160x3840, 10,240
               keypoints, 8,192 window points, 256 PnP hypotheses, d=4,
               hybrid at α = 0.15, the global BA, ratio 0.70) under host
               ingest on 16 frames (two BA windows; cut from 48): at least
@@ -247,11 +275,11 @@ Phases, each followed by one flushed line with the elapsed seconds:
               time per call at [10240,384] x [16,10240,384], the ring's size
               and the peak device memory; ``top2_batch`` then held to its
               plain version, lane by lane, on the 4K ring.
-32. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
+33. repro   — phases 4, 5, 6, 9, 13 and 10 once more in the same process:
               each second run must give the first run's cameras, map size,
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
-33. photos  — the photo readers the card has (io/photo.py: no libjpeg,
+34. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp or OpenCV): first every committed
               fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
               TIFF and WebP variant family and EXIF case) through
@@ -1769,14 +1797,18 @@ def cli_path(card_line: str, scene, frames, logged_l2):
 # ``python -m slam_indoor_code_tpu_torch`` run through runpy so that the
 # subprocess can report what the card did: each kernel's launch count, the
 # plain versions' calls, the engine's bootstrap matches, slam_main's wall
-# and the source frame of each camera, printed as one JSON line at exit.
+# and the source frame of each camera, printed as one JSON line after the
+# run with its exit code.  Several runs (their arguments separated by
+# "--next") go one after the other in the one process, each preceded by a
+# "run:" line and its counts set to 0 first.
+CLI_RUN_TIMEOUT_S = 600      # each run of a CLI_COUNTING subprocess
 CLI_COUNTING = r"""
-import atexit, json, runpy, sys, time
+import json, runpy, sys, time
 import torch
 from slam_indoor_code_tpu_torch import app
 from slam_indoor_code_tpu_torch.ops import cuda_kernels as ck
 from slam_indoor_code_tpu_torch.runtime import DeviceEngine
-seen = {"engines": [], "wall": [], "plain": 0, "frame_ids": []}
+seen = {}
 init = DeviceEngine.__init__
 def spy(self, *a, **kw):
     init(self, *a, **kw)
@@ -1796,62 +1828,151 @@ def timed(*a, **kw):
     seen["frame_ids"] = [int(i) for i in gd.frame_ids]
     return gd
 app.slam_main = timed
-atexit.register(lambda: print("counts: " + json.dumps({
-    "top2_batch": ck.top2_batch.launches,
-    "hamming": ck.top2_batch.hamming_launches,
-    "lpb": ck.top2_batch.multi_lane_launches,
-    "top2_pair": ck.top2_pair.launches, "top2_l1": ck.top2_l1.launches,
-    "plain": seen["plain"], "slam_main_s": sum(seen["wall"]),
-    "frame_ids": seen["frame_ids"],
-    "match_select_calls": sum(e.match_select_calls
-                              for e in seen["engines"])}), flush=True))
-sys.argv = ["slam_indoor_code_tpu_torch"] + sys.argv[1:]
-runpy.run_module("slam_indoor_code_tpu_torch", run_name="__main__",
-                 alter_sys=True)
+def run(argv):
+    seen.update(engines=[], wall=[], plain=0, frame_ids=[])
+    for fn in (ck.top2_batch, ck.top2_pair, ck.top2_l1):
+        fn.launches = 0
+    ck.top2_batch.multi_lane_launches = ck.top2_batch.hamming_launches = 0
+    sys.argv = ["slam_indoor_code_tpu_torch"] + argv
+    t, code = time.perf_counter(), 0
+    try:
+        runpy.run_module("slam_indoor_code_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    print("counts: " + json.dumps({
+        "top2_batch": ck.top2_batch.launches,
+        "hamming": ck.top2_batch.hamming_launches,
+        "lpb": ck.top2_batch.multi_lane_launches,
+        "top2_pair": ck.top2_pair.launches, "top2_l1": ck.top2_l1.launches,
+        "plain": seen["plain"], "slam_main_s": sum(seen["wall"]),
+        "frame_ids": seen["frame_ids"], "exit": code,
+        "run_s": time.perf_counter() - t,
+        "match_select_calls": sum(e.match_select_calls
+                                  for e in seen["engines"])}), flush=True)
+runs = [[]]
+for a in sys.argv[1:]:
+    if a == "--next":
+        runs.append([])
+    else:
+        runs[-1].append(a)
+for argv in runs:
+    print("run: " + json.dumps(argv), flush=True)
+    run(argv)
 """
 
 
 def cli_counted(what: str, cfg, root: str, scene, extra_args=()):
     """The configuration as JSON and K as XML under ``root``, then the CLI
-    module in a subprocess under CLI_COUNTING.  Holds its exit, the "map
-    points" line, the six logs (reloaded: cameras >= MIN_CAMERAS at ATE <
-    5 %, paired with ground truth by the run's frame ids), and one L2
-    ``top2_batch`` launch per scan step (time.txt's "Matching time for
-    index" lines) and per bootstrap ``match_select``, with no other kernel
-    and no plain version → (counts, cameras, ATE %, poses.txt's text,
-    subprocess s).  ``extra_args`` go on the CLI's command line."""
+    module in a subprocess under CLI_COUNTING (cli_counted_many's checks)
+    → (counts, cameras, ATE %, poses.txt's text, subprocess s)."""
+    runs, run_s = cli_counted_many([(what, cfg, root, extra_args)], scene)
+    return (*runs[0][:4], run_s)
+
+
+def cli_counted_many(jobs, scene):
+    """For each job (what, configuration, root, extra arguments): the
+    configuration as JSON and K as XML under its root; then the CLI module
+    once per job, one after the other in one subprocess under
+    CLI_COUNTING.  Holds each run's exit 0, its "map points" line, the six
+    logs (reloaded: cameras >= MIN_CAMERAS at ATE < 5 %, paired with
+    ground truth by the run's frame ids), and one L2 ``top2_batch`` launch
+    per scan step (time.txt's "Matching time for index" lines) and per
+    bootstrap ``match_select``, with no other kernel and no plain version
+    → ([(counts, cameras, ATE %, poses.txt's text, the run's s)], the
+    subprocess's s)."""
+    import re
+
+    from slam_indoor_code_tpu_torch.config import dump_config
+    from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    argv, cfgs = [], []
+    for what, cfg, root, extra_args in jobs:
+        save_matrix_to_xml(os.path.join(root, "cam.xml"), scene.K, "K")
+        cfg = dataclasses.replace(cfg, threadsCount=3,
+                                  calibrationPath=os.path.join(root,
+                                                               "cam.xml"))
+        os.makedirs(cfg.outputDataDir, exist_ok=True)
+        cfg_path = os.path.join(root, "cfg.json")
+        with open(cfg_path, "w") as f:
+            f.write(dump_config(cfg))
+        argv += (["--next"] if argv else []) + [cfg_path, *extra_args]
+        cfgs.append(cfg)
+    names = ", ".join(job[0] for job in jobs)
+    t = time.perf_counter()
+    stdout, rc, err = counted_subprocess(names, argv, repo)
+    run_s = time.perf_counter() - t
+    if rc != 0:
+        fail(f"{names}: exit {rc}: {err[-2000:]}")
+    sections = re.split(r"^run: .*$", stdout, flags=re.M)[1:]
+    if len(sections) != len(jobs):
+        fail(f"{names}: {len(sections)} runs reported for {len(jobs)} in "
+             f"{r.stdout[-500:]!r}")
+    return [held_cli_run(job[0], cfg, scene, text)
+            for job, cfg, text in zip(jobs, cfgs, sections)], run_s
+
+
+def counted_subprocess(names: str, argv, repo: str):
+    """CLI_COUNTING with ``argv`` in a subprocess, each of its runs given
+    CLI_RUN_TIMEOUT_S from its "run:" line (the first also the start of
+    the interpreter) → (stdout, exit code, stderr); a run that overruns
+    kills the subprocess and fails."""
+    import queue
+    import threading
+
+    with tempfile.TemporaryFile("w+") as err:
+        p = subprocess.Popen([sys.executable, "-c", CLI_COUNTING, *argv],
+                             stdout=subprocess.PIPE, stderr=err, text=True,
+                             cwd=repo, env=dict(os.environ, PYTHONPATH=repo))
+        lines: queue.Queue = queue.Queue()
+
+        def read():
+            for line in p.stdout:
+                lines.put(line)
+            lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+        out, deadline = [], time.monotonic() + CLI_RUN_TIMEOUT_S
+        while True:
+            try:
+                line = lines.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                p.kill()
+                p.wait()
+                fail(f"{names}: a run took more than {CLI_RUN_TIMEOUT_S} s "
+                     f"after {''.join(out)[-500:]!r}")
+            if line is None:
+                break
+            if line.startswith("run: "):
+                deadline = time.monotonic() + CLI_RUN_TIMEOUT_S
+            out.append(line)
+        rc = p.wait()
+        err.seek(0)
+        return "".join(out), rc, err.read()
+
+
+def held_cli_run(what: str, cfg, scene, stdout: str):
+    """One CLI run's checks (cli_counted_many) on its part of the
+    subprocess's output → (counts, cameras, ATE %, poses.txt, run s)."""
     import re
 
     import numpy as np
 
-    from slam_indoor_code_tpu_torch.config import dump_config
     from slam_indoor_code_tpu_torch.io.logs import load_global_data_from_logs
-    from slam_indoor_code_tpu_torch.io.xmlio import save_matrix_to_xml
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    save_matrix_to_xml(os.path.join(root, "cam.xml"), scene.K, "K")
-    cfg = dataclasses.replace(cfg, threadsCount=3,
-                              calibrationPath=os.path.join(root, "cam.xml"))
     out = cfg.outputDataDir
-    os.makedirs(out, exist_ok=True)
-    cfg_path = os.path.join(root, "cfg.json")
-    with open(cfg_path, "w") as f:
-        f.write(dump_config(cfg))
-    t = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", CLI_COUNTING, cfg_path,
-                        *extra_args],
-                       capture_output=True, text=True, timeout=600, cwd=repo,
-                       env=dict(os.environ, PYTHONPATH=repo))
-    run_s = time.perf_counter() - t
-    if r.returncode != 0:
-        fail(f"{what}: exit {r.returncode}: {r.stderr[-2000:]}")
-    m = re.search(r"map points: (\d+); cameras: (\d+)", r.stdout)
-    c = re.search(r"^counts: (.*)$", r.stdout, re.M)
+    m = re.search(r"map points: (\d+); cameras: (\d+)", stdout)
+    c = re.search(r"^counts: (.*)$", stdout, re.M)
     if m is None or c is None:
         fail(f"{what}: no 'map points' or counts line in "
-             f"{r.stdout[-500:]!r}")
+             f"{stdout[-500:]!r}")
     n_pts, n_cams = int(m.group(1)), int(m.group(2))
     n = json.loads(c.group(1))
+    if n.pop("exit") != 0:
+        fail(f"{what}: the CLI exited non-zero: {stdout[-500:]!r}")
+    run_s = n.pop("run_s")
     for name in ("poses", "rotations", "points", "colors", "main", "time"):
         if not os.path.getsize(os.path.join(out, f"{name}.txt")):
             fail(f"{what}: {name}.txt is empty")
@@ -2278,7 +2399,7 @@ MP4_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "video_fixtures", "headline_mp4v.mp4")
 
 
-def mp4_phase(card_line: str, scene):
+def mp4_phase(card_line: str, scene, cli):
     """The committed fixture (the 32 headline frames as OpenCV's ``mp4v``
     writer makes them: the card has no encoder): the container parsed and
     timed; every frame decoded on one thread, timed, and held to the
@@ -2286,8 +2407,8 @@ def mp4_phase(card_line: str, scene):
     AC-prediction/DQUANT fixture to its RGB sha256); the same samples
     muxed into an XVID AVI (testing/mjpeg.py, the headers in front of the
     first), whose frames through ``MediaSource`` must equal the MP4's; then
-    the CLI on the .mp4 with ``usePhotosCycle=false`` (cli_counted) →
-    counts."""
+    the CLI on the .mp4 with ``usePhotosCycle=false`` (``cli``:
+    fixture_clis) → counts."""
     import hashlib
 
     import numpy as np
@@ -2341,10 +2462,7 @@ def mp4_phase(card_line: str, scene):
         if len(from_mp4) != len(rgb) or not all(
                 np.array_equal(a, b) for a, b in zip(from_mp4, rgb)):
             fail("mp4: MediaSource's frames differ from the decoder's")
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=MP4_FIXTURE)
-        n, n_cams, ate_pct, _, run_s = cli_counted("mp4", cfg, root, scene)
+        n, n_cams, ate_pct, _, run_s, when = cli
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     print(f"mp4: exit 0, {len(rgb)} frames "
           f"({os.path.getsize(MP4_FIXTURE) / 1e6:.2f} MB mp4v, MPEG-4 Part "
@@ -2352,8 +2470,8 @@ def mp4_phase(card_line: str, scene):
           f"DQUANT fixture's too), the XVID AVI's equal the MP4's; cameras "
           f"{n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  launches {json.dumps(n)}  container "
           f"parse {parse_ms:.3f} ms; decode {decode_ms:.3f} ms per frame on "
-          f"one thread; tracking {track_ms:.3f} ms per frame; subprocess "
-          f"{run_s:.3f} s  [{card_line}]", flush=True)
+          f"one thread; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
     return n
 
 
@@ -2370,7 +2488,7 @@ ASP_SMALL_FIXTURES = ("asp_b_resync.avi", "asp_qpel_mv4_odd.avi",
                       "asp_zero_no_rnd.avi", "asp_ctts.mp4")
 
 
-def asp_phase(card_line: str, scene):
+def asp_phase(card_line: str, scene, cli):
     """MPEG-4 Advanced Simple Profile, as Xvid and DivX code it: the small
     ASP fixtures and the committed FHD one (the 32 headline frames coded by
     libavcodec with B-VOPs, 4MV, quarter-pel and MPEG quantisation, packed
@@ -2378,8 +2496,8 @@ def asp_phase(card_line: str, scene):
     frame by frame to the committed sha256 of cv2's RGB frames (through
     ``MediaSource``) and Y planes (through the decoder, in display
     order); the FHD fixture decoded on one thread and timed; then the CLI
-    on it with ``usePhotosCycle=false`` (cli_counted) → (counts, decode ms
-    per frame, tracking ms per frame)."""
+    on it with ``usePhotosCycle=false`` (``cli``: fixture_clis) →
+    (counts, decode ms per frame, tracking ms per frame)."""
     import hashlib
 
     import numpy as np
@@ -2438,11 +2556,7 @@ def asp_phase(card_line: str, scene):
     if len(rgb) != N_FRAMES or [sha(f) for f in rgb] != table["rgb_sha256"]:
         fail(f"asp: the FHD fixture decodes to {len(rgb)} frames that "
              "differ from cv2's (sha256)")
-    with tempfile.TemporaryDirectory() as root:
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=ASP_FIXTURE)
-        n, n_cams, ate_pct, _, run_s = cli_counted("asp", cfg, root, scene)
+    n, n_cams, ate_pct, _, run_s, when = cli
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     print(f"asp: exit 0, {len(rgb)} frames "
           f"({os.path.getsize(ASP_FIXTURE) / 1e6:.2f} MB DX50 AVI, MPEG-4 "
@@ -2452,7 +2566,7 @@ def asp_phase(card_line: str, scene):
           f"cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  "
           f"launches {json.dumps(n)}  container parse {parse_ms:.3f} ms; "
           f"decode {decode_ms:.3f} ms per FHD frame on one thread; tracking "
-          f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s  "
+          f"{track_ms:.3f} ms per frame; CLI run {run_s:.3f} s ({when})  "
           f"[{card_line}]", flush=True)
     return n, decode_ms, track_ms
 
@@ -2461,15 +2575,15 @@ WEBM_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
                             "headline_vp8.webm")
 
 
-def webm_phase(card_line: str, scene):
+def webm_phase(card_line: str, scene, cli):
     """The committed fixture (the 32 headline frames as OpenCV's ``VP80``
     writer makes them into WebM: the card has no encoder): the Matroska
     container parsed and timed; every frame decoded on one thread, timed,
     and held to the committed sha256 of cv2's RGB frames and Y planes; the
     same frames muxed into a VP80 AVI (testing/mjpeg.py), whose frames
     through ``MediaSource`` must equal the WebM's; then the CLI on the
-    .webm with ``usePhotosCycle=false`` (cli_counted) → (counts, decode ms
-    per frame, tracking ms per frame)."""
+    .webm with ``usePhotosCycle=false`` (``cli``: fixture_clis) →
+    (counts, decode ms per frame, tracking ms per frame)."""
     import hashlib
 
     import numpy as np
@@ -2518,10 +2632,7 @@ def webm_phase(card_line: str, scene):
         if len(from_webm) != len(rgb) or not all(
                 np.array_equal(a, b) for a, b in zip(from_webm, rgb)):
             fail("webm: MediaSource's frames differ from the decoder's")
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=WEBM_FIXTURE)
-        n, n_cams, ate_pct, _, run_s = cli_counted("webm", cfg, root, scene)
+        n, n_cams, ate_pct, _, run_s, when = cli
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     print(f"webm: exit 0, {len(rgb)} frames "
           f"({os.path.getsize(WEBM_FIXTURE) / 1e6:.2f} MB WebM, VP8) equal "
@@ -2529,8 +2640,8 @@ def webm_phase(card_line: str, scene):
           f"the WebM's; cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
           f"extent  launches {json.dumps(n)}  container parse "
           f"{parse_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
-          f"one thread; tracking {track_ms:.3f} ms per frame; subprocess "
-          f"{run_s:.3f} s  [{card_line}]", flush=True)
+          f"one thread; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
     return n, decode_ms, track_ms
 
 
@@ -2543,7 +2654,7 @@ VP9_SMALL_FIXTURES = ("vp9_cv2.webm", "vp9_cv2.avi", "vp9_cv2.mp4",
                       "vp9_odd.webm")
 
 
-def vp9_phase(card_line: str, scene):
+def vp9_phase(card_line: str, scene, cli):
     """The committed fixture (the 32 headline frames coded by libvpx-vp9 in
     two passes, muxed into WebM: the card has no encoder): the Matroska
     container parsed and timed; every packet decoded on one thread, timed,
@@ -2552,7 +2663,7 @@ def vp9_phase(card_line: str, scene):
     through the decoder); the same packets muxed into a VP90 AVI
     (testing/mjpeg.py), whose frames through ``MediaSource`` must equal
     the WebM's; then the CLI on the .webm with ``usePhotosCycle=false``
-    (cli_counted) → (counts, decode ms per frame, tracking ms per
+    (``cli``: fixture_clis) → (counts, decode ms per frame, tracking ms per
     frame)."""
     import hashlib
 
@@ -2627,10 +2738,7 @@ def vp9_phase(card_line: str, scene):
         if len(from_webm) != len(rgb) or not all(
                 np.array_equal(a, b) for a, b in zip(from_webm, rgb)):
             fail("vp9: MediaSource's frames differ from the decoder's")
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=VP9_FIXTURE)
-        n, n_cams, ate_pct, _, run_s = cli_counted("vp9", cfg, root, scene)
+        n, n_cams, ate_pct, _, run_s, when = cli
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     print(f"vp9: exit 0, {len(rgb)} frames "
           f"({os.path.getsize(VP9_FIXTURE) / 1e6:.2f} MB WebM, VP9 profile "
@@ -2641,8 +2749,8 @@ def vp9_phase(card_line: str, scene):
           f"equal the WebM's; cameras {n_cams}/{N_FRAMES}  ATE "
           f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  container "
           f"parse {parse_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame "
-          f"on one thread; tracking {track_ms:.3f} ms per frame; subprocess "
-          f"{run_s:.3f} s  [{card_line}]", flush=True)
+          f"on one thread; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
     return n, decode_ms, track_ms
 
 
@@ -2686,15 +2794,15 @@ def mpeg2_frames(path: str, timed: bool = False):
     return rgb, luma, stats, ms
 
 
-def mpeg2_phase(card_line: str, scene):
+def mpeg2_phase(card_line: str, scene, cli):
     """The committed fixtures (the card has no encoder and no cv2): the
     headline transport stream demuxed and timed; every picture decoded on
     one thread, timed, and held to the committed sha256 of cv2's RGB frames
     and Y planes, with the decoder's statistics showing its tools; the
     small MPEG-1/2 fixtures held to theirs; ``MediaSource``'s frames equal
     to the decoder's; then the CLI on the .ts with
-    ``usePhotosCycle=false`` (cli_counted) → (counts, decode ms per frame,
-    tracking ms per frame)."""
+    ``usePhotosCycle=false`` (``cli``: fixture_clis) → (counts, decode ms
+    per frame, tracking ms per frame)."""
     import hashlib
 
     import numpy as np
@@ -2741,11 +2849,7 @@ def mpeg2_phase(card_line: str, scene):
     if len(from_ts) != len(rgb) or not all(
             np.array_equal(a, b) for a, b in zip(from_ts, rgb)):
         fail("mpeg2: MediaSource's frames differ from the decoder's")
-    with tempfile.TemporaryDirectory() as root:
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=MPEG2_FIXTURE)
-        n, n_cams, ate_pct, _, run_s = cli_counted("mpeg2", cfg, root, scene)
+    n, n_cams, ate_pct, _, run_s, when = cli
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     print(f"mpeg2: exit 0, {len(rgb)} frames "
           f"({os.path.getsize(MPEG2_FIXTURE) / 1e6:.2f} MB transport stream, "
@@ -2756,8 +2860,8 @@ def mpeg2_phase(card_line: str, scene):
           f"fixtures' too); cameras {n_cams}/{N_FRAMES}  ATE "
           f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  demux "
           f"{demux_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
-          f"one thread; tracking {track_ms:.3f} ms per frame; subprocess "
-          f"{run_s:.3f} s  [{card_line}]", flush=True)
+          f"one thread; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
     return n, decode_ms, track_ms
 
 
@@ -2803,14 +2907,14 @@ def h263_frames(path: str, timed: bool = False):
     return rgb, luma, stats, ms
 
 
-def h263_phase(card_line: str, scene):
+def h263_phase(card_line: str, scene, cli):
     """The committed fixtures (the card has no encoder and no cv2): the
     headline 3GP demuxed and timed; every picture decoded on one thread,
     timed, and held to the committed sha256 of cv2's RGB frames and Y
     planes, with the decoder's counts showing each annex in use; the small
     H.263 fixtures held to theirs; ``MediaSource``'s frames equal to the
     decoder's; then the CLI on the .3gp with ``usePhotosCycle=false``
-    (cli_counted) → (counts, decode ms per frame, tracking ms per
+    (``cli``: fixture_clis) → (counts, decode ms per frame, tracking ms per
     frame)."""
     import hashlib
 
@@ -2856,11 +2960,7 @@ def h263_phase(card_line: str, scene):
     if len(from_3gp) != len(rgb) or not all(
             np.array_equal(a, b) for a, b in zip(from_3gp, rgb)):
         fail("h263: MediaSource's frames differ from the decoder's")
-    with tempfile.TemporaryDirectory() as root:
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=H263_FIXTURE)
-        n, n_cams, ate_pct, _, run_s = cli_counted("h263", cfg, root, scene)
+    n, n_cams, ate_pct, _, run_s, when = cli
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     print(f"h263: exit 0, {len(rgb)} frames "
           f"({os.path.getsize(H263_FIXTURE) / 1e6:.2f} MB 3GP, H.263+ "
@@ -2877,9 +2977,187 @@ def h263_phase(card_line: str, scene):
           f"{n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  launches "
           f"{json.dumps(n)}  demux {demux_ms:.3f} ms; decode "
           f"{decode_ms:.3f} ms per FHD frame on one thread; tracking "
-          f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s  "
+          f"{track_ms:.3f} ms per frame; CLI run {run_s:.3f} s ({when})  "
           f"[{card_line}]", flush=True)
     return n, decode_ms, track_ms
+
+
+FFV1_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                            "headline_ffv1.mkv")
+# FFV1 and HuffYUV, small: cv2's FFV1 writer into AVI and QuickTime;
+# libavcodec's FFV1 level 3 at 4:2:0 with slice CRCs and a custom state
+# table, and level 1 Golomb-Rice with the large context model; cv2's HFYU
+# writer into AVI and Matroska and its FFVH writer into AVI; huffyuv 4:2:2
+# with median prediction; FFVHuff with tables in every frame.  And the
+# headline's first frame through cv2's FFVH writer (FHD, timed).
+LOSSLESS_SMALL_FIXTURES = ("ffv1_cv2.avi", "ffv1_cv2.mov",
+                           "ffv1_l3_crc_coder2.avi", "ffv1_golomb.avi",
+                           "hfyu_cv2.avi", "hfyu_cv2.mkv", "ffvh_cv2.avi",
+                           "huffyuv_422_median.avi", "ffvh_context.avi")
+FFVH_FHD_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                                "ffvh_fhd_cv2.avi")
+
+
+def fixture_clis(scene) -> tuple:
+    """The CLI with ``usePhotosCycle=false`` on each committed headline
+    video, one run after another in one subprocess (cli_counted_many's
+    checks on each), which pays the interpreter's, PyTorch's and the
+    card's start once: the lossless phase's first, so that its run is a
+    cold one as in a user's ``python -m``; then the mp4, asp, webm, vp9,
+    mpeg2 and h263 phases'; then the lossless run again, warm, which
+    measures what the shared process saves → ({phase: (counts, cameras,
+    ATE %, poses.txt, run s, "run k of n in one process, cold|warm")},
+    the subprocess's s, the decoders' build s); the warm repeat is
+    "lossless-warm"."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slam_indoor_code_tpu_torch.io import (ffv1, h263, huffyuv, mpeg4,
+                                               mpeg12, vp8, vp9)
+
+    videos = {"lossless": FFV1_FIXTURE, "mp4": MP4_FIXTURE,
+              "asp": ASP_FIXTURE, "webm": WEBM_FIXTURE, "vp9": VP9_FIXTURE,
+              "mpeg2": MPEG2_FIXTURE, "h263": H263_FIXTURE,
+              "lossless-warm": FFV1_FIXTURE}
+    # the runs' decoders built first, in parallel, as a user's runs after
+    # the first find them: no run pays a g++ build inside its slam_main
+    t = time.perf_counter()
+    with ThreadPoolExecutor(7) as pool:
+        list(pool.map(lambda m: m.load(),
+                      (ffv1, h263, huffyuv, mpeg4, mpeg12, vp8, vp9)))
+    build_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as top:
+        jobs = []
+        for what, path in videos.items():
+            root = os.path.join(top, what)
+            os.makedirs(root)
+            cfg = dataclasses.replace(
+                headline_config(os.path.join(root, "out")),
+                usePhotosCycle=False, videoSourcePath=path)
+            jobs.append((what, cfg, root, ()))
+        runs, run_s = cli_counted_many(jobs, scene)
+    runs = {what: (*run, f"run {k + 1} of {len(runs)} in one process, "
+                   f"{'warm' if k else 'cold'}")
+            for k, (what, run) in enumerate(zip(videos, runs))}
+    return runs, run_s, build_s
+
+
+def lossless_frames(path: str, timed: bool = False):
+    """Every frame the port gives for the FFV1 or HuffYUV video at
+    ``path``, decoded on one thread → (RGB frames, decoder statistics, ms
+    per frame or None)."""
+    from slam_indoor_code_tpu_torch.io import avi, ffv1, huffyuv
+
+    video = avi.open_video(path)
+    data = [video.read(fr) for fr in video.frames]
+    dec = (ffv1.Decoder(video.extradata, video.width, video.height)
+           if video.codec == "ffv1" else
+           huffyuv.Decoder(video.extradata, video.width, video.height,
+                           video.bits_per_coded_sample))
+    video.close()
+    rgb = []
+    t = time.perf_counter()
+    for i, d in enumerate(data):
+        rgb.append(dec.decode(d))
+        if dec.failed:
+            fail(f"lossless: {os.path.basename(path)}: frame {i} fails "
+                 f"({dec.reason})")
+    ms = 1e3 * (time.perf_counter() - t) / len(data) if timed else None
+    stats = dec.stats()
+    dec.close()
+    return rgb, stats, ms
+
+
+def lossless_phase(card_line: str, frames, logged_l2, cli, warm):
+    """The committed fixtures (the card has no encoder and no cv2): the
+    headline FFV1 .mkv (the 32 rendered frames through cv2's own ``FFV1``
+    writer) demuxed and timed; every frame decoded on one thread, timed,
+    equal to the rendered frames (FFV1 in RGB is lossless) and to the
+    committed sha256 of cv2's decode; the small FFV1 and HuffYUV fixtures
+    held to theirs through ``MediaSource``, and the FHD FFVH frame decoded
+    on one thread and timed; ``MediaSource``'s frames equal to the
+    decoder's; then the CLI run on the .mkv (``cli``: fixture_clis, the
+    first run of its process: cold), whose poses.txt must equal phase 4's
+    byte for byte (the same frames, K and seed), and the same run repeated
+    last in that process (``warm``), whose poses.txt and launches must
+    equal the cold run's → (counts, FFV1 and HuffYUV decode ms per FHD
+    frame, tracking ms per frame cold and warm)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    fixtures = os.path.dirname(FFV1_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    table = tables[os.path.basename(FFV1_FIXTURE)]
+    t = time.perf_counter()
+    video = avi.open_video(FFV1_FIXTURE)
+    demux_ms = 1e3 * (time.perf_counter() - t)
+    n_packets, codec = len(video.frames), video.codec
+    video.close()
+    if codec != "ffv1" or n_packets != N_FRAMES or table["frames"] != N_FRAMES:
+        fail(f"lossless: the fixture demuxes to {n_packets} {codec} frames")
+    rgb, stats, ffv1_ms = lossless_frames(FFV1_FIXTURE, timed=True)
+    if [sha(f) for f in rgb] != table["rgb_sha256"]:
+        fail("lossless: the decoded frames differ from cv2's (sha256)")
+    if len(rgb) != len(frames) or not all(
+            np.array_equal(a, b) for a, b in zip(rgb, frames)):
+        fail("lossless: the decoded frames differ from the rendered ones")
+    if (stats["version"], stats["colorspace"], stats["transparency"],
+            stats["key_frames"]) != (3, 1, 1, 3) or not (
+            stats["crc_slices"] == stats["slices"] >= 4 * N_FRAMES
+            and stats["golomb_slices"] == stats["slices"]
+            and stats["damaged_slices"] == 0):
+        fail(f"lossless: the fixture is not what cv2's writer writes: "
+             f"{stats}")
+    for name in LOSSLESS_SMALL_FIXTURES:
+        got = [sha(f) for f in MediaSource(
+            video_path=os.path.join(fixtures, name), use_photos=False)]
+        if got != tables[name]["rgb_sha256"]:
+            fail(f"lossless: the small fixture {name} differs from cv2's "
+                 "decode (sha256)")
+    fhd, hstats, hyuv_ms = lossless_frames(FFVH_FHD_FIXTURE, timed=True)
+    if [sha(f) for f in fhd] != tables[os.path.basename(
+            FFVH_FHD_FIXTURE)]["rgb_sha256"] or hstats["bitstream_bpp"] != 12:
+        fail("lossless: the FHD FFVH frame differs from cv2's decode "
+             f"(sha256) or is not 4:2:0: {hstats}")
+    from_mkv = list(MediaSource(video_path=FFV1_FIXTURE, use_photos=False))
+    if len(from_mkv) != len(rgb) or not all(
+            np.array_equal(a, b) for a, b in zip(from_mkv, rgb)):
+        fail("lossless: MediaSource's frames differ from the decoder's")
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    if poses != logged_l2["poses"]:
+        fail("lossless: poses.txt differs from the main path's")
+    n_warm, _, _, poses_warm, run_warm_s, when_warm = warm
+    if poses_warm != poses or n_warm["top2_batch"] != n["top2_batch"]:
+        fail("lossless: the warm repeat's poses.txt or launches differ from "
+             "the cold run's")
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    warm_ms = 1e3 * n_warm["slam_main_s"] / N_FRAMES
+    print(f"lossless: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(FFV1_FIXTURE) / 1e6:.2f} MB Matroska, FFV1 "
+          f"version 3 from cv2's writer: BGRA, {stats['slices']} Golomb-"
+          f"Rice slices with CRCs, {stats['key_frames']} key frames, "
+          f"{stats['runs']} runs over {stats['run_pixels']} pixels) equal "
+          f"to the rendered frames and to cv2's decode (sha256; the "
+          f"{len(LOSSLESS_SMALL_FIXTURES)} small FFV1 and HuffYUV fixtures' "
+          f"too); cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of "
+          f"extent  poses.txt equals the main path's byte for byte  "
+          f"launches {json.dumps(n)}  demux {demux_ms:.3f} ms; decode "
+          f"{ffv1_ms:.3f} ms per FHD frame (FFV1) and {hyuv_ms:.3f} ms "
+          f"(FFVHuff 4:2:0, {hstats['frames']} frame) on one thread; "
+          f"tracking {track_ms:.3f} ms per frame; CLI run {run_s:.3f} s "
+          f"({when}); the same run repeated: tracking {warm_ms:.3f} ms per "
+          f"frame, CLI run {run_warm_s:.3f} s ({when_warm}), poses.txt "
+          f"equal; what the shared process warms: "
+          f"{n['slam_main_s'] - n_warm['slam_main_s']:.3f} s of slam_main  "
+          f"[{card_line}]", flush=True)
+    return n, ffv1_ms, hyuv_ms, track_ms, warm_ms
 
 
 # The real-texture scene at FHD: 24 frames (the JAX package's default
@@ -3587,34 +3865,51 @@ def main() -> None:
               decode_ms_per_frame_3_workers=f"{dec3_ms:.3f}",
               decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        n = mp4_phase(card_line, scene)
+        clis, clis_s, build_s = fixture_clis(scene)
+        phase("fixture-clis", runs=len(clis), subprocess_s=f"{clis_s:.3f}",
+              decoders_build_s=f"{build_s:.3f}")
+        n = mp4_phase(card_line, scene, clis["mp4"])
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])
-        n, decode_ms, track_ms = asp_phase(card_line, scene)
+        n, decode_ms, track_ms = asp_phase(card_line, scene,
+                                           clis["asp"])
         by_path["asp (cli)"] = n["top2_batch"]
         phase("asp", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        n, decode_ms, track_ms = webm_phase(card_line, scene)
+        n, decode_ms, track_ms = webm_phase(card_line, scene,
+                                            clis["webm"])
         by_path["webm (cli)"] = n["top2_batch"]
         phase("webm", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        n, decode_ms, track_ms = vp9_phase(card_line, scene)
+        n, decode_ms, track_ms = vp9_phase(card_line, scene,
+                                           clis["vp9"])
         by_path["vp9 (cli)"] = n["top2_batch"]
         phase("vp9", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        n, decode_ms, track_ms = mpeg2_phase(card_line, scene)
+        n, decode_ms, track_ms = mpeg2_phase(card_line, scene,
+                                             clis["mpeg2"])
         by_path["mpeg2 (cli)"] = n["top2_batch"]
         phase("mpeg2", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        n, decode_ms, track_ms = h263_phase(card_line, scene)
+        n, decode_ms, track_ms = h263_phase(card_line, scene,
+                                            clis["h263"])
         by_path["h263 (cli)"] = n["top2_batch"]
         phase("h263", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, ffv1_ms, hyuv_ms, track_ms, warm_ms = lossless_phase(
+            card_line, frames, logged_l2, clis["lossless"],
+            clis["lossless-warm"])
+        by_path["lossless (cli)"] = n["top2_batch"]
+        phase("lossless", top2_batch_launches=n["top2_batch"],
+              ffv1_decode_ms_per_frame=f"{ffv1_ms:.3f}",
+              huffyuv_decode_ms_per_frame=f"{hyuv_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}",
+              tracking_ms_per_frame_warm=f"{warm_ms:.3f}")
         n = realtex_phase(card_line)
         by_path["realtex"] = n["top2_batch"]
         phase("realtex", top2_batch_launches=n["top2_batch"])

@@ -20,10 +20,13 @@ chessboard calibration (calibration/), ``tpu.mesh_shape`` the meshed engine
 (parallel/), and ``run_sequences_parallel`` tracks independent sequences
 at once, one thread, card and CUDA stream each.
 
-Video is read in AVI, MP4 and Matroska/WebM, in Motion-JPEG, MPEG-4 Part 2
-and VP8 (io/avi.py, io/mp4.py, io/matroska.py); H.264, HEVC, VP9, AV1, FFV1
-and the other codecs OpenCV reads for the JAX package raise
-``NotImplementedError`` naming them (ROADMAP).
+Video is read in AVI, MP4/QuickTime/3GPP, Matroska/WebM, MPEG program and
+transport streams and raw elementary streams (io/avi.py, io/mp4.py,
+io/matroska.py, io/mpegps.py, io/mpegts.py), in Motion-JPEG, uncompressed
+I420/Y800, MPEG-4 Part 2 (Simple and Advanced Simple), MPEG-1/2, H.263,
+VP8, VP9, FFV1 and HuffYUV, each decoded by the port's own decoder
+(io/media.py); H.264, HEVC, AV1 and the other codecs OpenCV reads for the
+JAX package raise ``NotImplementedError`` naming them (ROADMAP).
 """
 
 from __future__ import annotations

@@ -13,10 +13,13 @@ headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
 in order by io/vp8.py; VP9 (``VP90``: OpenCV's ``VP90`` writer into
 ``.avi``) in order by io/vp9.py; H.263 and H.263+ (``H263``, ``U263``
 and the other tags FFmpeg's riff.c gives them: OpenCV's ``H263`` writer)
-in order by io/h263.py, each chunk a picture; MPEG-1/2 video (``MPEG``,
-``mpg1``, ``mpg2``, ``PIM1``, ...: OpenCV's writers of those fourccs) in
-order by io/mpeg12.py, each chunk a picture with its headers; uncompressed planar
-4:2:0 and gray (``I420``, ``IYUV``, ``Y800``; OpenCV's writer stores
+in order by io/h263.py, each chunk a picture; FFV1 (``FFV1``) in order by
+io/ffv1.py and HuffYUV (``HFYU``, ``FFVH``) by io/huffyuv.py, each chunk a
+frame, with the extradata that follows the bitmap header in ``strf``
+(OpenCV's ``FFV1``, ``HFYU`` and ``FFVH`` writers); MPEG-1/2 video
+(``MPEG``, ``mpg1``, ``mpg2``, ``PIM1``, ...: OpenCV's writers of those
+fourccs) in order by io/mpeg12.py, each chunk a picture with its headers;
+uncompressed planar 4:2:0 and gray (``I420``, ``IYUV``, ``Y800``; OpenCV's writer stores
 fourcc 0 as ``I420``) each by io/rawvideo.py.  ``open_video`` reads any
 of the three containers, MPEG program streams (io/mpegps.py), MPEG
 transport streams (io/mpegts.py), MPEG-1/2 video elementary streams
@@ -51,6 +54,9 @@ H263_DIALECTS = {b"I263": "Intel H.263", b"i263": "Intel H.263",
                  b"flv1": "Sorenson Spark (Flash Video H.263)"}
 MPEG12_FOURCCS = (b"MPEG", b"mpeg", b"mpg1", b"MPG1", b"PIM1", b"mpg2",
                   b"MPG2", b"PIM2", b"mpgv", b"MMES", b"LMP2", b"EM2V")
+# the lossless codecs: their extradata follows the bitmap header in strf
+FFV1_FOURCCS = (b"FFV1", b"ffv1")
+HUFFYUV_FOURCCS = (b"HFYU", b"hfyu", b"FFVH", b"ffvh")
 
 
 def open_video(path: str):
@@ -130,12 +136,15 @@ def _chunks(fh, start: int, end: int):
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
     shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4",
-    "mpeg12", "vp8", "vp9", "h263" or "raw" (``pix_fmt`` "yuv420p" or
-    "gray");
+    "mpeg12", "vp8", "vp9", "h263", "ffv1", "huffyuv" or "raw"
+    (``pix_fmt`` "yuv420p" or "gray"); ``extradata`` is what follows an
+    FFV1 or HuffYUV stream's bitmap header (its configuration record or
+    Huffman tables), ``bits_per_coded_sample`` its biBitCount;
     ``read`` reads one chunk and ``decode_frame`` decodes a Motion-JPEG or
     uncompressed one (thread-safe: ``os.pread`` on one descriptor)."""
 
     extradata = b""     # MPEG-4 and MPEG-1/2 in AVI carry headers in band
+    bits_per_coded_sample = 0
 
     def __init__(self, path: str):
         self.path = path
@@ -170,6 +179,10 @@ class AviVideo:
             self.codec = "mpeg12"
         elif self.fourcc in H263_FOURCCS:
             self.codec = "h263"
+        elif self.fourcc in FFV1_FOURCCS + HUFFYUV_FOURCCS:
+            self.codec = ("ffv1" if self.fourcc in FFV1_FOURCCS
+                          else "huffyuv")
+            self.extradata = self._strf[40:]
         elif self.fourcc in rawvideo.FOURCCS:
             self.codec = "raw"
             self.pix_fmt = rawvideo.FOURCCS[self.fourcc]
@@ -181,8 +194,8 @@ class AviVideo:
                 "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
                 "FMP4, mp4v), MPEG-1/2 (MPEG, mpg1, mpg2, PIM1), VP8 "
                 "(VP80), VP9 (VP90), H.263 (H263, U263, X263, T263, L263, "
-                "M263, VX1K, lsvm) and uncompressed I420, IYUV and Y800 "
-                "are decoded")
+                "M263, VX1K, lsvm), FFV1, HuffYUV (HFYU, FFVH) and "
+                "uncompressed I420, IYUV and Y800 are decoded")
         self._fd = os.open(path, os.O_RDONLY)
 
     def _riff(self, fh, start: int, end: int) -> None:
@@ -203,7 +216,7 @@ class AviVideo:
                 if f2 == b"strh":
                     strh = fh.read(min(n2, 8))
                 elif f2 == b"strf":
-                    strf = fh.read(min(n2, 20))
+                    strf = fh.read(min(n2, 1 << 20))
             if (self._stream is None and strh is not None
                     and strh[:4] == b"vids"):
                 self._stream = index
@@ -212,9 +225,13 @@ class AviVideo:
                 # the codec is the bitmap header's compression; the
                 # stream header's handler where that is empty
                 self.fourcc = (codec if codec.strip(b"\0 ") else handler)
+                self._strf = strf or b""
                 if strf and len(strf) >= 12:
                     self.width, h = struct.unpack("<ii", strf[4:12])
                     self.height = abs(h)
+                if strf and len(strf) >= 16:
+                    self.bits_per_coded_sample = struct.unpack(
+                        "<H", strf[14:16])[0]
             index += 1
 
     def _movi(self, fh, start: int, end: int) -> None:

@@ -14,13 +14,16 @@ cannot be its child.  A block that runs past the end of the file is
 dropped, as FFmpeg's demuxer drops it.
 
 Codecs: ``V_VP8`` is "vp8" (io/vp8.py), ``V_VP9`` "vp9" (io/vp9.py),
+``V_FFV1`` "ffv1" with CodecPrivate as its configuration record
+(io/ffv1.py: OpenCV's ``FFV1`` writer into ``.mkv``),
 ``V_MPEG4/ISO/SP|ASP|AP`` "mpeg4"
 with CodecPrivate as its VOL headers (io/mpeg4.py), ``V_MPEG1`` and
 ``V_MPEG2`` "mpeg12" with CodecPrivate as its sequence header
 (io/mpeg12.py), ``V_MJPEG`` "mjpeg"
 (io/jpeg.py); ``V_MS/VFW/FOURCC`` takes the codec of its bitmap header's
-fourcc, as in AVI (H.263 among them: OpenCV's ``H263`` writer into
-``.mkv``).  Every other CodecID (AV1, FFV1, H.264, HEVC, ...)
+fourcc, as in AVI, with the extradata that follows the header (H.263 and
+HuffYUV among them: OpenCV's ``H263``, ``HFYU`` and ``FFVH`` writers into
+``.mkv``).  Every other CodecID (AV1, H.264, HEVC, ...)
 and any ContentEncoding (header stripping, compression, encryption) raise
 ``NotImplementedError`` naming it.  ``MkvVideo`` has the interface of
 ``avi.AviVideo`` and ``mp4.Mp4Video``.
@@ -47,10 +50,9 @@ _SIMPLE_BLOCK, _BLOCK_GROUP, _BLOCK = 0xA3, 0xA0, 0xA1
 _UNKNOWN = -1
 
 _MPEG4 = ("V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP")
-_CODEC_NAMES = {"V_AV1": "AV1", "V_FFV1": "FFV1",
-                "V_MPEG4/ISO/AVC": "H.264", "V_MPEGH/ISO/HEVC": "HEVC",
-                "V_THEORA": "Theora", "V_PRORES": "ProRes",
-                "V_UNCOMPRESSED": "uncompressed video",
+_CODEC_NAMES = {"V_AV1": "AV1", "V_MPEG4/ISO/AVC": "H.264",
+                "V_MPEGH/ISO/HEVC": "HEVC", "V_THEORA": "Theora",
+                "V_PRORES": "ProRes", "V_UNCOMPRESSED": "uncompressed video",
                 "V_MPEG4/MS/V3": "MS-MPEG4 v3", "V_REAL/RV40": "RealVideo 4"}
 _COMPRESSION = {0: "zlib compression", 1: "bzlib compression",
                 2: "lzo1x compression", 3: "header stripping"}
@@ -86,11 +88,15 @@ def _uint(data: bytes) -> int:
 class MkvVideo:
     """The first video track of a Matroska or WebM file: ``frames`` lists
     (offset, size, shown) of each frame in file order, ``codec`` is "vp8",
-    "vp9", "mpeg4", "mpeg12" or "mjpeg", ``extradata`` its CodecPrivate; ``read`` reads one
-    frame and ``decode_frame`` decodes a Motion-JPEG one (thread-safe:
-    ``os.pread`` on one descriptor); ``fourcc`` is a VfW track's fourcc."""
+    "vp9", "mpeg4", "mpeg12", "h263", "ffv1", "huffyuv" or "mjpeg",
+    ``extradata`` its CodecPrivate (a VfW track's: what follows the bitmap
+    header); ``read`` reads one frame and ``decode_frame`` decodes a
+    Motion-JPEG one (thread-safe: ``os.pread`` on one descriptor);
+    ``fourcc`` is a VfW track's fourcc, ``bits_per_coded_sample`` its
+    biBitCount."""
 
     fourcc = b""
+    bits_per_coded_sample = 0
 
     def __init__(self, path: str):
         self.path = path
@@ -282,6 +288,8 @@ class MkvVideo:
 
             fourcc = self.fourcc = self.extradata[16:20]
             w, h = struct.unpack("<ii", self.extradata[4:12])
+            self.bits_per_coded_sample = struct.unpack(
+                "<H", self.extradata[14:16])[0]
             self.width, self.height = self.width or w, self.height or abs(h)
             extra = self.extradata[40:]
             self.extradata = b""
@@ -290,10 +298,13 @@ class MkvVideo:
                                    ("mpeg12", avi.MPEG12_FOURCCS),
                                    ("vp8", avi.VP8_FOURCCS),
                                    ("vp9", avi.VP9_FOURCCS),
-                                   ("h263", avi.H263_FOURCCS)):
+                                   ("h263", avi.H263_FOURCCS),
+                                   ("ffv1", avi.FFV1_FOURCCS),
+                                   ("huffyuv", avi.HUFFYUV_FOURCCS)):
                 if fourcc in fourccs:
                     self.codec = codec
-                    self.extradata = (extra if codec in ("mpeg4", "mpeg12")
+                    self.extradata = (extra if codec in ("mpeg4", "mpeg12",
+                                                         "ffv1", "huffyuv")
                                       else b"")
                     return
             name = avi.H263_DIALECTS.get(fourcc, "video codec")
@@ -305,6 +316,8 @@ class MkvVideo:
             self.codec = "vp8"
         elif cid == "V_VP9":
             self.codec = "vp9"
+        elif cid == "V_FFV1":
+            self.codec = "ffv1"
         elif cid in _MPEG4:
             self.codec = "mpeg4"
         elif cid in ("V_MPEG1", "V_MPEG2"):
@@ -316,7 +329,8 @@ class MkvVideo:
             raise NotImplementedError(
                 f"{self.path}: {name} video ({cid}) needs a decoder the port "
                 "does not have; in Matroska/WebM only VP8, VP9, MPEG-4 "
-                "Part 2, MPEG-1/2 and Motion-JPEG are decoded")
+                "Part 2, MPEG-1/2, FFV1, Motion-JPEG and (as VfW) H.263 and "
+                "HuffYUV are decoded")
 
     # --------------------------------------------------------------- blocks
 

@@ -18,8 +18,10 @@ io/jpeg.py or io/rawvideo.py (no EXIF orientation, as OpenCV's video
 readers apply none); MPEG-4 Part 2 (io/mpeg4.py), MPEG-1/2
 (io/mpeg12.py), H.263 (io/h263.py), VP8 (io/vp8.py) and VP9 (io/vp9.py)
 frames, each of which
-predicts from those before it, in order on one producer thread a bounded
-number of frames ahead.  A video ends at its first frame that fails to
+predicts from those before it, and FFV1 (io/ffv1.py) and HuffYUV
+(io/huffyuv.py) frames, whose contexts or tables carry from one frame to
+the next, in order on one producer thread a bounded number of frames
+ahead.  A video ends at its first frame that fails to
 decode, where OpenCV's reader stops; a damaged frame that FFmpeg still
 gives (a frame whose data ends early) is given too.  The JAX package
 reads any codec through OpenCV's VideoCapture, and any photo OpenCV reads
@@ -37,7 +39,8 @@ from typing import Generator, Iterator, Optional
 
 import numpy as np
 
-from . import avi, h263, mpeg4, mpeg12, native, photo, vp8, vp9
+from . import (avi, ffv1, h263, huffyuv, mpeg4, mpeg12, native, photo, vp8,
+               vp9)
 
 
 def natural_sort_paths(paths: list[str]) -> list[str]:
@@ -115,8 +118,8 @@ def _decoded(video, dec) -> Generator[np.ndarray, None, None]:
     An MPEG-4 or MPEG-1/2 decoder gives each frame with the tag of the
     sample it was decoded from, whose container flag (an MP4 edit) tells
     whether it is shown, and holds the last reference of a stream with B
-    pictures back until ``flush``; a VP8, VP9 or H.263 frame is its own
-    sample's.  A frame the
+    pictures back until ``flush``; a VP8, VP9, H.263, FFV1 or HuffYUV
+    frame is its own sample's.  A frame the
     decoder gives none for, or the container hides, is still decoded; the
     first sample that fails ends the sequence, as OpenCV's reader stops
     there."""
@@ -193,13 +196,15 @@ class _ThreadedSequence:
 
 class MediaSource:
     """Destructive frame iterator over a photo glob or a video file (AVI
-    and Matroska/WebM: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9 or
-    H.263, and in AVI uncompressed I420/IYUV/Y800; MP4/QuickTime/3GPP:
-    MPEG-4 Part 2, MPEG-1/2, VP9, H.263 or Motion-JPEG; MPEG program,
-    transport and elementary streams: MPEG-1/2; raw H.263 streams).  A
-    video that does not open raises ``IOError``; another container or
-    codec ``NotImplementedError``; an MPEG-4, MPEG-1/2 or H.263 tool or
-    VP8 or VP9 feature the decoder does not read ``ValueError``."""
+    and Matroska/WebM: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9,
+    H.263, FFV1 or HuffYUV, and in AVI uncompressed I420/IYUV/Y800;
+    MP4/QuickTime/3GPP: MPEG-4 Part 2, MPEG-1/2, VP9, H.263, FFV1, HuffYUV
+    or Motion-JPEG; MPEG program, transport and elementary streams:
+    MPEG-1/2; raw H.263 streams).  A video that does not open raises
+    ``IOError``; another container or codec, or an FFV1 or HuffYUV layout
+    or depth it does not read, ``NotImplementedError``; an MPEG-4,
+    MPEG-1/2 or H.263 tool or VP8 or VP9 feature the decoder does not read
+    ``ValueError``."""
 
     def __init__(self, *, photos_pattern: str = "", video_path: str = "",
                  use_photos: bool = True, prefetch: int = 8,
@@ -222,6 +227,13 @@ class MediaSource:
                        if video.codec == "mpeg12"
                        else h263.Decoder()
                        if video.codec == "h263"
+                       else ffv1.Decoder(video.extradata, video.width,
+                                         video.height)
+                       if video.codec == "ffv1"
+                       else huffyuv.Decoder(video.extradata, video.width,
+                                            video.height,
+                                            video.bits_per_coded_sample)
+                       if video.codec == "huffyuv"
                        else mpeg4.Decoder(video.extradata, video.fourcc))
             except BaseException:
                 video.close()

@@ -1,7 +1,7 @@
-"""MPEG-4 Part 2, MPEG-1/2, VP9, H.263 and Motion-JPEG video in
-MP4/QuickTime/3GPP: the ISO BMFF boxes parsed in Python, each sample
-decoded by io/mpeg4.py, io/mpeg12.py, io/vp9.py, io/h263.py or
-io/jpeg.py.
+"""MPEG-4 Part 2, MPEG-1/2, VP9, H.263, FFV1, HuffYUV and Motion-JPEG
+video in MP4/QuickTime/3GPP: the ISO BMFF boxes parsed in Python, each
+sample decoded by io/mpeg4.py, io/mpeg12.py, io/vp9.py, io/h263.py,
+io/ffv1.py, io/huffyuv.py or io/jpeg.py.
 
 The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
 entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
@@ -14,7 +14,10 @@ into ``.mov``), or ``s263`` (H.263 in 3GP, 3G2 and MP4: OpenCV's
 ``H263`` writer into ``.3gp``/``.3g2``, phones' clips) or ``h263``
 (H.263 in QuickTime, OpenCV's ``H263`` writer into ``.mov``), or
 ``vp09`` (VP9, OpenCV's ``vp09`` writer; its ``vpcC`` must name profile 0,
-8-bit, or ``ValueError`` names what it holds).  The
+8-bit, or ``ValueError`` names what it holds), or ``FFV1``, ``HFYU`` or
+``FFVH`` (OpenCV's lossless writers into ``.mov``: the configuration
+record or Huffman tables in a ``glbl`` box, the depth field as the bits a
+pixel).  The
 samples come in decode order from ``stsz``/``stz2`` (sizes), ``stco``/
 ``co64`` (chunk offsets) and ``stsc`` (samples per chunk); ``stts`` and
 ``ctts`` give their times.  An ``edts/elst`` edit is applied as FFmpeg's
@@ -51,6 +54,8 @@ _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
                  0x6C: "Motion-JPEG"}
 # H.263: the 3GPP and QuickTime sample entries
 H263_ENTRIES = (b"s263", b"h263", b"H263")
+# the lossless sample entries QuickTime gives FFmpeg's encoders
+LOSSLESS_ENTRIES = {b"FFV1": "ffv1", b"HFYU": "huffyuv", b"FFVH": "huffyuv"}
 # MPEG-1/2 video: esds object types and QuickTime sample entries
 MPEG12_OBJECT_TYPES = (0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A)
 MPEG12_ENTRIES = (b"m1v ", b"m1v1", b"m2v1", b"mp1v", b"mp2v", b"hdv2",
@@ -164,13 +169,15 @@ def _full(body: bytes) -> tuple[int, bytes]:
 class Mp4Video:
     """The video track of an MP4/QuickTime file: ``frames`` lists (offset,
     size, shown) of each sample in decode order, ``codec`` "mpeg4",
-    "mpeg12", "vp9", "h263" or "mjpeg", ``extradata`` its VOS/VOL headers (an
-    MPEG-1/2 sequence header), ``width``/``height`` its
-    sample entry's size; ``decode_frame`` decodes a Motion-JPEG sample
+    "mpeg12", "vp9", "h263", "ffv1", "huffyuv" or "mjpeg", ``extradata``
+    its VOS/VOL headers (an MPEG-1/2 sequence header, a ``glbl`` box),
+    ``width``/``height`` its sample entry's size, ``bits_per_coded_sample``
+    its depth; ``decode_frame`` decodes a Motion-JPEG sample
     (thread-safe: ``os.pread`` on one descriptor)."""
 
     codec = "mpeg4"
     extradata = b""
+    bits_per_coded_sample = 0
 
     def __init__(self, path: str):
         self.path = path
@@ -294,15 +301,22 @@ class Mp4Video:
         entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
         kind = self.fourcc = entry[4:8]
         if kind not in ((b"mp4v", b"jpeg", b"vp09") + MPEG12_ENTRIES
-                        + H263_ENTRIES):
+                        + H263_ENTRIES + tuple(LOSSLESS_ENTRIES)):
             fourcc = kind.decode(errors="replace")
             raise NotImplementedError(
                 f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
                 f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
                 "only MPEG-4 Part 2 (mp4v), MPEG-1/2 (mp4v, m1v, m2v1), VP9 "
-                "(vp09), H.263 (s263, h263) and Motion-JPEG (jpeg, mp4v "
-                "0x6C) are decoded")
+                "(vp09), H.263 (s263, h263), FFV1, HuffYUV (HFYU, FFVH) "
+                "and Motion-JPEG (jpeg, mp4v 0x6C) are decoded")
         self.width, self.height = struct.unpack(">HH", entry[32:36])
+        if kind in LOSSLESS_ENTRIES:
+            self.codec = LOSSLESS_ENTRIES[kind]
+            self.bits_per_coded_sample = struct.unpack(">H",
+                                                       entry[82:84])[0]
+            glbl = _find(entry, 86, len(entry), b"glbl")
+            self.extradata = b"" if glbl is None else entry[slice(*glbl)]
+            return
         if kind in H263_ENTRIES:
             self.codec = "h263"
             return

@@ -8,6 +8,10 @@ build fails (a machine without the libjpeg or libpng headers), ``load``
 raises with the compiler's message and ``available`` is False; media.py
 then decodes PNG and JPEG with the port's own readers (io/png.py,
 io/jpeg.py).
+
+``LosslessDecoder`` is the ctypes binding the two lossless video decoders
+share (io/ffv1.py over ``native/ffv1.cpp``, io/huffyuv.py over
+``native/huffyuv.cpp``): both libraries give the same C entry points.
 """
 
 from __future__ import annotations
@@ -179,6 +183,150 @@ class NativeSequence:
             if f is None:
                 return
             yield f
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+# ------------------------------------------------ lossless video decoders
+
+_MSG_LEN = 256
+_FRAME, _REFUSED, _FAILED = 0, 2, 3      # the decoders' return codes
+
+
+def bind_lossless(lib: ctypes.CDLL, prefix: str, open_args=()) -> None:
+    """The argument types of a lossless decoder library whose functions
+    are ``<prefix>_open`` (extradata, its size, width, height,
+    ``open_args``...), ``_decode``, ``_rgb``, ``_plane``, ``_stats`` and
+    ``_close``."""
+    P, I, I64, U8 = (ctypes.POINTER, ctypes.c_int, ctypes.c_int64,
+                     ctypes.POINTER(ctypes.c_uint8))
+    for name, args, res in (
+            ("open", [ctypes.c_char_p, I64, I, I, *open_args,
+                      P(ctypes.c_void_p), ctypes.c_char_p, I], I),
+            ("decode", [ctypes.c_void_p, ctypes.c_char_p, I64, P(I), P(I),
+                        ctypes.c_char_p, I], I),
+            ("rgb", [ctypes.c_void_p, U8, I64, ctypes.c_char_p, I], I),
+            ("plane", [ctypes.c_void_p, I, U8, I64, P(I), P(I)], I),
+            ("stats", [ctypes.c_void_p, P(ctypes.c_int64), I], I),
+            ("close", [ctypes.c_void_p], None)):
+        fn = getattr(lib, f"{prefix}_{name}")
+        fn.argtypes = args
+        fn.restype = res
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _raise(rc: int, msg) -> None:
+    text = msg.value.decode(errors="replace")
+    if rc == _REFUSED:
+        raise NotImplementedError(text)
+    raise ValueError(text)
+
+
+class LosslessDecoder:
+    """A lossless stream of ``width`` x ``height`` frames (the container's
+    size: neither codec codes it) with its ``extradata``, each packet a
+    frame; ``failed`` tells whether the last packet gave no frame (and
+    ``reason`` why).  Subclasses name the library (``_load``), its
+    function prefix (``_prefix``) and its statistics (``_stats``)."""
+
+    failed = False
+    reason = ""
+    _prefix = ""
+    _stats: tuple = ()
+    _handle = None
+
+    def __init__(self, extradata: bytes, width: int, height: int,
+                 *open_args):
+        self._lib = self._load()
+        self._fn = {k: getattr(self._lib, f"{self._prefix}_{k}")
+                    for k in ("open", "decode", "rgb", "plane", "stats",
+                              "close")}
+        self._handle = ctypes.c_void_p()
+        self._hw = None
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        rc = self._fn["open"](extradata, len(extradata), width, height,
+                              *open_args, ctypes.byref(self._handle), msg,
+                              _MSG_LEN)
+        if rc != _FRAME:
+            _raise(rc, msg)
+
+    @staticmethod
+    def _load() -> ctypes.CDLL:
+        raise NotImplementedError
+
+    def _call(self, sample: bytes) -> Optional[tuple[int, int]]:
+        if not self._handle:
+            raise ValueError("decoder is closed")
+        w, h = ctypes.c_int(), ctypes.c_int()
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        rc = self._fn["decode"](self._handle, sample, len(sample),
+                                ctypes.byref(w), ctypes.byref(h), msg,
+                                _MSG_LEN)
+        if rc == _REFUSED:
+            _raise(rc, msg)
+        self.failed = rc == _FAILED
+        self.reason = msg.value.decode(errors="replace") if rc else ""
+        if rc != _FRAME:
+            self._hw = None
+            return None
+        self._hw = h.value, w.value
+        return self._hw
+
+    def decode(self, sample: bytes) -> Optional[np.ndarray]:
+        """HxWx3 uint8 RGB of the frame ``sample`` holds; None when it
+        gives none (``failed``)."""
+        hw = self._call(sample)
+        if hw is None:
+            return None
+        out = np.empty(hw + (3,), np.uint8)
+        msg = ctypes.create_string_buffer(_MSG_LEN)
+        rc = self._fn["rgb"](self._handle, _u8(out), out.nbytes, msg,
+                             _MSG_LEN)
+        if rc != _FRAME:
+            _raise(rc, msg)
+        return out
+
+    def decode_planes(self, sample: bytes) -> Optional[list]:
+        """The planes FFmpeg's decoder gives for ``sample``, each as rows of
+        bytes (Y, U, V[, A] for YCbCr; Y, or Y and A interleaved, for gray;
+        one B G R A/0 plane for RGB); None as ``decode``."""
+        if self._call(sample) is None:
+            return None
+        h, w = self._hw
+        out = []
+        for k in range(4):
+            buf = np.empty(4 * w * h + 64, np.uint8)
+            rb, rows = ctypes.c_int(), ctypes.c_int()
+            if self._fn["plane"](self._handle, k, _u8(buf), buf.nbytes,
+                                 ctypes.byref(rb),
+                                 ctypes.byref(rows)) != _FRAME:
+                break
+            out.append(buf[:rb.value * rows.value].reshape(
+                rows.value, rb.value).copy())
+        return out
+
+    def flush(self) -> Optional[np.ndarray]:
+        """None: a lossless intra codec holds no frame back."""
+        return None
+
+    def stats(self) -> dict:
+        if not self._handle:
+            raise ValueError("decoder is closed")
+        out = (ctypes.c_int64 * len(self._stats))()
+        self._fn["stats"](self._handle, out, len(self._stats))
+        return dict(zip(self._stats, out))
+
+    def close(self) -> None:
+        if self._handle:
+            self._fn["close"](self._handle)
+            self._handle = ctypes.c_void_p()
 
     def __del__(self):
         try:

@@ -67,9 +67,11 @@ inline const Colour& colour(Matrix m) {
   return k[m];
 }
 
+// `vshift` 1: a chroma row per two luma rows (4:2:0); 0: one per luma row
+// (4:2:2, which swscale's unscaled converter takes the same way).
 inline void unscaled(const uint8_t* py, int ys, const uint8_t* pu,
                      const uint8_t* pv, int cs, int w, int h, uint8_t* out,
-                     Matrix m) {
+                     Matrix m, int vshift = 1) {
   const Colour& k = colour(m);
   int lum[256], cr[256], cb[256], ug[256], vg[256];
   // the sums reach -224 (Y 0, V 0) and 534 (Y 255, U 255)
@@ -85,8 +87,8 @@ inline void unscaled(const uint8_t* py, int ys, const uint8_t* pu,
   }
   for (int y = 0; y < h; ++y) {
     const uint8_t* yr = py + int64_t(y) * ys;
-    const uint8_t* ur = pu + int64_t(y >> 1) * cs;
-    const uint8_t* vr = pv + int64_t(y >> 1) * cs;
+    const uint8_t* ur = pu + int64_t(y >> vshift) * cs;
+    const uint8_t* vr = pv + int64_t(y >> vshift) * cs;
     uint8_t* o = out + int64_t(y) * w * 3;
     for (int x = 0; x < w; x += 2) {
       int u = ur[x >> 1], v = vr[x >> 1];

@@ -512,10 +512,13 @@ def encode_progressive_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
 
 
 def write_avi(path: str, frames: list, width: int, height: int,
-              fourcc: bytes = b"MJPG") -> None:
+              fourcc: bytes = b"MJPG", extradata: bytes = b"",
+              bit_count: int = 24) -> None:
     """An AVI 1.0 file of ``frames`` (the bytes of each coded frame: JPEG
     for the default MJPG, MPEG-4 Part 2 samples with the VOL in the first
-    for XVID) at 10 frames/s, every frame a key frame in the index."""
+    for XVID) at 10 frames/s, every frame a key frame in the index;
+    ``extradata`` (an FFV1 configuration record, HuffYUV's tables) follows
+    the bitmap header, whose biBitCount is ``bit_count``."""
     fps, n = 10, len(frames)
     biggest = max((len(j) for j in frames), default=0)
 
@@ -532,8 +535,9 @@ def write_avi(path: str, frames: list, width: int, height: int,
             + struct.pack("<IHHIIIIIIiI", 0, 0, 0, 0, 1, fps, 0, n, biggest,
                           -1, 0)
             + struct.pack("<4h", 0, 0, width, height))
-    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, fourcc,
-                       width * height * 3, 0, 0, 0, 0)
+    strf = struct.pack("<IiiHH4sIiiII", 40 + len(extradata), width, height,
+                       1, bit_count, fourcc, width * height * 3, 0, 0, 0,
+                       0) + extradata
     hdrl = lst(b"hdrl", chunk(b"avih", avih)
                + lst(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
     chunks, index, off = [], [], 4             # offsets from "movi"

@@ -1,7 +1,8 @@
 """The port stands alone: every module of slam_indoor_code_tpu_torch imports
 with ``jax``, ``slam_indoor_code_tpu``, ``cv2``, ``PIL`` and ``imageio``
 blocked, no port source (nor the card scripts chip_smoke.py and
-profile_main.py) imports OpenCV, Pillow, imageio or JAX,
+profile_main.py) imports OpenCV, Pillow, imageio or JAX or loads an
+FFmpeg library,
 and every kernel source builds with plain nvcc: no PyTorch headers."""
 
 import os
@@ -34,6 +35,21 @@ def test_every_port_module_imports_without_jax():
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip().splitlines()[-1]) >= 69
+
+
+@pytest.mark.parametrize("pattern", [
+    r"CDLL\([^)]*(libav|libsw|avcodec|avformat|swscale)",
+    r"find_library\([^)]*(av|sw)(codec|format|util|scale)",
+])
+def test_no_port_source_loads_ffmpeg(pattern):
+    """No port source (nor the card scripts) loads an FFmpeg library
+    through ctypes: its decoders are its own."""
+    rx = re.compile(pattern)
+    hits = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+            if rx.search(p.read_text())]
+    hits += [p.name for p in (ROOT / "chip_smoke.py", ROOT / "profile_main.py")
+             if rx.search(p.read_text())]
+    assert not hits, hits
 
 
 @pytest.mark.parametrize("pattern", [

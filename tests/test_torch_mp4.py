@@ -193,13 +193,54 @@ def test_moving_sequence_two_gops_both_roundings(tmp_path, scene_frames):
     _check_equal_cv2(path, (240, 320), 30)
 
 
+# the pixel formats lavc_encode gives an encoder besides yuv420p:
+# (chroma shifts) of the planar YCbCr ones
+LAVC_YUV = {"yuv422p": (1, 0), "yuv444p": (0, 0), "yuv411p": (2, 0),
+            "yuv410p": (2, 2), "yuv440p": (0, 1)}
+LAVC_PIX_FMTS = ("yuv420p", *LAVC_YUV, "gray", "rgb24", "bgra", "gbrp",
+                 "yuv420p10le", "bayer_rggb8")
+
+
+def lavc_planes(rgb: np.ndarray, pix_fmt: str) -> list:
+    """The planes (2-D uint8 arrays: each row the bytes of a row) an
+    AVFrame of ``pix_fmt`` holds for ``rgb``: YCbCr from cv2's full-range
+    YCrCb subsampled by taking every n-th sample (the content of a
+    lossless test), gray, packed RGB24 or BGRA (alpha a gradient), planar
+    G, B, R, 10-bit 4:2:0 (each 8-bit sample times 4, little-endian) or an
+    RGGB Bayer mosaic."""
+    h, w = rgb.shape[:2]
+    if pix_fmt == "gray":
+        return [cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)]
+    if pix_fmt == "rgb24":
+        return [rgb.reshape(h, w * 3)]
+    if pix_fmt == "bgra":
+        alpha = (np.arange(w * h) % 251).astype(np.uint8).reshape(h, w, 1)
+        return [np.concatenate([rgb[..., ::-1], alpha], -1).reshape(h, w * 4)]
+    if pix_fmt == "gbrp":
+        return [rgb[..., 1], rgb[..., 2], rgb[..., 0]]
+    if pix_fmt == "bayer_rggb8":
+        out = rgb[..., 1].copy()
+        out[0::2, 0::2] = rgb[0::2, 0::2, 0]
+        out[1::2, 1::2] = rgb[1::2, 1::2, 2]
+        return [out]
+    ycc = cv2.cvtColor(rgb, cv2.COLOR_RGB2YCrCb)
+    y, cr, cb = ycc[..., 0], ycc[..., 1], ycc[..., 2]
+    if pix_fmt == "yuv420p10le":
+        return [(p.astype("<u2") * 4).view(np.uint8).reshape(p.shape[0], -1)
+                for p in (y, cb[::2, ::2], cr[::2, ::2])]
+    hs, vs = LAVC_YUV[pix_fmt]
+    return [y, cb[::1 << vs, ::1 << hs], cr[::1 << vs, ::1 << hs]]
+
+
 def lavc_encode(codec_name: str, frames, options: dict,
                 stats_in: bytes = None, pts: bool = True,
-                matrices: tuple = None):
+                matrices: tuple = None, pix_fmt: str = "yuv420p"):
     """``frames`` (RGB) coded by encoder ``codec_name`` of the
     libavcodec that cv2's wheel carries, through ctypes, with encoder
     ``options`` (AVOptions) that cv2's writer does not pass: (the coded
-    packets, the codec context).  ``stats_in`` is a first pass's
+    packets, the codec context).  The frames reach the encoder as
+    ``pix_fmt``: yuv420p (cv2's I420), or one of ``LAVC_PIX_FMTS`` through
+    ``lavc_planes``.  ``stats_in`` is a first pass's
     statistics (``pass1_stats``) for a second pass.  With ``pts`` the
     frames are stamped 0, 1, 2, ...  ``matrices`` (intra, inter: 64
     values each in raster order, or None) are the quantisation matrices
@@ -208,6 +249,7 @@ def lavc_encode(codec_name: str, frames, options: dict,
     import ctypes
     import glob
 
+    assert pix_fmt in LAVC_PIX_FMTS, pix_fmt
     libs = pathlib.Path(cv2.__file__).resolve().parent.parent / \
         "opencv_python.libs"
     avu = ctypes.CDLL(glob.glob(str(libs / "libavutil*"))[0],
@@ -225,6 +267,7 @@ def lavc_encode(codec_name: str, frames, options: dict,
               ctypes.c_int]),
             (avc, "avcodec_open2", ctypes.c_int, [vp, vp, vp]),
             (avu, "av_frame_alloc", vp, []),
+            (avu, "av_get_pix_fmt", ctypes.c_int, [ctypes.c_char_p]),
             (avu, "av_frame_get_buffer", ctypes.c_int, [vp, ctypes.c_int]),
             (avu, "av_frame_make_writable", ctypes.c_int, [vp]),
             (avc, "av_packet_alloc", vp, []),
@@ -236,7 +279,7 @@ def lavc_encode(codec_name: str, frames, options: dict,
     h, w = frames[0].shape[:2]
     codec = avc.avcodec_find_encoder_by_name(codec_name.encode())
     ctx = avc.avcodec_alloc_context3(codec)
-    for k, v in {"video_size": f"{w}x{h}", "pixel_format": "yuv420p",
+    for k, v in {"video_size": f"{w}x{h}", "pixel_format": pix_fmt,
                  "time_base": "1/10", "g": "12", **options}.items():
         assert avu.av_opt_set(ctx, k.encode(), v.encode(), 1) >= 0, k
     if stats_in is not None:
@@ -263,7 +306,8 @@ def lavc_encode(codec_name: str, frames, options: dict,
     # AVFrame: data[8], linesize[8], extended_data, width, height,
     # nb_samples, format, ..., pts at 136
     dims = (ctypes.c_int * 4).from_address(frame + 104)
-    dims[0], dims[1], dims[3] = w, h, 0                  # yuv420p
+    dims[0], dims[1] = w, h
+    dims[3] = avu.av_get_pix_fmt(pix_fmt.encode())
     assert avu.av_frame_get_buffer(frame, 0) == 0
     data = (ctypes.c_void_p * 8).from_address(frame)
     stride = (ctypes.c_int * 8).from_address(frame + 64)
@@ -279,13 +323,16 @@ def lavc_encode(codec_name: str, frames, options: dict,
             avc.av_packet_unref(pkt)
     H, W = h + (h & 1), w + (w & 1)     # odd sizes: chroma rounded up
     for i, f in enumerate(frames):
-        f = np.pad(f, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
-        i420 = cv2.cvtColor(np.ascontiguousarray(f),
-                            cv2.COLOR_RGB2YUV_I420).ravel()
-        n = H * W // 4
-        planes = (i420[:H * W].reshape(H, W)[:h, :w],
-                  i420[H * W:H * W + n].reshape(H // 2, W // 2),
-                  i420[H * W + n:].reshape(H // 2, W // 2))
+        if pix_fmt == "yuv420p":
+            f = np.pad(f, ((0, H - h), (0, W - w), (0, 0)), mode="edge")
+            i420 = cv2.cvtColor(np.ascontiguousarray(f),
+                                cv2.COLOR_RGB2YUV_I420).ravel()
+            n = H * W // 4
+            planes = (i420[:H * W].reshape(H, W)[:h, :w],
+                      i420[H * W:H * W + n].reshape(H // 2, W // 2),
+                      i420[H * W + n:].reshape(H // 2, W // 2))
+        else:
+            planes = lavc_planes(np.ascontiguousarray(f), pix_fmt)
         avu.av_frame_make_writable(frame)
         for k, plane in enumerate(planes):
             plane = np.ascontiguousarray(plane)
@@ -340,6 +387,20 @@ def swscale_rgb(y, u, v, chroma_left=False):
     assert sws.sws_scale(ctx, src, stride, 0, h, dst, dstride) == h
     sws.sws_freeContext(ctx)
     return np.ascontiguousarray(out[:, :w * 3].reshape(h, w, 3)[..., ::-1])
+
+
+def lavc_extradata(lib_ctx) -> bytes:
+    """The extradata a ``lavc_encode`` left in its codec context (an FFV1
+    configuration record, HuffYUV's tables): AVCodecContext's extradata
+    pointer and size, the fields after flags2 (AVOption "flags2")."""
+    import ctypes
+
+    avu, ctx = lib_ctx
+    opt = avu.av_opt_find(ctx, b"flags2", None, 0, 0)
+    off = (ctypes.c_int.from_address(opt + 16).value + 4 + 7) & ~7
+    ptr = ctypes.c_void_p.from_address(ctx + off).value
+    size = ctypes.c_int.from_address(ctx + off + 8).value
+    return ctypes.string_at(ptr, size) if ptr and size > 0 else b""
 
 
 def _stats_out_offset(avu, ctx) -> int:

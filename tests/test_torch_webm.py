@@ -566,10 +566,12 @@ def test_mjpeg_in_mkv_equals_cv2_imdecode(tmp_path, scene_frames):
 @pytest.mark.parametrize("fourcc,codec", [("VP90", "VP9"),
                                           ("FFV1", "FFV1")])
 def test_other_codecs_raise(tmp_path, scene_frames, fourcc, codec):
-    """cv2's FFV1 (.mkv) writer: NotImplementedError naming the codec.
-    cv2's VP90 (WebM) writer is read now (tests/test_torch_vp9.py), and
-    the same file with its first frame marked VP9 profile 1 (4:4:4, which
-    the decoder does not read) raises ValueError naming the profile."""
+    """cv2's FFV1 (.mkv) writer is read now (tests/test_torch_ffv1.py):
+    its frames equal cv2's and the frames written (FFV1 in RGB is
+    lossless).  cv2's VP90 (WebM) writer is read too
+    (tests/test_torch_vp9.py), and the same file with its first frame
+    marked VP9 profile 1 (4:4:4, which the decoder does not read) raises
+    ValueError naming the profile."""
     path = tmp_path / ("v.webm" if fourcc == "VP90" else "v.mkv")
     write_cv2_video(path, [cv2.resize(f, (64, 48)) for f in scene_frames[:2]],
                     fourcc)
@@ -590,8 +592,15 @@ def test_other_codecs_raise(tmp_path, scene_frames, fourcc, codec):
         with pytest.raises(ValueError, match=f"{codec} profile 1"):
             list(MediaSource(video_path=str(path), use_photos=False))
         return
-    with pytest.raises(NotImplementedError, match=codec):
-        MediaSource(video_path=str(path), use_photos=False)
+    written = [cv2.resize(f, (64, 48)) for f in scene_frames[:2]]
+    video = matroska.MkvVideo(str(path))
+    assert (video.codec, video.codec_id) == ("ffv1", "V_FFV1")
+    video.close()
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == 2
+    for a, b, c in zip(got, want, written):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
 
 
 @pytest.mark.parametrize("codec_id,name", [("V_MPEG4/ISO/AVC", "H.264"),
