@@ -2486,9 +2486,17 @@ ASP_SMALL_FIXTURES = ("asp_b_resync.avi", "asp_qpel_mv4_odd.avi",
                       "asp_mpeg_matrices.avi", "asp_packed_divx.avi",
                       "asp_xvid_edge.avi", "asp_divx_qpel_chroma.avi",
                       "asp_zero_no_rnd.avi", "asp_ctts.mp4")
+# the headline's 32 FHD frames coded interlaced (field DCT, field vectors,
+# field direct mode, the alternate scan, B-VOPs) into an XVID AVI, its
+# sha256 libavcodec's own decode's (cv2 returns uninitialised memory for
+# interlaced frames); eight FHD frames with data partitioning
+ASP_IL_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                              "headline_asp_interlaced.avi")
+ASP_DP_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                              "asp_dp_fhd.avi")
 
 
-def asp_phase(card_line: str, scene, cli):
+def asp_phase(card_line: str, scene, cli, cli_il):
     """MPEG-4 Advanced Simple Profile, as Xvid and DivX code it: the small
     ASP fixtures and the committed FHD one (the 32 headline frames coded by
     libavcodec with B-VOPs, 4MV, quarter-pel and MPEG quantisation, packed
@@ -2496,8 +2504,14 @@ def asp_phase(card_line: str, scene, cli):
     frame by frame to the committed sha256 of cv2's RGB frames (through
     ``MediaSource``) and Y planes (through the decoder, in display
     order); the FHD fixture decoded on one thread and timed; then the CLI
-    on it with ``usePhotosCycle=false`` (``cli``: fixture_clis) →
-    (counts, decode ms per frame, tracking ms per frame)."""
+    on it with ``usePhotosCycle=false`` (``cli``: fixture_clis).  The
+    interlaced FHD fixture and the data-partitioned one held the same way
+    (the first to libavcodec's decode's sha256), with the decoder's counts
+    of field-DCT, field-predicted and field-direct macroblocks and of
+    partitioned packets; the interlaced one timed and run through the CLI
+    (``cli_il``): all 32 cameras, N_FRAMES - 1 ``top2_batch`` launches →
+    (counts, decode ms per frame, tracking ms per frame, the interlaced
+    run's counts, its decode ms per frame, its tracking ms per frame)."""
     import hashlib
 
     import numpy as np
@@ -2568,7 +2582,61 @@ def asp_phase(card_line: str, scene, cli):
           f"decode {decode_ms:.3f} ms per FHD frame on one thread; tracking "
           f"{track_ms:.3f} ms per frame; CLI run {run_s:.3f} s ({when})  "
           f"[{card_line}]", flush=True)
-    return n, decode_ms, track_ms
+    # interlace and data partitioning
+    counts = {}
+    for path in (ASP_IL_FIXTURE, ASP_DP_FIXTURE):
+        name, want = os.path.basename(path), tables[os.path.basename(path)]
+        got = [sha(f) for f in MediaSource(video_path=path,
+                                           use_photos=False)]
+        if got != want["rgb_sha256"]:
+            fail(f"asp: {name}: {len(got)} frames, RGB sha256 differ from "
+                 f"the recorded {want['frames']}")
+        video = avi.open_video(path)
+        dec = mpeg4.Decoder(video.extradata, video.fourcc)
+        t = time.perf_counter()
+        luma = [p[0] for p in shown(video, dec, dec.decode_yuv,
+                                    dec.flush_yuv)]
+        counts[name] = (dec.stats(), 1e3 * (time.perf_counter() - t)
+                        / max(len(luma), 1))
+        dec.close()
+        video.close()
+        if [sha(y) for y in luma] != want["y_sha256"]:
+            fail(f"asp: {name}: the Y planes differ from the recorded "
+                 "sha256")
+    il, il_ms = counts[os.path.basename(ASP_IL_FIXTURE)]
+    dp, _ = counts[os.path.basename(ASP_DP_FIXTURE)]
+    if not (il["interlaced_vops"] == N_FRAMES and il["field_dct_mbs"] > 0
+            and il["field_mc_mbs"] > 0 and il["field_direct_mbs"] > 0
+            and il["alternate_scan_vops"] == N_FRAMES):
+        fail(f"asp: the interlaced fixture does not use its tools: {il}")
+    if dp["partitioned_packets"] <= dp["vops"] - dp["b_vops"]:
+        fail(f"asp: the partitioned fixture does not use its tool: {dp}")
+    t = time.perf_counter()
+    video = avi.open_video(ASP_IL_FIXTURE)
+    dec = mpeg4.Decoder(video.extradata, video.fourcc)
+    rgb = shown(video, dec, dec.decode, dec.flush)
+    il_rgb_ms = 1e3 * (time.perf_counter() - t) / max(len(rgb), 1)
+    dec.close()
+    video.close()
+    n_il, cams_il, ate_il, _, run_il, when_il = cli_il
+    if cams_il != N_FRAMES or n_il["top2_batch"] != N_FRAMES - 1:
+        fail(f"asp: the interlaced CLI run: {cams_il}/{N_FRAMES} cameras, "
+             f"launches {n_il}")
+    track_il = 1e3 * n_il["slam_main_s"] / N_FRAMES
+    print(f"asp (interlaced): exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(ASP_IL_FIXTURE) / 1e6:.2f} MB XVID AVI: "
+          f"{il['field_dct_mbs']} field-DCT, {il['field_mc_mbs']} "
+          f"field-predicted and {il['field_direct_mbs']} field-direct "
+          f"macroblocks, {il['b_vops']} B-VOPs, the alternate scan) equal to "
+          f"libavcodec's decode (sha256 of RGB and Y); the data-partitioned "
+          f"FHD fixture's {dp['vops']} frames ({dp['partitioned_packets']} "
+          f"partitioned packets) equal to cv2's; cameras {cams_il}/"
+          f"{N_FRAMES}  ATE {ate_il:.4f}% of extent  launches "
+          f"{json.dumps(n_il)}; decode {il_ms:.3f} ms per FHD frame on one "
+          f"thread ({il_rgb_ms:.3f} with RGB); tracking {track_il:.3f} ms "
+          f"per frame; CLI run {run_il:.3f} s ({when_il})  [{card_line}]",
+          flush=True)
+    return n, decode_ms, track_ms, n_il, il_ms, track_il
 
 
 WEBM_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
@@ -2761,6 +2829,9 @@ MPEG2_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
 MPEG2_SMALL_FIXTURES = ("mpeg1_cv2.mpg", "mpeg2_cv2.mpg", "mpeg2_cv2.avi",
                         "mpeg2_cv2.mkv", "mpeg2_cv2.mp4", "mpeg1_cv2.mov",
                         "mpeg2_bt709.m2ts", "mpeg2_pal.vob", "mpeg2_cut.ts")
+# MPEG-2 4:2:2: a small interlaced-coded transport stream and two FHD
+# pictures of the headline scene
+MPEG2_422_FIXTURES = ("mpeg2_422.ts", "mpeg2_422_fhd.m2v")
 
 
 def mpeg2_frames(path: str, timed: bool = False):
@@ -2799,7 +2870,7 @@ def mpeg2_phase(card_line: str, scene, cli):
     headline transport stream demuxed and timed; every picture decoded on
     one thread, timed, and held to the committed sha256 of cv2's RGB frames
     and Y planes, with the decoder's statistics showing its tools; the
-    small MPEG-1/2 fixtures held to theirs; ``MediaSource``'s frames equal
+    small MPEG-1/2 fixtures and the 4:2:2 ones held to theirs; ``MediaSource``'s frames equal
     to the decoder's; then the CLI on the .ts with
     ``usePhotosCycle=false`` (``cli``: fixture_clis) → (counts, decode ms
     per frame, tracking ms per frame)."""
@@ -2845,6 +2916,17 @@ def mpeg2_phase(card_line: str, scene, cli):
                                          ] != want["y_sha256"]:
             fail(f"mpeg2: the small fixture {name} differs from cv2's decode "
                  f"(sha256)")
+    for name in MPEG2_422_FIXTURES:
+        path = os.path.join(fixtures, name)
+        want = tables[name]
+        got = [sha(f) for f in MediaSource(video_path=path, use_photos=False)]
+        _, luma422, stats422, _ = mpeg2_frames(path)
+        if (got != want["rgb_sha256"]
+                or [sha(y) for y in luma422] != want["y_sha256"]
+                or stats422["chroma_422_frames"] != want["frames"]
+                or not stats422["field_dct_mbs"]):
+            fail(f"mpeg2: the 4:2:2 fixture {name} differs from cv2's "
+                 f"decode (sha256) or its tools: {stats422}")
     from_ts = list(MediaSource(video_path=MPEG2_FIXTURE, use_photos=False))
     if len(from_ts) != len(rgb) or not all(
             np.array_equal(a, b) for a, b in zip(from_ts, rgb)):
@@ -2857,7 +2939,8 @@ def mpeg2_phase(card_line: str, scene, cli):
           f"{stats['field_dct_mbs']} field-DCT and {stats['field_mc_mbs']} "
           f"field-predicted macroblocks, BT.709) equal to cv2's decode "
           f"(sha256 of RGB and Y; the {len(MPEG2_SMALL_FIXTURES)} small "
-          f"fixtures' too); cameras {n_cams}/{N_FRAMES}  ATE "
+          f"fixtures' and the {len(MPEG2_422_FIXTURES)} 4:2:2 ones' too, "
+          f"FHD among them); cameras {n_cams}/{N_FRAMES}  ATE "
           f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  demux "
           f"{demux_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
           f"one thread; tracking {track_ms:.3f} ms per frame; CLI run "
@@ -3003,8 +3086,9 @@ def fixture_clis(scene) -> tuple:
     video, one run after another in one subprocess (cli_counted_many's
     checks on each), which pays the interpreter's, PyTorch's and the
     card's start once: the lossless phase's first, so that its run is a
-    cold one as in a user's ``python -m``; then the mp4, asp, webm, vp9,
-    mpeg2 and h263 phases'; then the lossless run again, warm, which
+    cold one as in a user's ``python -m``; then the mp4, asp (its two
+    runs: the packed fixture, "asp", and the interlaced one, "asp-il"),
+    webm, vp9, mpeg2 and h263 phases'; then the lossless run again, warm, which
     measures what the shared process saves → ({phase: (counts, cameras,
     ATE %, poses.txt, run s, "run k of n in one process, cold|warm")},
     the subprocess's s, the decoders' build s); the warm repeat is
@@ -3015,7 +3099,8 @@ def fixture_clis(scene) -> tuple:
                                                mpeg12, vp8, vp9)
 
     videos = {"lossless": FFV1_FIXTURE, "mp4": MP4_FIXTURE,
-              "asp": ASP_FIXTURE, "webm": WEBM_FIXTURE, "vp9": VP9_FIXTURE,
+              "asp": ASP_FIXTURE, "asp-il": ASP_IL_FIXTURE,
+              "webm": WEBM_FIXTURE, "vp9": VP9_FIXTURE,
               "mpeg2": MPEG2_FIXTURE, "h263": H263_FIXTURE,
               "lossless-warm": FFV1_FIXTURE}
     # the runs' decoders built first, in parallel, as a user's runs after
@@ -3871,12 +3956,16 @@ def main() -> None:
         n = mp4_phase(card_line, scene, clis["mp4"])
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])
-        n, decode_ms, track_ms = asp_phase(card_line, scene,
-                                           clis["asp"])
+        n, decode_ms, track_ms, n_il, il_ms, il_track = asp_phase(
+            card_line, scene, clis["asp"], clis["asp-il"])
         by_path["asp (cli)"] = n["top2_batch"]
+        by_path["asp interlaced (cli)"] = n_il["top2_batch"]
         phase("asp", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
-              tracking_ms_per_frame=f"{track_ms:.3f}")
+              tracking_ms_per_frame=f"{track_ms:.3f}",
+              interlaced_top2_batch_launches=n_il["top2_batch"],
+              interlaced_decode_ms_per_frame=f"{il_ms:.3f}",
+              interlaced_tracking_ms_per_frame=f"{il_track:.3f}")
         n, decode_ms, track_ms = webm_phase(card_line, scene,
                                             clis["webm"])
         by_path["webm (cli)"] = n["top2_batch"]

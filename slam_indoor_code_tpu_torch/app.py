@@ -23,10 +23,12 @@ at once, one thread, card and CUDA stream each.
 Video is read in AVI, MP4/QuickTime/3GPP, Matroska/WebM, MPEG program and
 transport streams and raw elementary streams (io/avi.py, io/mp4.py,
 io/matroska.py, io/mpegps.py, io/mpegts.py), in Motion-JPEG, uncompressed
-I420/Y800, MPEG-4 Part 2 (Simple and Advanced Simple), MPEG-1/2, H.263,
-VP8, VP9, FFV1 and HuffYUV, each decoded by the port's own decoder
-(io/media.py); H.264, HEVC, AV1 and the other codecs OpenCV reads for the
-JAX package raise ``NotImplementedError`` naming them (ROADMAP).
+I420/Y800, MPEG-4 Part 2 (Simple and Advanced Simple, with interlace:
+field DCT, field vectors, field direct mode, the alternate scan; and with
+data partitioning), MPEG-1/2 (4:2:0 and 4:2:2), H.263, VP8, VP9, FFV1 and
+HuffYUV, each decoded by the port's own decoder (io/media.py); H.264,
+HEVC, AV1 and the other codecs OpenCV reads for the JAX package raise
+``NotImplementedError`` naming them (ROADMAP).
 """
 
 from __future__ import annotations

@@ -17,7 +17,9 @@ naming it, as do more than 8 bits a sample, colour spaces other than
 YCbCr and RGB (Bayer) and version 4.  A frame FFmpeg's decoder refuses
 gives None and sets ``failed``, which ends a stream where OpenCV's reader
 ends it; a version 3 slice whose CRC or end does not check is replaced by
-the previous frame's pixels, as FFmpeg replaces it.
+the previous frame's pixels, as FFmpeg replaces it.  Pixels FFmpeg leaves
+unwritten (a slice whose data runs out, with no previous frame to take)
+are zeros here, and ``Decoder.defined`` tells them.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
 the package (ignored by git).  If the build fails, every decoder raises
@@ -30,6 +32,9 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Optional
+
+import numpy as np
 
 from .native import _PKG_DIR, LosslessDecoder, bind_lossless, load_shared
 
@@ -55,6 +60,10 @@ def load() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> None:
     bind_lossless(lib, "ffv1dec")
+    lib.ffv1dec_defined.argtypes = [ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_uint8),
+                                    ctypes.c_int64]
+    lib.ffv1dec_defined.restype = ctypes.c_int
 
 
 class Decoder(LosslessDecoder):
@@ -72,3 +81,20 @@ class Decoder(LosslessDecoder):
     _prefix = "ffv1dec"
     _stats = _STATS
     _load = staticmethod(load)
+
+    def defined(self) -> Optional[np.ndarray]:
+        """HxW bool: the pixels of the frame last given whose samples the
+        decode wrote.  Where a slice's data runs out, its header does not
+        parse, or a damaged slice has no frame before it to take, FFmpeg
+        stops writing and leaves what its buffer held before (memory that
+        other decodes of the process used): those pixels are False here,
+        and the frame's RGB has zeros' conversion there.  None before the
+        first frame."""
+        if self._hw is None:
+            return None
+        mask = np.empty(self._hw, np.uint8)
+        if self._lib.ffv1dec_defined(
+                self._handle, mask.ctypes.data_as(
+                    ctypes.POINTER(ctypes.c_uint8)), mask.nbytes) != 0:
+            return None
+        return mask.astype(bool)

@@ -9,8 +9,8 @@ entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
 0x60-0x65 (MPEG-2 video: OpenCV's ``MPEG`` writer into ``.mp4``) or 0x6A
 (MPEG-1 video), or 0x6C (Motion-JPEG, what OpenCV's ``MJPG`` writer puts
 in ``.mp4``), or ``m2v1``/``m1v `` (MPEG-2/MPEG-1 video, OpenCV's ``MPEG``
-writer into ``.mov``), or ``jpeg`` (Motion-JPEG, OpenCV's ``MJPG`` writer
-into ``.mov``), or ``s263`` (H.263 in 3GP, 3G2 and MP4: OpenCV's
+writer into ``.mov``; ``xd5*``: XDCAM HD422's MPEG-2 4:2:2), or ``jpeg``
+(Motion-JPEG, OpenCV's ``MJPG`` writer into ``.mov``), or ``s263`` (H.263 in 3GP, 3G2 and MP4: OpenCV's
 ``H263`` writer into ``.3gp``/``.3g2``, phones' clips) or ``h263``
 (H.263 in QuickTime, OpenCV's ``H263`` writer into ``.mov``), or
 ``vp09`` (VP9, OpenCV's ``vp09`` writer; its ``vpcC`` must name profile 0,
@@ -59,7 +59,10 @@ LOSSLESS_ENTRIES = {b"FFV1": "ffv1", b"HFYU": "huffyuv", b"FFVH": "huffyuv"}
 # MPEG-1/2 video: esds object types and QuickTime sample entries
 MPEG12_OBJECT_TYPES = (0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A)
 MPEG12_ENTRIES = (b"m1v ", b"m1v1", b"m2v1", b"mp1v", b"mp2v", b"hdv2",
-                  b"hdv3", b"hdv6")
+                  b"hdv3", b"hdv6",
+                  # XDCAM HD422 (MPEG-2 4:2:2 at 720p and 1080i/p)
+                  b"xd51", b"xd54", b"xd55", b"xd59", b"xd5a", b"xd5b",
+                  b"xd5c", b"xd5d", b"xd5e", b"xd5f")
 _TOP = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot",
         b"uuid", b"meta")
 

@@ -3,16 +3,19 @@
 and the elementary-stream side of the MPEG containers.
 
 The decoder gives FFmpeg's ``mpeg1video``/``mpeg2video`` decode bit for
-bit for Main Profile 4:2:0 frame pictures: I, P and B pictures (output in
+bit for Main Profile 4:2:0 and 4:2:2 Profile frame pictures: I, P and B pictures (output in
 display order with FFmpeg's one-frame delay, none under ``low_delay``,
 the last reference given by ``flush``), MPEG-1's full-pel vectors and
 escapes, MPEG-2's field DCT and field motion compensation in frame
-pictures, alternate scan, B-15 intra VLCs, non-linear quantiser scale,
+pictures, 4:2:2 chroma (eight blocks a macroblock, the chroma matrices,
+chroma at full height in motion compensation and field DCT), alternate
+scan, B-15 intra VLCs, non-linear quantiser scale,
 intra DC precision 8-11, loaded matrices, concealment vectors, and FFmpeg's
 rules for a stream joined mid-way (open-GOP B pictures without their
 older reference skipped); and converts to RGB as OpenCV's FFmpeg backend
 does (native/swscale_rgb.h) with the sequence's colour matrix, BT.601 or
-BT.709.  Field pictures, dual-prime, 4:2:2/4:4:4, the scalable
+BT.709 (4:2:2 through swscale's unscaled converter).  Field pictures,
+dual-prime, 4:4:4, 4:2:2 at an odd height, the scalable
 extensions, D-pictures and other colour matrices raise ``ValueError``
 naming them.  A packet FFmpeg fails (a slice start code at its end or
 below the picture, a packet too small for its picture) gives None and
@@ -56,7 +59,7 @@ _STATS = ("frames", "mpeg1_pictures", "b_pictures", "field_dct_mbs",
           "max_dc_precision", "loaded_matrices", "matrix_coefficients",
           "concealed_mbs", "skipped_pictures", "repeat_first_field",
           "top_field_first", "interlaced_frames", "concealment_vectors",
-          "full_pel", "closed_gops")
+          "full_pel", "closed_gops", "chroma_422_frames")
 ES_MAGIC = b"\x00\x00\x01\xb3"          # a sequence header
 _SEQ_START, _SEQ_END, _EXT = 0x1B3, 0x1B7, 0x1B5
 _SLICE_MIN, _SLICE_MAX = 0x101, 0x1AF
@@ -84,6 +87,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mpeg12dec_rgb.restype = I
     lib.mpeg12dec_planes.argtypes = [ctypes.c_void_p, U8, U8, U8, I64, I64]
     lib.mpeg12dec_planes.restype = I
+    lib.mpeg12dec_chroma_format.argtypes = [ctypes.c_void_p]
+    lib.mpeg12dec_chroma_format.restype = I
     lib.mpeg12dec_interlaced.argtypes = [ctypes.c_void_p]
     lib.mpeg12dec_interlaced.restype = I
     lib.mpeg12dec_stats.argtypes = [ctypes.c_void_p, P(ctypes.c_int64), I]
@@ -157,7 +162,9 @@ class Decoder:
             return None
         h, w = hw
         y = np.empty((h, w), np.uint8)
-        u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+        ch = h if self._lib.mpeg12dec_chroma_format(self._handle) == 2 \
+            else (h + 1) // 2
+        u = np.empty((ch, (w + 1) // 2), np.uint8)
         v = np.empty_like(u)
         self._lib.mpeg12dec_planes(self._handle, _u8(y), _u8(u), _u8(v),
                                    y.nbytes, u.nbytes)
@@ -170,8 +177,9 @@ class Decoder:
         return self._rgb(self._call(sample, tag))
 
     def decode_yuv(self, sample: bytes, tag: int = -1):
-        """(Y, U, V) uint8 planes (U and V at half size, rounded up) of the
-        frame ``sample`` gives, or None as ``decode``."""
+        """(Y, U, V) uint8 planes (U and V at half width, rounded up, and
+        at half height for 4:2:0, full height for 4:2:2) of the frame
+        ``sample`` gives, or None as ``decode``."""
         return self._yuv(self._call(sample, tag))
 
     def rgb(self) -> Optional[np.ndarray]:
@@ -203,7 +211,7 @@ class Decoder:
         macroblocks, pictures skipped as FFmpeg skips them, pictures with
         repeat_first_field and top_field_first, frames flagged
         interlaced, intra macroblocks with concealment vectors, full-pel
-        vector sets and closed GOPs."""
+        vector sets, closed GOPs and 4:2:2 pictures."""
         if not self._handle:
             raise ValueError("decoder is closed")
         out = (ctypes.c_int64 * len(_STATS))()

@@ -9,12 +9,14 @@ macroblocks; output in display order with FFmpeg's one-frame delay, the
 last reference given by ``flush``), DivX's packed bitstream (a B-VOP held
 after a P-VOP in one sample, decoded in place of the N-VOP that follows),
 INTER4V, quarter-pel, H.263 or MPEG quantisation (default or loaded
-matrices), video packets, the simple IDCT or Xvid's for a stream FFmpeg
+matrices), video packets, interlace (field DCT, field motion vectors in
+P- and B-VOPs, field direct mode, the alternate vertical scan), the
+simple IDCT or Xvid's for a stream FFmpeg
 takes to be Xvid's, and the workarounds FFmpeg applies by the encoder
 build the user data names (FF_BUG_EDGE, DC_CLIP, QPEL_CHROMA(2)), with
 the x86 build's inexact 8-wide averages and its SSE2 Xvid IDCT; and
 converts to RGB as OpenCV's FFmpeg backend does
-(native/swscale_rgb.h).  Interlace, data partitioning, RVLC, sprites/GMC,
+(native/swscale_rgb.h).  Data partitioning, RVLC, sprites/GMC,
 the short video header (H.263 pictures in an MPEG-4 stream, which
 FFmpeg's mpeg4 decoder refuses too; io/h263.py reads them where the
 container names them H.263) and the other tools it does not decode raise
@@ -51,6 +53,9 @@ _state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()
 _MSG_LEN = 256
 _FRAME, _UNSUPPORTED, _FAILED = 0, 2, 3      # mpeg4dec_* return codes
+_STATS = ("vops", "b_vops", "interlaced_vops", "alternate_scan_vops",
+          "field_dct_mbs", "field_mc_mbs", "field_direct_mbs",
+          "partitioned_packets", "concealed_vops")
 
 
 def load() -> ctypes.CDLL:
@@ -75,6 +80,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.mpeg4dec_rgb.restype = I
     lib.mpeg4dec_planes.argtypes = [ctypes.c_void_p, U8, U8, U8, I64, I64]
     lib.mpeg4dec_planes.restype = I
+    lib.mpeg4dec_stats.argtypes = [ctypes.c_void_p, P(I64), I]
+    lib.mpeg4dec_stats.restype = I
     lib.mpeg4dec_close.argtypes = [ctypes.c_void_p]
     lib.mpeg4dec_close.restype = None
 
@@ -96,6 +103,7 @@ class Decoder:
 
     failed = False
     tag = -1
+    _hw = None
 
     def __init__(self, extradata: bytes = b"", fourcc: bytes = b""):
         self._lib = load()
@@ -129,7 +137,8 @@ class Decoder:
         if rc != _FRAME:
             return None
         self.tag = out.value
-        return h.value, w.value
+        self._hw = h.value, w.value
+        return self._hw
 
     def _rgb(self, hw) -> Optional[np.ndarray]:
         if hw is None:
@@ -160,6 +169,11 @@ class Decoder:
         frame ``sample`` gives, or None as ``decode``."""
         return self._yuv(self._call(sample, tag))
 
+    def rgb(self) -> Optional[np.ndarray]:
+        """The RGB of the frame last given (after ``decode_yuv``, say);
+        None before the first."""
+        return self._rgb(self._hw)
+
     def flush(self) -> Optional[np.ndarray]:
         """At the end of the stream, the RGB of the reference a stream with
         B-VOPs holds back; None when there is none."""
@@ -168,6 +182,18 @@ class Decoder:
     def flush_yuv(self):
         """``flush`` as (Y, U, V) planes."""
         return self._yuv(self._call(None, -1))
+
+    def stats(self) -> dict:
+        """What the stream has used so far: VOPs decoded, B-VOPs,
+        interlaced VOPs and those with the alternate vertical scan,
+        macroblocks with field DCT, with field motion vectors (P and B) and
+        in field direct mode, data-partitioned video packets, and VOPs
+        concealed from a damaged macroblock on."""
+        if not self._handle:
+            raise ValueError("decoder is closed")
+        out = (ctypes.c_int64 * len(_STATS))()
+        self._lib.mpeg4dec_stats(self._handle, out, len(_STATS))
+        return dict(zip(_STATS, out))
 
     def close(self) -> None:
         if self._handle:

@@ -33,7 +33,11 @@
 // than YCbCr and RGB, version 4, chroma subsampling in RGB.  A frame that
 // FFmpeg's decoder refuses (a header that does not parse, a non-key frame
 // before any key frame, a packet too small for its size, a slice chain
-// that does not fit the packet) gives no frame.
+// that does not fit the packet) gives no frame.  Where a slice's data runs
+// out (or its header does not parse, or a damaged slice has no previous
+// frame to take), FFmpeg stops writing it and leaves its buffer's earlier
+// contents there; this decoder leaves zeros and says which pixels it wrote
+// (ffv1dec_defined).
 //
 // C ABI; Python binds it through ctypes (io/ffv1.py).  Build:
 //   g++ -O2 -fPIC -std=c++17 -shared -o libffv1dec.so ffv1.cpp
@@ -340,6 +344,7 @@ class Decoder {
 
   Status decode(const uint8_t* buf, int64_t size);
   const lossless::Frame* out() const { return out_; }
+  const lossless::Frame* seen() const { return out_ ? &seen_[cur_] : nullptr; }
   int width() const { return width_; }
   int height() const { return height_; }
   Stats stats;
@@ -362,6 +367,9 @@ class Decoder {
   int slice_count_ = 1;
   std::vector<Slice> slices_;
   lossless::Frame frame_[2];
+  // which bytes of frame_ the decode wrote (1): FFmpeg leaves the others
+  // as its buffer held them
+  lossless::Frame seen_[2];
   int cur_ = 0;
   bool have_last_ = false;
   const lossless::Frame* out_ = nullptr;
@@ -380,11 +388,10 @@ class Decoder {
   void decode_slice(Slice& sc, bool key);
   int decode_line(Slice& sc, Bits& gb, int w, int* s0, int* s1, int plane,
                   int nbits, bool golomb);
-  void decode_plane(Slice& sc, Bits& gb, uint8_t* dst, int w, int h,
-                    int stride, int plane_index, int pixel_stride,
-                    bool golomb);
-  void decode_rgb(Slice& sc, Bits& gb, uint8_t* dst, int w, int h,
-                  int stride, bool golomb);
+  void decode_plane(Slice& sc, Bits& gb, int k, int64_t off, int w, int h,
+                    int plane_index, int pixel_stride, bool golomb);
+  void decode_rgb(Slice& sc, Bits& gb, int64_t off, int w, int h,
+                  bool golomb);
   bool input_end(const RangeCoder& c, const Bits& gb, bool golomb) const {
     return golomb ? gb.left() < 1 : c.overread > kMaxOverread;
   }
@@ -748,9 +755,13 @@ int Decoder::decode_line(Slice& sc, Bits& gb, int w, int* s0, int* s1,
   return 0;
 }
 
-void Decoder::decode_plane(Slice& sc, Bits& gb, uint8_t* dst, int w, int h,
-                           int stride, int plane_index, int pixel_stride,
+// Plane k of the current frame from byte `off`: h rows of w samples.
+void Decoder::decode_plane(Slice& sc, Bits& gb, int k, int64_t off, int w,
+                           int h, int plane_index, int pixel_stride,
                            bool golomb) {
+  const int stride = frame_[cur_].stride[k];
+  uint8_t* dst = frame_[cur_].plane[k].data() + off;
+  uint8_t* seen = seen_[cur_].plane[k].data() + off;
   sample_.assign(size_t(2) * (w + 6), 0);
   int* s0 = sample_.data() + 3;
   int* s1 = sample_.data() + w + 6 + 3;
@@ -761,12 +772,18 @@ void Decoder::decode_plane(Slice& sc, Bits& gb, uint8_t* dst, int w, int h,
     s0[w] = s0[w - 1];
     if (decode_line(sc, gb, w, s0, s1, plane_index, 8, golomb) < 0) return;
     uint8_t* row = dst + int64_t(stride) * y;
-    for (int x = 0; x < w; ++x) row[x * pixel_stride] = uint8_t(s1[x]);
+    uint8_t* srow = seen + int64_t(stride) * y;
+    for (int x = 0; x < w; ++x) {
+      row[x * pixel_stride] = uint8_t(s1[x]);
+      srow[x * pixel_stride] = 1;
+    }
   }
 }
 
-void Decoder::decode_rgb(Slice& sc, Bits& gb, uint8_t* dst, int w, int h,
-                         int stride, bool golomb) {
+void Decoder::decode_rgb(Slice& sc, Bits& gb, int64_t off, int w, int h,
+                         bool golomb) {
+  const int stride = frame_[cur_].stride[0];
+  uint8_t* dst = frame_[cur_].plane[0].data() + off;
   sample_.assign(size_t(8) * (w + 6), 0);
   int* s[4][2];
   for (int k = 0; k < 4; ++k) {
@@ -796,6 +813,8 @@ void Decoder::decode_rgb(Slice& sc, Bits& gb, uint8_t* dst, int w, int h,
                          (uint32_t(r) << 16) + (uint32_t(a) << 24);
       memcpy(row + 4 * x, &v, 4);
     }
+    memset(seen_[cur_].plane[0].data() + off + int64_t(stride) * y, 1,
+           size_t(4) * w);
   }
 }
 
@@ -830,26 +849,23 @@ void Decoder::decode_slice(Slice& sc, bool key) {
   }
   const int x = sc.x, y = sc.y, w = sc.w, h = sc.h;
   if (colorspace == 0 && (chroma_planes || !transparency)) {
-    decode_plane(sc, gb, f.plane[0].data() + x + int64_t(y) * f.stride[0], w,
-                 h, f.stride[0], 0, 1, golomb);
+    decode_plane(sc, gb, 0, x + int64_t(y) * f.stride[0], w, h, 0, 1, golomb);
     if (chroma_planes) {
       const int cw = -((-w) >> hshift), ch = -((-h) >> vshift);
       const int cx = x >> hshift, cy = y >> vshift;
       for (int k = 1; k <= 2; ++k)
-        decode_plane(sc, gb,
-                     f.plane[k].data() + cx + int64_t(cy) * f.stride[k], cw,
-                     ch, f.stride[k], 1, 1, golomb);
+        decode_plane(sc, gb, k, cx + int64_t(cy) * f.stride[k], cw, ch, 1, 1,
+                     golomb);
     }
     if (transparency)
-      decode_plane(sc, gb, f.plane[3].data() + x + int64_t(y) * f.stride[3],
-                   w, h, f.stride[3], 2, 1, golomb);
+      decode_plane(sc, gb, 3, x + int64_t(y) * f.stride[3], w, h, 2, 1,
+                   golomb);
   } else if (colorspace == 0) {
-    uint8_t* base = f.plane[0].data() + 2 * x + int64_t(y) * f.stride[0];
-    decode_plane(sc, gb, base, w, h, f.stride[0], 0, 2, golomb);
-    decode_plane(sc, gb, base + 1, w, h, f.stride[0], 1, 2, golomb);
+    const int64_t base = 2 * x + int64_t(y) * f.stride[0];
+    decode_plane(sc, gb, 0, base, w, h, 0, 2, golomb);
+    decode_plane(sc, gb, 0, base + 1, w, h, 1, 2, golomb);
   } else {
-    decode_rgb(sc, gb, f.plane[0].data() + 4 * x + int64_t(y) * f.stride[0],
-               w, h, f.stride[0], golomb);
+    decode_rgb(sc, gb, 4 * x + int64_t(y) * f.stride[0], w, h, golomb);
   }
   if (!golomb && version > 2) {
     sc.c.bit(129);
@@ -894,6 +910,7 @@ Status Decoder::decode(const uint8_t* buf, int64_t size) {
             height_);
   else
     f.reset(lossless::kYuv, width_, height_, hshift, vshift, transparency);
+  seen_[cur_] = f;
   const uint8_t* buf_p = buf + size;
   const int trailer = 3 + 5 * !!ec;
   for (int i = slice_count_ - 1; i >= 0; --i) {
@@ -957,6 +974,8 @@ Status Decoder::decode(const uint8_t* buf, int64_t size) {
                             int64_t(sc.x >> sh) * bpp;
         memcpy(f.plane[k].data() + off, last.plane[k].data() + off,
                size_t(cw) * bpp);
+        memcpy(seen_[cur_].plane[k].data() + off,
+               seen_[cur_ ^ 1].plane[k].data() + off, size_t(cw) * bpp);
       }
     }
   }
@@ -1014,6 +1033,17 @@ int ffv1dec_plane(void* handle, int k, uint8_t* dst, int64_t cap,
                   int* row_bytes, int* rows) {
   return lossless::frame_plane(static_cast<Decoder*>(handle)->out(), k, dst,
                                cap, row_bytes, rows);
+}
+
+// Which pixels of the frame last given the decode wrote, as h*w bytes (1:
+// written; lossless::rgb_defined): FFmpeg's decode leaves the others as
+// its buffer held them.  0: done; 4: cap too small or no frame.
+int ffv1dec_defined(void* handle, uint8_t* mask, int64_t cap) {
+  const Decoder* d = static_cast<Decoder*>(handle);
+  const lossless::Frame* seen = d->seen();
+  if (!seen || int64_t(seen->w) * seen->h > cap) return lossless::kSmall;
+  lossless::rgb_defined(*seen, mask);
+  return kFrame;
 }
 
 // The stream's parameters and what it has used so far, in the order of

@@ -180,6 +180,39 @@ struct Frame {
   }
 };
 
+// From `seen`, a frame of the same layout holding 1 where a decoder wrote
+// a byte, the h*w pixels of the RGB conversion that read written bytes
+// only (1) and the others (0): a packed pixel's B, G and R; a YUV pixel's
+// Y and the chroma samples the converter reads (4:2:2 and 4:2:0 at an
+// even height: the row's own; at an odd height the scaled path's filter
+// reaches two chroma rows either side).
+inline void rgb_defined(const Frame& seen, uint8_t* mask) {
+  const int w = seen.w, h = seen.h;
+  for (int y = 0; y < h; ++y) {
+    const uint8_t* s0 = seen.plane[0].data() + int64_t(y) * seen.stride[0];
+    uint8_t* m = mask + int64_t(y) * w;
+    for (int x = 0; x < w; ++x) {
+      if (seen.layout == kPacked)
+        m[x] = s0[4 * x] & s0[4 * x + 1] & s0[4 * x + 2];
+      else if (seen.layout == kGrayAlpha)
+        m[x] = s0[2 * x];
+      else
+        m[x] = s0[x];
+    }
+    if (seen.layout != kYuv) continue;
+    const int reach = seen.vshift == 1 && (h & 1) ? 2 : 0;
+    const int ch = seen.chroma_h();
+    for (int cy = (y >> seen.vshift) - reach;
+         cy <= (y >> seen.vshift) + reach; ++cy) {
+      const int r = std::clamp(cy, 0, ch - 1);
+      for (int k = 1; k <= 2; ++k) {
+        const uint8_t* c = seen.plane[k].data() + int64_t(r) * seen.stride[k];
+        for (int x = 0; x < w; ++x) m[x] &= c[x >> seen.hshift];
+      }
+    }
+  }
+}
+
 // <prefix>_rgb: frame `f` (null: none given) as h*w*3 RGB bytes.  0:
 // done; 2: a layout whose conversion is not reproduced (msg names it,
 // after `codec`); 4: cap too small or no frame.

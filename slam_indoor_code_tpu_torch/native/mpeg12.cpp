@@ -1,5 +1,5 @@
-// mpeg12 — an MPEG-1 and MPEG-2 Main Profile video decoder (4:2:0, 8-bit
-// frame pictures, as FFmpeg's `mpeg1video` and `mpeg2video` encoders,
+// mpeg12 — an MPEG-1 and MPEG-2 Main and 4:2:2 Profile video decoder
+// (4:2:0 and 4:2:2, 8-bit frame pictures, as FFmpeg's `mpeg1video` and `mpeg2video` encoders,
 // OpenCV's `MPEG`/`mpg1`/`mpg2` writers, DVD authoring tools, camcorders
 // and broadcast encoders write them) with no library but the C++ standard
 // library.
@@ -22,6 +22,10 @@
 //     motion_type and field dct_type in frame pictures; B pictures, the
 //     two predictions averaged with rounding (FFmpeg's x86 half-pel put and
 //     average, mpegvideo_dsp.h);
+//   - 4:2:2 chroma (chroma_format 2): eight blocks a macroblock (the
+//     coded_block_pattern's two more bits), the chroma matrices, chroma at
+//     full height in motion compensation and in field DCT, as FFmpeg's
+//     mpeg_motion_internal and mpv_reconstruct_mb lay them out;
 //   - dequantisation: MPEG-1's with oddification, MPEG-2's with mismatch
 //     control on the last coefficient, the linear and non-linear
 //     quantiser_scale, MPEG-2's 12-bit escapes and MPEG-1's 8/16-bit ones;
@@ -43,11 +47,13 @@
 //     YUV 4:2:0 -> RGB as OpenCV's FFmpeg backend returns it
 //     (swscale_rgb.h, the colour description's matrix: BT.601 or BT.709;
 //     chroma sited at the centre for MPEG-1, left for MPEG-2).
+//     4:2:2 goes through swscale's unscaled converter at an even height
+//     (swscale_rgb::unscaled, as lossless_frame.h uses it).
 // A tool it does not decode raises with the tool named: field pictures
 // (picture_structure 1/2), dual-prime prediction (in a slice that parses
-// to its end; in one that breaks it is taken for damage), 4:2:2 and 4:4:4
-// chroma,
-// the scalable extensions, MPEG-1 D-pictures and colour matrices other than
+// to its end; in one that breaks it is taken for damage), 4:4:4 chroma and
+// 4:2:2 at an odd height (their conversions go through swscale's scaled
+// path), the scalable extensions, MPEG-1 D-pictures and colour matrices other than
 // unknown, BT.601 (BT.470BG, SMPTE 170M) and BT.709.
 //
 // C ABI; Python binds it through ctypes (io/mpeg12.py).  Build:
@@ -409,10 +415,12 @@ struct Picture {
   int64_t tag = -1;     // the caller's tag of the packet it was decoded from
   bool dummy = false;   // grey stand-in for a missing reference; never shown
   bool interlaced = false;
-  void init(int mbw, int mbh, uint8_t fill = 0) {
+  int chroma_format = 1;  // 1: 4:2:0, 2: 4:2:2
+  void init(int mbw, int mbh, int format, uint8_t fill = 0) {
+    chroma_format = format;
     y.init(mbw * 16, mbh * 16, fill);
-    u.init(mbw * 8, mbh * 8, fill);
-    v.init(mbw * 8, mbh * 8, fill);
+    u.init(mbw * 8, mbh * 8 * format, fill);
+    v.init(mbw * 8, mbh * 8 * format, fill);
   }
 };
 using PicturePtr = std::shared_ptr<Picture>;
@@ -424,7 +432,8 @@ struct Stats {
           intra_vlc = 0, max_dc_precision = 0, loaded_matrices = 0,
           matrix_coefficients = 2, concealed_mbs = 0, skipped_pictures = 0,
           repeat_first_field = 0, top_field_first = 0, interlaced_frames = 0,
-          concealment_vectors = 0, full_pel = 0, closed_gops = 0;
+          concealment_vectors = 0, full_pel = 0, closed_gops = 0,
+          chroma_422_frames = 0;
 };
 
 void put_msg(const std::string& s, char* msg, int msg_len) {
@@ -495,10 +504,12 @@ class Decoder {
   int seq_w_ = 0, seq_h_ = 0;
   bool mpeg2_ = false, progressive_seq_ = true, low_delay_ = false;
   int matrix_ = 2;
+  int chroma_format_ = 1, mb_blocks_ = 6;  // 4:2:0 or 4:2:2, 6 or 8 blocks
   uint16_t intra_[64], inter_[64], chroma_intra_[64], chroma_inter_[64];
   bool inited_ = false;
   int mbw_ = 0, mbh_ = 0, init_w_ = 0, init_h_ = 0;
   bool init_prog_ = true;
+  int init_chroma_ = 1;
 
   // GOP and references
   bool closed_gop_ = false, sync_ = false;
@@ -532,8 +543,8 @@ class Decoder {
   bool dual_prime_ = false;  // a dual-prime macroblock in this slice
   bool mv_field_ = false;
   bool interlaced_dct_ = false;
-  alignas(16) int16_t block_[6][64];
-  int last_index_[6];
+  alignas(16) int16_t block_[8][64];
+  int last_index_[8];
 
   void give(const PicturePtr& p) {
     out = p;
@@ -724,14 +735,15 @@ class Decoder {
     picture_structure_ = 3;
     frame_pred_frame_dct_ = true;
     mpeg2_ = false;
+    chroma_format_ = 1;
   }
 
   void sequence_extension(Bits& b) {
     b.skip(1 + 3 + 4);  // escape, profile, level
     progressive_seq_ = b.get1();
     const int chroma = static_cast<int>(b.get(2));
-    if (chroma == 2) unsupported("4:2:2 chroma (chroma_format 2)");
     if (chroma == 3) unsupported("4:4:4 chroma (chroma_format 3)");
+    chroma_format_ = chroma == 2 ? 2 : 1;  // FFmpeg takes 0 for 4:2:0
     seq_w_ |= static_cast<int>(b.get(2)) << 12;
     seq_h_ |= static_cast<int>(b.get(2)) << 12;
     b.skip(12 + 1 + 8);  // bit_rate_extension, marker, vbv extension
@@ -816,12 +828,17 @@ class Decoder {
   // scan drops the references.
   void postinit() {
     if (inited_ && init_w_ == seq_w_ && init_h_ == seq_h_ &&
-        init_prog_ == progressive_seq_)
+        init_prog_ == progressive_seq_ && init_chroma_ == chroma_format_)
       return;
+    if (chroma_format_ == 2 && (seq_h_ & 1))
+      unsupported("4:2:2 chroma at an odd height (its conversion to RGB "
+                  "by swscale is not reproduced)");
     inited_ = true;
     init_w_ = seq_w_;
     init_h_ = seq_h_;
     init_prog_ = progressive_seq_;
+    init_chroma_ = chroma_format_;
+    mb_blocks_ = 4 + 2 * chroma_format_;
     mbw_ = (seq_w_ + 15) / 16;
     mbh_ = mpeg2_ && !progressive_seq_ ? 2 * ((seq_h_ + 31) / 32)
                                        : (seq_h_ + 15) / 16;
@@ -838,7 +855,7 @@ class Decoder {
       unsupported("field pictures (picture_structure " +
                   std::to_string(picture_structure_) + ")");
     cur_ = std::make_shared<Picture>();
-    cur_->init(mbw_, mbh_);
+    cur_->init(mbw_, mbh_, init_chroma_);
     cur_->tag = tag_;
     cur_->interlaced = !progressive_frame_ && !progressive_seq_;
     if (pict_type_ != kB) {
@@ -847,12 +864,12 @@ class Decoder {
     }
     if (!last_ && pict_type_ != kI) {
       last_ = std::make_shared<Picture>();
-      last_->init(mbw_, mbh_, 0x80);
+      last_->init(mbw_, mbh_, init_chroma_, 0x80);
       last_->dummy = true;
     }
     if (!next_ && pict_type_ == kB) {
       next_ = std::make_shared<Picture>();
-      next_->init(mbw_, mbh_, 0x80);
+      next_->init(mbw_, mbh_, init_chroma_, 0x80);
       next_->dummy = true;
     }
     er_.assign(size_t(mbw_) * mbh_, kErr | kStart);
@@ -867,6 +884,7 @@ class Decoder {
     stats.repeat_first_field += repeat_first_field_;
     stats.top_field_first += top_field_first_;
     stats.interlaced_frames += cur_->interlaced;
+    stats.chroma_422_frames += init_chroma_ == 2;
     return true;
   }
 
@@ -911,9 +929,10 @@ class Decoder {
         }
         for (int j = 0; j < 16; ++j)
           std::memset(cur_->y.at(mx * 16, my * 16 + j), 0x80, 16);
-        for (int j = 0; j < 8; ++j) {
-          std::memset(cur_->u.at(mx * 8, my * 8 + j), 0x80, 8);
-          std::memset(cur_->v.at(mx * 8, my * 8 + j), 0x80, 8);
+        const int ch = 8 * init_chroma_;
+        for (int j = 0; j < ch; ++j) {
+          std::memset(cur_->u.at(mx * 8, my * ch + j), 0x80, 8);
+          std::memset(cur_->v.at(mx * 8, my * ch + j), 0x80, 8);
         }
       }
   }
@@ -1301,7 +1320,7 @@ class Decoder {
         std::memset(last_mv_, 0, sizeof(last_mv_));
       }
       mb_intra_[mb] = 1;
-      for (int i = 0; i < 6; ++i) {
+      for (int i = 0; i < mb_blocks_; ++i) {
         std::memset(block_[i], 0, sizeof(block_[i]));
         if (!(mpeg2_ ? intra_block_mpeg2(b, block_[i], i)
                      : intra_block_mpeg1(b, block_[i], i)))
@@ -1378,10 +1397,13 @@ class Decoder {
     last_dc_[0] = last_dc_[1] = last_dc_[2] = 128 << dc_precision_;
     std::memset(last_index_, -1, sizeof(last_index_));
     if (type & kCbp) {
-      const int cbp = tables().cbp.read(b);
+      int cbp = tables().cbp.read(b);
+      if (cbp < 0) return false;
+      if (mb_blocks_ > 6)  // coded_block_pattern_1
+        cbp = (cbp << (mb_blocks_ - 6)) | static_cast<int>(b.get(mb_blocks_ - 6));
       if (cbp <= 0) return false;
-      for (int i = 0; i < 6; ++i) {
-        if (!(cbp & (32 >> i))) continue;
+      for (int i = 0; i < mb_blocks_; ++i) {
+        if (!(cbp & (1 << (mb_blocks_ - 1 - i)))) continue;
         std::memset(block_[i], 0, sizeof(block_[i]));
         if (!(mpeg2_ ? inter_block_mpeg2(b, block_[i], i)
                      : inter_block_mpeg1(b, block_[i], i)))
@@ -1582,59 +1604,79 @@ class Decoder {
 
   // ------------------------------------------------------- reconstruction
 
-  // The luma blocks' origins and stride under interlaced_dct.
+  // The blocks' origins and strides under interlaced_dct: luma, then
+  // 4:2:0's two chroma blocks, or 4:2:2's U, V, lower U, lower V, laid
+  // out as luma is.
   void put_blocks(int mb_x, int mb_y, bool add) {
     Picture& c = *cur_;
-    const int ls = c.y.w;
-    uint8_t* dy = c.y.at(mb_x * 16, mb_y * 16);
-    const int dls = interlaced_dct_ ? 2 * ls : ls;
-    const int off = interlaced_dct_ ? ls : 8 * ls;
-    uint8_t* dest[6] = {dy, dy + 8, dy + off, dy + off + 8,
-                        c.u.at(mb_x * 8, mb_y * 8), c.v.at(mb_x * 8, mb_y * 8)};
-    for (int i = 0; i < 6; ++i) {
+    uint8_t* dest[8];
+    int stride[8];
+    stride[0] = dct_blocks(c.y.at(mb_x * 16, mb_y * 16), c.y.w,
+                           interlaced_dct_, 2, dest);
+    stride[1] = stride[2] = stride[3] = stride[0];
+    if (init_chroma_ == 2) {
+      uint8_t* u[2];
+      uint8_t* v[2];
+      const int cs = dct_blocks(c.u.at(mb_x * 8, mb_y * 16), c.u.w,
+                                interlaced_dct_, 1, u);
+      dct_blocks(c.v.at(mb_x * 8, mb_y * 16), c.v.w, interlaced_dct_, 1, v);
+      dest[4] = u[0], dest[5] = v[0], dest[6] = u[1], dest[7] = v[1];
+      stride[4] = stride[5] = stride[6] = stride[7] = cs;
+    } else {
+      dest[4] = c.u.at(mb_x * 8, mb_y * 8);
+      dest[5] = c.v.at(mb_x * 8, mb_y * 8);
+      stride[4] = stride[5] = c.u.w;
+    }
+    for (int i = 0; i < mb_blocks_; ++i) {
       if (add && last_index_[i] < 0) continue;
-      simple_idct(block_[i], dest[i], i < 4 ? dls : c.u.w, add);
+      simple_idct(block_[i], dest[i], stride[i], add);
     }
   }
 
   // FFmpeg's mpeg_motion_internal for MPEG-1/2: one 16 x h luma block and
   // its chroma from `ref` (field_based: of the field `field_select`, into
-  // the field `bottom` of the macroblock); a vector out of the picture
-  // predicts nothing, as in FFmpeg.
+  // the field `bottom` of the macroblock; 4:2:2 chroma at the luma rows,
+  // its vertical half-sample from the luma vector); a vector out of the
+  // picture predicts nothing, as in FFmpeg.
   void motion(const Picture& ref, int mb_x, int mb_y, int field_based,
               int bottom, int field_select, int mx, int my, int h, Op op) {
     Picture& c = *cur_;
+    const bool c422 = init_chroma_ == 2;
     const int dxy = ((my & 1) << 1) | (mx & 1);
     const int src_x = mb_x * 16 + (mx >> 1);
     const int src_y = (mb_y << (4 - field_based)) + (my >> 1);
     const int cmx = mx / 2, cmy = my / 2;
-    const int uvdxy = ((cmy & 1) << 1) | (cmx & 1);
+    const int uvdxy = c422 ? ((my & 1) << 1) | (cmx & 1)
+                           : ((cmy & 1) << 1) | (cmx & 1);
     const int uvsrc_x = mb_x * 8 + (cmx >> 1);
-    const int uvsrc_y = (mb_y << (3 - field_based)) + (cmy >> 1);
+    const int uvsrc_y =
+        c422 ? src_y : (mb_y << (3 - field_based)) + (cmy >> 1);
     const int h_edge = mbw_ * 16, v_edge = (mbh_ * 16) >> field_based;
     if (unsigned(src_x) >= unsigned(std::max(h_edge - (mx & 1) - 15, 0)) ||
         unsigned(src_y) >= unsigned(std::max(v_edge - (my & 1) - h + 1, 0)))
       return;
-    const int ls = c.y.w << field_based, uvls = c.u.w << field_based;
-    const uint8_t* py = ref.y.px.data() + int64_t(src_y) * ls + src_x;
-    const uint8_t* pu = ref.u.px.data() + int64_t(uvsrc_y) * uvls + uvsrc_x;
-    const uint8_t* pv = ref.v.px.data() + int64_t(uvsrc_y) * uvls + uvsrc_x;
-    if (field_select) {
-      py += c.y.w;
-      pu += c.u.w;
-      pv += c.v.w;
-    }
+    const int fb = field_based;
+    const uint8_t* py =
+        ref.y.px.data() + int64_t(src_y) * (c.y.w << fb) + src_x;
+    const uint8_t* pu =
+        ref.u.px.data() + int64_t(uvsrc_y) * (c.u.w << fb) + uvsrc_x;
+    const uint8_t* pv =
+        ref.v.px.data() + int64_t(uvsrc_y) * (c.u.w << fb) + uvsrc_x;
+    const int crow = c422 ? 16 : 8;
     uint8_t* dy = c.y.at(mb_x * 16, mb_y * 16);
-    uint8_t* du = c.u.at(mb_x * 8, mb_y * 8);
-    uint8_t* dv = c.v.at(mb_x * 8, mb_y * 8);
-    if (bottom) {
-      dy += c.y.w;
-      du += c.u.w;
-      dv += c.v.w;
+    uint8_t* du = c.u.at(mb_x * 8, mb_y * crow);
+    uint8_t* dv = c.v.at(mb_x * 8, mb_y * crow);
+    int ls = c.y.w, dls = ls, uvls = c.u.w, duvls = uvls;
+    if (fb) {
+      field_lines(py, ls, dy, dls, field_select, bottom);
+      int vls = c.v.w, dvls = vls;
+      field_lines(pv, vls, dv, dvls, field_select, bottom);
+      field_lines(pu, uvls, du, duvls, field_select, bottom);
     }
-    hpel(py, ls, dxy, op, 16, h, dy, ls);
-    hpel(pu, uvls, uvdxy, op, 8, h >> 1, du, uvls);
-    hpel(pv, uvls, uvdxy, op, 8, h >> 1, dv, uvls);
+    const int ch = c422 ? h : h >> 1;
+    hpel(py, ls, dxy, op, 16, h, dy, dls);
+    hpel(pu, uvls, uvdxy, op, 8, ch, du, duvls);
+    hpel(pv, uvls, uvdxy, op, 8, ch, dv, duvls);
   }
 
   void reconstruct_inter(int mb_x, int mb_y) {
@@ -1719,28 +1761,42 @@ int mpeg12dec_rgb(void* handle, uint8_t* rgb, int64_t cap) {
   Decoder* d = static_cast<Decoder*>(handle);
   if (!d->out || int64_t(d->width) * d->height * 3 > cap) return kSmall;
   const Picture& p = *d->out;
-  swscale_rgb::to_rgb(p.y.px.data(), p.y.w, p.u.px.data(), p.v.px.data(),
-                      p.u.w, d->width, d->height, rgb, d->out_left,
-                      d->out_matrix == 1 ? swscale_rgb::kBt709
-                                         : swscale_rgb::kBt601);
+  const swscale_rgb::Matrix m =
+      d->out_matrix == 1 ? swscale_rgb::kBt709 : swscale_rgb::kBt601;
+  if (p.chroma_format == 2)  // an even height (postinit)
+    swscale_rgb::unscaled(p.y.px.data(), p.y.w, p.u.px.data(),
+                          p.v.px.data(), p.u.w, d->width, d->height, rgb, m,
+                          0);
+  else
+    swscale_rgb::to_rgb(p.y.px.data(), p.y.w, p.u.px.data(), p.v.px.data(),
+                        p.u.w, d->width, d->height, rgb, d->out_left, m);
   return kFrame;
 }
 
-// The frame last given as I420 planes, cropped: y (h*w), u and v
-// (ceil(h/2)*ceil(w/2) each).  0: done; 4: a cap too small or no frame.
+// The frame last given as planes, cropped: y (h*w), u and v
+// (ceil(h/2)*ceil(w/2) each for 4:2:0, h*ceil(w/2) for 4:2:2).  0: done;
+// 4: a cap too small or no frame.
 int mpeg12dec_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v,
                      int64_t ycap, int64_t ccap) {
   Decoder* d = static_cast<Decoder*>(handle);
-  const int w = d->width, h = d->height, cw = (w + 1) / 2, ch = (h + 1) / 2;
-  if (!d->out || int64_t(w) * h > ycap || int64_t(cw) * ch > ccap)
-    return kSmall;
+  if (!d->out) return kSmall;
   const Picture& p = *d->out;
+  const int w = d->width, h = d->height, cw = (w + 1) / 2,
+            ch = p.chroma_format == 2 ? h : (h + 1) / 2;
+  if (int64_t(w) * h > ycap || int64_t(cw) * ch > ccap) return kSmall;
   for (int j = 0; j < h; ++j) std::memcpy(y + int64_t(j) * w, p.y.at(0, j), w);
   for (int j = 0; j < ch; ++j) {
     std::memcpy(u + int64_t(j) * cw, p.u.at(0, j), cw);
     std::memcpy(v + int64_t(j) * cw, p.v.at(0, j), cw);
   }
   return kFrame;
+}
+
+// The chroma format of the frame last given: 1 (4:2:0) or 2 (4:2:2); 0
+// before the first.
+int mpeg12dec_chroma_format(void* handle) {
+  Decoder* d = static_cast<Decoder*>(handle);
+  return d->out ? d->out->chroma_format : 0;
 }
 
 // Whether the frame last given is flagged interlaced (progressive_frame 0
@@ -1760,7 +1816,8 @@ int mpeg12dec_stats(void* handle, int64_t* out, int n) {
                        s.matrix_coefficients, s.concealed_mbs,
                        s.skipped_pictures, s.repeat_first_field,
                        s.top_field_first, s.interlaced_frames,
-                       s.concealment_vectors, s.full_pel, s.closed_gops};
+                       s.concealment_vectors, s.full_pel, s.closed_gops,
+                       s.chroma_422_frames};
   const int total = static_cast<int>(sizeof(v) / sizeof(v[0]));
   for (int i = 0; i < n && i < total; ++i) out[i] = v[i];
   return total;

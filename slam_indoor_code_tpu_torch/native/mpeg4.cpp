@@ -31,6 +31,20 @@
 //     order with FFmpeg's one-frame delay and its end-of-stream flush; a
 //     B-VOP out of order or without two references skipped, as FFmpeg
 //     skips it;
+//   - interlace (the VOL's interlaced bit; top_field_first and
+//     alternate_vertical_scan_flag per VOP): field DCT (dct_type) in I-,
+//     P- and B-VOPs, laid out as mpegvideo_dsp.h's dct_blocks; field
+//     motion vectors in P-VOPs (field_prediction, the two reference field
+//     selects, the vertical predictor halved, the frame predictor the
+//     fields leave behind as ff_h263_update_motion_val leaves it) and
+//     forward, backward and interpolated field prediction in B-VOPs (the
+//     predictors kept per field); field direct mode where the co-located
+//     macroblock was field-predicted (its field vectors scaled by the
+//     field distances FFmpeg derives from TRD/TRB and t_frame, with
+//     top_field_first; an interlaced B-VOP whose field distances do not
+//     order is skipped, as FFmpeg skips it); the field prediction of
+//     FFmpeg's mpeg_motion_internal and qpel_motion, edges emulated in
+//     frame lines; the alternate vertical scan for every block;
 //   - DivX's packed bitstream (user data `DivX...p`): the VOP a sample holds
 //     after its own is decoded in place of the next sample (the N-VOP
 //     placeholder), as FFmpeg's decoder does; without `p` the second VOP
@@ -43,16 +57,27 @@
 //     one with `XviD` user data, or an Xvid fourcc and no encoder's user
 //     data; and the other workarounds ff_mpeg4_workaround_bugs applies by
 //     the build the user data names: FF_BUG_EDGE (edges at the VOL's
-//     size), DC_CLIP, QPEL_CHROMA and QPEL_CHROMA2;
+//     size), DC_CLIP, QPEL_CHROMA, QPEL_CHROMA2 and HPEL_CHROMA (DivX's
+//     field chroma vectors);
 //   - FFmpeg's x86 half-pel averages (mpegvideo_dsp.h), including the
 //     inexact ones it uses for 8-wide blocks without rounding;
+//   - data partitioning in I- and P-VOPs: each video packet's modes with
+//     the DCs (I) or the motion vectors (P), the DC or motion marker,
+//     ac_pred, CBPY and DQUANT (a P-VOP intra macroblock's DCs there),
+//     then the texture; a packet that does not parse concealed from where
+//     it broke, with the vectors it gave, up to the next packet whose
+//     header parses, where decoding goes on;
 //   - the crop of the macroblock-aligned picture to the VOL's size, and
 //     YUV 4:2:0 -> RGB as OpenCV's FFmpeg backend returns it (swscale_rgb.h,
 //     chroma sited left as FFmpeg reports it for MPEG-4).
-// A tool it does not decode raises with the tool named: interlace, data
-// partitioning, RVLC, sprites/GMC (S-VOPs), the short video header (which
-// FFmpeg's mpeg4 decoder refuses too; h263.cpp reads such a stream where
-// its container names it H.263), non-rectangular shapes, not_8_bit,
+// A tool it does not decode raises with the tool named: interlace in a
+// stream tagged XVIX (FFmpeg's FF_BUG_XVID_ILACE), RVLC (which no
+// encoder the tests hold it to writes), data partitioning together with
+// interlace (FFmpeg's decoder reads neither dct_type nor the field bits
+// of the partitions its encoder writes), sprites/GMC (S-VOPs), the short
+// video header (which FFmpeg's mpeg4 decoder refuses too; h263.cpp reads
+// such a stream where its container names it H.263), non-rectangular
+// shapes, not_8_bit,
 // scalability, newpred, reduced resolution, complexity estimation, OBMC,
 // and quarter-pel from libavcodec builds before 4653 (its old filter).  A VOP with vop_coded 0 gives no
 // frame, as in FFmpeg.  A VOP whose macroblocks are damaged or cut short
@@ -385,12 +410,20 @@ enum Bug {
   kBugDcClip = 2,           // DC predictors above 2047 kept
   kBugQpelChroma = 4,       // quarter-pel chroma vector rounded up
   kBugQpelChroma2 = 8,      // ... by DivX 5.02+'s table
-  kBugStdQpel = 16          // libavcodec's old quarter-pel filter
+  kBugStdQpel = 16,         // libavcodec's old quarter-pel filter
+  kBugHpelChroma = 32       // DivX: field chroma vectors rounded apart
 };
 
 constexpr int kMaxNvopSize = 19;  // FFmpeg's MAX_NVOP_SIZE
 
 // ---------------------------------------------------------------- decoder
+
+// What the stream has used so far (mpeg4dec_stats, in this order).
+struct Stats {
+  int64_t vops = 0, b_vops = 0, interlaced_vops = 0, alternate_scan_vops = 0,
+          field_dct_mbs = 0, field_mc_mbs = 0, field_direct_mbs = 0,
+          partitioned_packets = 0, concealed_vops = 0;
+};
 
 class Decoder {
  public:
@@ -460,8 +493,11 @@ class Decoder {
   int mbw_ = 0, mbh_ = 0;
   int time_bits_ = 1, time_res_ = 1;
   bool resync_ = false;
+  bool partitioned_ = false;  // data_partitioned: I- and P-VOPs in partitions
   bool low_delay_ = true;
   bool quarter_ = false, mpeg_quant_ = false;
+  bool interlaced_ = false;  // the VOL's interlaced (FFmpeg's
+                             // !progressive_sequence)
   uint8_t intra_matrix_[64] = {}, inter_matrix_[64] = {};
   // the encoder, as FFmpeg tells it (decode_user_data,
   // ff_mpeg4_workaround_bugs); -1: not seen
@@ -501,11 +537,26 @@ class Decoder {
   std::vector<int8_t> qs_;                    // quantiser per macroblock
   std::vector<int16_t> mv_;                   // (x, y) per 8x8 block
   std::vector<uint8_t> four_mv_, skipped_;    // per macroblock
-  // B-VOP motion vector predictors: forward, backward
-  int last_mv_[2][2] = {};
+  // per macroblock of the I- or P-VOP (and then of next_): field
+  // predicted, its field vectors (field, x/y) and reference field selects
+  std::vector<uint8_t> field_mb_;
+  std::vector<int16_t> field_mv_;  // 4 per macroblock
+  std::vector<uint8_t> field_sel_;  // 2 per macroblock
+  // B-VOP motion vector predictors: forward/backward, field, x/y
+  int last_mv_[2][2][2] = {};
   // VOP state
   int qscale_ = 1, rnd_ = 0, fcode_ = 1, bcode_ = 1, dc_thr_ = 99;
   bool ac_pred_ = false;
+  bool tff_ = false, alt_scan_ = false, interlaced_dct_ = false;
+  // the field distances of direct mode (FFmpeg's pp/pb_field_time, kept
+  // in 16 bits as FFmpeg keeps them) and its t_frame
+  uint16_t pp_field_time_ = 4, pb_field_time_ = 2;
+  int t_frame_ = 0;
+
+ public:
+  Stats stats;
+
+ private:
 
   static int64_t next_start_code(const Bits& b, int64_t p, int64_t n) {
     for (; p + 3 < n; ++p)
@@ -633,6 +684,7 @@ class Decoder {
     if (u(lavc_build_) < 4670) bugs_ |= kBugEdge;
     if (u(lavc_build_) <= 4712) bugs_ |= kBugDcClip;
     if (u(divx_version_) < 500) bugs_ |= kBugEdge;
+    if (divx_version_ >= 0) bugs_ |= kBugHpelChroma;
     if (xvid_build_ >= 0) xvid_idct_ = true;
   }
 
@@ -657,6 +709,7 @@ class Decoder {
   }
 
   void parse_vol(Bits& b) {
+    t_frame_ = 0;  // direct mode's field distances start again
     b.skip(1);  // random_accessible_vol
     int type = b.get(8);
     if (type == 0x12) unsupported("fine granularity scalability");
@@ -693,7 +746,7 @@ class Decoder {
     b.marker("VOL");
     int h = b.get(13);
     b.marker("VOL");
-    if (b.get1()) unsupported("interlace");
+    interlaced_ = b.get1();
     if (!b.get1()) unsupported("OBMC (obmc_disable 0)");
     if (b.get(verid == 1 ? 1 : 2)) unsupported("sprites/GMC");
     if (b.get1()) unsupported("not_8_bit");
@@ -707,10 +760,10 @@ class Decoder {
     quarter_ = verid != 1 && b.get1();
     if (!b.get1()) unsupported("complexity estimation header");
     resync_ = !b.get1();
-    if (b.get1()) {
-      if (b.get1()) unsupported("RVLC");
-      unsupported("data partitioning");
-    }
+    partitioned_ = b.get1();
+    if (partitioned_ && b.get1())
+      unsupported("RVLC (reversible_vlc 1: no encoder this decoder is held "
+                  "to writes it)");
     if (verid != 1) {
       if (b.get1()) unsupported("newpred");
       if (b.get1()) unsupported("reduced-resolution VOPs");
@@ -758,6 +811,7 @@ class Decoder {
       if (pp_time_ <= pb_time_ || pp_time_ <= pp_time_ - pb_time_ ||
           pp_time_ <= 0)
         return kNoFrame;  // out of order: FFmpeg skips the B-VOP
+      if (!field_times() && interlaced_) return kNoFrame;  // FFmpeg skips it
     }
     b.marker("VOP");
     if (!b.get1()) {  // vop_coded 0
@@ -766,6 +820,8 @@ class Decoder {
     }
     rnd_ = type == 1 ? b.get1() : 0;
     dc_thr_ = kDcThreshold[b.get(3)];
+    tff_ = interlaced_ && b.get1();
+    alt_scan_ = interlaced_ && b.get1();
     qscale_ = b.get(5);
     if (qscale_ == 0) corrupt("vop_quant 0");
     fcode_ = type != 0 ? b.get(3) : 1;
@@ -783,16 +839,33 @@ class Decoder {
       edge_h_ = height;
     }
     workaround_bugs();
+    if (interlaced_ && tag_ == fourcc("XVIX"))
+      unsupported("interlace tagged XVIX (FFmpeg's FF_BUG_XVID_ILACE: "
+                  "dct_type on uncoded macroblocks too)");
     if (quarter_ && (bugs_ & kBugStdQpel))
       unsupported("quarter-pel of libavcodec builds before 4653 (the old "
                   "filter FFmpeg applies as FF_BUG_STD_QPEL)");
     if (type == 1 && !has_next_) corrupt("P-VOP without a reference");
     if (type == 2 && !has_last_) return kNoFrame;  // FFmpeg skips it
     cur_->tag = tag;
-    if (type == 2)
+    ++stats.vops;
+    stats.b_vops += type == 2;
+    stats.interlaced_vops += interlaced_;
+    stats.alternate_scan_vops += alt_scan_;
+    if (type == 2) {
       decode_b(b);
-    else
+    } else if (partitioned_) {
+      if (interlaced_)
+        unsupported("data partitioning with interlace (FFmpeg's decoder "
+                    "reads neither dct_type nor the field bits of the "
+                    "partitions its encoder writes)");
+      if (dc_thr_ != 99)
+        unsupported("data partitioning with intra_dc_vlc_thr " +
+                    std::to_string(dc_thr_));
+      decode_partitioned(b, type);
+    } else {
       decode_ip(b, type);
+    }
     *vop_end = b.pos();
     if (type == 2) {
       out = cur_;
@@ -815,6 +888,28 @@ class Decoder {
     return kNoFrame;
   }
 
+  // FFmpeg's field distances for direct mode (decode_vop_header): TRD and
+  // TRB in units of t_frame (the TRB of the first B-VOP since the last VOL
+  // header), rounded, doubled.
+  // False, and FFmpeg's stand-ins 4 and 2, when they do not order.
+  bool field_times() {
+    if (t_frame_ == 0) t_frame_ = pb_time_;
+    if (t_frame_ == 0) t_frame_ = 1;
+    auto rdiv = [](int64_t a, int64_t b) {
+      return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b;
+    };
+    const int64_t base = rdiv(last_non_b_time_ - pp_time_, t_frame_);
+    pp_field_time_ =
+        static_cast<uint16_t>((rdiv(last_non_b_time_, t_frame_) - base) * 2);
+    pb_field_time_ = static_cast<uint16_t>((rdiv(time_, t_frame_) - base) * 2);
+    if (pp_field_time_ <= pb_field_time_ || pb_field_time_ <= 1) {
+      pb_field_time_ = 2;
+      pp_field_time_ = 4;
+      return false;
+    }
+    return true;
+  }
+
   void decode_ip(Bits& b, int type) {
     reset_state();
     resync_x_ = resync_y_ = 0;
@@ -834,6 +929,7 @@ class Decoder {
       }
     } catch (const Error& e) {
       if (e.status != kCorrupt) throw;
+      ++stats.concealed_vops;
       conceal(mx, my, false);
     }
   }
@@ -853,6 +949,7 @@ class Decoder {
       }
     } catch (const Error& e) {
       if (e.status != kCorrupt) throw;
+      ++stats.concealed_vops;
       conceal(mx, my, true);
     }
   }
@@ -863,20 +960,292 @@ class Decoder {
   // predicted in direct mode with no delta.
   void conceal(int mx, int my, bool b_vop) {
     for (; my < mbh_; ++my, mx = 0)
-      for (; mx < mbw_; ++mx) {
-        if (b_vop) {
-          direct_mb(mx, my, 0, 0);
-        } else if (has_next_) {
-          copy_mb(*next_, mx, my);
+      for (; mx < mbw_; ++mx) conceal_mb(mx, my, b_vop);
+  }
+
+  void conceal_mb(int mx, int my, bool b_vop) {
+    if (b_vop && field_mb_[size_t(my) * mbw_ + mx]) {
+      // FFmpeg's error concealment predicts a B-VOP macroblock from the
+      // co-located macroblock's frame vector, field-predicted or not
+      const int16_t* p = mv_at(2 * mx, 2 * my);
+      mc16(*last_, mx, my, p[0] * pb_time_ / pp_time_,
+           p[1] * pb_time_ / pp_time_, kPut);
+      mc16(*next_, mx, my, p[0] * (pb_time_ - pp_time_) / pp_time_,
+           p[1] * (pb_time_ - pp_time_) / pp_time_, kAvg);
+    } else if (b_vop) {
+      direct_mb(mx, my, 0, 0);
+    } else if (has_next_) {
+      copy_mb(*next_, mx, my);
+    } else {
+      for (int j = 0; j < 16; ++j)
+        std::memset(cur_->y.at(mx * 16, my * 16 + j), 128, 16);
+      for (int j = 0; j < 8; ++j) {
+        std::memset(cur_->u.at(mx * 8, my * 8 + j), 128, 8);
+        std::memset(cur_->v.at(mx * 8, my * 8 + j), 128, 8);
+      }
+    }
+  }
+
+  // ------------------------------------------------- data partitioning
+
+  // What a partitioned packet's first two partitions say of a macroblock.
+  enum PartKind : uint8_t { kSkip, kInter, kInter4v, kIntra };
+  struct PartMb {
+    uint8_t kind = kSkip, cbp = 0, dquant = 0, ac_pred = 0, dirs = 0;
+  };
+  std::vector<PartMb> part_;
+  static constexpr uint32_t kDcMarker = 0x6B001, kMotionMarker = 0x1F001;
+
+  // A data-partitioned I- or P-VOP (FFmpeg's ff_mpeg4_decode_partitions
+  // and mpeg4_decode_partitioned_mb): each video packet holds, for its
+  // macroblocks, their modes with the DCs (I) or the motion vectors (P),
+  // a DC or motion marker, then ac_pred, CBPY and DQUANT (and a P-VOP's
+  // intra DCs), then their texture.  A packet that does not parse is
+  // concealed from the macroblock where its texture broke (from its first
+  // where its first two partitions did): an inter macroblock whose vectors
+  // were read is predicted by them, the others as conceal_mb conceals
+  // them, up to the next packet whose header parses (found as FFmpeg's
+  // ff_h263_resync finds it), where decoding goes on.
+  void decode_partitioned(Bits& b, int type) {
+    reset_state();
+    part_.assign(size_t(mbw_) * mbh_, PartMb());
+    const int nmb = mbw_ * mbh_;
+    resync_x_ = resync_y_ = 0;
+    bool concealed = false;
+    for (int at = 0; at < nmb;) {
+      const int64_t start = b.pos();
+      const int q0 = qscale_;
+      int count = 0, parsed = 0, done = 0;
+      bool ok = false;
+      try {
+        count = partition_a(b, type, at, &parsed);
+        if (at + count > nmb) corrupt("video packet past the VOP");
+        partition_b(b, type, at, count);
+        set_qscale(q0);
+        texture(b, at, count, &done);
+        ++stats.partitioned_packets;
+        ok = true;
+      } catch (const Error& e) {
+        if (e.status != kCorrupt) throw;
+      }
+      int next = nmb;
+      if (ok && at + count < nmb) {
+        next = packet_here(b, type, at + count);
+        // a texture that does not end at the next packet's header was
+        // misread: the packet is re-rendered from its first partitions
+        if (next != at + count) ok = false, done = 0;
+      }
+      const int from = at + (ok ? count : done);
+      if (!ok) next = find_packet(b, type, start, at);
+      if (from < next) concealed = true;
+      for (int k = from; k < next; ++k) {
+        const int mx = k % mbw_, my = k / mbw_;
+        const PartMb& m = part_[k];
+        if (k < at + parsed && type == 1 && m.kind != kIntra)
+          predict_inter(mx, my, m.kind);
+        else
+          conceal_mb(mx, my, false);
+      }
+      at = next;
+    }
+    stats.concealed_vops += concealed;
+  }
+
+  // The packet header that should follow a packet at b (byte-alignment
+  // stuffing, then a resync marker for macroblock `want`): `want` with b
+  // past the header, else -1.
+  int packet_here(Bits& b, int type, int want) {
+    try {
+      const int64_t p = b.pos();
+      const int n = 8 - static_cast<int>(p & 7);
+      if (b.peek(n) != (1u << (n - 1)) - 1) return -1;
+      b.skip(n);
+      if (resync_marker(b, type) != want) return -1;
+      packet_header(b, type, want % mbw_, want / mbw_);
+      return want;
+    } catch (const Error& e) {
+      if (e.status != kCorrupt) throw;
+      return -1;
+    }
+  }
+
+  // The next packet after the one whose data starts at bit `start` and
+  // macroblock `at`: each byte from there on where 16 zero bits begin a
+  // packet header that parses, for a macroblock after `at` (b then past
+  // it); the VOP's macroblock count when none does.
+  int find_packet(Bits& b, int type, int64_t start, int at) {
+    const int nmb = mbw_ * mbh_;
+    for (int64_t p = (start + 7) & ~int64_t(7); b.seek(p), b.left() > 27;
+         p += 8) {
+      if (b.peek(16)) continue;
+      try {
+        const int m = resync_marker(b, type);
+        if (m > at && m < nmb) {
+          packet_header(b, type, m % mbw_, m / mbw_);
+          return m;
+        }
+      } catch (const Error& e) {
+        if (e.status != kCorrupt) throw;
+      }
+    }
+    return nmb;
+  }
+
+  // The first partition from macroblock `at` up to its marker: the count
+  // of macroblocks (*parsed: those read whole).
+  int partition_a(Bits& b, int type, int at, int* parsed) {
+    const Tables& t = tables();
+    first_line_ = true;
+    int k = at;
+    for (; k < mbw_ * mbh_; ++k) {
+      const int mx = k % mbw_, my = k / mbw_;
+      if (mx == resync_x_ && my == resync_y_ + 1) first_line_ = false;
+      PartMb& m = part_[k];
+      int cbpc;
+      if (type == 0) {
+        do {
+          if (b.peek(19) == kDcMarker) return k - at;
+          cbpc = t.intra_mcbpc.read(b, "MCBPC");
+          if (b.overrun()) corrupt("stuffing runs past the end");
+        } while (cbpc == 8);
+        m.kind = kIntra;
+        m.cbp = static_cast<uint8_t>(cbpc & 3);
+        if (cbpc & 4) set_qscale(qscale_ + kDquant[b.get(2)]);
+        qs_[k] = static_cast<int8_t>(qscale_);
+        m.dirs = partition_dcs(b, mx, my);
+      } else {
+        for (;;) {
+          if (b.peek(17) == kMotionMarker) return k - at;
+          if (b.get1()) {
+            cbpc = -1;  // not coded
+            break;
+          }
+          cbpc = t.inter_mcbpc.read(b, "MCBPC");
+          if (cbpc != 20) break;
+          if (b.overrun()) corrupt("stuffing runs past the end");
+        }
+        if (cbpc < 0) {
+          m.kind = kSkip;
+          skipped_[k] = 1;
         } else {
-          for (int j = 0; j < 16; ++j)
-            std::memset(cur_->y.at(mx * 16, my * 16 + j), 128, 16);
-          for (int j = 0; j < 8; ++j) {
-            std::memset(cur_->u.at(mx * 8, my * 8 + j), 128, 8);
-            std::memset(cur_->v.at(mx * 8, my * 8 + j), 128, 8);
+          m.cbp = static_cast<uint8_t>(cbpc & 3);
+          m.dquant = (cbpc & 8) != 0;
+          if (cbpc & 4) {
+            m.kind = kIntra;
+          } else if (!(cbpc & 16)) {
+            m.kind = kInter;
+            int px, py;
+            pred_motion(mx, my, 0, &px, &py);
+            const int vx = motion(b, px, fcode_), vy = motion(b, py, fcode_);
+            set_mb_mv(mx, my, vx, vy);
+          } else {
+            m.kind = kInter4v;
+            four_mv_[k] = 1;
+            for (int i = 0; i < 4; ++i) {
+              int px, py;
+              pred_motion(mx, my, i, &px, &py);
+              int16_t* v = mv_at(2 * mx + (i & 1), 2 * my + (i >> 1));
+              const int vx = motion(b, px, fcode_);
+              v[0] = static_cast<int16_t>(vx);
+              v[1] = static_cast<int16_t>(motion(b, py, fcode_));
+            }
           }
         }
       }
+      if (b.overrun()) corrupt("VOP cut short");
+      *parsed = k - at + 1;
+    }
+    return k - at;
+  }
+
+  // An intra macroblock's six DCs (mpeg4_decode_dc), predicted and stored
+  // as the unpartitioned syntax stores them; their prediction directions
+  // (block 0 in bit 5).
+  uint8_t partition_dcs(Bits& b, int mx, int my) {
+    int dirs = 0;
+    for (int n = 0; n < 6; ++n) {
+      int dir;
+      if (pred_dc(mx, my, n, dc_diff(b, n), &dir) < 0)
+        corrupt("DC corrupted");
+      dirs = (dirs << 1) | dir;
+    }
+    return static_cast<uint8_t>(dirs);
+  }
+
+  // The marker after the first partition, then the second: ac_pred and
+  // CBPY, DQUANT in P-VOPs (with a P-VOP intra macroblock's DCs).
+  void partition_b(Bits& b, int type, int at, int count) {
+    const Tables& t = tables();
+    if (type == 0) {
+      while (b.peek(9) == 1) b.skip(9);
+      if (b.get(19) != kDcMarker) corrupt("DC marker missing");
+    } else {
+      while (b.peek(10) == 1) b.skip(10);
+      if (b.get(17) != kMotionMarker) corrupt("motion marker missing");
+    }
+    first_line_ = true;
+    for (int k = at; k < at + count; ++k) {
+      const int mx = k % mbw_, my = k / mbw_;
+      if (mx == resync_x_ && my == resync_y_ + 1) first_line_ = false;
+      PartMb& m = part_[k];
+      if (m.kind == kIntra) {
+        m.ac_pred = static_cast<uint8_t>(b.get1());
+        const int cbpy = t.cbpy.read(b, "CBPY");
+        if (type == 1) {
+          if (m.dquant) set_qscale(qscale_ + kDquant[b.get(2)]);
+          qs_[k] = static_cast<int8_t>(qscale_);
+          m.dirs = partition_dcs(b, mx, my);
+        }
+        m.cbp = static_cast<uint8_t>(m.cbp | (cbpy << 2));
+      } else if (m.kind == kSkip) {
+        qs_[k] = static_cast<int8_t>(qscale_);
+      } else {
+        const int cbpy = t.cbpy.read(b, "CBPY") ^ 15;
+        if (m.dquant) set_qscale(qscale_ + kDquant[b.get(2)]);
+        qs_[k] = static_cast<int8_t>(qscale_);
+        m.cbp = static_cast<uint8_t>(m.cbp | (cbpy << 2));
+      }
+      if (b.overrun()) corrupt("VOP cut short");
+    }
+  }
+
+  // The third partition: each macroblock's blocks, reconstructed (*done:
+  // the macroblocks finished).
+  void texture(Bits& b, int at, int count, int* done) {
+    first_line_ = true;
+    for (int k = at; k < at + count; ++k) {
+      const int mx = k % mbw_, my = k / mbw_;
+      if (mx == resync_x_ && my == resync_y_ + 1) first_line_ = false;
+      const PartMb& m = part_[k];
+      const bool dc_vlc = qscale_ < dc_thr_;
+      set_qscale(qs_[k]);
+      if (m.kind == kIntra) {
+        ac_pred_ = m.ac_pred != 0;
+        intra_blocks(b, mx, my, m.cbp, dc_vlc, m.dirs);
+      } else {
+        predict_inter(mx, my, m.kind);
+        if (m.kind != kSkip) residual(b, mx, my, m.cbp);
+      }
+      if (b.overrun()) corrupt("VOP cut short");
+      *done = k - at + 1;
+    }
+  }
+
+  // A P-VOP macroblock predicted by the vectors its first partition gave.
+  void predict_inter(int mx, int my, int kind) {
+    const Op op = rnd_ ? kPutNoRnd : kPut;
+    const int16_t* v = mv_at(2 * mx, 2 * my);
+    if (kind == kInter4v) {
+      int mv[4][2];
+      for (int k = 0; k < 4; ++k) {
+        const int16_t* q = mv_at(2 * mx + (k & 1), 2 * my + (k >> 1));
+        mv[k][0] = q[0];
+        mv[k][1] = q[1];
+      }
+      mc8x8(*next_, mx, my, mv, op);
+    } else {
+      mc16(*next_, mx, my, v[0], v[1], kind == kSkip ? kPut : op);
+    }
   }
 
   // Every block's DC and AC predictors start at 1024 and 0: what a
@@ -894,6 +1263,9 @@ class Decoder {
     mv_.assign(nb * 4 * 2, 0);
     four_mv_.assign(nb, 0);
     skipped_.assign(nb, 0);
+    field_mb_.assign(nb, 0);
+    field_mv_.assign(nb * 4, 0);
+    field_sel_.assign(nb * 2, 0);
   }
 
   // A video packet starting at macroblock (mx, my): MCBPC stuffing (I- and
@@ -907,7 +1279,7 @@ class Decoder {
   // slice's first row; ff_mpeg4_clean_buffers).  A B-VOP's skipped
   // macroblocks take no bits, so a packet may start at a later one.
   void video_packet(Bits& b, int type, int mx, int my) {
-    if (type != 2) {
+    if (type != 2 && !partitioned_) {
       const int stuffing = type == 0 ? 9 : 10;
       while (b.peek(stuffing) == 1) b.skip(stuffing);
     }
@@ -915,20 +1287,12 @@ class Decoder {
     int n = 8 - static_cast<int>(p & 7);
     if (b.peek(n) != (1u << (n - 1)) - 1) return;
     b.skip(n);
-    int zeros = 0;
-    while (zeros < 32 && !b.get1()) ++zeros;
-    const int prefix = type == 0   ? 16
-                       : type == 1 ? 15 + fcode_
-                                   : 15 + std::max({fcode_, bcode_, 2});
-    if (zeros < prefix || b.overrun()) {
+    const int here = my * mbw_ + mx;
+    const int at = resync_marker(b, type);
+    if (at < 0) {
       b.seek(p);
       return;
     }
-    if (zeros != prefix) corrupt("resync marker does not match vop_fcode");
-    int mb_num = mbw_ * mbh_, bits = 1;
-    while ((1 << bits) < mb_num) ++bits;
-    const int here = my * mbw_ + mx;
-    const int at = static_cast<int>(b.get(bits));
     if (at != here) {
       if (type == 2 && at > here && skipped_[here]) {
         b.seek(p);
@@ -936,6 +1300,31 @@ class Decoder {
       }
       corrupt("video packet does not start at the next macroblock");
     }
+    packet_header(b, type, mx, my);
+  }
+
+  // A resync marker at b (byte-aligned): its macroblock_number, or -1 (b
+  // unmoved) where fewer zeros than the VOP's prefix come first.
+  int resync_marker(Bits& b, int type) {
+    const int64_t p = b.pos();
+    int zeros = 0;
+    while (zeros < 32 && !b.get1()) ++zeros;
+    const int prefix = type == 0   ? 16
+                       : type == 1 ? 15 + fcode_
+                                   : 15 + std::max({fcode_, bcode_, 2});
+    if (zeros < prefix || b.overrun()) {
+      b.seek(p);
+      return -1;
+    }
+    if (zeros != prefix) corrupt("resync marker does not match vop_fcode");
+    int mb_num = mbw_ * mbh_, bits = 1;
+    while ((1 << bits) < mb_num) ++bits;
+    return static_cast<int>(b.get(bits));
+  }
+
+  // The rest of a video packet header (after macroblock_number), whose
+  // packet starts at macroblock (mx, my).
+  void packet_header(Bits& b, int type, int mx, int my) {
     int q = b.get(5);
     if (q) qscale_ = q;
     if (b.get1()) {  // header_extension_code
@@ -952,7 +1341,8 @@ class Decoder {
     resync_x_ = mx;
     resync_y_ = my;
     first_line_ = true;
-    std::memset(last_mv_, 0, sizeof(last_mv_));
+    // ff_mpeg4_clean_buffers clears the first field's predictors only
+    for (auto& d : last_mv_) d[0][0] = d[0][1] = 0;
     if (type != 2) clean_ac(mx, my);
   }
 
@@ -1177,6 +1567,71 @@ class Decoder {
     hpel(s, ss, dxy, op, 8, 8, d.v.at(mx * 8, my * 8), d.v.w);
   }
 
+  // Field `bottom` of the macroblock from field `sel` of `ref`, vector
+  // (vx, vy) in that field's units: FFmpeg's mpeg_motion_internal (half-
+  // pel, H.263's chroma rule) or qpel_motion (quarter-pel: two 8x8 luma
+  // blocks) with field_based; a block near the edge is emulated in frame
+  // lines (17 x 18 luma, 9 x 10 chroma) before its field is read.
+  void mc_field(const Picture& ref, int mx, int my, int bottom, int sel,
+                int vx, int vy, Op op) {
+    uint8_t buf[3][kWin * kWin];
+    const int ew = edge_w_, eh = edge_h_;
+    int sx, sy, ux, uy, dxy, uvdxy;
+    bool emu;
+    if (quarter_) {
+      dxy = ((vy & 3) << 2) | (vx & 3);
+      sx = mx * 16 + (vx >> 2);
+      sy = my * 8 + (vy >> 2);
+      int cx = vx / 2, cy = vy >> 1;
+      cx = (cx >> 1) | (cx & 1);
+      cy = (cy >> 1) | (cy & 1);
+      uvdxy = (cx & 1) | ((cy & 1) << 1);
+      ux = mx * 8 + (cx >> 1);
+      uy = my * 4 + (cy >> 1);
+      emu = unsigned(sx) >= unsigned(std::max(ew - (vx & 3) - 15, 0)) ||
+            unsigned(sy) >= unsigned(std::max((eh >> 1) - (vy & 3) - 7, 0));
+    } else {
+      dxy = ((vy & 1) << 1) | (vx & 1);
+      sx = mx * 16 + (vx >> 1);
+      sy = my * 8 + (vy >> 1);
+      if (bugs_ & kBugHpelChroma) {  // FF_BUG_HPEL_CHROMA
+        const int cx = (vx >> 1) | (vx & 1), cy = vy >> 1;
+        uvdxy = ((cy & 1) << 1) | (cx & 1);
+        ux = mx * 8 + (cx >> 1);
+        uy = my * 4 + (cy >> 1);
+      } else {
+        uvdxy = dxy | (vy & 2) | ((vx & 2) >> 1);
+        ux = sx >> 1;
+        uy = sy >> 1;
+      }
+      emu = unsigned(sx) >= unsigned(std::max(ew - (vx & 1) - 15, 0)) ||
+            unsigned(sy) >= unsigned(std::max((eh >> 1) - (vy & 1) - 7, 0));
+    }
+    int ys, us, vs;
+    const uint8_t* y =
+        window(ref.y, sx, 2 * sy, 17, 18, ew, eh, emu, buf[0], &ys);
+    const uint8_t* u = window(ref.u, ux, 2 * uy, 9, 10, ew >> 1, eh >> 1, emu,
+                              buf[1], &us);
+    const uint8_t* v = window(ref.v, ux, 2 * uy, 9, 10, ew >> 1, eh >> 1, emu,
+                              buf[2], &vs);
+    Picture& d = *cur_;
+    uint8_t* dy = d.y.at(mx * 16, my * 16);
+    uint8_t* du = d.u.at(mx * 8, my * 8);
+    uint8_t* dv = d.v.at(mx * 8, my * 8);
+    int dys = d.y.w, dus = d.u.w, dvs = d.v.w;
+    field_lines(y, ys, dy, dys, sel, bottom);
+    field_lines(u, us, du, dus, sel, bottom);
+    field_lines(v, vs, dv, dvs, sel, bottom);
+    if (quarter_) {
+      qpel<8>(y, ys, dxy, op, dy, dys);
+      qpel<8>(y + 8, ys, dxy, op, dy + 8, dys);
+    } else {
+      hpel(y, ys, dxy, op, 16, 8, dy, dys);
+    }
+    hpel(u, us, uvdxy, op, 8, 4, du, dus);
+    hpel(v, vs, uvdxy, op, 8, 4, dv, dvs);
+  }
+
   void copy_mb(const Picture& ref, int mx, int my) {
     int x = mx * 16, y = my * 16;
     for (int j = 0; j < 16; ++j)
@@ -1212,9 +1667,31 @@ class Decoder {
     int cbpy = t.cbpy.read(b, "CBPY") ^ 15;
     if (cbpc & 8) set_qscale(qscale_ + kDquant[b.get(2)]);
     int cbp = (cbpc & 3) | (cbpy << 2);
+    if (interlaced_ && cbp) interlaced_dct_ = b.get1();
     qs_[i] = static_cast<int8_t>(qscale_);
     const Op op = rnd_ ? kPutNoRnd : kPut;
-    if (cbpc & 16) {  // INTER4V: a vector per 8x8 block
+    if (!(cbpc & 16) && interlaced_ && b.get1()) {
+      // field prediction: a vector per field, each from the macroblock's
+      // predictor (its vertical half), with its reference field
+      int sel[2], v[2][2], px, py;
+      sel[0] = b.get1();
+      sel[1] = b.get1();
+      pred_motion(mx, my, 0, &px, &py);
+      for (int f = 0; f < 2; ++f) {
+        v[f][0] = motion(b, px, fcode_);
+        v[f][1] = motion(b, py / 2, fcode_);
+      }
+      const int sx = v[0][0] + v[1][0];
+      set_mb_mv(mx, my, (sx >> 1) | (sx & 1), v[0][1] + v[1][1]);
+      field_mb_[i] = 1;
+      for (int f = 0; f < 2; ++f) {
+        field_sel_[2 * i + f] = static_cast<uint8_t>(sel[f]);
+        field_mv_[4 * i + 2 * f] = static_cast<int16_t>(v[f][0]);
+        field_mv_[4 * i + 2 * f + 1] = static_cast<int16_t>(v[f][1]);
+        mc_field(*next_, mx, my, f, sel[f], v[f][0], v[f][1], op);
+      }
+      ++stats.field_mc_mbs;
+    } else if (cbpc & 16) {  // INTER4V: a vector per 8x8 block
       int mv[4][2];
       for (int k = 0; k < 4; ++k) {
         int px, py;
@@ -1241,10 +1718,12 @@ class Decoder {
   void residual(Bits& b, int mx, int my, int cbp) {
     int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
     if (mpeg_quant_) qmul = 1, qadd = 0;
+    const uint8_t* scan = alt_scan_ ? tables().vertical : tables().zigzag;
+    stats.field_dct_mbs += interlaced_dct_ && cbp;
     for (int n = 0; n < 6; ++n) {
       if (!(cbp & (32 >> n))) continue;
       int16_t block[64] = {};
-      tcoef(b, tables().inter, block, tables().zigzag, 0, qmul, qadd);
+      tcoef(b, tables().inter, block, scan, 0, qmul, qadd);
       if (mpeg_quant_) dequant_inter_mpeg(block);
       uint8_t* dst;
       int stride;
@@ -1281,7 +1760,8 @@ class Decoder {
       return;
     }
     int cbp = 0, mode = 0;  // 0 direct, 1 interpolate, 2 backward, 3 forward
-    bool delta = false;
+    bool delta = false, field = false;
+    int sel[2][2] = {};
     if (!b.get1()) {  // modb: more than a direct macroblock without data
       const bool no_cbp = b.get1();
       while (mode < 4 && !b.get1()) ++mode;
@@ -1289,6 +1769,17 @@ class Decoder {
       if (!no_cbp) cbp = b.get(6);
       if (mode != 0 && cbp && b.get1())  // dbquant
         set_qscale(qscale_ + (b.get1() ? 2 : -2));
+      if (interlaced_) {
+        if (cbp) interlaced_dct_ = b.get1();
+        if (mode != 0 && b.get1()) {  // field_prediction
+          field = true;
+          for (int d = 0; d < 2; ++d)
+            if (mode == 1 || mode == 3 - d) {
+              sel[d][0] = b.get1();
+              sel[d][1] = b.get1();
+            }
+        }
+      }
       delta = mode == 0;
     }
     if (mode == 0) {
@@ -1299,17 +1790,40 @@ class Decoder {
       }
       direct_mb(mx, my, dx, dy);
     } else {
-      int f[2] = {}, w[2] = {};
-      if (mode == 1 || mode == 3) {
-        f[0] = last_mv_[0][0] = motion(b, last_mv_[0][0], fcode_);
-        f[1] = last_mv_[0][1] = motion(b, last_mv_[0][1], fcode_);
+      // vectors: forward (older reference), backward (newer), per field
+      // with the vertical predictor halved, or one for the macroblock
+      int v[2][2][2] = {};
+      for (int d = 0; d < 2; ++d) {
+        if (!(mode == 1 || mode == 3 - d)) continue;
+        const int code = d ? bcode_ : fcode_;
+        for (int f = 0; f < (field ? 2 : 1); ++f) {
+          int(&p)[2] = last_mv_[d][f];
+          v[d][f][0] = motion(b, p[0], code);
+          if (field) {
+            v[d][f][1] = motion(b, p[1] / 2, code);
+            p[0] = v[d][f][0];
+            p[1] = v[d][f][1] * 2;
+          } else {
+            v[d][f][1] = motion(b, p[1], code);
+            for (int* q : {last_mv_[d][0], last_mv_[d][1]}) {
+              q[0] = v[d][0][0];
+              q[1] = v[d][0][1];
+            }
+          }
+        }
       }
-      if (mode == 1 || mode == 2) {
-        w[0] = last_mv_[1][0] = motion(b, last_mv_[1][0], bcode_);
-        w[1] = last_mv_[1][1] = motion(b, last_mv_[1][1], bcode_);
+      for (int d = 0; d < 2; ++d) {
+        if (!(mode == 1 || mode == 3 - d)) continue;
+        const Picture& ref = d ? *next_ : *last_;
+        const Op op = d && mode == 1 ? kAvg : kPut;
+        if (field) {
+          for (int f = 0; f < 2; ++f)
+            mc_field(ref, mx, my, f, sel[d][f], v[d][f][0], v[d][f][1], op);
+        } else {
+          mc16(ref, mx, my, v[d][0][0], v[d][0][1], op);
+        }
       }
-      if (mode != 2) mc16(*last_, mx, my, f[0], f[1], kPut);
-      if (mode != 3) mc16(*next_, mx, my, w[0], w[1], mode == 1 ? kAvg : kPut);
+      stats.field_mc_mbs += field;
     }
     residual(b, mx, my, cbp);
   }
@@ -1322,6 +1836,30 @@ class Decoder {
   // macroblock, and under quarter-pel for any.
   void direct_mb(int mx, int my, int dx, int dy) {
     const int i = my * mbw_ + mx;
+    if (field_mb_[i]) {
+      // the co-located macroblock's field vectors, each scaled by the
+      // distances of its field and the field it referred to
+      int fwd[2][2], bwd[2][2];
+      for (int f = 0; f < 2; ++f) {
+        const int sel = field_sel_[2 * i + f];
+        const uint16_t pp = static_cast<uint16_t>(
+            tff_ ? pp_field_time_ - sel + f : pp_field_time_ + sel - f);
+        const uint16_t pb = static_cast<uint16_t>(
+            tff_ ? pb_field_time_ - sel + f : pb_field_time_ + sel - f);
+        for (int c = 0; c < 2; ++c) {
+          const int d = c ? dy : dx, pv = field_mv_[4 * i + 2 * f + c];
+          fwd[f][c] = pv * pb / pp + d;
+          bwd[f][c] = d ? fwd[f][c] - pv : pv * (pb - pp) / pp;
+        }
+      }
+      for (int f = 0; f < 2; ++f)
+        mc_field(*last_, mx, my, f, field_sel_[2 * i + f], fwd[f][0],
+                 fwd[f][1], kPut);
+      for (int f = 0; f < 2; ++f)
+        mc_field(*next_, mx, my, f, f, bwd[f][0], bwd[f][1], kAvg);
+      ++stats.field_direct_mbs;
+      return;
+    }
     int fwd[4][2], bwd[4][2];
     const int nblk = four_mv_[i] ? 4 : 1;
     for (int k = 0; k < nblk; ++k) {
@@ -1349,11 +1887,14 @@ class Decoder {
 
   void set_qscale(int q) { qscale_ = std::clamp(q, 1, 31); }
 
-  static void block_dest(Picture& p, int mx, int my, int n, uint8_t** dst,
-                         int* stride) {
+  // Where block n goes: luma laid out by dct_type (interlaced_dct_).
+  void block_dest(Picture& p, int mx, int my, int n, uint8_t** dst,
+                  int* stride) const {
     if (n < 4) {
-      *dst = p.y.at(mx * 16 + (n & 1) * 8, my * 16 + (n >> 1) * 8);
-      *stride = p.y.w;
+      uint8_t* dest[4];
+      *stride = dct_blocks(p.y.at(mx * 16, my * 16), p.y.w, interlaced_dct_,
+                           2, dest);
+      *dst = dest[n];
     } else {
       Plane& c = n == 4 ? p.u : p.v;
       *dst = c.at(mx * 8, my * 8);
@@ -1410,13 +1951,25 @@ class Decoder {
     int cbp = (cbpc & 3) | (cbpy << 2);
     bool dc_vlc = qscale_ < dc_thr_;
     if (dquant) set_qscale(qscale_ + kDquant[b.get(2)]);
+    if (interlaced_) interlaced_dct_ = b.get1();
+    stats.field_dct_mbs += interlaced_dct_;
+    intra_blocks(b, mx, my, cbp, dc_vlc, -1);
+  }
+
+  // The six blocks of an intra macroblock at the current quantiser.
+  // `dirs`: under data partitioning, the DC prediction directions its
+  // partitions gave (block 0 in bit 5), its DCs predicted and stored
+  // there; else -1.
+  void intra_blocks(Bits& b, int mx, int my, int cbp, bool dc_vlc,
+                    int dirs) {
     int i = my * mbw_ + mx;
     set_mb_mv(mx, my, 0, 0);
     qs_[i] = static_cast<int8_t>(qscale_);
     int qmul = qscale_ * 2, qadd = (qscale_ - 1) | 1;
     for (int n = 0; n < 6; ++n) {
       int16_t block[64] = {};
-      intra_block(b, block, mx, my, n, (cbp & (32 >> n)) != 0, dc_vlc);
+      intra_block(b, block, mx, my, n, (cbp & (32 >> n)) != 0, dc_vlc,
+                  dirs < 0 ? -1 : (dirs >> (5 - n)) & 1);
       block[0] = static_cast<int16_t>(block[0] *
                                       (n < 4 ? y_dc_scale(qscale_)
                                              : c_dc_scale(qscale_)));
@@ -1436,6 +1989,21 @@ class Decoder {
       block_dest(*cur_, mx, my, n, &dst, &stride);
       idct(block, dst, stride, false);
     }
+  }
+
+  // An intra DC's differential (dct_dc_size, dct_dc_differential and the
+  // marker after a size above 8).
+  int dc_diff(Bits& b, int n) {
+    const Tables& t = tables();
+    int size = (n < 4 ? t.dc_lum : t.dc_chrom).read(b, "DC size");
+    int diff = 0;
+    if (size) {
+      uint32_t v = b.get(size);
+      diff = (v >> (size - 1)) ? static_cast<int>(v)
+                               : static_cast<int>(v) - ((1 << size) - 1);
+      if (size > 8) b.marker("intra DC");
+    }
+    return diff;
   }
 
   // DC prediction: returns the quantised DC (`diff` plus the predictor),
@@ -1472,32 +2040,33 @@ class Decoder {
     return level;
   }
 
+  // `known_dir` >= 0: the DC was predicted in the VOP's first partitions
+  // (its direction, and the quantised DC from the stored one).
   void intra_block(Bits& b, int16_t* block, int mx, int my, int n,
-                   bool coded, bool dc_vlc) {
+                   bool coded, bool dc_vlc, int known_dir = -1) {
     const Tables& t = tables();
     int dir = 0;
     int pos = 0;
-    if (dc_vlc) {
-      int size = (n < 4 ? t.dc_lum : t.dc_chrom).read(b, "DC size");
-      int diff = 0;
-      if (size) {
-        uint32_t v = b.get(size);
-        diff = (v >> (size - 1)) ? static_cast<int>(v)
-                                 : static_cast<int>(v) - ((1 << size) - 1);
-        if (size > 8) b.marker("intra DC");
-      }
-      block[0] = static_cast<int16_t>(pred_dc(mx, my, n, diff, &dir));
+    if (known_dir >= 0) {
+      const int scale = n < 4 ? y_dc_scale(qscale_) : c_dc_scale(qscale_);
+      block[0] = static_cast<int16_t>((*dc_ptr(mx, my, n) + (scale >> 1)) /
+                                      scale);
+      dir = known_dir;
+      pos = 1;
+    } else if (dc_vlc) {
+      block[0] = static_cast<int16_t>(pred_dc(mx, my, n, dc_diff(b, n), &dir));
       pos = 1;
     } else {
       pred_dc(mx, my, n, 0, &dir);  // for the direction only
     }
     if (coded) {
-      const uint8_t* scan = !ac_pred_ ? t.zigzag
-                            : dir == 0 ? t.vertical
-                                       : t.horizontal;
+      // the alternate vertical scan, when the VOP asks for it, for all
+      const uint8_t* scan = alt_scan_ || (ac_pred_ && dir == 0) ? t.vertical
+                            : ac_pred_ ? t.horizontal
+                                       : t.zigzag;
       tcoef(b, t.intra, block, scan, pos, 1, 0);
     }
-    if (!dc_vlc) block[0] = static_cast<int16_t>(
+    if (!dc_vlc && known_dir < 0) block[0] = static_cast<int16_t>(
         pred_dc(mx, my, n, block[0], &dir));
     pred_ac(block, mx, my, n, dir);
   }
@@ -1668,6 +2237,19 @@ int mpeg4dec_planes(void* handle, uint8_t* y, uint8_t* u, uint8_t* v,
     std::memcpy(v + int64_t(j) * cw, p.v.at(0, j), cw);
   }
   return kFrame;
+}
+
+// What the stream has used so far (Stats, in its order): up to n values
+// into out; returns how many there are.
+int mpeg4dec_stats(void* handle, int64_t* out, int n) {
+  const Stats& s = static_cast<Decoder*>(handle)->stats;
+  const int64_t v[] = {s.vops,          s.b_vops,          s.interlaced_vops,
+                       s.alternate_scan_vops, s.field_dct_mbs,
+                       s.field_mc_mbs,  s.field_direct_mbs,
+                       s.partitioned_packets, s.concealed_vops};
+  const int total = static_cast<int>(sizeof(v) / sizeof(v[0]));
+  for (int i = 0; i < n && i < total; ++i) out[i] = v[i];
+  return total;
 }
 
 void mpeg4dec_close(void* handle) { delete static_cast<Decoder*>(handle); }

@@ -1,6 +1,7 @@
 // mpegvideo_dsp.h — the pixel operations FFmpeg's MPEG-1/2 and MPEG-4
 // Part 2 decoders share on its x86 build, as mpeg12.cpp and mpeg4.cpp use
-// them: the "simple" IDCT and the half-pel put and average of a block.
+// them: the "simple" IDCT, the half-pel put and average of a block, and
+// the addressing of field DCT and field motion compensation.
 // Header-only, no library but the C++ standard one.
 
 #ifndef SLAM_NATIVE_MPEGVIDEO_DSP_H_
@@ -179,6 +180,37 @@ inline void hpel(const uint8_t* s, int ss, int dxy, Op op, int bw, int bh,
         return (p[0] + p[1] + p[ss] + p[ss + 1] + 1 + r) >> 2;
       });
   }
+}
+
+// ------------------------------------------------------- interlaced tools
+// What MPEG-2 and MPEG-4 Part 2 share for interlaced frame pictures.
+
+// Field DCT (interlaced_dct, FFmpeg's dct_linesize and dct_offset): the
+// destinations of the 8x8 blocks of a region two blocks high and `cols`
+// wide (a macroblock's luma: 2; its 4:2:2 chroma: 1) at `p`, stride `ls`,
+// in coding order, and the stride they are written at.  Under field DCT
+// the upper row of blocks holds the top field's lines and the lower one
+// the bottom field's, at twice the stride.
+inline int dct_blocks(uint8_t* p, int ls, bool field, int cols,
+                      uint8_t** dest) {
+  for (int k = 0; k < 2 * cols; ++k)
+    dest[k] = p + (k % cols) * 8 + (k / cols) * (field ? ls : 8 * ls);
+  return field ? 2 * ls : ls;
+}
+
+// Field motion compensation in a frame picture (FFmpeg's
+// mpeg_motion_internal and qpel_motion with field_based): `src` addresses
+// the reference's top-field lines at stride `src_ls` and `dst` the
+// macroblock's top-field lines at `dst_ls` (frame strides); the prediction
+// of field `bottom` reads field `select`, one frame line down where either
+// is 1, and both strides double to step a field's lines.
+template <typename S, typename D>
+inline void field_lines(S*& src, int& src_ls, D*& dst, int& dst_ls,
+                        int select, int bottom) {
+  if (select) src += src_ls;
+  if (bottom) dst += dst_ls;
+  src_ls *= 2;
+  dst_ls *= 2;
 }
 
 }  // namespace mpegvideo_dsp

@@ -38,8 +38,8 @@ import torch
 from slam_indoor_code_tpu_torch.io import avi, ffv1
 from slam_indoor_code_tpu_torch.io.media import MediaSource
 from slam_indoor_code_tpu_torch.testing import mjpeg
-from test_torch_mp4 import (cv2_rgb, lavc_encode, lavc_extradata,
-                            write_cv2_video)
+from test_torch_mp4 import (cv2_rgb, cv2_rgb_one_thread, lavc_encode,
+                            lavc_extradata, write_cv2_video)
 from test_torch_mpeg2 import _sha
 from test_torch_vp9 import pan
 from test_torch_webm import write_mkv
@@ -107,17 +107,40 @@ def port_stats(path) -> dict:
     return dec.stats()
 
 
-def check_equal_cv2(path, n=None, frames=None) -> dict:
-    """Every frame through MediaSource equals cv2's, in cv2's count (``n``
-    if given), and ``frames`` (the RGB written, for a lossless RGB stream)
-    where given; the decoder's stats."""
-    want = cv2_rgb(path)
+def port_defined(path) -> list:
+    """The ``Decoder.defined`` mask of each frame the port gives for
+    ``path``, in order."""
+    video = avi.open_video(str(path))
+    dec = ffv1.Decoder(video.extradata, video.width, video.height)
+    out = []
+    for f in video.frames:
+        if dec.decode_planes(video.read(f)) is not None:
+            out.append(dec.defined())
+        if dec.failed:
+            break
+    video.close()
+    return out
+
+
+def check_equal_cv2(path, n=None, frames=None, read=cv2_rgb,
+                    defined_only=False) -> dict:
+    """Every frame through MediaSource equals cv2's (``read``: cv2's
+    default read, or ``cv2_rgb_one_thread``), in cv2's count (``n`` if
+    given), and ``frames`` (the RGB written, for a lossless RGB stream)
+    where given; the decoder's stats.  With ``defined_only`` only the
+    pixels FFmpeg writes are compared (``port_defined``): the others hold
+    whatever FFmpeg's buffer held before."""
+    want = read(path)
     got = list(MediaSource(video_path=str(path), use_photos=False,
                            prefetch=3))
     assert len(got) == len(want)
     if n is not None:
         assert len(got) == n
-    for a, b in zip(got, want):
+    masks = port_defined(path) if defined_only else [None] * len(got)
+    assert len(masks) == len(got)
+    for a, b, m in zip(got, want, masks):
+        if m is not None:
+            a, b = a[m], b[m]
         np.testing.assert_array_equal(a, b)
     if frames is not None:
         for a, f in zip(got, frames):
@@ -404,7 +427,14 @@ def test_random_damage_matches_cv2_or_raises_documented_errors(tmp_path):
     """Thirty streams with random bytes of their packets flipped or cut:
     the port gives cv2's frames and count and raises nothing (a record
     that does not parse, the one documented error, is
-    test_record_crc_mismatch_fails_as_ffmpeg's)."""
+    test_record_crc_mismatch_fails_as_ffmpeg's).  The frames are held to
+    cv2 on one thread (``cv2_rgb_one_thread``), which equals cv2's default
+    read on each stream before its damage: on streams with a packet cut
+    short the default read's threads give whole slices that differ from
+    one read to the next.  Only the pixels FFmpeg writes are compared
+    (``port_defined``): where a slice's data runs out FFmpeg leaves its
+    buffer's earlier contents, which other decodes in the process set.
+    The count is the default read's too."""
     rng = np.random.default_rng(7)
     for case in range(30):
         options = [{"level": "1", "coder": "0"}, {"level": "3",
@@ -412,6 +442,12 @@ def test_random_damage_matches_cv2_or_raises_documented_errors(tmp_path):
                    {"level": "3", "slices": "6", "coder": "2",
                     "slicecrc": "0"}][case % 3]
         packets, extra = encode(pan(4, 48, 64, seed=case), options)
+        clean = write_stream(tmp_path / f"c{case}.avi", packets, extra, 64,
+                             48)
+        one, default = cv2_rgb_one_thread(clean), cv2_rgb(clean)
+        assert len(one) == len(default) == 4
+        for a, b in zip(one, default):
+            np.testing.assert_array_equal(a, b)
         for _ in range(int(rng.integers(1, 6))):
             k = int(rng.integers(0, len(packets)))
             p = bytearray(packets[k])
@@ -422,7 +458,8 @@ def test_random_damage_matches_cv2_or_raises_documented_errors(tmp_path):
             packets[k] = packets[k][:int(rng.integers(1, len(packets[k])))]
         path = write_stream(tmp_path / f"r{case}.avi", packets, extra, 64,
                             48)
-        check_equal_cv2(path)
+        check_equal_cv2(path, len(cv2_rgb(path)), read=cv2_rgb_one_thread,
+                        defined_only=True)
 
 
 def test_vfw_matroska_and_mov_entries(tmp_path):

@@ -73,6 +73,24 @@ def cv2_rgb(path):
         out.append(np.ascontiguousarray(f[..., ::-1]))
 
 
+def cv2_rgb_one_thread(path):
+    """``cv2_rgb`` with FFmpeg's decoder on one thread
+    (``CAP_PROP_N_THREADS`` 1): the reference for damaged streams, whose
+    frames FFmpeg's threads make vary from one read to the next (the
+    damaged slices of FFV1, the concealed VOPs of MPEG-4); undamaged, it
+    gives what the default read gives."""
+    cap = cv2.VideoCapture(str(path), cv2.CAP_FFMPEG,
+                           [cv2.CAP_PROP_N_THREADS, 1])
+    if not cap.isOpened():
+        return None
+    out = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            return out
+        out.append(np.ascontiguousarray(f[..., ::-1]))
+
+
 def cv2_luma(path, hw):
     """The decoded Y planes, as cv2's FFmpeg backend returns yuv420p with
     ``CAP_PROP_CONVERT_RGB=0``."""
@@ -603,15 +621,23 @@ def test_resync_marker_packet_header_extension(tmp_path, scene_frames):
 def test_data_partitioned_packets_raise_naming_the_tool(tmp_path,
                                                         scene_frames):
     """Video packets with data partitioning (libavcodec's
-    ``data_partitioning``): a ValueError naming it, not frames."""
+    ``data_partitioning``), which the port now decodes: every frame equal
+    to cv2's, each VOP's packets read in their partitions
+    (tests/test_torch_mpeg4_dp.py holds the tool in full)."""
     frames = [np.ascontiguousarray(cv2.resize(f, (128, 96)))
               for f in scene_frames[:3]]
     samples = _lavc_mpeg4(frames, {"ps": "200", "data_partitioning": "1"})
     path = tmp_path / "dp.avi"
     mjpeg.write_avi(str(path), samples, 128, 96, fourcc=b"FMP4")
-    assert len(cv2_rgb(path)) == 3
-    with pytest.raises(ValueError, match="data partitioning"):
-        list(MediaSource(video_path=str(path), use_photos=False))
+    want = cv2_rgb(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    dec = mpeg4.Decoder(b"", b"FMP4")
+    for sample in samples:
+        dec.decode(sample)
+    assert dec.stats()["partitioned_packets"] >= 3
 
 
 # ----------------------------------------------------------------- Xvid IDCT
@@ -767,11 +793,17 @@ def test_vol_writer_reproduces_the_fixture_vol():
 ])
 def test_vol_tools_not_decoded_raise(tmp_path, fields, tool):
     """The fixture's VOL with one tool switched on, in the MP4's esds and
-    in band in an XVID AVI (its first four samples).  Interlace, which the
-    port does not decode: ValueError naming it.  The Advanced Simple tools
-    it decodes (low_delay 0: the one-frame delay of a stream with B-VOPs;
-    quarter-pel and MPEG quantisation read into samples coded without
-    them): every frame equals cv2's."""
+    in band in an XVID AVI (its first four samples), each read into
+    samples coded without it: low_delay 0 (the one-frame delay of a stream
+    with B-VOPs), quarter-pel and MPEG quantisation: every frame equals
+    cv2's.  Interlace, which the port now decodes: each VOP header is read
+    with top_field_first and alternate_vertical_scan_flag, which these
+    samples lack, so every VOP decodes as damage, which libavcodec
+    conceals its own way (and cv2 returns uninitialised memory for frames
+    FFmpeg flags interlaced): the port gives libavcodec's own decode's
+    (``lavc_decode``) frame count, concealing each VOP
+    (tests/test_torch_mpeg4_interlace.py holds interlaced coding in
+    full)."""
     video = mp4.Mp4Video(str(FIXTURE))
     extra = _swap_vol(video.extradata, vol(**fields))
     samples = [video.read(f) for f in video.frames[:4]]
@@ -783,11 +815,24 @@ def test_vol_tools_not_decoded_raise(tmp_path, fields, tool):
     mjpeg.write_avi(str(avi_path), [extra + samples[0]] + samples[1:], 1920,
                     1080, fourcc=b"XVID")
     if tool == "interlace":
-        with pytest.raises(ValueError, match=tool):
-            MediaSource(video_path=str(path), use_photos=False)
-        src = MediaSource(video_path=str(avi_path), use_photos=False)
-        with pytest.raises(ValueError, match=tool):
-            src.next_frame()
+        from test_torch_mpeg2 import lavc_decode
+
+        for p, data in ((path, [extra + samples[0]] + samples[1:]),
+                        (avi_path, [extra + samples[0]] + samples[1:4])):
+            if p == path:
+                video = mp4.Mp4Video(str(FIXTURE))
+                data = [extra + video.read(video.frames[0])] + [
+                    video.read(f) for f in video.frames[1:]]
+                video.close()
+            want = lavc_decode(data, codec="mpeg4")
+            got = list(MediaSource(video_path=str(p), use_photos=False))
+            assert len(got) == len(want) == len(data)
+            assert all(f.shape == (1080, 1920, 3) for f in got)
+            dec = mpeg4.Decoder(b"", b"XVID")
+            for sample in data:
+                dec.decode(sample)
+            assert dec.stats()["concealed_vops"] == len(data)
+            assert dec.stats()["interlaced_vops"] == len(data)
         return
     for p, n in ((path, 32), (avi_path, 4)):
         want = cv2_rgb(p)
@@ -958,7 +1003,10 @@ def test_damaged_vop_mid_stream_gives_cv2s_frame_count(tmp_path,
     its reader stops), else 10 (FFmpeg conceals); the port gives the same
     count, the frames before the damage equal, the damaged one as
     ``damaged_frame_holds_to_cv2`` states (the frames after it predict
-    from it, so they are not compared)."""
+    from it, so they are not compared).  The reference is cv2 on one
+    thread (``cv2_rgb_one_thread``): with FFmpeg's frame threads the
+    concealed frame varies from one read to the next; the count is the
+    default read's too."""
     frames = [np.ascontiguousarray(cv2.resize(f, (320, 240)))
               for f in scene_frames[:10]]
     src = tmp_path / "full.avi"
@@ -969,9 +1017,10 @@ def test_damaged_vop_mid_stream_gives_cv2s_frame_count(tmp_path,
     samples[4] = _damage(samples[4], how)
     path = tmp_path / "damaged.avi"
     mjpeg.write_avi(str(path), samples, 320, 240, fourcc=b"XVID")
-    want = cv2_rgb(path)
+    want = cv2_rgb_one_thread(path)
     got = list(MediaSource(video_path=str(path), use_photos=False))
-    assert len(got) == len(want) == (4 if how == "2bytes" else 10)
+    assert len(got) == len(want) == len(cv2_rgb(path)) == (
+        4 if how == "2bytes" else 10)
     for a, b in zip(got[:4], want):
         np.testing.assert_array_equal(a, b)
     if how != "2bytes":

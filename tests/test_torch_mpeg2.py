@@ -192,8 +192,8 @@ def swscale_y_read(y, u, v, colorspace: int) -> np.ndarray:
 
 def lavc_decode(packets, codec: str = "mpeg2video") -> list:
     """libavcodec's own decode of ``packets`` (one picture each) through
-    ctypes: the (Y, U, V) planes of each frame it gives, flushed at the
-    end."""
+    ctypes: the (Y, U, V) planes of each frame it gives (4:2:0, or 4:2:2
+    with chroma at full height), flushed at the end."""
     avu = ctypes.CDLL(glob.glob(str(LIBS / "libavutil*"))[0],
                       mode=ctypes.RTLD_GLOBAL)
     avc = ctypes.CDLL(glob.glob(str(LIBS / "libavcodec*"))[0],
@@ -224,10 +224,11 @@ def lavc_decode(packets, codec: str = "mpeg2video") -> list:
             ls = (ctypes.c_int * 8).from_address(frame + 64)
             w = ctypes.c_int.from_address(frame + 104).value
             h = ctypes.c_int.from_address(frame + 108).value
+            fmt = ctypes.c_int.from_address(frame + 116).value
+            ch = h if fmt == 4 else (h + 1) // 2      # AV_PIX_FMT_YUV422P
             planes = []
-            for k, (pw, ph) in enumerate(((w, h), ((w + 1) // 2,
-                                                   (h + 1) // 2),
-                                          ((w + 1) // 2, (h + 1) // 2))):
+            for k, (pw, ph) in enumerate(((w, h), ((w + 1) // 2, ch),
+                                          ((w + 1) // 2, ch))):
                 raw = ctypes.string_at(data[k], ls[k] * ph)
                 planes.append(np.frombuffer(raw, np.uint8).reshape(
                     ph, ls[k])[:, :pw].copy())
@@ -539,7 +540,8 @@ def _crafted_dual_prime() -> bytes:
 def test_refusals_name_the_tool(tmp_path, tool):
     """What the decoder does not read raises ValueError naming it: a field
     picture (picture_structure set to 1 by hand), dual-prime prediction
-    (a crafted macroblock), 4:2:2 and 4:4:4 (chroma_format set by hand),
+    (a crafted macroblock), 4:2:2 at an odd height (its conversion goes
+    through swscale's scaled path) and 4:4:4 (chroma_format set by hand),
     a sequence scalable extension (inserted), an MPEG-1 D-picture
     (picture_coding_type 4 by hand), and the colour matrices OpenCV
     converts with coefficients swscale_rgb.h does not carry."""
@@ -549,7 +551,8 @@ def test_refusals_name_the_tool(tmp_path, tool):
                      mpeg1=tool == "d_picture")
     es = b"".join(packets)
     match = {"field_picture": "field pictures", "dual_prime": "dual-prime",
-             "chroma_422": "4:2:2", "chroma_444": "4:4:4",
+             "chroma_422": "4:2:2 chroma at an odd height",
+             "chroma_444": "4:4:4",
              "scalable": "scalable extension", "d_picture": "D-pictures",
              "smpte240m": "SMPTE 240M", "fcc": "FCC",
              "bt2020nc": "BT.2020"}[tool]
@@ -557,11 +560,14 @@ def test_refusals_name_the_tool(tmp_path, tool):
         es = mpegmux.set_picture_coding(es, which={1}, picture_structure=1)
     elif tool == "dual_prime":
         es = es + _crafted_dual_prime()
-    elif tool.startswith("chroma"):
+    elif tool == "chroma_422":
+        es = b"".join(lavc_encode("mpeg2video", pan(4, 95, 128), {"bf": "0"},
+                                  pix_fmt="yuv422p")[0])
+    elif tool == "chroma_444":
         k = es.index(b"\x00\x00\x01\xb5")
         b = bytearray(es)
         assert b[k + 4] >> 4 == 1                       # sequence extension
-        b[k + 5] = b[k + 5] & ~0x06 | (4 if tool == "chroma_422" else 6)
+        b[k + 5] = b[k + 5] & ~0x06 | 6
         es = bytes(b)
     elif tool == "scalable":
         k = es.index(b"\x00\x00\x01\xb5") + 10
