@@ -280,21 +280,25 @@ Phases, each followed by one flushed line with the elapsed seconds:
               poses and map points bit for bit (the second stream, classic
               and hybrid runs are the warm ones).
 34. photos  — the photo readers the card has (io/photo.py: no libjpeg,
-              libpng, libtiff, libwebp or OpenCV): first every committed
-              fixture in testing/photo_fixtures/ (one per PNG, PNM, BMP,
-              TIFF and WebP variant family and EXIF case) through
-              ``MediaSource``, held to the committed sha256 of cv2's
-              decode; then the 32 frames written by testing/photos.py as
-              one glob cycling P6 PPM, 24-bit BMP, tiled Deflate TIFF with
-              the predictor, PackBits TIFF strips, 16-bit PNG (x257) and
-              all-Paeth PNG, names of one length: every decoded frame
-              equal to the rendered one, then the CLI on the glob under the
-              counting wrapper (three decode workers): exit 0, 32/32
-              cameras, poses.txt equal to the cli phase's byte for byte,
-              the cli phase's ``top2_batch`` launches and no other kernel;
-              the jpeg phase's first frame with an EXIF Orientation 6
-              APP1 must decode to the untagged decode turned a quarter
-              clockwise (as cv2 turns it); prints the decode ms per FHD
+              libpng, libtiff, libwebp, giflib or OpenCV): first every
+              committed fixture in testing/photo_fixtures/ (one per PNG,
+              PNM, BMP, TIFF, lossy, lossless and animated WebP and GIF
+              variant family and EXIF case) through ``MediaSource``, held
+              to the committed sha256 of cv2's decode; then the 32 frames
+              written by testing/photos.py as one glob cycling P6 PPM,
+              24-bit BMP, tiled Deflate TIFF with the predictor, PackBits
+              TIFF strips, 16-bit PNG (x257), all-Paeth PNG, lossless WebP
+              and animated lossless WebP, names of one length: every
+              decoded frame equal to the rendered one, then the CLI on the
+              glob under the counting wrapper (three decode workers): exit
+              0, 32/32 cameras, poses.txt equal to the cli phase's byte for
+              byte, the cli phase's ``top2_batch`` launches and no other
+              kernel; the jpeg phase's first frame with an EXIF
+              Orientation 6 APP1 must decode to the untagged decode turned
+              a quarter clockwise (as cv2 turns it); four frames quantised
+              to a fixed 256-entry palette and written as GIF must decode
+              to palette[index] exactly (a palette changes the frames, so
+              GIF stays out of the glob); prints the decode ms per FHD
               frame of each format on one thread and with three workers
               beside the tracking ms per frame.
 
@@ -2255,7 +2259,9 @@ PHOTO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def photo_writers():
     """The FHD glob's formats, cycled over the frames: (name, extension,
-    writer of testing/photos.py)."""
+    writer of testing/photos.py); every extension is three letters long
+    (``wbp`` for WebP: the readers sniff the bytes), so that the natural
+    sort keeps frame order."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.testing import photos
@@ -2271,7 +2277,9 @@ def photo_writers():
                                       rows_per_strip=64)),
         ("16-bit PNG", "png",
          lambda f: photos.encode_png16(f.astype(np.uint16) * 257)),
-        ("all-Paeth PNG", "png", photos.encode_png_paeth))
+        ("all-Paeth PNG", "png", photos.encode_png_paeth),
+        ("lossless WebP", "wbp", photos.encode_webp_lossless),
+        ("animated lossless WebP", "wbp", photos.encode_webp_animated))
 
 
 def held_to_photo_fixtures() -> int:
@@ -2296,6 +2304,29 @@ def held_to_photo_fixtures() -> int:
     return len(table)
 
 
+def timed_decodes(name: str, paths: list) -> tuple[float, float]:
+    """Each of ``paths`` decoded by io/photo.py on one thread, then all of
+    them through ``MediaSource`` with three workers → (ms per file on one
+    thread, ms per file with three workers)."""
+    from slam_indoor_code_tpu_torch.io import photo
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    t = time.perf_counter()
+    for p in paths:
+        photo.imread_rgb(p)
+    one_ms = 1e3 * (time.perf_counter() - t) / len(paths)
+    t = time.perf_counter()
+    got = list(MediaSource(photos_pattern=os.path.join(
+        os.path.dirname(paths[0]), "*"), threads=3))
+    three_ms = 1e3 * (time.perf_counter() - t) / len(paths)
+    if len(got) != len(paths):
+        fail(f"photos: {name}: {len(got)} frames for {len(paths)}")
+    return one_ms, three_ms
+
+
+N_GIFS = 4
+
+
 def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
     """The committed photo fixtures held to cv2's decode; the 32 frames as
     one mixed-format glob (photo_writers, cycled; names of one length so
@@ -2303,9 +2334,10 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
     the rendered one, then the CLI on it (cli_counted): 32/32 cameras,
     poses.txt equal to the cli phase's, its ``top2_batch`` launches; the
     jpeg phase's first frame with EXIF Orientation 6 turned as cv2 turns
-    it; each format's decode timed on one thread and with three workers →
-    (counts, {format: (ms on one thread, ms with 3 workers)}, tracking
-    ms per frame)."""
+    it; N_GIFS frames quantised to the fixed 3-3-2 palette as GIF, each
+    decoded to palette[index]; each format's decode timed on one thread
+    and with three workers → (counts, {format: (ms on one thread, ms with
+    3 workers)}, tracking ms per frame)."""
     import glob
 
     import numpy as np
@@ -2323,7 +2355,8 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
         mixed = os.path.join(root, "photos")
         os.makedirs(mixed)
         by_kind = [os.path.join(root, f"kind{k}") for k in range(len(kinds))]
-        for d in by_kind:
+        gifs = os.path.join(root, "gif")
+        for d in by_kind + [gifs]:
             os.makedirs(d)
         t = time.perf_counter()
         for i, f in enumerate(frames):
@@ -2334,6 +2367,12 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
                 with open(os.path.join(d, name), "wb") as fh:
                     fh.write(data)
         write_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+        palette_images = []
+        for i, f in enumerate(frames[:N_GIFS]):
+            index, palette = photos.quantize_332(f)
+            palette_images.append(palette[index])
+            with open(os.path.join(gifs, f"frame_{i:02d}.gif"), "wb") as fh:
+                fh.write(photos.encode_gif(index, palette))
         pattern = os.path.join(mixed, "frame_*")
         decoded = list(MediaSource(photos_pattern=pattern, threads=3))
         if len(decoded) != len(frames) or not all(
@@ -2341,25 +2380,20 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
             fail(f"photos: {len(decoded)} frames decoded for {len(frames)}, "
                  "or one differs from its rendered frame")
         del decoded
+        gif_paths = sorted(glob.glob(os.path.join(gifs, "*")))
+        for p, want in zip(gif_paths, palette_images):
+            got = photo.imread_rgb(p)
+            if got is None or not np.array_equal(got, want):
+                fail(f"photos: {os.path.basename(p)} does not decode to "
+                     "palette[index]")
         cfg = dataclasses.replace(headline_config(os.path.join(root, "out")),
                                   photosPathPattern=pattern)
         n, n_cams, ate_pct, poses, run_s = cli_counted("photos", cfg, root,
                                                        scene)
-        times = {}
-        for k, (name, _, _) in enumerate(kinds):
-            paths = sorted(glob.glob(os.path.join(by_kind[k], "*")))
-            t = time.perf_counter()
-            for p in paths:
-                photo.imread_rgb(p)
-            one_ms = 1e3 * (time.perf_counter() - t) / len(paths)
-            t = time.perf_counter()
-            got = list(MediaSource(photos_pattern=os.path.join(by_kind[k],
-                                                               "*"),
-                                   threads=3))
-            three_ms = 1e3 * (time.perf_counter() - t) / len(paths)
-            if len(got) != len(paths):
-                fail(f"photos: {name}: {len(got)} frames for {len(paths)}")
-            times[name] = (one_ms, three_ms)
+        times = {name: timed_decodes(name, sorted(glob.glob(
+            os.path.join(by_kind[k], "*")))) for k, (name, _, _) in
+            enumerate(kinds)}
+        times["GIF, 3-3-2 palette"] = timed_decodes("GIF", gif_paths)
     if n_cams != N_FRAMES:
         fail(f"photos: {n_cams}/{N_FRAMES} cameras")
     if poses != cli_poses:
@@ -2378,11 +2412,13 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
     per = "; ".join(f"{name} {a:.3f} ms on one thread, {b:.3f} ms with 3 "
                     f"workers" for name, (a, b) in times.items())
     print(f"photos: {held} fixtures equal cv2's decode (sha256) through "
-          f"MediaSource ({decoder}); {len(frames)} FHD frames in six formats "
-          f"decode to the rendered frames; exit 0, cameras {n_cams}/{N_FRAMES}  ATE "
-          f"{ate_pct:.4f}% of extent  poses.txt equals the cli phase's byte "
-          f"for byte  launches {json.dumps(n)}  EXIF 6 turns the FHD JPEG "
-          f"to {turned.shape[1]}x{turned.shape[0]} as cv2 does; decode per "
+          f"MediaSource ({decoder}); {len(frames)} FHD frames in "
+          f"{len(kinds)} formats decode to the rendered frames; "
+          f"{len(gif_paths)} FHD GIFs decode to palette[index]; exit 0, "
+          f"cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  "
+          f"poses.txt equals the cli phase's byte for byte  launches "
+          f"{json.dumps(n)}  EXIF 6 turns the FHD JPEG to "
+          f"{turned.shape[1]}x{turned.shape[0]} as cv2 does; decode per "
           f"FHD frame ({os.cpu_count()} cores): {per}; tracking "
           f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s; numpy "
           f"writing {write_ms:.1f} ms per frame; phase "

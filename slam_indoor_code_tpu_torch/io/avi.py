@@ -25,7 +25,8 @@ of the three containers, MPEG program streams (io/mpegps.py), MPEG
 transport streams (io/mpegts.py), MPEG-1/2 video elementary streams
 (io/mpeg12.py) and raw H.263 streams (io/h263.py); other codecs raise
 ``NotImplementedError`` naming them, Intel's ``I263`` and Sorenson's
-``FLV1`` (H.263 dialects) by name.
+``FLV1`` (H.263 dialects) by name, and so does Flash Video (``.flv``, its
+``FLV\x01`` signature) with the codec of its first video tag.
 """
 
 from __future__ import annotations
@@ -81,6 +82,10 @@ def open_video(path: str):
     if (h263.is_elementary_stream(head)
             or path.lower().endswith((".h263", ".263"))):
         return h263.EsVideo.open(path)
+    if head[:4] == FLV_MAGIC:
+        raise NotImplementedError(
+            f"Flash Video (.flv) with {flv_codec(head)} video is not read "
+            "by the port")
     container = mpeg_container(head)
     if container == "MPEG program stream":
         return mpegps.open_video(path)
@@ -92,6 +97,24 @@ def open_video(path: str):
 
 
 _HEAD = 1 << 16       # a DVD pack is 2048 bytes; a TS layout needs ~2 kB
+FLV_MAGIC = b"FLV\x01"
+# an FLV video tag's codec id -> its name
+FLV_CODECS = {2: "Sorenson Spark (FLV1, Flash Video H.263)",
+              3: "Screen Video", 4: "On2 VP6", 5: "On2 VP6 with alpha",
+              6: "Screen Video 2", 7: "H.264"}
+
+
+def flv_codec(head: bytes) -> str:
+    """The name of the video codec of the first video tag in ``head``, the
+    start of an FLV file (header, then tags of type, 24-bit size, time and
+    stream id, each followed by the previous tag's size)."""
+    pos = 9 + 4 if len(head) < 9 else int.from_bytes(head[5:9], "big") + 4
+    while pos + 12 <= len(head):
+        kind, size = head[pos], int.from_bytes(head[pos + 1:pos + 4], "big")
+        if kind == 9 and size:
+            return FLV_CODECS.get(head[pos + 11] & 0x0F, "an unknown codec's")
+        pos += 11 + size + 4
+    return "no"
 
 
 def mpeg_container(head: bytes) -> Optional[str]:

@@ -2,16 +2,17 @@
 gives it in colour: the format found by its first bytes, as OpenCV finds
 it, then decoded by the port's own reader (JPEG: io/jpeg.py; PNG:
 io/png.py; BMP: io/bmp.py; PBM/PGM/PPM/PAM: io/pnm.py; TIFF: io/tiff.py;
-lossy WebP: io/webp.py), and turned by the EXIF orientation where OpenCV
-turns it (io/exif.py: a JPEG's APP1, a PNG's ``eXIf``, a WebP's ``EXIF``;
-a TIFF's own Orientation tag in io/tiff.py).
+lossy, lossless and animated WebP: io/webp.py; GIF: io/gif.py), and turned
+by the EXIF orientation where OpenCV turns it (io/exif.py: a JPEG's APP1, a
+PNG's ``eXIf``, a WebP's ``EXIF``; a TIFF's own Orientation tag in
+io/tiff.py).
 
 Three outcomes besides a frame:
 
-- a format that OpenCV reads and the port does not yet (lossless or
-  animated WebP, GIF, JPEG 2000, AVIF, Radiance HDR, PFM, Sun raster,
-  JPEG-compressed TIFF) raises ``NotImplementedError`` naming it, which
-  the photo sequence passes on to its caller;
+- a format that OpenCV reads and the port does not yet (JPEG 2000, AVIF,
+  Radiance HDR, PFM, Sun raster, JPEG-compressed, YCbCr and CMYK TIFF)
+  raises ``NotImplementedError`` naming it, which the photo sequence
+  passes on to its caller;
 - a damaged file of a format the port reads gives None (and is skipped,
   as OpenCV's ``imread`` gives an empty image);
 - bytes that are no image OpenCV knows give None too.
@@ -23,13 +24,11 @@ from typing import Optional
 
 import numpy as np
 
-from . import bmp, exif, jpeg, png, pnm, tiff, webp
+from . import bmp, exif, gif, jpeg, png, pnm, tiff, webp
 
 _SPACE = b" \t\n\v\f\r"
 # leading bytes -> the name of a format OpenCV reads that the port does not
 _REFUSED = (
-    (b"GIF87a", "GIF"),
-    (b"GIF89a", "GIF"),
     (b"\xff\x4f\xff\x51", "JPEG 2000"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (b"#?RADIANCE", "Radiance HDR"),
@@ -44,8 +43,8 @@ def _refused(name: str) -> NotImplementedError:
 
 def sniff(head: bytes) -> Optional[str]:
     """The format of a file that starts with ``head`` (its first 32 bytes
-    or more): "jpeg", "png", "bmp", "pnm", "tiff" or "webp"; None for
-    bytes that are no image OpenCV reads.  Raises ``NotImplementedError``
+    or more): "jpeg", "png", "bmp", "pnm", "tiff", "webp" or "gif"; None
+    for bytes that are no image OpenCV reads.  Raises ``NotImplementedError``
     for a format OpenCV reads that the port does not."""
     for magic, name in _REFUSED:
         if head.startswith(magic):
@@ -68,6 +67,8 @@ def sniff(head: bytes) -> Optional[str]:
         return "tiff"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "webp"
+    if head[:6] in gif.MAGICS:
+        return "gif"
     return None
 
 
@@ -90,6 +91,8 @@ def decode(data: bytes) -> Optional[np.ndarray]:
                 img, block = webp.decode(data)
             elif kind == "tiff":
                 img, block = tiff.decode(data), None
+            elif kind == "gif":
+                img, block = gif.decode(data), None
             else:
                 img, block = (bmp if kind == "bmp" else pnm).decode(data), None
         except ValueError:

@@ -3,11 +3,13 @@ with no image encoder: binary PPM (P6), 24-bit BMP, TIFF (none, Deflate
 or PackBits compression, with or without the horizontal predictor, in
 strips or tiles, chunky or planar, 8 or 16-bit, either byte order, classic
 or BigTIFF, with an Orientation tag), 16-bit RGB PNG and 8-bit PNG with
-every row filtered Paeth, and an EXIF APP1 segment put into a JPEG.  Each
-``encode_*`` returns the file's bytes."""
+every row filtered Paeth, lossless WebP (still and animated), GIF from an
+index image and its palette, and an EXIF APP1 segment put into a JPEG.
+Each ``encode_*`` returns the file's bytes."""
 
 from __future__ import annotations
 
+import heapq
 import struct
 import zlib
 
@@ -219,3 +221,226 @@ def insert_exif(jpeg: bytes, orientation: int,
     body = b"Exif\0\0" + exif_block(orientation, big_endian)
     return (jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
             + jpeg[2:])
+
+
+def _pack_bits(values, lengths) -> bytes:
+    """The ``values`` (each below 2**its ``lengths`` bits, at most 64) one
+    after the other, least significant bit first, as bytes (the last one
+    padded with zeros)."""
+    v = np.ascontiguousarray(values, np.uint64)
+    n = np.asarray(lengths, np.int64)
+    if not len(v):
+        return b""
+    start = np.cumsum(n) - n
+    total = int(start[-1] + n[-1])
+    words = np.zeros(total // 64 + 2, np.uint64)
+    word, off = start >> 6, (start & 63).astype(np.uint64)
+    low = v << off
+    high = np.where(off == 0, np.uint64(0), v >> ((64 - off) & 63))
+    runs = np.flatnonzero(np.diff(word, prepend=-1))  # values of one word
+    words[word[runs]] |= np.bitwise_or.reduceat(low, runs)
+    words[word[runs] + 1] |= np.bitwise_or.reduceat(high, runs)
+    return words.astype("<u8").view(np.uint8)[:(total + 7) // 8].tobytes()
+
+
+def _huffman_lengths(counts, limit: int) -> np.ndarray:
+    """Code lengths, none over ``limit``, of a Huffman code for the symbol
+    ``counts`` (0 for a symbol not used; 1 for the one symbol used)."""
+    counts = np.asarray(counts, np.int64)
+    used = np.flatnonzero(counts)
+    lengths = np.zeros(len(counts), np.int64)
+    if len(used) == 1:
+        lengths[used] = 1
+        return lengths
+    c = counts[used]
+    while True:
+        depth = np.zeros(len(c), np.int64)
+        heap = [(int(n), i, [i]) for i, n in enumerate(c)]
+        heapq.heapify(heap)
+        while len(heap) > 1:
+            n1, i1, m1 = heapq.heappop(heap)
+            n2, _, m2 = heapq.heappop(heap)
+            depth[m1 + m2] += 1
+            heapq.heappush(heap, (n1 + n2, i1, m1 + m2))
+        if depth.max() <= limit:
+            lengths[used] = depth
+            return lengths
+        c = (c + 1) // 2                  # flatten the counts and retry
+
+
+def _reversed_codes(lengths: np.ndarray) -> np.ndarray:
+    """The canonical codes of ``lengths`` (by length, then symbol), each
+    bit-reversed to be written least significant bit first; 0 bits long
+    where only one symbol is used."""
+    codes = np.zeros(len(lengths), np.uint64)
+    code = 0
+    for length in range(1, int(lengths.max()) + 1):
+        for s in np.flatnonzero(lengths == length):
+            codes[s] = int(format(code, f"0{length}b")[::-1], 2)
+            code += 1
+        code <<= 1
+    return codes
+
+
+_CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12,
+                      13, 14, 15)
+_SELECT = 11                    # the VP8L predictor the writer uses
+_TILE_BITS = 9                  # one mode per 512x512 tile
+
+
+def _simple_code(symbol: int) -> list:
+    """A VP8L simple prefix code of one 8-bit symbol (read in 0 bits)."""
+    return [(1, 1), (0, 1), (1, 1), (symbol, 8)]
+
+
+def _normal_code(lengths: np.ndarray) -> list:
+    """A VP8L normal prefix code of ``lengths``: all 19 code-length code
+    lengths, then every symbol's length through that code (no repeats)."""
+    cl = _huffman_lengths(np.bincount(lengths, minlength=19), 7)
+    out = [(0, 1), (19 - 4, 4)]
+    out += [(int(cl[k]), 3) for k in _CODE_LENGTH_ORDER]
+    out.append((0, 1))                   # max_symbol: the whole alphabet
+    if np.count_nonzero(cl) > 1:
+        rev = _reversed_codes(cl)
+        out += [(int(rev[n]), int(cl[n])) for n in lengths]
+    return out
+
+
+def _select_residuals(s: np.ndarray) -> np.ndarray:
+    """``s`` [H,W,3] int16 less its VP8L predictions: black for the first
+    pixel, the left one along the first row, the one above down the first
+    column, and mode 11 (select between left and above by their distance
+    to left + above - above-left) elsewhere; in 0..255."""
+    left = np.zeros_like(s)
+    left[:, 1:] = s[:, :-1]
+    top = np.zeros_like(s)
+    top[1:] = s[:-1]
+    tl = np.zeros_like(s)
+    tl[1:, 1:] = s[:-1, :-1]
+    d = (np.abs(left - tl) - np.abs(top - tl)).sum(-1, keepdims=True)
+    pred = np.where(d <= 0, top, left)
+    pred[0, 1:] = s[0, :-1]
+    pred[1:, 0] = s[:-1, 0]
+    pred[0, 0] = 0
+    return (s - pred) & 255
+
+
+def vp8l_stream(rgb: np.ndarray) -> bytes:
+    """The VP8L bitstream (a ``VP8L`` chunk's payload) of ``rgb`` [H,W,3]
+    uint8, opaque: the subtract-green transform, then the predictor
+    transform (mode 11 in every tile), then normal prefix codes for green,
+    red and blue, no LZ77, colour cache or meta prefix codes."""
+    h, w, _ = rgb.shape
+    s = np.asarray(rgb, np.int16)
+    s = np.stack([s[..., 0] - s[..., 1], s[..., 1], s[..., 2] - s[..., 1]],
+                 -1) & 255                       # subtract green
+    res = _select_residuals(s)
+    head = [(0x2F, 8), (w - 1, 14), (h - 1, 14), (0, 1), (0, 3),
+            (1, 1), (2, 2),                       # subtract green
+            (1, 1), (0, 2), (_TILE_BITS - 2, 3),  # predictor, its modes:
+            (0, 1), *_simple_code(_SELECT), *_simple_code(0),
+            *_simple_code(0), *_simple_code(255), *_simple_code(0),
+            (0, 1),                               # no more transforms
+            (0, 1), (0, 1)]                       # no cache, no meta codes
+    values, lengths = [], []
+    for ch, size in ((1, 280), (0, 256), (2, 256)):  # green, red, blue
+        ln = _huffman_lengths(np.bincount(res[..., ch].ravel(),
+                                          minlength=size), 15)
+        head += _normal_code(ln)
+        if np.count_nonzero(ln) > 1:
+            sym = res[..., ch].ravel()
+            values.append(_reversed_codes(ln)[sym])
+            lengths.append(ln[sym])
+    head += _simple_code(0) + _simple_code(0)    # alpha residual 0; distance
+    v = np.zeros(h * w, np.uint64)
+    n = np.zeros(h * w, np.int64)
+    for val, ln in zip(values, lengths):        # green, red, blue per pixel
+        v |= val << n.astype(np.uint64)
+        n += ln
+    return _pack_bits(np.concatenate([np.array([x for x, _ in head],
+                                               np.uint64), v]),
+                      np.concatenate([np.array([b for _, b in head],
+                                               np.int64), n]))
+
+
+def _riff_webp(chunks) -> bytes:
+    body = b"WEBP" + b"".join(
+        kind + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+        for kind, data in chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def encode_webp_lossless(rgb: np.ndarray) -> bytes:
+    """Lossless WebP (a ``VP8L`` chunk alone) of ``rgb`` [H,W,3] uint8
+    (``vp8l_stream``)."""
+    return _riff_webp([(b"VP8L", vp8l_stream(rgb))])
+
+
+def _u24(v: int) -> bytes:
+    return int(v).to_bytes(3, "little")
+
+
+def encode_webp_animated(rgb: np.ndarray, at: tuple[int, int] = (0, 0),
+                         canvas: tuple[int, int] | None = None) -> bytes:
+    """Animated WebP (``VP8X``, ``ANIM``, two ``ANMF``) of two lossless
+    frames on a canvas of ``canvas`` (h, w; by default just big enough):
+    ``rgb`` [H,W,3] uint8 at ``at`` (x, y, both even), then its top-left
+    quarter upside down at the canvas's origin.  What a reader shows
+    first is ``rgb`` on a black canvas."""
+    h, w, _ = rgb.shape
+    ch, cw = canvas or (at[1] + h, at[0] + w)
+    part = np.ascontiguousarray(rgb[:max(1, h // 2), :max(1, w // 2)][::-1])
+    frames = []
+    for (x, y), img in ((at, rgb), ((0, 0), part)):
+        fh, fw, _ = img.shape
+        stream = vp8l_stream(img)
+        frames.append((b"ANMF", _u24(x // 2) + _u24(y // 2) + _u24(fw - 1)
+                       + _u24(fh - 1) + _u24(100) + bytes([0x02])
+                       + b"VP8L" + struct.pack("<I", len(stream)) + stream
+                       + b"\0" * (len(stream) & 1)))
+    vp8x = bytes([0x02, 0, 0, 0]) + _u24(cw - 1) + _u24(ch - 1)
+    return _riff_webp([(b"VP8X", vp8x), (b"ANIM", bytes(6))] + frames)
+
+
+def quantize_332(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``rgb`` [H,W,3] uint8 as indices into one fixed 256-entry palette
+    (3 bits of red, 3 of green, 2 of blue, each entry at the middle of its
+    bin) → (index [H,W] uint8, palette [256,3] uint8)."""
+    c = np.asarray(rgb, np.uint8)
+    index = ((c[..., 0] >> 5) << 5 | (c[..., 1] >> 5) << 2
+             | c[..., 2] >> 6).astype(np.uint8)
+    i = np.arange(256)
+    palette = np.stack([(i >> 5) * 32 + 16, (i >> 2 & 7) * 32 + 16,
+                        (i & 3) * 64 + 32], 1).astype(np.uint8)
+    return index, palette
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    """GIF data sub-blocks (255 bytes each, the last shorter) and the
+    block terminator."""
+    a = np.frombuffer(data, np.uint8)
+    full = len(a) // 255
+    body = np.concatenate([np.full((full, 1), 255, np.uint8),
+                           a[:full * 255].reshape(full, 255)], 1).tobytes()
+    rest = a[full * 255:].tobytes()
+    return body + (bytes([len(rest)]) + rest if rest else b"") + b"\0"
+
+
+def encode_gif(index: np.ndarray, palette: np.ndarray) -> bytes:
+    """GIF89a of the index image ``index`` [H,W] uint8 with ``palette``
+    [256,3] uint8 as its global colour table: LZW at a minimum code size of
+    8 whose codes are all literals, a clear code before every 254 of them
+    so that every code stays 9 bits wide, and the end code."""
+    h, w = index.shape
+    flat = np.asarray(index, np.int64).ravel()
+    run = 254
+    codes = np.empty(len(flat) + -(-len(flat) // run) + 1, np.uint64)
+    i = np.arange(len(flat))
+    codes[i + i // run + 1] = flat
+    codes[np.arange(0, len(codes) - 1, run + 1)] = 256    # clear
+    codes[-1] = 257                                       # end
+    data = _pack_bits(codes, np.full(len(codes), 9))
+    return (b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF7, 0, 0)
+            + np.ascontiguousarray(palette, np.uint8).tobytes()
+            + b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08"
+            + _sub_blocks(data) + b"\x3b")

@@ -611,6 +611,22 @@ def test_h263_dialects_refused_by_name(tmp_path, fourcc, ext):
         avi.open_video(str(path))
 
 
+def test_flash_video_is_refused_naming_it_and_its_codec(tmp_path):
+    """cv2's ``FLV1`` writer into ``.flv`` (Flash Video, Sorenson Spark):
+    cv2 reads every frame back; the port names the container and the codec
+    (it once said the file did not open)."""
+    path = tmp_path / "spark.flv"
+    frames = pan(3, 96, 128)
+    write_cv2_video(path, frames, "FLV1")
+    assert path.read_bytes()[:4] == b"FLV\x01"
+    assert len(cv2_rgb(path)) == 3
+    with pytest.raises(NotImplementedError,
+                       match=r"Flash Video.*Sorenson Spark"):
+        avi.open_video(str(path))
+    with pytest.raises(NotImplementedError, match="Flash Video"):
+        list(MediaSource(video_path=str(path), use_photos=False))
+
+
 def test_short_video_header_in_mp4v_refused(tmp_path):
     """H.263 pictures in an ``mp4v`` sample entry (MPEG-4's short video
     header): FFmpeg's mpeg4 decoder refuses every sample, so cv2 reads no

@@ -40,10 +40,11 @@ def test_every_port_module_imports_without_jax():
 @pytest.mark.parametrize("pattern", [
     r"CDLL\([^)]*(libav|libsw|avcodec|avformat|swscale)",
     r"find_library\([^)]*(av|sw)(codec|format|util|scale)",
+    r"CDLL\([^)]*(webp|gif)",
 ])
 def test_no_port_source_loads_ffmpeg(pattern):
-    """No port source (nor the card scripts) loads an FFmpeg library
-    through ctypes: its decoders are its own."""
+    """No port source (nor the card scripts) loads an FFmpeg library, nor
+    libwebp or giflib, through ctypes: its decoders are its own."""
     rx = re.compile(pattern)
     hits = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
             if rx.search(p.read_text())]

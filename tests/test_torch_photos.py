@@ -700,21 +700,15 @@ def _refused_files(images):
     rgb = images[SIZES[0]]
     bgr = rgb[..., ::-1]
     enc = {ext: cv2.imencode(ext, src)[1].tobytes() for ext, src in (
-        (".gif", bgr), (".jp2", bgr), (".avif", bgr), (".ras", bgr),
+        (".jp2", bgr), (".avif", bgr), (".ras", bgr),
         (".hdr", bgr.astype(np.float32) / 255),
         (".pfm", bgr.astype(np.float32) / 255))}
-    frames = [Image.fromarray(rgb), Image.fromarray(rgb[::-1].copy())]
     return {
-        "GIF": enc[".gif"],
         "JPEG 2000": enc[".jp2"],
         "AVIF": enc[".avif"],
         "Sun raster": enc[".ras"],
         "Radiance HDR": enc[".hdr"],
         "PFM": enc[".pfm"],
-        "lossless WebP": cv2.imencode(".webp", bgr, [
-            cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes(),
-        "animated WebP": pil_bytes(frames[0], "WEBP", save_all=True,
-                                   append_images=frames[1:], quality=80),
         "JPEG-compressed TIFF": cv2.imencode(".tiff", bgr, [
             cv2.IMWRITE_TIFF_COMPRESSION, 7])[1].tobytes(),
         "YCbCr TIFF": pil_bytes(Image.fromarray(rgb).convert("YCbCr"),
@@ -815,6 +809,11 @@ def fixture_files() -> dict:
     block = photos.exif_block(8, True)
     paeth = photos.encode_png_paeth(rgb)
     i = paeth.index(b"IDAT") - 4
+    blur = cv2.GaussianBlur(rng.normal(0, 1, (48, 64, 3)), (0, 0), 4)
+    smooth = (255 * (blur - blur.min()) / np.ptp(blur)).astype(np.uint8)
+    border = np.full(rgb.shape[:2], 255, np.uint8)
+    border[:10], border[:, :12] = 0, 0
+    q256 = Image.fromarray(rgb).quantize(256)
     return {
         "png16_rgb.png": enc(".png", g16),
         "png_palette_trns_adam7.png": _pil_png(rgb, "P-trns", 1),
@@ -853,6 +852,31 @@ def fixture_files() -> dict:
         "webp_q80.webp": enc(".webp", bgr, (cv2.IMWRITE_WEBP_QUALITY, 80)),
         "webp_alpha_exif6.webp": pil_bytes(Image.fromarray(np.dstack(
             [rgb, rgb[..., :1]])), "WEBP", quality=60, exif=ex6.tobytes()),
+        "webp_lossless_cv2_cache.webp": enc(".webp", bgr, (
+            cv2.IMWRITE_WEBP_QUALITY, 101)),
+        "webp_lossless_pil_predictor.webp": pil_bytes(
+            Image.fromarray(smooth), "WEBP", lossless=True, method=6,
+            quality=100),
+        "webp_lossless_palette4.webp": pil_bytes(
+            Image.fromarray(rgb).quantize(4), "WEBP", lossless=True),
+        "webp_lossless_exif6.webp": pil_bytes(Image.fromarray(rgb), "WEBP",
+                                              lossless=True,
+                                              exif=ex6.tobytes()),
+        "webp_anim_lossy_offset.webp": pil_bytes(
+            Image.fromarray(np.dstack([rgb, border])), "WEBP", save_all=True,
+            append_images=[Image.fromarray(rgb[::-1].copy())], quality=70),
+        "webp_anim_lossless_offset.webp": photos.encode_webp_animated(
+            rgb, at=(6, 4), canvas=(71, 89)),
+        "gif_interlaced.gif": pil_bytes(q256, "GIF", interlace=True),
+        "gif_local_palette.gif": pil_bytes(q256, "GIF",
+                                           include_color_table=True,
+                                           interlace=False),
+        "gif_transparent_bg.gif": pil_bytes(Image.fromarray(rgb).quantize(16),
+                                            "GIF", transparency=1,
+                                            background=3),
+        "gif_code_size2.gif": pil_bytes(Image.fromarray(rgb).quantize(4),
+                                        "GIF"),
+        "gif_cv2.gif": enc(".gif", bgr),
         "jpeg_exif6_ii.jpg": photos.insert_exif(enc(".jpg", bgr), 6),
         "jpeg_exif5_mm.jpg": photos.insert_exif(enc(".jpg", bgr), 5, True),
     }
@@ -929,7 +953,7 @@ def test_mixed_glob_equals_jax_and_refusal_reaches_the_caller(tmp_path,
                                                               no_native):
     """A mixed-format glob (the six writers, a cv2 WebP, a JPEG turned by
     EXIF) through both MediaSources with the native readers off: the same
-    frames in the same order.  Then a GIF at its end raises
+    frames in the same order.  Then a Sun raster at its end raises
     NotImplementedError from next_frame, where the JAX package (cv2)
     reads it; and a damaged file in its place is skipped (the JAX
     package's pure-Python reader stops at it instead; its native one
@@ -950,14 +974,14 @@ def test_mixed_glob_equals_jax_and_refusal_reaches_the_caller(tmp_path,
     for a, b in zip(got[:6], frames):
         np.testing.assert_array_equal(a, b)
     assert got[7].shape[:2] == frames[7].shape[:2][::-1]
-    gif = tmp_path / "frame_08.gif"
-    gif.write_bytes(cv2.imencode(".gif", frames[0])[1].tobytes())
+    ras = tmp_path / "frame_08.ras"
+    ras.write_bytes(cv2.imencode(".ras", frames[0])[1].tobytes())
     assert len(list(JMediaSource(photos_pattern=pattern, threads=3))) == 9
     src = MediaSource(photos_pattern=pattern, threads=3)
-    with pytest.raises(NotImplementedError, match="GIF"):
+    with pytest.raises(NotImplementedError, match="Sun raster"):
         for _ in range(10):
             src.next_frame()
-    gif.unlink()
+    ras.unlink()
     (tmp_path / "frame_05.png").write_bytes(png.SIGNATURE + b"broken")
     got = list(MediaSource(photos_pattern=pattern, threads=3))
     assert len(got) == 7
