@@ -121,9 +121,11 @@ Phases, each followed by one flushed line with the elapsed seconds:
               set to 0 before it and 600 s of its own), which pays the
               interpreter's, PyTorch's and the card's start once: lossless
               first (a cold run, as a user's), then mp4, asp, webm, vp9,
-              mpeg2 and h263 (warm), then lossless again (warm, to measure
-              what the shared process saves); each phase below holds its
-              run and prints whether it was cold or warm.
+              mpeg2, h263, flv, mpng and the photos glob (warm), then
+              lossless again (warm, to measure what the shared process
+              saves); each phase below holds its run and prints whether it
+              was cold or warm.  The photos glob (phase 34's, written on
+              three threads) and the mpng AVI are written before it.
 19. mp4     — the committed fixture testing/video_fixtures/headline_mp4v.mp4
               (the 32 frames as OpenCV's ``mp4v`` writer makes them; the
               card has no encoder): the container parsed and timed, every
@@ -202,6 +204,27 @@ Phases, each followed by one flushed line with the elapsed seconds:
               use; then the CLI with ``usePhotosCycle=false`` on the .3gp:
               the jpeg phase's checks; prints the demux time and the decode
               ms per FHD frame beside the tracking ms per frame.
+    flv     — Flash Video: the committed fixture
+              testing/video_fixtures/headline_flv1.flv (the 32 frames as
+              cv2 decodes headline_mp4v.mp4, coded by libavcodec's flv
+              encoder, Sorenson Spark, at a fixed quantiser of 6) and five
+              small fixtures (cv2's FLV1 writer in .flv, .avi, .mkv and
+              .mov; quantiser 1 with audio and script tags between the
+              pictures): demuxed (io/flv.py) and timed, every picture
+              decoded by io/h263.py's Sorenson mode on one thread, timed,
+              and held to the committed sha256 of cv2's RGB frames and Y
+              planes; the counts must show FLV's 7-bit escapes (the
+              headline) and 11-bit ones (quantiser 1); then the CLI on the
+              .flv: the jpeg phase's checks; prints the demux time and the
+              decode ms per FHD frame beside the tracking ms per frame.
+    mpng    — PNG as video: the cli phase's 32 PNG files (the same
+              writer, the same bytes) muxed on the card into one ``MPNG``
+              AVI (testing/mjpeg.py), every frame decoded by io/png.py as
+              FFmpeg's png decoder reads it, on one thread, timed, equal to
+              the rendered frame; the three small cv2-written MPNG AVI/MKV
+              and ``png `` MOV fixtures held to cv2's sha256; then the CLI
+              on the AVI: the jpeg phase's checks, poses.txt equal to the
+              cli phase's byte for byte and its ``top2_batch`` launches.
 25. lossless — FFV1 and HuffYUV: the committed fixture
               testing/video_fixtures/headline_ffv1.mkv (the 32 rendered
               frames through OpenCV's own ``FFV1`` writer: version 3,
@@ -282,18 +305,24 @@ Phases, each followed by one flushed line with the elapsed seconds:
 34. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp, giflib or OpenCV): first every
               committed fixture in testing/photo_fixtures/ (one per PNG,
-              PNM, BMP, TIFF, lossy, lossless and animated WebP and GIF
-              variant family and EXIF case) through ``MediaSource``, held
-              to the committed sha256 of cv2's decode; then the 32 frames
-              written by testing/photos.py as one glob cycling P6 PPM,
-              24-bit BMP, tiled Deflate TIFF with the predictor, PackBits
-              TIFF strips, 16-bit PNG (x257), all-Paeth PNG, lossless WebP
-              and animated lossless WebP, names of one length: every
-              decoded frame equal to the rendered one, then the CLI on the
-              glob under the counting wrapper (three decode workers): exit
-              0, 32/32 cameras, poses.txt equal to the cli phase's byte for
-              byte, the cli phase's ``top2_batch`` launches and no other
-              kernel; the jpeg phase's first frame with an EXIF
+              PNM, BMP, TIFF, lossy, lossless and animated WebP, GIF, PFM,
+              Radiance HDR and Sun raster variant family and EXIF case; a
+              damaged lossy WebP and a run-length coded Sun raster that cv2
+              refuses give no frame) through ``MediaSource``, held to the
+              committed sha256 of cv2's decode; then the 32 frames written
+              by testing/photos.py as one glob cycling P6 PPM, 24-bit BMP,
+              tiled Deflate TIFF with the predictor, PackBits TIFF strips,
+              16-bit PNG (x257), all-Paeth PNG, lossless WebP, animated
+              lossless WebP and 24-bit Sun raster, names of one length,
+              written on three threads before fixture-clis: every decoded
+              frame equal to the rendered one, then the CLI on the glob
+              (its run in fixture-clis's subprocess, three decode workers):
+              exit 0, 32/32 cameras, poses.txt equal to the cli phase's
+              byte for byte, the cli phase's ``top2_batch`` launches and no
+              other kernel; the first frame as PFM (equal to it) and as
+              Radiance HDR (its RGBE rounding, within 1 grey level) decoded
+              and timed on one thread; the jpeg phase's first frame with an
+              EXIF
               Orientation 6 APP1 must decode to the untagged decode turned
               a quarter clockwise (as cv2 turns it); four frames quantised
               to a fixed 256-entry palette and written as GIF must decode
@@ -316,6 +345,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2279,29 +2309,74 @@ def photo_writers():
          lambda f: photos.encode_png16(f.astype(np.uint16) * 257)),
         ("all-Paeth PNG", "png", photos.encode_png_paeth),
         ("lossless WebP", "wbp", photos.encode_webp_lossless),
-        ("animated lossless WebP", "wbp", photos.encode_webp_animated))
+        ("animated lossless WebP", "wbp", photos.encode_webp_animated),
+        ("24-bit Sun raster", "ras", photos.encode_sun_raster))
 
 
 def held_to_photo_fixtures() -> int:
-    """Each committed photo fixture through ``MediaSource`` on the card
-    against the committed sha256 of cv2's decode → fixtures held."""
+    """Each committed photo fixture (every ``cv2_sha256*.json`` table)
+    through ``MediaSource`` on the card against the committed sha256 of
+    cv2's decode, or no frame where cv2 gives none (a null entry) →
+    fixtures held."""
     import glob
-    import hashlib
-
-    import numpy as np
 
     from slam_indoor_code_tpu_torch.io.media import MediaSource
 
-    with open(os.path.join(PHOTO_FIXTURES, "cv2_sha256.json")) as f:
-        table = json.load(f)
-    for name, want in table.items():
-        got = [hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
-               for img in MediaSource(photos_pattern=glob.escape(
-                   os.path.join(PHOTO_FIXTURES, name)))]
-        if got != [want["sha256"]]:
-            fail(f"photos: {name} decodes to {got}, cv2's is "
-                 f"{want['sha256']}")
-    return len(table)
+    held = 0
+    for table_path in sorted(glob.glob(os.path.join(PHOTO_FIXTURES,
+                                                    "cv2_sha256*.json"))):
+        with open(table_path) as f:
+            table = json.load(f)
+        for name, want in table.items():
+            got = [video_sha(img) for img in MediaSource(
+                photos_pattern=glob.escape(os.path.join(PHOTO_FIXTURES,
+                                                        name)))]
+            if got != ([] if want is None else [want["sha256"]]):
+                fail(f"photos: {name} decodes to {got}, cv2's is "
+                     f"{want and want['sha256']}")
+        held += len(table)
+    return held
+
+
+def write_photo_glob(frames, root: str) -> dict:
+    """The 32 frames as one glob cycling photo_writers' formats (names of
+    one length), each format's frames also in a directory of their own,
+    and N_GIFS frames as GIF of the 3-3-2 palette, written on three
+    threads under ``root`` → {"pattern", "by_kind", "gifs",
+    "palette_images", "write_ms" per frame}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slam_indoor_code_tpu_torch.testing import photos
+
+    kinds = photo_writers()
+    mixed = os.path.join(root, "photos")
+    by_kind = [os.path.join(root, f"kind{k}") for k in range(len(kinds))]
+    gifs = os.path.join(root, "gif")
+    for d in [mixed, gifs] + by_kind:
+        os.makedirs(d)
+
+    def write(i):
+        k = i % len(kinds)
+        data = kinds[k][2](frames[i])
+        name = f"frame_{i:02d}.{kinds[k][1]}"
+        for d in (mixed, by_kind[k]):
+            with open(os.path.join(d, name), "wb") as fh:
+                fh.write(data)
+
+    def write_gif(i):
+        index, palette = photos.quantize_332(frames[i])
+        with open(os.path.join(gifs, f"frame_{i:02d}.gif"), "wb") as fh:
+            fh.write(photos.encode_gif(index, palette))
+        return palette[index]
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(write, range(len(frames))))
+        palette_images = list(pool.map(write_gif, range(N_GIFS)))
+    write_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+    return {"pattern": os.path.join(mixed, "frame_*"), "by_kind": by_kind,
+            "gifs": gifs, "palette_images": palette_images,
+            "write_ms": write_ms}
 
 
 def timed_decodes(name: str, paths: list) -> tuple[float, float]:
@@ -2327,15 +2402,18 @@ def timed_decodes(name: str, paths: list) -> tuple[float, float]:
 N_GIFS = 4
 
 
-def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
+def photos_phase(card_line: str, frames, cli_counts, cli_poses, written,
+                 cli):
     """The committed photo fixtures held to cv2's decode; the 32 frames as
-    one mixed-format glob (photo_writers, cycled; names of one length so
-    that the natural sort keeps frame order): every frame decoded equal to
-    the rendered one, then the CLI on it (cli_counted): 32/32 cameras,
+    one mixed-format glob (``written``: write_photo_glob's, before
+    fixture_clis): every frame decoded equal to the rendered one, then
+    the CLI on it (``cli``: its run in fixture_clis): 32/32 cameras,
     poses.txt equal to the cli phase's, its ``top2_batch`` launches; the
     jpeg phase's first frame with EXIF Orientation 6 turned as cv2 turns
     it; N_GIFS frames quantised to the fixed 3-3-2 palette as GIF, each
-    decoded to palette[index]; each format's decode timed on one thread
+    decoded to palette[index]; the first frame as PFM (equal to it) and as
+    Radiance HDR (its RGBE rounding: within 1 grey level, and equal to
+    numpy's decode of the RGBE); each format's decode timed on one thread
     and with three workers → (counts, {format: (ms on one thread, ms with
     3 workers)}, tracking ms per frame)."""
     import glob
@@ -2351,49 +2429,40 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
     decoder = "native (libjpeg/libpng)" if native.available() else \
         "the port's readers (io/photo.py)"
     kinds = photo_writers()
-    with tempfile.TemporaryDirectory() as root:
-        mixed = os.path.join(root, "photos")
-        os.makedirs(mixed)
-        by_kind = [os.path.join(root, f"kind{k}") for k in range(len(kinds))]
-        gifs = os.path.join(root, "gif")
-        for d in by_kind + [gifs]:
-            os.makedirs(d)
+    decoded = list(MediaSource(photos_pattern=written["pattern"], threads=3))
+    if len(decoded) != len(frames) or not all(
+            np.array_equal(a, b) for a, b in zip(decoded, frames)):
+        fail(f"photos: {len(decoded)} frames decoded for {len(frames)}, "
+             "or one differs from its rendered frame")
+    del decoded
+    gif_paths = sorted(glob.glob(os.path.join(written["gifs"], "*")))
+    for p, want in zip(gif_paths, written["palette_images"]):
+        got = photo.imread_rgb(p)
+        if got is None or not np.array_equal(got, want):
+            fail(f"photos: {os.path.basename(p)} does not decode to "
+                 "palette[index]")
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    times = {name: timed_decodes(name, sorted(glob.glob(
+        os.path.join(written["by_kind"][k], "*")))) for k, (name, _, _) in
+        enumerate(kinds)}
+    times["GIF, 3-3-2 palette"] = timed_decodes("GIF", gif_paths)
+    floats = {}
+    for name, data in (("PFM", photos.encode_pfm(frames[0])),
+                       ("Radiance HDR", photos.encode_hdr(frames[0]))):
         t = time.perf_counter()
-        for i, f in enumerate(frames):
-            k = i % len(kinds)
-            data = kinds[k][2](f)
-            name = f"frame_{i:02d}.{kinds[k][1]}"
-            for d in (mixed, by_kind[k]):
-                with open(os.path.join(d, name), "wb") as fh:
-                    fh.write(data)
-        write_ms = 1e3 * (time.perf_counter() - t) / len(frames)
-        palette_images = []
-        for i, f in enumerate(frames[:N_GIFS]):
-            index, palette = photos.quantize_332(f)
-            palette_images.append(palette[index])
-            with open(os.path.join(gifs, f"frame_{i:02d}.gif"), "wb") as fh:
-                fh.write(photos.encode_gif(index, palette))
-        pattern = os.path.join(mixed, "frame_*")
-        decoded = list(MediaSource(photos_pattern=pattern, threads=3))
-        if len(decoded) != len(frames) or not all(
-                np.array_equal(a, b) for a, b in zip(decoded, frames)):
-            fail(f"photos: {len(decoded)} frames decoded for {len(frames)}, "
-                 "or one differs from its rendered frame")
-        del decoded
-        gif_paths = sorted(glob.glob(os.path.join(gifs, "*")))
-        for p, want in zip(gif_paths, palette_images):
-            got = photo.imread_rgb(p)
-            if got is None or not np.array_equal(got, want):
-                fail(f"photos: {os.path.basename(p)} does not decode to "
-                     "palette[index]")
-        cfg = dataclasses.replace(headline_config(os.path.join(root, "out")),
-                                  photosPathPattern=pattern)
-        n, n_cams, ate_pct, poses, run_s = cli_counted("photos", cfg, root,
-                                                       scene)
-        times = {name: timed_decodes(name, sorted(glob.glob(
-            os.path.join(by_kind[k], "*")))) for k, (name, _, _) in
-            enumerate(kinds)}
-        times["GIF, 3-3-2 palette"] = timed_decodes("GIF", gif_paths)
+        got = photo.decode(data)
+        floats[name] = 1e3 * (time.perf_counter() - t)
+        if got is None or got.shape != frames[0].shape:
+            fail(f"photos: the FHD {name} frame does not decode")
+        if name == "PFM" and not np.array_equal(got, frames[0]):
+            fail("photos: the FHD PFM frame differs from the rendered one")
+        if name == "Radiance HDR":
+            px = photos.rgbe(frames[0]).astype(np.float64)
+            want = np.where(px[..., 3:] > 0, np.rint(
+                px[..., :3] * 255.0 * np.exp2(px[..., 3:] - 136.0)), 0)
+            if (not np.array_equal(got, np.clip(want, 0, 255))
+                    or np.abs(got.astype(int) - frames[0]).max() > 1):
+                fail("photos: the FHD HDR frame differs from its RGBE")
     if n_cams != N_FRAMES:
         fail(f"photos: {n_cams}/{N_FRAMES} cameras")
     if poses != cli_poses:
@@ -2411,18 +2480,23 @@ def photos_phase(card_line: str, scene, frames, cli_counts, cli_poses):
     track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
     per = "; ".join(f"{name} {a:.3f} ms on one thread, {b:.3f} ms with 3 "
                     f"workers" for name, (a, b) in times.items())
-    print(f"photos: {held} fixtures equal cv2's decode (sha256) through "
-          f"MediaSource ({decoder}); {len(frames)} FHD frames in "
-          f"{len(kinds)} formats decode to the rendered frames; "
+    print(f"photos: {held} fixtures equal cv2's decode (sha256, or no "
+          f"frame) through MediaSource ({decoder}); {len(frames)} FHD "
+          f"frames in {len(kinds)} formats decode to the rendered frames; "
           f"{len(gif_paths)} FHD GIFs decode to palette[index]; exit 0, "
           f"cameras {n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  "
           f"poses.txt equals the cli phase's byte for byte  launches "
           f"{json.dumps(n)}  EXIF 6 turns the FHD JPEG to "
           f"{turned.shape[1]}x{turned.shape[0]} as cv2 does; decode per "
-          f"FHD frame ({os.cpu_count()} cores): {per}; tracking "
-          f"{track_ms:.3f} ms per frame; subprocess {run_s:.3f} s; numpy "
-          f"writing {write_ms:.1f} ms per frame; phase "
+          f"FHD frame ({os.cpu_count()} cores): {per}; FHD PFM "
+          f"{floats['PFM']:.3f} ms, FHD Radiance HDR "
+          f"{floats['Radiance HDR']:.3f} ms on one thread; tracking "
+          f"{track_ms:.3f} ms per frame; CLI run {run_s:.3f} s ({when}); "
+          f"numpy writing {written['write_ms']:.1f} ms per frame (3 "
+          f"threads, before fixture-clis); phase "
           f"{time.perf_counter() - t0:.1f} s  [{card_line}]", flush=True)
+    times["PFM"] = (floats["PFM"], float("nan"))
+    times["Radiance HDR"] = (floats["Radiance HDR"], float("nan"))
     return n, times, track_ms
 
 
@@ -3002,15 +3076,15 @@ H263_TOOLS = ("umv_codes", "long_vectors", "umv_outside", "inter4v_mbs",
               "alt_vlc_blocks", "mq_chroma_mbs", "no_rounding_pictures")
 
 
-def h263_frames(path: str, timed: bool = False):
-    """Every frame the port gives for the H.263 video at ``path``, decoded
-    on one thread → (RGB frames, Y planes, decoder statistics, ms per
-    picture or None)."""
+def h263_frames(path: str, timed: bool = False, sorenson: bool = False):
+    """Every frame the port gives for the H.263 (``sorenson``: Sorenson
+    Spark) video at ``path``, decoded on one thread → (RGB frames, Y
+    planes, decoder statistics, ms per picture or None)."""
     from slam_indoor_code_tpu_torch.io import avi, h263
 
     video = avi.open_video(path)
     data = [video.read(fr) for fr in video.frames]
-    dec = h263.Decoder()
+    dec = h263.Decoder(sorenson=sorenson)
     video.close()
     rgb, luma = [], []
     t = time.perf_counter()
@@ -3101,6 +3175,170 @@ def h263_phase(card_line: str, scene, cli):
     return n, decode_ms, track_ms
 
 
+FLV_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
+                           "headline_flv1.flv")
+# Sorenson Spark, small: cv2's FLV1 writer into .flv, .avi, .mkv and .mov;
+# libavcodec's flv encoder at quantiser 1 (FLV's 11-bit escapes) with audio
+# and script tags between the pictures
+FLV_SMALL_FIXTURES = ("flv1_cv2.flv", "flv1_cv2.avi", "flv1_cv2.mkv",
+                      "flv1_cv2.mov", "flv1_q1_audio_script.flv")
+# PNG as video, small: cv2's MPNG writer into .avi and .mkv, its png writer
+# into .mov
+MPNG_SMALL_FIXTURES = ("mpng_cv2.avi", "mpng_cv2.mkv", "png_cv2.mov")
+
+
+def video_sha(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def flv_phase(card_line: str, scene, cli):
+    """The committed FLV fixtures (the card has no encoder and no cv2): the
+    headline .flv demuxed and timed; every Sorenson picture decoded on one
+    thread, timed, and held to the committed sha256 of cv2's RGB frames
+    and Y planes, with FLV's 7-bit escapes in use; the small fixtures held
+    to theirs, the quantiser-1 one using 11-bit escapes; ``MediaSource``'s
+    frames equal to the decoder's; then the CLI on the .flv (``cli``:
+    fixture_clis) → (counts, decode ms per frame, tracking ms per
+    frame)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    fixtures = os.path.dirname(FLV_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    table = tables[os.path.basename(FLV_FIXTURE)]
+    t = time.perf_counter()
+    video = avi.open_video(FLV_FIXTURE)
+    demux_ms = 1e3 * (time.perf_counter() - t)
+    n_pictures, codec = len(video.frames), video.codec
+    video.close()
+    if codec != "flv1" or n_pictures != table["frames"]:
+        fail(f"flv: the fixture demuxes to {n_pictures} {codec} pictures")
+    rgb, luma, stats, decode_ms = h263_frames(FLV_FIXTURE, timed=True,
+                                              sorenson=True)
+    if ([video_sha(f) for f in rgb] != table["rgb_sha256"]
+            or rgb[0].shape != tuple(table["shape"])):
+        fail("flv: the decoded RGB frames differ from cv2's (sha256)")
+    if [video_sha(y) for y in luma] != table["y_sha256"]:
+        fail("flv: the Y planes differ from cv2's Y read (sha256)")
+    if stats["sorenson_pictures"] != N_FRAMES or not stats["flv_escapes_7"]:
+        fail(f"flv: the fixture's counts: {stats}")
+    escapes_11 = 0
+    for name in FLV_SMALL_FIXTURES:
+        path = os.path.join(fixtures, name)
+        want = tables[name]
+        got = [video_sha(f) for f in MediaSource(video_path=path,
+                                                 use_photos=False)]
+        _, small_luma, small, _ = h263_frames(path, sorenson=True)
+        escapes_11 += small["flv_escapes_11"]
+        if got != want["rgb_sha256"] or [video_sha(y) for y in small_luma
+                                         ] != want["y_sha256"]:
+            fail(f"flv: the small fixture {name} differs from cv2's decode "
+                 f"(sha256)")
+    if not escapes_11:
+        fail("flv: no small fixture used FLV's 11-bit escape")
+    from_flv = list(MediaSource(video_path=FLV_FIXTURE, use_photos=False))
+    if len(from_flv) != len(rgb) or not all(
+            np.array_equal(a, b) for a, b in zip(from_flv, rgb)):
+        fail("flv: MediaSource's frames differ from the decoder's")
+    n, n_cams, ate_pct, _, run_s, when = cli
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"flv: exit 0, {len(rgb)} frames "
+          f"({os.path.getsize(FLV_FIXTURE) / 1e6:.2f} MB FLV, Sorenson "
+          f"Spark 1920x1080 at quantiser 6: {stats['flv_escapes_7']} 7-bit "
+          f"escapes, {stats['flv_escapes_11']} 11-bit; the small "
+          f"quantiser-1 fixture's {escapes_11} 11-bit) equal to cv2's "
+          f"decode (sha256 of RGB and Y; the {len(FLV_SMALL_FIXTURES)} "
+          f"small fixtures' too); cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  demux "
+          f"{demux_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
+          f"one thread; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
+def mpng_video(frames, root: str) -> str:
+    """The frames as the cli phase writes them (io/png.py's write_png, the
+    same bytes), muxed on the card into one MPNG AVI under ``root`` by
+    testing/mjpeg.py's write_avi → its path."""
+    from slam_indoor_code_tpu_torch.io.png import write_png
+    from slam_indoor_code_tpu_torch.testing import mjpeg
+
+    pngs = []
+    for i, f in enumerate(frames):
+        p = os.path.join(root, f"frame_{i}.png")
+        write_png(p, f)
+        with open(p, "rb") as fh:
+            pngs.append(fh.read())
+        os.remove(p)
+    path = os.path.join(root, "frames_mpng.avi")
+    h, w = frames[0].shape[:2]
+    mjpeg.write_avi(path, pngs, w, h, fourcc=b"MPNG")
+    return path
+
+
+def mpng_phase(card_line: str, frames, path: str, cli, cli_counts,
+               cli_poses):
+    """The MPNG AVI of the cli phase's PNGs (mpng_video): demuxed and
+    timed, every frame decoded by io/png.py on one thread, timed, equal to
+    the rendered frame; the small cv2-written MPNG and ``png `` fixtures
+    held to cv2's sha256; the CLI on the AVI (``cli``: fixture_clis):
+    poses.txt equal to the cli phase's byte for byte, its ``top2_batch``
+    launches → (counts, decode ms per frame, tracking ms per frame)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import avi
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    t = time.perf_counter()
+    video = avi.open_video(path)
+    demux_ms = 1e3 * (time.perf_counter() - t)
+    if video.codec != "png" or len(video.frames) != len(frames):
+        fail(f"mpng: the AVI demuxes to {len(video.frames)} "
+             f"{video.codec} frames")
+    t = time.perf_counter()
+    decoded = [video.decode_frame(fr) for fr in video.frames]
+    decode_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+    video.close()
+    if not all(d is not None and np.array_equal(d, f)
+               for d, f in zip(decoded, frames)):
+        fail("mpng: a decoded frame differs from the rendered one")
+    del decoded
+    fixtures = os.path.dirname(FLV_FIXTURE)
+    with open(os.path.join(fixtures, "cv2_sha256.json")) as f:
+        tables = json.load(f)
+    for name in MPNG_SMALL_FIXTURES:
+        got = [video_sha(f) for f in MediaSource(
+            video_path=os.path.join(fixtures, name), use_photos=False)]
+        if got != tables[name]["rgb_sha256"]:
+            fail(f"mpng: the small fixture {name} differs from cv2's "
+                 "decode (sha256)")
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    if poses != cli_poses:
+        fail("mpng: poses.txt differs from the cli phase's")
+    if n["top2_batch"] != cli_counts["top2_batch"]:
+        fail(f"mpng: {n['top2_batch']} top2_batch launches, the cli "
+             f"phase's {cli_counts['top2_batch']}")
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    print(f"mpng: exit 0, {len(frames)} PNG frames "
+          f"({os.path.getsize(path) / 1e6:.2f} MB MPNG AVI muxed on the "
+          f"card) decode to the rendered frames; the "
+          f"{len(MPNG_SMALL_FIXTURES)} small MPNG/png fixtures equal cv2's "
+          f"decode (sha256); cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  poses.txt equals the cli phase's "
+          f"byte for byte  launches {json.dumps(n)}  demux "
+          f"{demux_ms:.3f} ms; decode {decode_ms:.3f} ms per FHD frame on "
+          f"one thread; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
+    return n, decode_ms, track_ms
+
+
 FFV1_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
                             "headline_ffv1.mkv")
 # FFV1 and HuffYUV, small: cv2's FFV1 writer into AVI and QuickTime;
@@ -3117,43 +3355,48 @@ FFVH_FHD_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
                                 "ffvh_fhd_cv2.avi")
 
 
-def fixture_clis(scene) -> tuple:
+def fixture_clis(scene, mpng_path: str, photos_pattern: str) -> tuple:
     """The CLI with ``usePhotosCycle=false`` on each committed headline
     video, one run after another in one subprocess (cli_counted_many's
     checks on each), which pays the interpreter's, PyTorch's and the
     card's start once: the lossless phase's first, so that its run is a
     cold one as in a user's ``python -m``; then the mp4, asp (its two
     runs: the packed fixture, "asp", and the interlaced one, "asp-il"),
-    webm, vp9, mpeg2 and h263 phases'; then the lossless run again, warm, which
-    measures what the shared process saves → ({phase: (counts, cameras,
-    ATE %, poses.txt, run s, "run k of n in one process, cold|warm")},
-    the subprocess's s, the decoders' build s); the warm repeat is
-    "lossless-warm"."""
+    webm, vp9, mpeg2, h263 and flv phases', the mpng phase's AVI
+    (``mpng_path``) and the photos phase's glob (``photos_pattern``); then
+    the lossless run again, warm, which measures what the shared process
+    saves → ({phase: (counts, cameras, ATE %, poses.txt, run s, "run k of
+    n in one process, cold|warm")}, the subprocess's s, the decoders'
+    build s); the warm repeat is "lossless-warm"."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from slam_indoor_code_tpu_torch.io import (ffv1, h263, huffyuv, mpeg4,
-                                               mpeg12, vp8, vp9)
+    from slam_indoor_code_tpu_torch.io import (ffv1, gif, h263, huffyuv,
+                                               mpeg4, mpeg12, png, tiff,
+                                               vp8, vp9, webp)
 
     videos = {"lossless": FFV1_FIXTURE, "mp4": MP4_FIXTURE,
               "asp": ASP_FIXTURE, "asp-il": ASP_IL_FIXTURE,
               "webm": WEBM_FIXTURE, "vp9": VP9_FIXTURE,
               "mpeg2": MPEG2_FIXTURE, "h263": H263_FIXTURE,
+              "flv": FLV_FIXTURE, "mpng": mpng_path, "photos": None,
               "lossless-warm": FFV1_FIXTURE}
     # the runs' decoders built first, in parallel, as a user's runs after
     # the first find them: no run pays a g++ build inside its slam_main
     t = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda m: m.load(),
-                      (ffv1, h263, huffyuv, mpeg4, mpeg12, vp8, vp9)))
+                      (ffv1, gif, h263, huffyuv, mpeg4, mpeg12, png, tiff,
+                       vp8, vp9, webp)))
     build_s = time.perf_counter() - t
     with tempfile.TemporaryDirectory() as top:
         jobs = []
         for what, path in videos.items():
             root = os.path.join(top, what)
             os.makedirs(root)
-            cfg = dataclasses.replace(
-                headline_config(os.path.join(root, "out")),
-                usePhotosCycle=False, videoSourcePath=path)
+            cfg = headline_config(os.path.join(root, "out"))
+            cfg = (dataclasses.replace(cfg, photosPathPattern=photos_pattern)
+                   if path is None else dataclasses.replace(
+                       cfg, usePhotosCycle=False, videoSourcePath=path))
             jobs.append((what, cfg, root, ()))
         runs, run_s = cli_counted_many(jobs, scene)
     runs = {what: (*run, f"run {k + 1} of {len(runs)} in one process, "
@@ -3986,9 +4229,14 @@ def main() -> None:
               decode_ms_per_frame_3_workers=f"{dec3_ms:.3f}",
               decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        clis, clis_s, build_s = fixture_clis(scene)
+        media_root = tempfile.mkdtemp()
+        written = write_photo_glob(frames, media_root)
+        mpng_path = mpng_video(frames, media_root)
+        clis, clis_s, build_s = fixture_clis(scene, mpng_path,
+                                             written["pattern"])
         phase("fixture-clis", runs=len(clis), subprocess_s=f"{clis_s:.3f}",
-              decoders_build_s=f"{build_s:.3f}")
+              decoders_build_s=f"{build_s:.3f}",
+              photo_glob_write_ms_per_frame=f"{written['write_ms']:.1f}")
         n = mp4_phase(card_line, scene, clis["mp4"])
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])
@@ -4024,6 +4272,18 @@ def main() -> None:
                                             clis["h263"])
         by_path["h263 (cli)"] = n["top2_batch"]
         phase("h263", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, decode_ms, track_ms = flv_phase(card_line, scene, clis["flv"])
+        by_path["flv (cli)"] = n["top2_batch"]
+        phase("flv", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame=f"{decode_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, decode_ms, track_ms = mpng_phase(card_line, frames, mpng_path,
+                                            clis["mpng"], cli_counts,
+                                            cli_poses)
+        by_path["mpng (cli)"] = n["top2_batch"]
+        phase("mpng", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame=f"{decode_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
         n, ffv1_ms, hyuv_ms, track_ms, warm_ms = lossless_phase(
@@ -4083,8 +4343,9 @@ def main() -> None:
                                   "hybrid path, run 2")
         same_run("hybrid path", gd_hybrid, again)
         phase("repro", runs=12)
-        n, times, track_ms = photos_phase(card_line, scene, frames,
-                                          cli_counts, cli_poses)
+        n, times, track_ms = photos_phase(card_line, frames, cli_counts,
+                                          cli_poses, written, clis["photos"])
+        shutil.rmtree(media_root)
         by_path["photos (cli)"] = n["top2_batch"]
         phase("photos", top2_batch_launches=n["top2_batch"],
               tracking_ms_per_frame=f"{track_ms:.3f}", **{

@@ -13,7 +13,10 @@ headers in band; VP8 (``VP80``: OpenCV's ``VP80`` writer into ``.avi``)
 in order by io/vp8.py; VP9 (``VP90``: OpenCV's ``VP90`` writer into
 ``.avi``) in order by io/vp9.py; H.263 and H.263+ (``H263``, ``U263``
 and the other tags FFmpeg's riff.c gives them: OpenCV's ``H263`` writer)
-in order by io/h263.py, each chunk a picture; FFV1 (``FFV1``) in order by
+in order by io/h263.py, each chunk a picture, and Sorenson Spark (``FLV1``:
+OpenCV's ``FLV1`` writer into ``.avi``) by its Sorenson mode; PNG
+(``MPNG``: OpenCV's ``MPNG`` writer) each by io/png.py, in the packets
+FFmpeg's png parser cuts the chunks into; FFV1 (``FFV1``) in order by
 io/ffv1.py and HuffYUV (``HFYU``, ``FFVH``) by io/huffyuv.py, each chunk a
 frame, with the extradata that follows the bitmap header in ``strf``
 (OpenCV's ``FFV1``, ``HFYU`` and ``FFVH`` writers); MPEG-1/2 video
@@ -23,10 +26,9 @@ uncompressed planar 4:2:0 and gray (``I420``, ``IYUV``, ``Y800``; OpenCV's write
 fourcc 0 as ``I420``) each by io/rawvideo.py.  ``open_video`` reads any
 of the three containers, MPEG program streams (io/mpegps.py), MPEG
 transport streams (io/mpegts.py), MPEG-1/2 video elementary streams
-(io/mpeg12.py) and raw H.263 streams (io/h263.py); other codecs raise
-``NotImplementedError`` naming them, Intel's ``I263`` and Sorenson's
-``FLV1`` (H.263 dialects) by name, and so does Flash Video (``.flv``, its
-``FLV\x01`` signature) with the codec of its first video tag.
+(io/mpeg12.py), raw H.263 streams (io/h263.py) and Flash Video
+(io/flv.py); other codecs raise ``NotImplementedError`` naming them,
+Intel's ``I263`` (an H.263 dialect) by name.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from typing import Optional
 
 import numpy as np
 
-from . import h263, jpeg, matroska, mp4, mpeg12, mpegps, mpegts, rawvideo
+from . import (flv, h263, jpeg, matroska, mp4, mpeg12, mpegps, mpegts,
+               png, rawvideo)
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg", b"AVI1", b"jpeg")
 MPEG4_FOURCCS = (b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"FMP4",
@@ -50,9 +53,9 @@ H263_FOURCCS = (b"H263", b"h263", b"X263", b"x263", b"T263", b"t263",
                 b"L263", b"l263", b"M263", b"m263", b"VX1K", b"vx1k",
                 b"lsvm", b"U263", b"u263")
 # H.263 dialects FFmpeg decodes with decoders of their own
-H263_DIALECTS = {b"I263": "Intel H.263", b"i263": "Intel H.263",
-                 b"FLV1": "Sorenson Spark (Flash Video H.263)",
-                 b"flv1": "Sorenson Spark (Flash Video H.263)"}
+H263_DIALECTS = {b"I263": "Intel H.263", b"i263": "Intel H.263"}
+FLV1_FOURCCS = (b"FLV1", b"flv1")      # Sorenson Spark: io/h263.py's mode
+PNG_FOURCCS = (b"MPNG", b"mpng")       # a PNG file per frame: io/png.py
 MPEG12_FOURCCS = (b"MPEG", b"mpeg", b"mpg1", b"MPG1", b"PIM1", b"mpg2",
                   b"MPG2", b"PIM2", b"mpgv", b"MMES", b"LMP2", b"EM2V")
 # the lossless codecs: their extradata follows the bitmap header in strf
@@ -64,8 +67,9 @@ def open_video(path: str):
     """The video of an AVI (``AviVideo``), MP4/QuickTime
     (``mp4.Mp4Video``) or Matroska/WebM file (``matroska.MkvVideo``), an
     MPEG program or transport stream or an MPEG-1/2 elementary stream
-    (``mpeg12.EsVideo``) or a raw H.263 stream (``h263.EsVideo``: one
-    that starts with a picture start code, or named ``.h263``/``.263``);
+    (``mpeg12.EsVideo``), a raw H.263 stream (``h263.EsVideo``: one
+    that starts with a picture start code, or named ``.h263``/``.263``)
+    or a Flash Video file (``flv.FlvVideo``);
     ``IOError`` when it does not open,
     ``NotImplementedError`` for a codec the port does not read."""
     try:
@@ -82,10 +86,8 @@ def open_video(path: str):
     if (h263.is_elementary_stream(head)
             or path.lower().endswith((".h263", ".263"))):
         return h263.EsVideo.open(path)
-    if head[:4] == FLV_MAGIC:
-        raise NotImplementedError(
-            f"Flash Video (.flv) with {flv_codec(head)} video is not read "
-            "by the port")
+    if flv.is_flv(head):
+        return flv.FlvVideo(path)
     container = mpeg_container(head)
     if container == "MPEG program stream":
         return mpegps.open_video(path)
@@ -97,24 +99,6 @@ def open_video(path: str):
 
 
 _HEAD = 1 << 16       # a DVD pack is 2048 bytes; a TS layout needs ~2 kB
-FLV_MAGIC = b"FLV\x01"
-# an FLV video tag's codec id -> its name
-FLV_CODECS = {2: "Sorenson Spark (FLV1, Flash Video H.263)",
-              3: "Screen Video", 4: "On2 VP6", 5: "On2 VP6 with alpha",
-              6: "Screen Video 2", 7: "H.264"}
-
-
-def flv_codec(head: bytes) -> str:
-    """The name of the video codec of the first video tag in ``head``, the
-    start of an FLV file (header, then tags of type, 24-bit size, time and
-    stream id, each followed by the previous tag's size)."""
-    pos = 9 + 4 if len(head) < 9 else int.from_bytes(head[5:9], "big") + 4
-    while pos + 12 <= len(head):
-        kind, size = head[pos], int.from_bytes(head[pos + 1:pos + 4], "big")
-        if kind == 9 and size:
-            return FLV_CODECS.get(head[pos + 11] & 0x0F, "an unknown codec's")
-        pos += 11 + size + 4
-    return "no"
 
 
 def mpeg_container(head: bytes) -> Optional[str]:
@@ -158,8 +142,9 @@ def _chunks(fh, start: int, end: int):
 
 class AviVideo:
     """The video stream of an AVI file: ``frames`` lists (offset, size,
-    shown) of each chunk in file order, ``codec`` is "mjpeg", "mpeg4",
-    "mpeg12", "vp8", "vp9", "h263", "ffv1", "huffyuv" or "raw"
+    shown) of each chunk in file order (for PNG, (pieces, size, True) of
+    each packet), ``codec`` is "mjpeg", "mpeg4", "mpeg12", "vp8", "vp9",
+    "h263", "flv1", "png", "ffv1", "huffyuv" or "raw"
     (``pix_fmt`` "yuv420p" or "gray"); ``extradata`` is what follows an
     FFV1 or HuffYUV stream's bitmap header (its configuration record or
     Huffman tables), ``bits_per_coded_sample`` its biBitCount;
@@ -202,6 +187,10 @@ class AviVideo:
             self.codec = "mpeg12"
         elif self.fourcc in H263_FOURCCS:
             self.codec = "h263"
+        elif self.fourcc in FLV1_FOURCCS:
+            self.codec = "flv1"
+        elif self.fourcc in PNG_FOURCCS:
+            self.codec = "png"
         elif self.fourcc in FFV1_FOURCCS + HUFFYUV_FOURCCS:
             self.codec = ("ffv1" if self.fourcc in FFV1_FOURCCS
                           else "huffyuv")
@@ -217,9 +206,12 @@ class AviVideo:
                 "Motion-JPEG (MJPG), MPEG-4 Part 2 (XVID, DIVX, DX50, "
                 "FMP4, mp4v), MPEG-1/2 (MPEG, mpg1, mpg2, PIM1), VP8 "
                 "(VP80), VP9 (VP90), H.263 (H263, U263, X263, T263, L263, "
-                "M263, VX1K, lsvm), FFV1, HuffYUV (HFYU, FFVH) and "
-                "uncompressed I420, IYUV and Y800 are decoded")
+                "M263, VX1K, lsvm), Sorenson Spark (FLV1), FFV1, HuffYUV "
+                "(HFYU, FFVH), PNG (MPNG) and uncompressed I420, IYUV and "
+                "Y800 are decoded")
         self._fd = os.open(path, os.O_RDONLY)
+        if self.codec == "png":   # FFmpeg's png parser cuts the chunks
+            self.frames = png.parsed_frames(self.frames, self._fd)
 
     def _riff(self, fh, start: int, end: int) -> None:
         for fcc, off, n, kind in _chunks(fh, start, end):
@@ -268,17 +260,22 @@ class AviVideo:
                 self.frames.append((off, n, True))
 
     def read(self, frame: tuple[int, int, bool]) -> bytes:
-        """The bytes of one chunk (fewer where the file is cut short)."""
+        """The bytes of one chunk (fewer where the file is cut short), or
+        of a PNG packet's pieces."""
         off, n, _ = frame
+        if isinstance(off, tuple):
+            return png.read_pieces(self._fd, off)
         return os.pread(self._fd, n, off)
 
     def decode_frame(self, frame: tuple[int, int, bool]
                      ) -> Optional[np.ndarray]:
-        """HxWx3 uint8 RGB of one Motion-JPEG or uncompressed chunk; None
-        if it does not decode."""
+        """HxWx3 uint8 RGB of one Motion-JPEG, PNG or uncompressed chunk;
+        None if it does not decode."""
         if self.codec == "raw":
             return rawvideo.decode(self.read(frame), self.pix_fmt,
                                    self.width, self.height)
+        if self.codec == "png":
+            return png.decode_video_frame(self.read(frame))
         return jpeg.decode(self.read(frame), lenient=True)
 
     def close(self) -> None:

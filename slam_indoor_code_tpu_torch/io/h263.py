@@ -10,7 +10,9 @@ FFmpeg's ``h263p`` encoder writes: the custom picture format up to
 I (advanced intra coding), J (deblocking), K (slices), S (the
 alternative inter VLC) and T (modified quantisation); GOB and slice
 headers; and converts to RGB as OpenCV's FFmpeg backend does
-(native/swscale_rgb.h).  Each picture is its own frame (H.263 has no
+(native/swscale_rgb.h); and Sorenson Spark (FLV1: Flash Video, OpenCV's
+``FLV1`` writer) as FFmpeg's flv decoder reads it (``sorenson=True``).
+Each picture is its own frame (H.263 has no
 reordering).  The tools it does not decode (PB-frames, CPM, annexes E,
 M, N, O, P, Q, R, rectangular slices, supplemental enhancement
 information) raise ``ValueError`` naming the tool.  A picture whose
@@ -55,7 +57,8 @@ _STATS = ("frames", "plus_pictures", "custom_format", "no_rounding_pictures",
           "umv_codes", "alt_vlc_blocks", "mq_escapes", "mq_chroma_mbs",
           "concealed_mbs", "umv_pictures", "obmc_pictures", "aic_pictures",
           "loop_filter_pictures", "slice_pictures", "aiv_pictures",
-          "mq_pictures")
+          "mq_pictures", "sorenson_pictures", "disposable_pictures",
+          "flv_escapes_7", "flv_escapes_11")
 
 
 def load() -> ctypes.CDLL:
@@ -69,6 +72,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                      ctypes.POINTER(ctypes.c_uint8))
     lib.h263dec_open.argtypes = [P(ctypes.c_void_p)]
     lib.h263dec_open.restype = I
+    lib.h263dec_set_sorenson.argtypes = [ctypes.c_void_p, I]
+    lib.h263dec_set_sorenson.restype = None
     lib.h263dec_decode.argtypes = [ctypes.c_void_p, ctypes.c_char_p, I64,
                                    P(I), P(I), ctypes.c_char_p, I]
     lib.h263dec_decode.restype = I
@@ -90,15 +95,20 @@ class Decoder:
     """One H.263 stream, a picture per packet (a container's sample, or a
     packet of ``split_pictures``).  A stream that starts with a P-picture
     predicts it from FFmpeg's dummy reference (luma 16, chroma 128).
-    ``failed`` tells whether the last packet failed."""
+    ``failed`` tells whether the last packet failed.  ``sorenson=True``
+    reads Sorenson Spark (FLV1) pictures: flvdec.c's header, FLV's escape,
+    disposable pictures (given, kept from the reference, and no frame
+    before the first reference); a size change within the stream raises
+    ``ValueError`` naming it."""
 
     failed = False
     _hw = None
 
-    def __init__(self):
+    def __init__(self, sorenson: bool = False):
         self._lib = load()
         self._handle = ctypes.c_void_p()
         self._lib.h263dec_open(ctypes.byref(self._handle))
+        self._lib.h263dec_set_sorenson(self._handle, int(sorenson))
 
     def _call(self, sample: bytes) -> Optional[tuple[int, int]]:
         if not self._handle:
@@ -166,9 +176,10 @@ class Decoder:
         baseline's [-16, 15.5]; reversible (Annex D) vector codes; blocks
         read again with Annex S's table; Annex T's extended escapes, and
         coded macroblocks whose chroma quantiser its table set apart from
-        the luma one; concealed macroblocks; and the
+        the luma one; concealed macroblocks; the
         pictures coded with each mode of OPPTYPE: D (under PLUSPTYPE), F,
-        I, J, K, S and T."""
+        I, J, K, S and T; and Sorenson pictures, disposable ones, and FLV
+        escapes with a 7-bit and with an 11-bit level."""
         if not self._handle:
             raise ValueError("decoder is closed")
         out = (ctypes.c_int64 * len(_STATS))()

@@ -23,7 +23,8 @@ with CodecPrivate as its VOL headers (io/mpeg4.py), ``V_MPEG1`` and
 (io/jpeg.py); ``V_MS/VFW/FOURCC`` takes the codec of its bitmap header's
 fourcc, as in AVI, with the extradata that follows the header (H.263 and
 HuffYUV among them: OpenCV's ``H263``, ``HFYU`` and ``FFVH`` writers into
-``.mkv``).  Every other CodecID (AV1, H.264, HEVC, ...)
+``.mkv``; ``FLV1``, Sorenson Spark, and ``MPNG``, a PNG file a frame:
+its ``FLV1`` and ``MPNG`` writers).  Every other CodecID (AV1, H.264, HEVC, ...)
 and any ContentEncoding (header stripping, compression, encryption) raise
 ``NotImplementedError`` naming it.  ``MkvVideo`` has the interface of
 ``avi.AviVideo`` and ``mp4.Mp4Video``.
@@ -37,7 +38,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg
+from . import jpeg, png
 
 EBML = 0x1A45DFA3
 SEGMENT = 0x18538067
@@ -188,6 +189,8 @@ class MkvVideo:
         self._set_codec()
         for s, e in self._clusters:
             self._cluster(s, e)
+        if self.codec == "png":   # FFmpeg's png parser cuts the blocks
+            self.frames = png.parsed_frames(self.frames, self._fd)
 
     def _segment(self, start: int, end: int) -> None:
         pos = start
@@ -299,6 +302,8 @@ class MkvVideo:
                                    ("vp8", avi.VP8_FOURCCS),
                                    ("vp9", avi.VP9_FOURCCS),
                                    ("h263", avi.H263_FOURCCS),
+                                   ("flv1", avi.FLV1_FOURCCS),
+                                   ("png", avi.PNG_FOURCCS),
                                    ("ffv1", avi.FFV1_FOURCCS),
                                    ("huffyuv", avi.HUFFYUV_FOURCCS)):
                 if fourcc in fourccs:
@@ -410,14 +415,18 @@ class MkvVideo:
     # ---------------------------------------------------------------- reads
 
     def read(self, frame: tuple[int, int, bool]) -> bytes:
-        """The bytes of one frame."""
+        """The bytes of one frame (of a PNG packet's pieces)."""
         off, n, _ = frame
+        if isinstance(off, tuple):
+            return png.read_pieces(self._fd, off)
         return os.pread(self._fd, n, off)
 
     def decode_frame(self, frame: tuple[int, int, bool]
                      ) -> Optional[np.ndarray]:
-        """HxWx3 uint8 RGB of one Motion-JPEG frame; None if it does not
-        decode."""
+        """HxWx3 uint8 RGB of one Motion-JPEG or PNG frame; None if it
+        does not decode."""
+        if self.codec == "png":
+            return png.decode_video_frame(self.read(frame))
         return jpeg.decode(self.read(frame), lenient=True)
 
     def close(self) -> None:

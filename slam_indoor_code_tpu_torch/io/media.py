@@ -13,11 +13,12 @@ not decode and passes on the ``NotImplementedError`` of a format it does
 not read.  Video (``usePhotosCycle=false``) is opened
 by io/avi.py (AVI; MP4 through io/mp4.py; Matroska/WebM through
 io/matroska.py; MPEG program and transport streams through io/mpegps.py
-and io/mpegts.py; MPEG-1/2 and raw H.263 elementary streams): Motion-JPEG and
-uncompressed frames are decoded the same way as photos, each by
-io/jpeg.py or io/rawvideo.py (no EXIF orientation, as OpenCV's video
-readers apply none); MPEG-4 Part 2 (io/mpeg4.py), MPEG-1/2
-(io/mpeg12.py), H.263 (io/h263.py), VP8 (io/vp8.py) and VP9 (io/vp9.py)
+and io/mpegts.py; MPEG-1/2 and raw H.263 elementary streams; Flash Video
+through io/flv.py): Motion-JPEG, PNG and uncompressed frames are decoded
+the same way as photos, each by io/jpeg.py, io/png.py or io/rawvideo.py
+(no EXIF orientation, as OpenCV's video readers apply none); MPEG-4 Part
+2 (io/mpeg4.py), MPEG-1/2 (io/mpeg12.py), H.263 and Sorenson Spark
+(io/h263.py), VP8 (io/vp8.py) and VP9 (io/vp9.py)
 frames, each of which
 predicts from those before it, and FFV1 (io/ffv1.py) and HuffYUV
 (io/huffyuv.py) frames, whose contexts or tables carry from one frame to
@@ -198,10 +199,11 @@ class _ThreadedSequence:
 class MediaSource:
     """Destructive frame iterator over a photo glob or a video file (AVI
     and Matroska/WebM: Motion-JPEG, MPEG-4 Part 2, MPEG-1/2, VP8, VP9,
-    H.263, FFV1 or HuffYUV, and in AVI uncompressed I420/IYUV/Y800;
-    MP4/QuickTime/3GPP: MPEG-4 Part 2, MPEG-1/2, VP9, H.263, FFV1, HuffYUV
-    or Motion-JPEG; MPEG program, transport and elementary streams:
-    MPEG-1/2; raw H.263 streams).  A video that does not open raises
+    H.263, Sorenson Spark, FFV1, HuffYUV or PNG, and in AVI uncompressed
+    I420/IYUV/Y800; MP4/QuickTime/3GPP: MPEG-4 Part 2, MPEG-1/2, VP9,
+    H.263, Sorenson Spark, FFV1, HuffYUV, PNG or Motion-JPEG; MPEG
+    program, transport and elementary streams: MPEG-1/2; raw H.263
+    streams; Flash Video: Sorenson Spark).  A video that does not open raises
     ``IOError``; another container or codec, or an FFV1 or HuffYUV layout
     or depth it does not read, ``NotImplementedError``; an MPEG-4,
     MPEG-1/2 or H.263 tool or VP8 or VP9 feature the decoder does not read
@@ -213,7 +215,7 @@ class MediaSource:
         capacity, threads = max(1, prefetch), max(1, threads)
         if not use_photos:
             video = avi.open_video(video_path)
-            if video.codec in ("mjpeg", "raw"):
+            if video.codec in ("mjpeg", "png", "raw"):
                 self._reader = _PooledSequence(video.frames, capacity,
                                                threads,
                                                decode=video.decode_frame,
@@ -226,8 +228,8 @@ class MediaSource:
                        else mpeg12.Decoder(video.extradata, video.width,
                                            video.height)
                        if video.codec == "mpeg12"
-                       else h263.Decoder()
-                       if video.codec == "h263"
+                       else h263.Decoder(sorenson=video.codec == "flv1")
+                       if video.codec in ("h263", "flv1")
                        else ffv1.Decoder(video.extradata, video.width,
                                          video.height)
                        if video.codec == "ffv1"

@@ -1,7 +1,7 @@
-"""MPEG-4 Part 2, MPEG-1/2, VP9, H.263, FFV1, HuffYUV and Motion-JPEG
-video in MP4/QuickTime/3GPP: the ISO BMFF boxes parsed in Python, each
-sample decoded by io/mpeg4.py, io/mpeg12.py, io/vp9.py, io/h263.py,
-io/ffv1.py, io/huffyuv.py or io/jpeg.py.
+"""MPEG-4 Part 2, MPEG-1/2, VP9, H.263, Sorenson Spark, FFV1, HuffYUV, PNG
+and Motion-JPEG video in MP4/QuickTime/3GPP: the ISO BMFF boxes parsed in
+Python, each sample decoded by io/mpeg4.py, io/mpeg12.py, io/vp9.py,
+io/h263.py, io/ffv1.py, io/huffyuv.py, io/png.py or io/jpeg.py.
 
 The first track whose ``hdlr`` is ``vide`` is read: its ``stsd`` sample
 entry must be ``mp4v`` with an ``esds`` whose objectTypeIndication is 0x20
@@ -13,6 +13,9 @@ writer into ``.mov``; ``xd5*``: XDCAM HD422's MPEG-2 4:2:2), or ``jpeg``
 (Motion-JPEG, OpenCV's ``MJPG`` writer into ``.mov``), or ``s263`` (H.263 in 3GP, 3G2 and MP4: OpenCV's
 ``H263`` writer into ``.3gp``/``.3g2``, phones' clips) or ``h263``
 (H.263 in QuickTime, OpenCV's ``H263`` writer into ``.mov``), or
+``FLV1`` (Sorenson Spark, OpenCV's ``FLV1`` writer into ``.mov``), or
+``png `` (a PNG file a sample: QuickTime PNG, OpenCV's ``png `` writer
+into ``.mov``; ``mp4v`` with objectTypeIndication 0x6D in ``.mp4``), or
 ``vp09`` (VP9, OpenCV's ``vp09`` writer; its ``vpcC`` must name profile 0,
 8-bit, or ``ValueError`` names what it holds), or ``FFV1``, ``HFYU`` or
 ``FFVH`` (OpenCV's lossless writers into ``.mov``: the configuration
@@ -38,7 +41,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import jpeg
+from . import jpeg, png
 
 # sample entry -> the codec it names, for the refusal
 _CODECS = {b"avc1": "H.264", b"avc3": "H.264", b"hvc1": "HEVC",
@@ -54,6 +57,9 @@ _OBJECT_TYPES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
                  0x6C: "Motion-JPEG"}
 # H.263: the 3GPP and QuickTime sample entries
 H263_ENTRIES = (b"s263", b"h263", b"H263")
+# Sorenson Spark and PNG (a PNG file a sample): QuickTime's entries
+OTHER_ENTRIES = {b"FLV1": "flv1", b"png ": "png"}
+_PNG_OBJECT_TYPE = 0x6D
 # the lossless sample entries QuickTime gives FFmpeg's encoders
 LOSSLESS_ENTRIES = {b"FFV1": "ffv1", b"HFYU": "huffyuv", b"FFVH": "huffyuv"}
 # MPEG-1/2 video: esds object types and QuickTime sample entries
@@ -172,7 +178,8 @@ def _full(body: bytes) -> tuple[int, bytes]:
 class Mp4Video:
     """The video track of an MP4/QuickTime file: ``frames`` lists (offset,
     size, shown) of each sample in decode order, ``codec`` "mpeg4",
-    "mpeg12", "vp9", "h263", "ffv1", "huffyuv" or "mjpeg", ``extradata``
+    "mpeg12", "vp9", "h263", "flv1", "ffv1", "huffyuv", "png" or "mjpeg",
+    ``extradata``
     its VOS/VOL headers (an MPEG-1/2 sequence header, a ``glbl`` box),
     ``width``/``height`` its sample entry's size, ``bits_per_coded_sample``
     its depth; ``decode_frame`` decodes a Motion-JPEG sample
@@ -304,14 +311,16 @@ class Mp4Video:
         entry = stsd[8:8 + struct.unpack(">I", stsd[8:12])[0]]
         kind = self.fourcc = entry[4:8]
         if kind not in ((b"mp4v", b"jpeg", b"vp09") + MPEG12_ENTRIES
-                        + H263_ENTRIES + tuple(LOSSLESS_ENTRIES)):
+                        + H263_ENTRIES + tuple(LOSSLESS_ENTRIES)
+                        + tuple(OTHER_ENTRIES)):
             fourcc = kind.decode(errors="replace")
             raise NotImplementedError(
                 f"{self.path}: video codec {_CODECS.get(kind, fourcc)} "
                 f"({fourcc!r}) needs a decoder the port does not have; in MP4 "
                 "only MPEG-4 Part 2 (mp4v), MPEG-1/2 (mp4v, m1v, m2v1), VP9 "
-                "(vp09), H.263 (s263, h263), FFV1, HuffYUV (HFYU, FFVH) "
-                "and Motion-JPEG (jpeg, mp4v 0x6C) are decoded")
+                "(vp09), H.263 (s263, h263), Sorenson Spark (FLV1), FFV1, "
+                "HuffYUV (HFYU, FFVH), PNG (png , mp4v 0x6D) and "
+                "Motion-JPEG (jpeg, mp4v 0x6C) are decoded")
         self.width, self.height = struct.unpack(">HH", entry[32:36])
         if kind in LOSSLESS_ENTRIES:
             self.codec = LOSSLESS_ENTRIES[kind]
@@ -322,6 +331,9 @@ class Mp4Video:
             return
         if kind in H263_ENTRIES:
             self.codec = "h263"
+            return
+        if kind in OTHER_ENTRIES:
+            self.codec = OTHER_ENTRIES[kind]
             return
         if kind in MPEG12_ENTRIES:
             self.codec = "mpeg12"
@@ -338,8 +350,8 @@ class Mp4Video:
             raise IOError(f"Video wasn't opened: {self.path} (mp4v without "
                           "esds)")
         oti, extradata = _esds(entry[esds[0]:esds[1]])
-        if oti == 0x6C:
-            self.codec = "mjpeg"
+        if oti in (0x6C, _PNG_OBJECT_TYPE):
+            self.codec = "mjpeg" if oti == 0x6C else "png"
             return
         self.extradata = extradata
         if oti in MPEG12_OBJECT_TYPES:
@@ -351,7 +363,7 @@ class Mp4Video:
                 f"{self.path}: video codec {name} (mp4v, objectType"
                 f"Indication 0x{oti:02x}) needs a decoder the port does not "
                 "have; only MPEG-4 Part 2 (0x20), MPEG-1/2 (0x60-0x65, "
-                "0x6A) and Motion-JPEG (0x6C) are decoded")
+                "0x6A), Motion-JPEG (0x6C) and PNG (0x6D) are decoded")
 
     def _sizes(self, tables: dict) -> list[int]:
         if b"stsz" in tables:
@@ -468,8 +480,10 @@ class Mp4Video:
 
     def decode_frame(self, frame: tuple[int, int, bool]
                      ) -> Optional[np.ndarray]:
-        """HxWx3 uint8 RGB of one Motion-JPEG sample; None if it does not
-        decode."""
+        """HxWx3 uint8 RGB of one Motion-JPEG or PNG sample; None if it
+        does not decode."""
+        if self.codec == "png":
+            return png.decode_video_frame(self.read(frame))
         return jpeg.decode(self.read(frame), lenient=True)
 
     def close(self) -> None:

@@ -2,7 +2,8 @@
 gives it in colour: the format found by its first bytes, as OpenCV finds
 it, then decoded by the port's own reader (JPEG: io/jpeg.py; PNG:
 io/png.py; BMP: io/bmp.py; PBM/PGM/PPM/PAM: io/pnm.py; TIFF: io/tiff.py;
-lossy, lossless and animated WebP: io/webp.py; GIF: io/gif.py), and turned
+lossy, lossless and animated WebP: io/webp.py; GIF: io/gif.py; PFM:
+io/pfm.py; Radiance HDR: io/hdr.py; Sun raster: io/sunras.py), and turned
 by the EXIF orientation where OpenCV turns it (io/exif.py: a JPEG's APP1, a
 PNG's ``eXIf``, a WebP's ``EXIF``; a TIFF's own Orientation tag in
 io/tiff.py).
@@ -10,7 +11,7 @@ io/tiff.py).
 Three outcomes besides a frame:
 
 - a format that OpenCV reads and the port does not yet (JPEG 2000, AVIF,
-  Radiance HDR, PFM, Sun raster, JPEG-compressed, YCbCr and CMYK TIFF)
+  JPEG-compressed, YCbCr and CMYK TIFF)
   raises ``NotImplementedError`` naming it, which the photo sequence
   passes on to its caller;
 - a damaged file of a format the port reads gives None (and is skipped,
@@ -24,16 +25,13 @@ from typing import Optional
 
 import numpy as np
 
-from . import bmp, exif, gif, jpeg, png, pnm, tiff, webp
+from . import bmp, exif, gif, hdr, jpeg, pfm, png, pnm, sunras, tiff, webp
 
 _SPACE = b" \t\n\v\f\r"
 # leading bytes -> the name of a format OpenCV reads that the port does not
 _REFUSED = (
     (b"\xff\x4f\xff\x51", "JPEG 2000"),
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (b"#?RADIANCE", "Radiance HDR"),
-    (b"#?RGBE", "Radiance HDR"),
-    (b"\x59\xa6\x6a\x95", "Sun raster"),
 )
 
 
@@ -43,7 +41,8 @@ def _refused(name: str) -> NotImplementedError:
 
 def sniff(head: bytes) -> Optional[str]:
     """The format of a file that starts with ``head`` (its first 32 bytes
-    or more): "jpeg", "png", "bmp", "pnm", "tiff", "webp" or "gif"; None
+    or more): "jpeg", "png", "bmp", "pnm", "tiff", "webp", "gif", "pfm",
+    "hdr" or "sunras"; None
     for bytes that are no image OpenCV reads.  Raises ``NotImplementedError``
     for a format OpenCV reads that the port does not."""
     for magic, name in _REFUSED:
@@ -53,7 +52,11 @@ def sniff(head: bytes) -> Optional[str]:
                                  or b"avis" in head[8:32]):
         raise _refused("AVIF")
     if head[:2] in (b"PF", b"Pf") and head[2:3] and head[2] in _SPACE:
-        raise _refused("PFM")
+        return "pfm"
+    if head.startswith(hdr.MAGICS):
+        return "hdr"
+    if head[:4] == sunras.MAGIC:
+        return "sunras"
     if head[:3] == b"\xff\xd8\xff":
         return "jpeg"
     if head[:8] == png.SIGNATURE:
@@ -93,6 +96,10 @@ def decode(data: bytes) -> Optional[np.ndarray]:
                 img, block = tiff.decode(data), None
             elif kind == "gif":
                 img, block = gif.decode(data), None
+            elif kind in ("pfm", "hdr", "sunras"):
+                img = {"pfm": pfm, "hdr": hdr, "sunras": sunras}[kind].decode(
+                    data)
+                block = None
             else:
                 img, block = (bmp if kind == "bmp" else pnm).decode(data), None
         except ValueError:

@@ -11,7 +11,7 @@ key frame (io/webp.py), as libwebp does (``decode_webp``).  A frame with
 frame whose token data ends early is given where FFmpeg gives it, decoded
 to where FFmpeg stops (the rest is the last frame's); one with a corrupt
 or truncated header gives None, sets ``failed`` and leaves the references
-as they were.  A key frame that changes the size, and full-range colour,
+as they were (with ``webp=True``, so does a frame libwebp refuses).  A key frame that changes the size, and full-range colour,
 raise ``ValueError`` naming them.
 
 Built at first use with ``g++ -O2 -fPIC -shared`` into ``_build/`` inside
@@ -61,6 +61,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.vp8dec_webp_rgb.restype = I
     lib.vp8dec_planes.argtypes = [ctypes.c_void_p, U8, U8, U8, I64, I64]
     lib.vp8dec_planes.restype = I
+    lib.vp8dec_set_webp.argtypes = [ctypes.c_void_p, I]
+    lib.vp8dec_set_webp.restype = None
     lib.vp8dec_close.argtypes = [ctypes.c_void_p]
     lib.vp8dec_close.restype = None
     lib.vp8dec_table.argtypes = [ctypes.c_char_p, P(ctypes.c_int32), I]
@@ -87,13 +89,17 @@ def table(name: str) -> np.ndarray:
 class Decoder:
     """One VP8 stream, fed its frames in decode order; ``failed`` tells
     whether the last frame failed (a damaged header), which ends a stream
-    where OpenCV's reader ends it."""
+    where OpenCV's reader ends it.  ``webp=True`` reads a lossy WebP
+    photo's key frame with libwebp's refusals: a frame whose header,
+    partition 0 or tokens need a byte past their partition fails, where a
+    video frame is read on as FFmpeg reads it."""
 
     failed = False
 
-    def __init__(self):
+    def __init__(self, webp: bool = False):
         self._lib = load()
         self._handle = ctypes.c_void_p(self._lib.vp8dec_open())
+        self._lib.vp8dec_set_webp(self._handle, int(webp))
 
     def _decode(self, frame: bytes) -> Optional[tuple[int, int]]:
         if not self._handle:

@@ -29,10 +29,13 @@ where libwebp's demuxer takes the whole file (``_demux``).  Then one of:
 The simple (``VP8 ``/``VP8L`` alone) and extended (``VP8X``) layouts are
 read; OpenCV takes no file under 32 bytes for a WebP.  In the extended
 one a still image must have the canvas's size, an ``ALPH`` chunk's alpha
-is dropped and an ``EXIF`` chunk's orientation is returned for
+is dropped (a lossy image's is decoded, and must decode, as libwebp
+decodes it) and an ``EXIF`` chunk's orientation is returned for
 io/exif.py.  A damaged or truncated file raises ``ValueError`` where
-libwebp refuses it; damaged VP8 data (a lossy image or frame) is read as
-native/vp8.cpp reads a damaged video frame, which libwebp may refuse.
+libwebp refuses it; damaged VP8 data (a lossy image or frame) too, with
+libwebp's tests: the frame tag and header, the partition table, and a
+header, partition 0 or macroblock that needs a byte past its partition
+(native/vp8.cpp's ``webp`` mode).
 
 The lossless decoder is built at first use with ``g++ -O2 -fPIC -shared``
 into ``_build/`` inside the package (ignored by git).  If the build fails,
@@ -99,17 +102,29 @@ def _u24(b: bytes, at: int) -> int:
     return b[at] | b[at + 1] << 8 | b[at + 2] << 16
 
 
-def _lossy(frame: bytes) -> np.ndarray:
-    if len(frame) < 10 or frame[0] & 1:
-        raise ValueError("WebP without a VP8 key frame")
-    dec = vp8.Decoder()
+def _lossy(data: bytes, at: int, n: int, end: int) -> np.ndarray:
+    """The VP8 key frame of the ``n``-byte chunk at ``at``, its last token
+    partition read on to ``end`` as libwebp's ``ParsePartitions`` reads
+    it, with libwebp's refusals (io/vp8.py, ``webp=True``)."""
+    _bitstream_size(data, b"VP8 ", at, n)
+    dec = vp8.Decoder(webp=True)
     try:
-        img = dec.decode_webp(frame)
+        img = dec.decode_webp(data[at:end])
     finally:
         dec.close()
     if img is None:
         raise ValueError("WebP: the VP8 frame does not decode")
     return img
+
+
+def _check_alpha(alpha: Optional[bytes], kind: bytes,
+                 hw: tuple[int, int]) -> None:
+    """libwebp decodes the ``ALPH`` chunk of a lossy image (the last one
+    before it in a still image) even where OpenCV drops the alpha, and
+    refuses the image where it does not decode."""
+    if (alpha is not None and kind == b"VP8 "
+            and load().vp8l_alpha_check(alpha, len(alpha), hw[1], hw[0])):
+        raise ValueError("WebP: the ALPH chunk does not decode")
 
 
 def _lossless_size(stream: bytes) -> tuple[int, int]:
@@ -121,10 +136,11 @@ def _lossless_size(stream: bytes) -> tuple[int, int]:
 
 
 def _image(data: bytes, kind: bytes, at: int, n: int, end: int) -> np.ndarray:
-    """The image chunk at ``at`` (``n`` bytes); a VP8L stream may be read
-    on to ``end``, as libwebp's bit reader reads it."""
+    """The image chunk at ``at`` (``n`` bytes); a VP8L stream, and a VP8
+    frame's last token partition, may be read on to ``end``, as libwebp
+    reads them."""
     if kind == b"VP8 ":
-        return _lossy(data[at:at + n])
+        return _lossy(data, at, n, end)
     stream = data[at:end]
     out = np.empty(_lossless_size(stream) + (3,), np.uint8)
     if load().vp8l_rgb(stream, len(stream), out.ctypes.data):
@@ -270,16 +286,21 @@ def decode(data: bytes) -> tuple[np.ndarray, Optional[bytes]]:
         frames, exif = None, None
     if flags & _ANIMATION:                # the first frame on the canvas
         x, y, alpha, (kind, a, m, (h, w)) = frames[0]
-        if (alpha is not None and kind == b"VP8 " and load().vp8l_alpha_check(
-                alpha, len(alpha), w, h)):
-            raise ValueError("WebP: the first frame's ALPH does not decode")
+        _check_alpha(alpha, kind, (h, w))
         out = np.zeros(canvas + (3,), np.uint8)
         out[y:y + h, x:x + w] = _image(data, kind, a, m, a + m + (m & 1))
         return out, None
-    image = next((c for c in chunks if c[0] in _IMAGES), None)
+    alpha = image = None
+    for c in chunks:
+        if c[0] in _IMAGES:
+            image = c
+            break
+        if c[0] == b"ALPH":
+            alpha = data[c[1]:c[1] + c[2]]
     if image is None:
         raise ValueError("WebP without an image chunk")
     img = _image(data, *image, len(data))
+    _check_alpha(alpha, image[0], img.shape[:2])
     if img.shape[:2] != canvas:
         raise ValueError("WebP: the image's size is not the canvas's")
     return img, exif

@@ -36,7 +36,12 @@
 //   - a P-picture before any reference predicted from FFmpeg's dummy
 //     frame (luma 16, chroma 128);
 //   - the crop of the macroblock-aligned picture, and YUV 4:2:0 -> RGB as
-//     OpenCV's FFmpeg backend returns it (swscale_rgb.h).
+//     OpenCV's FFmpeg backend returns it (swscale_rgb.h);
+//   - Sorenson Spark (FLV1, what Flash Video and OpenCV's `FLV1` writer
+//     store), as FFmpeg's flv decoder reads it: flvdec.c's picture header
+//     (any size up to 65535 a side), baseline macroblocks with no annex,
+//     FLV's escape (an 11- or 7-bit level) in format 1, and disposable
+//     P-pictures given but kept from the reference (skipped before one).
 // A tool it does not decode raises with the tool named: syntax-based
 // arithmetic coding (E), PB-frames (G) and improved PB-frames (M), CPM,
 // reference picture selection (N), B/EI/EP pictures (O), reference
@@ -47,7 +52,9 @@
 // short for its size (FFmpeg's test), gives no frame and leaves the
 // reference as it was.  Macroblocks that fail to decode, and those up to
 // the next GOB or slice header, are concealed (the reference's pixels,
-// grey without one), as FFmpeg conceals them (its error resilience
+// grey without one), and so is a whole slice that runs to the picture's
+// end with more than 7 bits, or fewer than none, left, as FFmpeg conceals
+// them (its error resilience
 // re-estimates them, so a concealed area is held to a tolerance).
 //
 // C ABI; Python binds it through ctypes (io/h263.py).  Build:
@@ -162,6 +169,7 @@ enum Stat {
   kUmvCodes, kAltVlcBlocks, kMqEscapes, kMqChromaMbs,
   kConcealedMbs, kUmvPictures, kObmcPictures, kAicPictures,
   kLoopFilterPictures, kSlicePictures, kAivPictures, kMqPictures,
+  kSorensonPictures, kDisposablePictures, kFlvEscapes7, kFlvEscapes11,
   kNumStats
 };
 
@@ -174,11 +182,19 @@ class Decoder {
   int width = 0, height = 0;
   const Picture* out = nullptr;  // the frame last given
   int64_t stats[kNumStats] = {};
+  // Sorenson Spark (FLV1): FFmpeg's flv decoder, flvdec.c's picture header
+  bool sorenson = false;
 
-  // One picture.  kFrame when a frame is given (`out`).
+  // One picture.  kFrame when a frame is given (`out`); kNoFrame for a
+  // disposable Sorenson picture before any reference, which FFmpeg skips.
   Status decode(const uint8_t* data, int64_t n) {
     Bits b(data, n);
-    picture_header(b, n);
+    droppable_ = false;
+    if (sorenson)
+      sorenson_header(b, n);
+    else
+      picture_header(b, n);
+    if (droppable_ && !has_ref_) return kNoFrame;
     if (pict_p_ && !has_ref_) {  // FFmpeg's dummy reference
       std::memset(ref_->y.px.data(), 16, ref_->y.px.size());
       std::memset(ref_->u.px.data(), 128, ref_->u.px.size());
@@ -186,9 +202,10 @@ class Decoder {
     }
     decode_picture(b);
     out = cur_;
+    ++stats[kFrames];
+    if (droppable_) return kFrame;  // given, but not a reference
     std::swap(cur_, ref_);
     has_ref_ = true;
-    ++stats[kFrames];
     return kFrame;
   }
 
@@ -205,6 +222,10 @@ class Decoder {
   bool aic_ = false, loop_filter_ = false, slice_structured_ = false;
   bool alt_inter_vlc_ = false, modified_quant_ = false, custom_pcf_ = false;
   bool no_rounding_ = false, mq_chroma_ = false;
+  // Sorenson: the escape's form (1: H.263's, 2: FLV's) and a disposable
+  // P-picture (PTYPE 2 or 3), decoded but kept from the reference
+  int flv_ = 0;
+  bool droppable_ = false;
   int qscale_ = 1, chroma_qscale_ = 1, y_dc_scale_ = 8, c_dc_scale_ = 8;
   // the slice being decoded
   int mb_x_ = 0, mb_y_ = 0, resync_x_ = 0, resync_y_ = 0;
@@ -339,6 +360,52 @@ class Decoder {
                            modified_quant_};
     for (int i = 0; i < 7; ++i) stats[kUmvPictures + i] += modes[i];
     if (no_rounding_) ++stats[kNoRounding];
+  }
+
+  // ff_flv_decode_picture_header: a 17-bit start code, the format (0: the
+  // H.263 escape, 1: the FLV escape), TR, a size code (8- or 16-bit sizes,
+  // or one of five), the picture type (2 and 3: disposable P), the
+  // deblocking flag (ignored), the quantiser and PEI's extra bytes; no
+  // annex, and vectors wrap as baseline's.
+  void sorenson_header(Bits& b, int64_t n) {
+    if (b.get(17) != 1) corrupt("no Sorenson picture start code");
+    const int format = static_cast<int>(b.get(5));
+    if (format > 1) corrupt("Sorenson picture format neither 0 nor 1");
+    flv_ = format + 1;
+    b.skip(8);  // TR
+    static const int kSizes[5][2] = {
+        {352, 288}, {176, 144}, {128, 96}, {320, 240}, {160, 120}};
+    const int code = static_cast<int>(b.get(3));
+    int w = 0, h = 0;
+    if (code < 2) {
+      w = static_cast<int>(b.get(code ? 16 : 8));
+      h = static_cast<int>(b.get(code ? 16 : 8));
+    } else if (code < 7) {
+      w = kSizes[code - 2][0];
+      h = kSizes[code - 2][1];
+    }
+    // av_image_check_size
+    if (!w || !h || int64_t(w + 128) * (h + 128) >= (INT32_MAX / 8))
+      corrupt("Sorenson picture size invalid");
+    const int type = static_cast<int>(b.get(2));
+    pict_p_ = type != 0;
+    droppable_ = type > 1;
+    b.skip(1);  // deblocking flag
+    qscale_ = static_cast<int>(b.get(5));
+    while (b.get1() && !b.overrun()) b.skip(8);  // PEI, PSUPP
+    if (b.overrun()) corrupt("picture header cut short");
+    if (int64_t(w) * h / 256 / 8 > b.left())
+      corrupt("picture too short for its size");
+    if (width && (w != width || h != height))
+      unsupported("Sorenson Spark picture size change (" +
+                  std::to_string(width) + "x" + std::to_string(height) +
+                  " to " + std::to_string(w) + "x" + std::to_string(h) +
+                  ")");
+    if (w != width || h != height) resize(w, h);
+    mb_x_ = mb_y_ = 0;
+    ++stats[kSorensonPictures];
+    stats[kDisposablePictures] += droppable_;
+    (void)n;
   }
 
   void resize(int w, int h) {
@@ -481,6 +548,13 @@ class Decoder {
         }
       }
     }
+    // The slice ran to the picture's end with no end marker: FFmpeg takes
+    // it whole only where at most 7 bits are left ("discarding junk
+    // bits", "overreading"), and else conceals all of it.
+    const int64_t left = b.left();
+    if (left > 7 || left < 0)
+      for (int i = resync_y_ * mbw_ + resync_x_; i < mbw_ * mbh_; ++i)
+        done_[i] = 0;
   }
 
   // ---------------------------------------------------- macroblock layer
@@ -763,7 +837,14 @@ class Decoder {
       for (;;) {
         const int k = rl->vlc.read(b, "TCOEF");
         int last, run, level;
-        if (k == kEscape) {
+        if (k == kEscape && flv_ > 1) {  // FLV: is11, LAST, RUN, LEVEL
+          const int is11 = b.get1();
+          last = b.get1();
+          run = b.get(6);
+          const int nb = is11 ? 11 : 7;
+          level = static_cast<int>(b.get(nb) << (32 - nb)) >> (32 - nb);
+          ++stats[is11 ? kFlvEscapes11 : kFlvEscapes7];
+        } else if (k == kEscape) {
           last = b.get1();
           run = b.get(6);
           level = static_cast<int8_t>(b.get(8));
@@ -1197,7 +1278,13 @@ int h263dec_open(void** out) {
   return kFrame;
 }
 
-// Decode one picture.  0: its frame is given, *w and *h set; 2: a tool it
+// Read Sorenson Spark (FLV1) pictures (1) or H.263 ones (0, the default).
+void h263dec_set_sorenson(void* handle, int on) {
+  static_cast<Decoder*>(handle)->sorenson = on != 0;
+}
+
+// Decode one picture.  0: its frame is given, *w and *h set; 1: no frame
+// (a disposable Sorenson picture before any reference); 2: a tool it
 // does not decode (msg names it); 3: no picture (a header that does not
 // parse, a picture too short for its size; the reference stays).
 int h263dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,

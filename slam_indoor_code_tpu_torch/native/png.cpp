@@ -11,10 +11,17 @@
 //     chunk's are black, as libpng's;
 //   - alpha (and a palette's tRNS) is dropped, not composited
 //     (png_set_strip_alpha).
+// With kVideo, the rows as FFmpeg's png decoder gives them to OpenCV's
+// video reader (a PNG a frame: MPNG, QuickTime `png `) through swscale:
+// 16-bit gray becomes min((v + 128) >> 8, 255); rows the data does not
+// reach are zero bytes (a palette image's index 0); a row whose filter
+// is unknown is zero bytes too, or, in an Adam7 pass, the row two above
+// it in the pass (FFmpeg filters into the row buffer that held it).
 //
 // C ABI; Python binds it through ctypes (io/png.py).  Build:
 //   g++ -O2 -fPIC -std=c++17 -shared -o libpngdec.so png.cpp
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -78,10 +85,14 @@ bool unfilter(int ft, uint8_t* row, const uint8_t* prior, int64_t n,
 // Sample `i` of an unfiltered row at `depth` bits (the high byte of a
 // 16-bit sample; a sub-byte sample scaled to 8 bits unless it is a
 // palette index).
-inline int sample(const uint8_t* row, int64_t i, int depth, bool scale) {
+inline int sample(const uint8_t* row, int64_t i, int depth, bool scale,
+                  bool round16 = false) {
   switch (depth) {
     case 8: return row[i];
-    case 16: return row[2 * i];
+    case 16:
+      if (round16)
+        return std::min(((row[2 * i] << 8 | row[2 * i + 1]) + 128) >> 8, 255);
+      return row[2 * i];
     default: {
       const int64_t bit = i * depth;
       const int v = (row[bit >> 3] >> (8 - depth - (bit & 7)))
@@ -95,6 +106,8 @@ void put_msg(const char* s, char* msg, int msg_len) {
   if (msg_len > 0) std::snprintf(msg, msg_len, "%s", s);
 }
 
+constexpr int kVideo = 1;  // pngdec_rgb's flag: FFmpeg's png decoder
+
 }  // namespace
 
 extern "C" {
@@ -102,16 +115,26 @@ extern "C" {
 // The image data `raw` (n inflated bytes: each pass's rows, each with its
 // filter byte) of a w x h PNG of bit `depth`, colour type `ctype` and
 // `interlace` (0 or 1) to h*w*3 RGB bytes in `out`; `palette` holds 256
-// RGB entries.  0: done; 1: the data is short or a row's filter unknown
-// (msg says which).
+// RGB entries; `flags` kVideo reads as FFmpeg does (see the top).  0:
+// done; 1: the data is short or a row's filter unknown (msg says which;
+// never with kVideo).
 int pngdec_rgb(const uint8_t* raw, int64_t n, int w, int h, int depth,
-               int ctype, int interlace, const uint8_t* palette,
+               int ctype, int interlace, const uint8_t* palette, int flags,
                uint8_t* out, char* msg, int msg_len) {
   const int ch = channels_of(ctype);
   const int bits = ch * depth;
   const int bpp = bits >= 8 ? bits / 8 : 1;
   const bool scale = ctype != 3;
+  const bool video = flags & kVideo;
   const int passes = interlace ? 7 : 1;
+  if (video) {  // the frame buffer FFmpeg fills starts as zero bytes
+    const uint8_t* z = ctype == 3 ? palette : nullptr;
+    for (int64_t i = 0; i < int64_t(w) * h; ++i) {
+      out[3 * i] = z ? z[0] : 0;
+      out[3 * i + 1] = z ? z[1] : 0;
+      out[3 * i + 2] = z ? z[2] : 0;
+    }
+  }
   std::vector<uint8_t> rows[2];
   int64_t pos = 0;
   for (int p = 0; p < passes; ++p) {
@@ -126,15 +149,20 @@ int pngdec_rgb(const uint8_t* raw, int64_t n, int w, int h, int depth,
     rows[1].assign(rb, 0);
     for (int64_t r = 0; r < ph; ++r) {
       if (pos + 1 + rb > n) {
+        if (video) return 0;
         put_msg("Not enough image data", msg, msg_len);
         return 1;
       }
       uint8_t* row = rows[r & 1].data();
       const uint8_t* prior = rows[(r + 1) & 1].data();   // zeros at r 0
       const int ft = raw[pos];
-      std::memcpy(row, raw + pos + 1, rb);
+      if (video && ft > 4) {
+        if (!interlace) std::memset(row, 0, rb);
+      } else {
+        std::memcpy(row, raw + pos + 1, rb);
+      }
       pos += 1 + rb;
-      if (!unfilter(ft, row, prior, rb, bpp)) {
+      if (!(video && ft > 4) && !unfilter(ft, row, prior, rb, bpp)) {
         put_msg("bad adaptive filter value", msg, msg_len);
         return 1;
       }
@@ -152,7 +180,7 @@ int pngdec_rgb(const uint8_t* raw, int64_t n, int w, int h, int depth,
           dst[2] = static_cast<uint8_t>(sample(row, s + 2, depth, scale));
         } else {
           dst[0] = dst[1] = dst[2] =
-              static_cast<uint8_t>(sample(row, s, depth, scale));
+              static_cast<uint8_t>(sample(row, s, depth, scale, video));
         }
       }
     }

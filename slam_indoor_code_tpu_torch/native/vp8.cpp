@@ -42,6 +42,12 @@
 // references as they were.  A key frame
 // that changes the size, and the full-range flag (clamping_type 1, which
 // FFmpeg reads as full-range colour), raise with the feature named.
+// A lossy WebP photo (`webp`, vp8dec_set_webp) is read with libwebp's
+// refusals in place of that leniency (vp8_dec.c): the partition table
+// (a size past the data is the rest of it; the last partition must hold
+// a byte), clamping_type ignored, and no frame where the header, partition
+// 0 after a row's modes, or a macroblock's tokens need a byte past their
+// partition (the bit reader's libwebp_eof).
 //
 // The probability tables are RFC 6386's (and libvpx's):
 //
@@ -979,6 +985,8 @@ class Decoder {
  public:
   int width = 0, height = 0;
   FramePtr shown;  // the last frame given
+  // A lossy WebP photo: libwebp's refusals in place of FFmpeg's leniency.
+  bool webp = false;
 
   Status decode(const uint8_t* data, int64_t n);
 
@@ -1068,10 +1076,12 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
   left -= first_size;
   if (key) {
     b.get(128);  // colour space: FFmpeg reads and ignores it
-    if (b.get(128))
+    if (b.get(128) && !webp)  // libwebp ignores it too
       unsupported("full-range colour (clamping_type 1)");
   }
   frame_header(b);
+  if (webp && b.libwebp_eof())
+    corrupt("the segment or filter header past partition 0");
   // the token partitions
   const uint8_t* sizes = p;
   p += 3 * (nparts_ - 1);
@@ -1080,12 +1090,16 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
   for (int i = 0; i < nparts_ - 1; ++i) {
     int64_t size = sizes[3 * i] | (sizes[3 * i + 1] << 8) |
                    (sizes[3 * i + 2] << 16);
-    if (left - size < 0 || size < 1)
+    if (webp) {
+      size = std::min(size, left);  // libwebp's ParsePartitions
+    } else if (left - size < 0 || size < 1) {
       corrupt("a token partition past the end of the frame");
+    }
     parts_[i].init(p, size, frame_end);
     p += size;
     left -= size;
   }
+  if (webp && left < 1) corrupt("the last token partition is empty");
   parts_[nparts_ - 1].init(p, left, frame_end);
   if (new_w && !width) {
     width = new_w;
@@ -1173,7 +1187,7 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
   int stop_x = -1, stop_y = mbh_;
   for (int my = 0; my < mbh_ && stop_x < 0; ++my) {
     Bool& tb = parts_[my & (nparts_ - 1)];
-    if (tb.exhausted()) {
+    if (!webp && tb.exhausted()) {
       stop_x = 0;
       stop_y = my;
       break;
@@ -1186,7 +1200,7 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
       std::memset(coef_, 0, sizeof(coef_));
       uint8_t* top = &top_nnz[size_t(mx) * 9];
       if (!m.skip) {
-        if (tb.exhausted()) {
+        if (!webp && tb.exhausted()) {
           stop_x = mx;
           stop_y = my;
           break;
@@ -1216,7 +1230,11 @@ Status Decoder::decode(const uint8_t* data, int64_t n) {
       lf_level_[size_t(my) * mbw_ + mx] =
           static_cast<uint8_t>(std::clamp(level, 0, 63));
       lf_inner_[size_t(my) * mbw_ + mx] = !y2 || !m.skip;
+      // libwebp's VP8DecodeMB: "Premature end-of-file encountered."
+      if (webp && tb.libwebp_eof()) corrupt("a token partition ran out");
     }
+    // libwebp's VP8ParseIntraModeRow: "Premature end-of-partition0"
+    if (webp && stop_x < 0 && b.libwebp_eof()) corrupt("partition 0 ran out");
   }
   if (stop_x >= 0 && refs_[1]) conceal(stop_x, stop_y);
   if (filter_level_) loop_filter(stop_y);
@@ -1861,6 +1879,16 @@ int vp8dec_decode(void* handle, const uint8_t* data, int64_t n, int* w,
     put_msg("out of memory", msg, msg_len);
     return kCorrupt;
   }
+}
+
+// Decode a lossy WebP photo's key frame as libwebp's vp8_dec.c refuses one
+// (1) or as a video frame as FFmpeg reads it (0, the default): libwebp
+// takes a token partition whose size runs past the data as the rest of it,
+// needs the last partition to hold a byte, ignores clamping_type, and
+// gives no image where the header, partition 0 or a macroblock's tokens
+// need a byte past their partition.
+void vp8dec_set_webp(void* handle, int on) {
+  static_cast<Decoder*>(handle)->webp = on != 0;
 }
 
 // The last frame given as h*w*3 RGB bytes.  0: done; 4: cap too small.

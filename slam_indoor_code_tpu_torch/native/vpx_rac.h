@@ -1,7 +1,8 @@
 // vpx_rac.h — the boolean (range) decoder of VP8 and VP9, read as FFmpeg's
 // vpx_rac reads it: two bytes at a time; past the packet it reads zeros,
 // past its own partition the bytes that follow, as FFmpeg's padded packets
-// give them.  Shared by vp8.cpp and vp9.cpp; header-only.
+// give them.  ``libwebp_eof`` tells where libwebp's reader would have run
+// out of the partition.  Shared by vp8.cpp and vp9.cpp; header-only.
 
 #ifndef SLAM_NATIVE_VPX_RAC_H_
 #define SLAM_NATIVE_VPX_RAC_H_
@@ -15,6 +16,8 @@ class Bool {
  public:
   void init(const uint8_t* p, int64_t n, const uint8_t* frame_end) {
     frame_end_ = frame_end;
+    start_ = p;
+    size_ = std::max<int64_t>(n, 0);
     buf_ = p;
     end_ = p + std::max<int64_t>(n, 0);
     high_ = 255;
@@ -73,11 +76,23 @@ class Bool {
     return end_reached_ > 10;
   }
 
+  // libwebp's eof_ (VP8LoadFinalBytes): set once a read needs a byte past
+  // the partition.  libwebp renormalises after each bit and this reader
+  // before it, so the shift applied here so far is the one libwebp had at
+  // the start of its last read: eof_ is set when that passes all but the
+  // partition's last byte (at once for an empty partition).
+  bool libwebp_eof() const {
+    const int64_t shifted = bits_ + 16 + 8 * (buf_ - start_ - 3);
+    return size_ == 0 || shifted > 8 * (size_ - 1);
+  }
+
  private:
   inline uint8_t byte(const uint8_t* p) const {
     return p < frame_end_ ? *p : 0;
   }
 
+  const uint8_t* start_ = nullptr;
+  int64_t size_ = 0;
   const uint8_t* buf_ = nullptr;
   const uint8_t* end_ = nullptr;
   const uint8_t* frame_end_ = nullptr;

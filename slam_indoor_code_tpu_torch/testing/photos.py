@@ -4,7 +4,9 @@ or PackBits compression, with or without the horizontal predictor, in
 strips or tiles, chunky or planar, 8 or 16-bit, either byte order, classic
 or BigTIFF, with an Orientation tag), 16-bit RGB PNG and 8-bit PNG with
 every row filtered Paeth, lossless WebP (still and animated), GIF from an
-index image and its palette, and an EXIF APP1 segment put into a JPEG.
+index image and its palette, Sun raster (1, 8, 24 or 32 bits, a palette,
+run-length coded or not), PFM, Radiance HDR (new-style scanlines), and an
+EXIF APP1 segment put into a JPEG.
 Each ``encode_*`` returns the file's bytes."""
 
 from __future__ import annotations
@@ -444,3 +446,109 @@ def encode_gif(index: np.ndarray, palette: np.ndarray) -> bytes:
             + np.ascontiguousarray(palette, np.uint8).tobytes()
             + b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0) + b"\x08"
             + _sub_blocks(data) + b"\x3b")
+
+
+SUN_MAGIC = 0x59A66A95
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun raster's byte run-length code (type 2): a run of n > 2 equal
+    bytes (at most 256) is 0x80, n - 1, the byte; a lone 0x80 is 0x80, 0;
+    every other byte stands for itself."""
+    a = np.frombuffer(data, np.uint8)
+    if not len(a):
+        return b""
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lengths = np.diff(np.r_[starts, len(a)])
+    out = bytearray()
+    for s, n in zip(starts.tolist(), lengths.tolist()):
+        v = int(a[s])
+        while n:
+            k = min(n, 256)
+            if k > 2 or (v == 0x80 and k == 2):
+                out += bytes((0x80, k - 1, v))
+            elif v == 0x80:
+                out += b"\x80\x00"
+            else:
+                out += bytes([v] * k)
+            n -= k
+    return bytes(out)
+
+
+def encode_sun_raster(samples: np.ndarray, *, depth: int = 24,
+                      rle: bool = False, rgb_order: bool = False,
+                      palette: np.ndarray = None) -> bytes:
+    """A Sun raster file (big-endian 32-byte header, rows padded to 16
+    bits) of ``samples``: [H,W,3] uint8 RGB at depth 24 or 32 (stored
+    B, G, R, or R, G, B with ``rgb_order`` (type 3); at 32 bits after a
+    pad byte), or [H,W] indices or gray levels at depth 1 or 8, with a
+    ``palette`` [n,3] (maptype 1) or without (gray).  ``rle`` codes the
+    image data with type 2's byte runs."""
+    h, w = samples.shape[:2]
+    pitch = (w * depth + 15) // 16 * 2
+    rows = np.zeros((h, pitch), np.uint8)
+    if depth == 1:
+        packed = np.packbits(np.asarray(samples, np.uint8) & 1, axis=1)
+        rows[:, :packed.shape[1]] = packed
+    elif depth == 8:
+        rows[:, :w] = samples
+    else:
+        px = samples if rgb_order else samples[..., ::-1]
+        if depth == 32:
+            px = np.concatenate([np.zeros((h, w, 1), np.uint8), px], -1)
+        rows[:, :w * depth // 8] = px.reshape(h, -1)
+    data = rows.tobytes()
+    kind = 3 if rgb_order else 1
+    if rle:
+        data, kind = sun_rle(data), 2
+    cmap = b""
+    if palette is not None:
+        pal = np.asarray(palette, np.uint8)
+        cmap = pal[:, 0].tobytes() + pal[:, 1].tobytes() + pal[:, 2].tobytes()
+    return (struct.pack(">8I", SUN_MAGIC, w, h, depth, len(data), kind,
+                        1 if cmap else 0, len(cmap)) + cmap + data)
+
+
+def encode_pfm(rgb: np.ndarray) -> bytes:
+    """A little-endian PFM (scale -1) of ``rgb`` [H,W,3] uint8 as float32
+    0-255 samples, rows from the bottom up (OpenCV reads it back as
+    ``rgb``)."""
+    h, w, _ = rgb.shape
+    return (f"PF\n{w} {h}\n-1.0\n".encode()
+            + np.ascontiguousarray(rgb[::-1], "<f4").tobytes())
+
+
+def rgbe(rgb: np.ndarray) -> np.ndarray:
+    """[H,W,4] RGBE bytes of ``rgb`` / 255 (Radiance's float2rgbe: the
+    largest channel's frexp gives the shared exponent)."""
+    f = rgb.astype(np.float64) / 255.0
+    m, e = np.frexp(f.max(axis=-1))
+    scale = np.where(m > 1e-32, m * 256.0 / np.maximum(f.max(axis=-1),
+                                                       1e-300), 0.0)
+    out = np.zeros(rgb.shape[:2] + (4,), np.uint8)
+    out[..., :3] = (f * scale[..., None]).astype(np.uint8)
+    out[..., 3] = np.where(m > 1e-32, e + 128, 0)
+    return out
+
+
+def encode_hdr(rgb: np.ndarray) -> bytes:
+    """A Radiance HDR file of ``rgb`` [H,W,3] uint8 / 255 as OpenCV's
+    writer lays one out (``#?RGBE``, the RGBE FORMAT, ``-Y h +X w``), each
+    scanline new-style: 2, 2, its width, then each channel as literal runs
+    of up to 128 bytes (widths of 8 to 32767; flat RGBE otherwise)."""
+    h, w, _ = rgb.shape
+    px = rgbe(rgb)
+    head = f"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n".encode()
+    if not 8 <= w <= 0x7FFF:
+        return head + px.tobytes()
+    starts = np.arange(0, w, 128)
+    counts = np.minimum(128, w - starts).astype(np.uint8)
+    lines = []
+    for y in range(h):
+        parts = [bytes((2, 2, w >> 8, w & 0xFF))]
+        for c in range(4):
+            chan = px[y, :, c]
+            for s, n in zip(starts.tolist(), counts.tolist()):
+                parts.append(bytes((n,)) + chan[s:s + n].tobytes())
+        lines.append(b"".join(parts))
+    return head + b"".join(lines)

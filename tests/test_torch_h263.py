@@ -602,26 +602,50 @@ def test_refusals_name_the_tool(tmp_path, field):
 @pytest.mark.parametrize("fourcc", [b"I263", b"FLV1"])
 @pytest.mark.parametrize("ext", ["avi", "mkv"])
 def test_h263_dialects_refused_by_name(tmp_path, fourcc, ext):
-    """Intel's H.263 and Sorenson Spark, which FFmpeg reads with decoders of
-    their own, are refused naming them."""
-    path = write_stream(tmp_path / f"d.{ext}", encode(pan(2, 96, 128), {},
-                                                       "h263"),
-                        128, 96, fourcc=fourcc)
-    with pytest.raises(NotImplementedError, match="Intel H.263|Sorenson"):
+    """Intel's H.263, which FFmpeg reads with a decoder of its own, is
+    refused naming it.  Sorenson Spark (FLV1), refused so until the port
+    read it, now gives cv2's frames (io/h263.py's Sorenson mode; more in
+    tests/test_torch_flv.py)."""
+    flv1 = fourcc == b"FLV1"
+    path = write_stream(tmp_path / f"d.{ext}", encode(
+        pan(2, 96, 128), {}, "flv" if flv1 else "h263"), 128, 96,
+        fourcc=fourcc)
+    if flv1:
+        got = list(MediaSource(video_path=str(path), use_photos=False))
+        want = cv2_rgb(path)
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        return
+    with pytest.raises(NotImplementedError, match="Intel H.263"):
         avi.open_video(str(path))
 
 
 def test_flash_video_is_refused_naming_it_and_its_codec(tmp_path):
     """cv2's ``FLV1`` writer into ``.flv`` (Flash Video, Sorenson Spark):
-    cv2 reads every frame back; the port names the container and the codec
-    (it once said the file did not open)."""
+    cv2 reads every frame back, and so does the port now (io/flv.py).
+    The same file with its video tags' codec id made On2 VP6 is refused
+    naming the container and the codec."""
     path = tmp_path / "spark.flv"
     frames = pan(3, 96, 128)
     write_cv2_video(path, frames, "FLV1")
-    assert path.read_bytes()[:4] == b"FLV\x01"
-    assert len(cv2_rgb(path)) == 3
+    data = path.read_bytes()
+    assert data[:4] == b"FLV\x01"
+    want = cv2_rgb(path)
+    got = list(MediaSource(video_path=str(path), use_photos=False))
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    vp6 = bytearray(data)
+    pos = int.from_bytes(data[5:9], "big") + 4
+    while pos + 11 < len(vp6):
+        size = int.from_bytes(vp6[pos + 1:pos + 4], "big")
+        if vp6[pos] == 9:
+            vp6[pos + 11] = vp6[pos + 11] & 0xF0 | 4
+        pos += 15 + size
+    path.write_bytes(bytes(vp6))
     with pytest.raises(NotImplementedError,
-                       match=r"Flash Video.*Sorenson Spark"):
+                       match=r"Flash Video.*On2 VP6"):
         avi.open_video(str(path))
     with pytest.raises(NotImplementedError, match="Flash Video"):
         list(MediaSource(video_path=str(path), use_photos=False))

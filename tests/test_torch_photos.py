@@ -700,15 +700,10 @@ def _refused_files(images):
     rgb = images[SIZES[0]]
     bgr = rgb[..., ::-1]
     enc = {ext: cv2.imencode(ext, src)[1].tobytes() for ext, src in (
-        (".jp2", bgr), (".avif", bgr), (".ras", bgr),
-        (".hdr", bgr.astype(np.float32) / 255),
-        (".pfm", bgr.astype(np.float32) / 255))}
+        (".jp2", bgr), (".avif", bgr))}
     return {
         "JPEG 2000": enc[".jp2"],
         "AVIF": enc[".avif"],
-        "Sun raster": enc[".ras"],
-        "Radiance HDR": enc[".hdr"],
-        "PFM": enc[".pfm"],
         "JPEG-compressed TIFF": cv2.imencode(".tiff", bgr, [
             cv2.IMWRITE_TIFF_COMPRESSION, 7])[1].tobytes(),
         "YCbCr TIFF": pil_bytes(Image.fromarray(rgb).convert("YCbCr"),
@@ -953,7 +948,7 @@ def test_mixed_glob_equals_jax_and_refusal_reaches_the_caller(tmp_path,
                                                               no_native):
     """A mixed-format glob (the six writers, a cv2 WebP, a JPEG turned by
     EXIF) through both MediaSources with the native readers off: the same
-    frames in the same order.  Then a Sun raster at its end raises
+    frames in the same order.  Then a JPEG 2000 at its end raises
     NotImplementedError from next_frame, where the JAX package (cv2)
     reads it; and a damaged file in its place is skipped (the JAX
     package's pure-Python reader stops at it instead; its native one
@@ -974,11 +969,11 @@ def test_mixed_glob_equals_jax_and_refusal_reaches_the_caller(tmp_path,
     for a, b in zip(got[:6], frames):
         np.testing.assert_array_equal(a, b)
     assert got[7].shape[:2] == frames[7].shape[:2][::-1]
-    ras = tmp_path / "frame_08.ras"
-    ras.write_bytes(cv2.imencode(".ras", frames[0])[1].tobytes())
+    ras = tmp_path / "frame_08.jp2"
+    ras.write_bytes(cv2.imencode(".jp2", frames[0])[1].tobytes())
     assert len(list(JMediaSource(photos_pattern=pattern, threads=3))) == 9
     src = MediaSource(photos_pattern=pattern, threads=3)
-    with pytest.raises(NotImplementedError, match="Sun raster"):
+    with pytest.raises(NotImplementedError, match="JPEG 2000"):
         for _ in range(10):
             src.next_frame()
     ras.unlink()

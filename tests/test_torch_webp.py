@@ -285,16 +285,44 @@ def test_riff_size_and_short_files_as_cv2_reads_them(tmp_path):
     assert got["exif, empty chunk inside"].shape == (53, 37, 3)
 
 
+def grainy(hw, seed=3):
+    """The scene with noise, so that lossy VP8 spends a kilobyte on it."""
+    rgb = image(hw, "scene").astype(int)
+    rng = np.random.default_rng(seed)
+    return (rgb + rng.integers(-40, 40, rgb.shape)).clip(0, 255).astype(
+        np.uint8)
+
+
+def with_alpha(rgb):
+    h, w = rgb.shape[:2]
+    return np.dstack([rgb, (np.arange(h * w).reshape(h, w) % 255).astype(
+        np.uint8)])
+
+
 @pytest.mark.parametrize("source", ["cv2", "pillow_m6", "palette16",
-                                    "smooth", "animated"])
+                                    "smooth", "animated", "lossy_cv2",
+                                    "lossy_alpha", "lossy_animated"])
 def test_truncated_and_bit_flipped_files_equal_cv2(tmp_path, source):
     """Cuts at every 23rd byte and 120 single-bit flips in the stream: the
     port gives what cv2 gives, None included (libwebp's checks: complete
     prefix codes, distances inside the image, no read past the data it
     is given, which runs to the end of the file for a still image and to
-    the end of the ANMF chunk for a frame)."""
+    the end of the ANMF chunk for a frame).  Lossy sources (cv2's q80, a
+    VP8X with ALPH from Pillow, a lossy animation frame) take libwebp's
+    VP8 refusals: the frame tag, the partition table, a header, partition
+    0 or macroblock that needs a byte past its partition, and a lossy
+    image's ALPH chunk, which libwebp decodes though OpenCV drops it."""
     rgb = image((37, 53), "scene")
+    lossy = lambda: cv2.imencode(  # noqa: E731
+        ".webp", np.ascontiguousarray(grainy((37, 53))[..., ::-1]),
+        [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes()
     data = {
+        "lossy_cv2": lossy,
+        "lossy_alpha": lambda: pil_bytes(
+            Image.fromarray(with_alpha(grainy((37, 53)))), "WEBP",
+            quality=80),
+        "lossy_animated": lambda: animation(
+            (41, 57), [(2, 2, 0, still_chunks(lossy()), (37, 53))]),
         "cv2": lambda: cv2_lossless(rgb),
         "pillow_m6": lambda: pil_bytes(Image.fromarray(rgb), "WEBP",
                                        lossless=True, method=6, quality=100),
