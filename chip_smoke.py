@@ -85,22 +85,36 @@ Phases, each followed by one flushed line with the elapsed seconds:
               reloaded with its cameras at ATE < 5 %, a trace in DIR that
               names ``top2_l2_kernel`` and ``steps.`` spans; prints the
               photo decode ms per frame and which decoder ran.
+    fixture-clis — the CLI on each glob and video of phases 16-25 and
+              34, one run after another in one subprocess under a counting
+              wrapper (each with the jpeg phase's checks, its counts set to
+              0 before it and 600 s of its own), which pays the
+              interpreter's, PyTorch's and the card's start once: lossless
+              first (a cold run, as a user's), then jpeg, video, progjpeg,
+              tiffjpeg, jp2, mp4, asp, webm, vp9, mpeg2, h263, flv, mpng and
+              the photos glob (warm), then lossless again (warm, to measure
+              what the shared process saves); each phase below holds its
+              run and prints whether it was cold or warm.  The JPEG files,
+              AVI, progressive JPEGs and JPEG TIFFs of phases 16-18a, the
+              photos glob (phase 34's, written on three threads) and the
+              mpng AVI are written before it.
 16. jpeg    — the 32 frames as baseline 4:2:0 JPEG at quality 95 (the
               numpy writer of testing/mjpeg.py: the card has no encoder),
-              then the CLI module in a subprocess under a counting wrapper
-              (three decode workers): exit 0, the "map points" line, the
-              logs reloaded with cameras >= 24/32 at ATE < 5 %, one L2
+              the CLI module on them (three decode workers, its run in
+              fixture-clis): exit 0, the "map points" line, the logs
+              reloaded with cameras >= 24/32 at ATE < 5 %, one L2
               ``top2_batch`` launch per scan step and bootstrap match and
-              no other kernel; before it, io/jpeg.py is held to the
-              committed sha256 of cv2's decode of the fixtures in
-              testing/jpeg_fixtures/; after it, the decode is timed with
-              three workers and with one (two passes bit for bit) and set
-              beside the tracking ms per frame; prints which decoder ran.
+              no other kernel; io/jpeg.py held to the committed sha256 of
+              cv2's decode of the fixtures in testing/jpeg_fixtures/; the
+              decode timed with three workers and with one (two passes bit
+              for bit) and set beside the tracking ms per frame; prints
+              which decoder ran.
 17. video   — the same JPEG frames muxed into one MJPEG AVI, the CLI with
-              ``usePhotosCycle=false``: the jpeg phase's checks, poses.txt
-              equal to the jpeg run's byte for byte, the AVI's frames equal
-              to the JPEG files'; prints the frame count, the container
-              parse time and the decode ms per frame.
+              ``usePhotosCycle=false`` (fixture-clis): the jpeg phase's
+              checks, poses.txt equal to the jpeg run's byte for byte, the
+              AVI's frames equal to the JPEG files'; prints the frame
+              count, the container parse time and the decode ms per
+              frame.
 18. progjpeg — first the small committed video fixtures
               (testing/video_fixtures/: video packets, an Xvid-tagged
               stream, odd heights in VP8 and I420, Y800, MJPEG in MOV) held
@@ -110,22 +124,27 @@ Phases, each followed by one flushed line with the elapsed seconds:
               progressive JPEG at quality 95 in libjpeg's default scan
               script (the numpy writer of testing/mjpeg.py, the same
               coefficients as the jpeg phase's), the CLI on the photo glob
-              under the counting wrapper: the jpeg phase's checks, poses.txt
-              equal to the jpeg run's byte for byte where every decoded
-              frame equals the baseline one (else where they part); prints
-              the decode ms per FHD frame with three workers and with one
-              beside the tracking ms per frame.
-    fixture-clis — the CLI with ``usePhotosCycle=false`` on each committed
-              headline video of phases 19-25, one run after another in
-              one subprocess (each with the jpeg phase's checks, its counts
-              set to 0 before it and 600 s of its own), which pays the
-              interpreter's, PyTorch's and the card's start once: lossless
-              first (a cold run, as a user's), then mp4, asp, webm, vp9,
-              mpeg2, h263, flv, mpng and the photos glob (warm), then
-              lossless again (warm, to measure what the shared process
-              saves); each phase below holds its run and prints whether it
-              was cold or warm.  The photos glob (phase 34's, written on
-              three threads) and the mpng AVI are written before it.
+              (fixture-clis): the jpeg phase's checks, poses.txt equal to
+              the jpeg run's byte for byte where every decoded frame equals
+              the baseline one (else where they part); prints the decode ms
+              per FHD frame with three workers and with one beside the
+              tracking ms per frame.
+18a. tiffjpeg — the jpeg phase's JPEGs as one-strip YCbCr JPEG TIFFs
+              (testing/photos.encode_tiff: JPEGTables and abbreviated
+              strips): each decoded by io/tiff.py on one thread, equal to
+              the port's decode of the same JPEG bit for bit; the CLI on
+              the glob (fixture-clis): the jpeg phase's checks, poses.txt
+              equal to the jpeg run's byte for byte and its ``top2_batch``
+              launches; prints the decode ms per FHD frame beside the
+              tracking ms per frame.
+18b. jp2    — the committed fixture testing/photo_fixtures/headline_jp2/
+              (the 32 frames as Pillow writes JPEG 2000: 9/7, RPCL,
+              1024x1024 tiles, 256x256 precincts, three layers, PLT; 5.9
+              MB in all): each frame decoded by io/jp2.py (native/jp2.cpp)
+              on one thread, timed and held to the committed sha256 of
+              cv2's decode; the CLI on the glob (fixture-clis): the jpeg
+              phase's checks; prints the decode ms per FHD frame beside the
+              tracking ms per frame.
 19. mp4     — the committed fixture testing/video_fixtures/headline_mp4v.mp4
               (the 32 frames as OpenCV's ``mp4v`` writer makes them; the
               card has no encoder): the container parsed and timed, every
@@ -305,15 +324,18 @@ Phases, each followed by one flushed line with the elapsed seconds:
 34. photos  — the photo readers the card has (io/photo.py: no libjpeg,
               libpng, libtiff, libwebp, giflib or OpenCV): first every
               committed fixture in testing/photo_fixtures/ (one per PNG,
-              PNM, BMP, TIFF, lossy, lossless and animated WebP, GIF, PFM,
-              Radiance HDR and Sun raster variant family and EXIF case; a
-              damaged lossy WebP and a run-length coded Sun raster that cv2
-              refuses give no frame) through ``MediaSource``, held to the
+              PNM, BMP, TIFF (with JPEG, YCbCr, CMYK and CIE Lab), JPEG
+              2000, lossy, lossless and animated WebP, GIF, PFM, Radiance
+              HDR and Sun raster variant family and EXIF case; a damaged
+              lossy WebP, a run-length coded Sun raster, a float TIFF and
+              an offset JP2 that cv2 refuses give no frame) through
+              ``MediaSource``, held to the
               committed sha256 of cv2's decode; then the 32 frames written
               by testing/photos.py as one glob cycling P6 PPM, 24-bit BMP,
               tiled Deflate TIFF with the predictor, PackBits TIFF strips,
               16-bit PNG (x257), all-Paeth PNG, lossless WebP, animated
-              lossless WebP and 24-bit Sun raster, names of one length,
+              lossless WebP, 24-bit Sun raster and CMYK TIFF with K = 0
+              (lossless: C, M, Y = 255 - R, G, B), names of one length,
               written on three threads before fixture-clis: every decoded
               frame equal to the rendered one, then the CLI on the glob
               (its run in fixture-clis's subprocess, three decode workers):
@@ -2079,18 +2101,69 @@ def decode_timings(media_kw: dict, n_frames: int):
     return first, ms
 
 
-def jpeg_phase(card_line: str, scene, frames, gd_l2):
+def jpeg_files(frames, root: str) -> dict:
     """The 32 headline frames as baseline 4:2:0 JPEG at quality 95 (the
-    numpy writer, testing/mjpeg.py: the card has no encoder), then the CLI
-    on the photo glob with three decode workers (cli_counted).  First the
-    decoder is held to the committed fixtures; after the run, the decode is
-    timed in this process with three workers and with one, and two passes
-    must agree bit for bit → (counts, poses.txt, the JPEG bytes, the
-    decoded frames)."""
+    numpy writer, testing/mjpeg.py: the card has no encoder) under
+    ``root``, the jpeg phase's photo glob; the same JPEG frames muxed into
+    one Motion-JPEG AVI (the video phase's); as progressive JPEG at
+    quality 95 (the progjpeg phase's, encoded on every core); and each
+    JPEG as a one-strip YCbCr JPEG TIFF, its tables in JPEGTables (the
+    tiffjpeg phase's) → {"jpegs", "jpeg", "encode_ms", "avi", "parse_ms",
+    "prog", "prog_pattern", "prog_encode_ms", "tiff_pattern"}: written
+    before fixture-clis, whose subprocess runs the CLI on each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from slam_indoor_code_tpu_torch.io import avi
+    from slam_indoor_code_tpu_torch.testing import mjpeg, photos
+
+    out = {}
+    for d in ("jpeg", "prog", "tiffjpeg"):
+        os.makedirs(os.path.join(root, d))
+    t = time.perf_counter()
+    jpegs = [mjpeg.encode_jpeg(f, 95) for f in frames]
+    out["encode_ms"] = 1e3 * (time.perf_counter() - t) / len(frames)
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(root, "jpeg", f"frame_{i}.jpg"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(root, "tiffjpeg", f"frame_{i}.tif"),
+                  "wb") as f:
+            f.write(photos.encode_tiff(frames[i], photometric=6,
+                                       compression="jpeg",
+                                       jpeg_encoder=lambda _, d=data: d))
+    path = os.path.join(root, "seq.avi")
+    h, w = frames[0].shape[:2]
+    mjpeg.write_avi(path, jpegs, w, h)
+    t = time.perf_counter()
+    parsed = avi.AviVideo(path)
+    out["parse_ms"] = 1e3 * (time.perf_counter() - t)
+    parsed.close()
+    if len(parsed.frames) != len(jpegs) or parsed.fourcc != b"MJPG":
+        fail(f"video: the container lists {len(parsed.frames)} "
+             f"{parsed.fourcc!r} frames for {len(jpegs)} written")
+    t = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        prog = list(pool.map(
+            lambda f: mjpeg.encode_progressive_jpeg(f, 95), frames))
+    out["prog_encode_ms"] = 1e3 * (time.perf_counter() - t) / len(frames)
+    for i, d in enumerate(prog):
+        with open(os.path.join(root, "prog", f"frame_{i}.jpg"), "wb") as f:
+            f.write(d)
+    out.update(jpegs=jpegs, jpeg=os.path.join(root, "jpeg", "*.jpg"),
+               avi=path, prog=prog,
+               prog_pattern=os.path.join(root, "prog", "*.jpg"),
+               tiff_pattern=os.path.join(root, "tiffjpeg", "*.tif"))
+    return out
+
+
+def jpeg_phase(card_line: str, scene, frames, gd_l2, written, cli):
+    """The jpeg_files glob, the CLI on it with three decode workers
+    (``cli``: its run in fixture_clis).  First the decoder is held to the
+    committed fixtures; then the decode is timed in this process with
+    three workers and with one, and two passes must agree bit for bit →
+    (counts, poses.txt, the JPEG bytes, the decoded frames)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.io import jpeg, native
-    from slam_indoor_code_tpu_torch.testing import mjpeg
 
     held = held_to_fixtures()
     decoder = "native (libjpeg)"
@@ -2099,26 +2172,14 @@ def jpeg_phase(card_line: str, scene, frames, gd_l2):
                if "error" in ln] or ["?"]
         decoder = (f"io/jpeg.py (native/jpeg.cpp); the native libjpeg build "
                    f"failed: {why[0].strip()[:100]}")
-    with tempfile.TemporaryDirectory() as root:
-        photos = os.path.join(root, "photos")
-        os.makedirs(photos)
-        t = time.perf_counter()
-        jpegs = [mjpeg.encode_jpeg(f, 95) for f in frames]
-        encode_ms = 1e3 * (time.perf_counter() - t) / len(frames)
-        for i, data in enumerate(jpegs):
-            with open(os.path.join(photos, f"frame_{i}.jpg"), "wb") as f:
-                f.write(data)
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            photosPathPattern=os.path.join(photos, "*.jpg"))
-        n, n_cams, ate_pct, poses, run_s = cli_counted("jpeg", cfg, root,
-                                                       scene)
-        decoded, decode_ms = decode_timings(
-            {"photos_pattern": cfg.photosPathPattern}, len(frames))
-        t = time.perf_counter()
-        for data in jpegs:
-            jpeg.decode(data)
-        one_ms = 1e3 * (time.perf_counter() - t) / len(jpegs)
+    jpegs, encode_ms = written["jpegs"], written["encode_ms"]
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    decoded, decode_ms = decode_timings({"photos_pattern": written["jpeg"]},
+                                        len(frames))
+    t = time.perf_counter()
+    for data in jpegs:
+        jpeg.decode(data)
+    one_ms = 1e3 * (time.perf_counter() - t) / len(jpegs)
     err = max(float(np.abs(a.astype(np.int16) - b).mean())
               for a, b in zip(decoded, frames))
     if err > 3.0:
@@ -2134,42 +2195,26 @@ def jpeg_phase(card_line: str, scene, frames, gd_l2):
           f"{decode_ms:.3f} ms per frame with 3 workers ({os.cpu_count()} "
           f"cores), {one_ms:.3f} ms per frame on one thread; tracking "
           f"(slam_main in the CLI, decode overlapped) {track_ms:.3f} ms per "
-          f"frame; subprocess {run_s:.3f} s; numpy encode {encode_ms:.1f} ms "
-          f"per frame  [{card_line}]", flush=True)
+          f"frame; CLI run {run_s:.3f} s ({when}); numpy encode "
+          f"{encode_ms:.1f} ms per frame  [{card_line}]", flush=True)
     return n, poses, jpegs, decoded
 
 
-def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg):
-    """The jpeg phase's JPEG frames muxed into one Motion-JPEG AVI (the
-    RIFF writer, testing/mjpeg.py), then the CLI with
-    ``usePhotosCycle=false`` (cli_counted): its poses.txt must equal the
-    jpeg run's byte for byte (the same frames); the container parse and
-    the decode are timed in this process, whose frames must equal the
-    jpeg phase's → counts."""
+def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg, written,
+                cli):
+    """The jpeg phase's JPEG frames in one Motion-JPEG AVI (jpeg_files,
+    the RIFF writer of testing/mjpeg.py), the CLI on it with
+    ``usePhotosCycle=false`` (``cli``: fixture_clis): its poses.txt must
+    equal the jpeg run's byte for byte (the same frames); the decode is
+    timed in this process, whose frames must equal the jpeg phase's →
+    counts."""
     import numpy as np
 
-    from slam_indoor_code_tpu_torch.io import avi
-    from slam_indoor_code_tpu_torch.testing import mjpeg
-
-    with tempfile.TemporaryDirectory() as root:
-        path = os.path.join(root, "seq.avi")
-        h, w = decoded[0].shape[:2]
-        mjpeg.write_avi(path, jpegs, w, h)
-        t = time.perf_counter()
-        parsed = avi.AviVideo(path)
-        parse_ms = 1e3 * (time.perf_counter() - t)
-        parsed.close()
-        if len(parsed.frames) != len(jpegs) or parsed.fourcc != b"MJPG":
-            fail(f"video: the container lists {len(parsed.frames)} "
-                 f"{parsed.fourcc!r} frames for {len(jpegs)} written")
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            usePhotosCycle=False, videoSourcePath=path)
-        n, n_cams, ate_pct, poses, run_s = cli_counted("video", cfg, root,
-                                                       scene)
-        frames, decode_ms = decode_timings(
-            {"video_path": path, "use_photos": False}, len(jpegs))
-        mb = os.path.getsize(path) / 1e6
+    path, parse_ms = written["avi"], written["parse_ms"]
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    frames, decode_ms = decode_timings(
+        {"video_path": path, "use_photos": False}, len(jpegs))
+    mb = os.path.getsize(path) / 1e6
     if not all(np.array_equal(a, b) for a, b in zip(frames, decoded)):
         fail("video: the AVI's frames differ from the JPEG files' frames")
     if poses != poses_jpeg:
@@ -2180,7 +2225,7 @@ def video_phase(card_line: str, scene, jpegs, decoded, poses_jpeg):
           f"{json.dumps(n)}  container parse {parse_ms:.3f} ms; decode "
           f"{decode_ms:.3f} ms per frame with 3 workers; tracking "
           f"{1e3 * n['slam_main_s'] / N_FRAMES:.3f} ms per frame; "
-          f"subprocess {run_s:.3f} s  [{card_line}]", flush=True)
+          f"CLI run {run_s:.3f} s ({when})  [{card_line}]", flush=True)
     return n
 
 
@@ -2208,21 +2253,19 @@ def held_to_video_fixtures() -> list:
     return names
 
 
-def progjpeg_phase(card_line: str, scene, frames, decoded_jpeg, poses_jpeg):
+def progjpeg_phase(card_line: str, scene, frames, decoded_jpeg, poses_jpeg,
+                   written, cli):
     """The small video fixtures held to cv2's decode; the 32 headline frames
-    as progressive JPEG at quality 95 in libjpeg's default script (the
-    numpy writer, testing/mjpeg.py: the card has no encoder), the CLI on
-    the photo glob with three decode workers (cli_counted); its poses.txt
-    must equal the jpeg run's where every decoded frame equals the
-    baseline one; the decode is timed with three workers and with one →
-    (counts, decode ms per frame with 3 workers, on one thread, tracking
-    ms per frame)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    as progressive JPEG at quality 95 in libjpeg's default script
+    (jpeg_files, the numpy writer of testing/mjpeg.py: the card has no
+    encoder), the CLI on the photo glob with three decode workers
+    (``cli``: fixture_clis); its poses.txt must equal the jpeg run's where
+    every decoded frame equals the baseline one; the decode is timed with
+    three workers and with one → (counts, decode ms per frame with 3
+    workers, on one thread, tracking ms per frame)."""
     import numpy as np
 
     from slam_indoor_code_tpu_torch.io import jpeg
-    from slam_indoor_code_tpu_torch.testing import mjpeg
 
     t0 = time.perf_counter()
     held = held_to_video_fixtures()
@@ -2234,28 +2277,14 @@ def progjpeg_phase(card_line: str, scene, frames, decoded_jpeg, poses_jpeg):
         with open(os.path.join(jfix, name), "rb") as f:
             if b"\xff\xc2" not in f.read():
                 fail(f"progjpeg: {name} is not a progressive JPEG")
-    with tempfile.TemporaryDirectory() as root:
-        photos = os.path.join(root, "photos")
-        os.makedirs(photos)
-        t = time.perf_counter()
-        with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-            data = list(pool.map(
-                lambda f: mjpeg.encode_progressive_jpeg(f, 95), frames))
-        encode_ms = 1e3 * (time.perf_counter() - t) / len(frames)
-        for i, d in enumerate(data):
-            with open(os.path.join(photos, f"frame_{i}.jpg"), "wb") as f:
-                f.write(d)
-        cfg = dataclasses.replace(
-            headline_config(os.path.join(root, "out")),
-            photosPathPattern=os.path.join(photos, "*.jpg"))
-        n, n_cams, ate_pct, poses, run_s = cli_counted("progjpeg", cfg, root,
-                                                       scene)
-        decoded, decode_ms = decode_timings(
-            {"photos_pattern": cfg.photosPathPattern}, len(frames))
-        t = time.perf_counter()
-        for d in data:
-            jpeg.decode(d)
-        one_ms = 1e3 * (time.perf_counter() - t) / len(data)
+    data, encode_ms = written["prog"], written["prog_encode_ms"]
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    decoded, decode_ms = decode_timings(
+        {"photos_pattern": written["prog_pattern"]}, len(frames))
+    t = time.perf_counter()
+    for d in data:
+        jpeg.decode(d)
+    one_ms = 1e3 * (time.perf_counter() - t) / len(data)
     parted = [i for i, (a, b) in enumerate(zip(decoded, decoded_jpeg))
               if not np.array_equal(a, b)]
     if not parted and poses != poses_jpeg:
@@ -2275,11 +2304,103 @@ def progjpeg_phase(card_line: str, scene, frames, decoded_jpeg, poses_jpeg):
           f"{sum(map(len, data)) / len(data) / 1e3:.1f} kB per frame (10 "
           f"scans); decode {decode_ms:.3f} ms per FHD frame with 3 workers "
           f"({os.cpu_count()} cores), {one_ms:.3f} ms on one thread; "
-          f"tracking {track_ms:.3f} ms per frame; subprocess {run_s:.3f} s; "
-          f"numpy encode {encode_ms:.1f} ms per frame on "
+          f"tracking {track_ms:.3f} ms per frame; CLI run {run_s:.3f} s "
+          f"({when}); numpy encode {encode_ms:.1f} ms per frame on "
           f"{os.cpu_count()} threads; phase "
           f"{time.perf_counter() - t0:.1f} s  [{card_line}]", flush=True)
     return n, decode_ms, one_ms, track_ms
+
+
+def tiffjpeg_phase(card_line: str, decoded_jpeg, poses_jpeg, jpeg_counts,
+                   written, cli):
+    """The jpeg phase's JPEG frames as one-strip YCbCr JPEG TIFFs, their
+    tables in JPEGTables (jpeg_files): each decoded on one thread by
+    io/tiff.py (libtiff's JPEG codec over native/jpeg.cpp) and timed, equal
+    to the port's decode of the same JPEG bit for bit; the CLI on the glob
+    (``cli``: fixture_clis): poses.txt equal to the jpeg run's byte for
+    byte, the jpeg run's ``top2_batch`` launches → (counts, decode ms per
+    frame on one thread, tracking ms per frame)."""
+    import glob
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import photo
+
+    paths = sorted(glob.glob(written["tiff_pattern"]),
+                   key=lambda p: (len(p), p))
+    t = time.perf_counter()
+    got = [photo.imread_rgb(p) for p in paths]
+    one_ms = 1e3 * (time.perf_counter() - t) / max(len(paths), 1)
+    if len(got) != len(decoded_jpeg) or not all(
+            g is not None and np.array_equal(g, d)
+            for g, d in zip(got, decoded_jpeg)):
+        fail("tiffjpeg: a JPEG TIFF's frame differs from the port's decode "
+             "of its JPEG")
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    if poses != poses_jpeg:
+        fail("tiffjpeg: poses.txt differs from the jpeg run's")
+    if n["top2_batch"] != jpeg_counts["top2_batch"]:
+        fail(f"tiffjpeg: {n['top2_batch']} top2_batch launches, the jpeg "
+             f"run's {jpeg_counts['top2_batch']}")
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    kb = sum(os.path.getsize(p) for p in paths) / len(paths) / 1e3
+    print(f"tiffjpeg: {len(paths)} one-strip YCbCr JPEG TIFFs "
+          f"({kb:.1f} kB per frame) decode equal to the port's JPEG decode "
+          f"bit for bit; exit 0, cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  poses.txt equals the jpeg run's byte "
+          f"for byte  launches {json.dumps(n)}  decode {one_ms:.3f} ms per "
+          f"FHD frame on one thread; tracking {track_ms:.3f} ms per frame; "
+          f"CLI run {run_s:.3f} s ({when})  [{card_line}]", flush=True)
+    return n, one_ms, track_ms
+
+
+JP2_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "slam_indoor_code_tpu_torch", "testing",
+                            "photo_fixtures", "headline_jp2")
+
+
+def jp2_phase(card_line: str, cli):
+    """The committed JP2 fixture of the 32 headline frames (Pillow's 9/7,
+    RPCL, 1024x1024 tiles, 256x256 precincts, three layers, PLT: the card
+    has no encoder): each frame decoded by io/jp2.py (native/jp2.cpp) on
+    one thread, timed, and held to the committed sha256 of cv2's decode;
+    the CLI on the glob (``cli``: fixture_clis), with the jpeg phase's
+    checks → (counts, decode ms per frame on one thread, tracking ms per
+    frame)."""
+    import glob
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import photo
+
+    with open(os.path.join(JP2_FIXTURES, "cv2_sha256.json")) as f:
+        table = json.load(f)
+    paths = sorted(glob.glob(os.path.join(JP2_FIXTURES, "frame_*.jp2")))
+    if len(paths) != N_FRAMES or sorted(table) != [os.path.basename(p)
+                                                   for p in paths]:
+        fail(f"jp2: {len(paths)} fixture frames for {len(table)} sha256")
+    spent = 0.0
+    for p in paths:
+        t = time.perf_counter()
+        img = photo.imread_rgb(p)
+        spent += time.perf_counter() - t
+        got = (None if img is None else hashlib.sha256(
+            np.ascontiguousarray(img).tobytes()).hexdigest())
+        if got != table[os.path.basename(p)]:
+            fail(f"jp2: {os.path.basename(p)} decodes to sha256 {got}, "
+                 f"cv2's is {table[os.path.basename(p)]}")
+    one_ms = 1e3 * spent / len(paths)
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    mb = sum(os.path.getsize(p) for p in paths) / 1e6
+    print(f"jp2: {len(paths)} FHD JP2 frames ({mb:.3f} MB) equal cv2's "
+          f"decode (sha256); exit 0, cameras {n_cams}/{N_FRAMES}  ATE "
+          f"{ate_pct:.4f}% of extent  launches {json.dumps(n)}  decode "
+          f"{one_ms:.3f} ms per FHD frame on one thread; tracking "
+          f"{track_ms:.3f} ms per frame; CLI run {run_s:.3f} s ({when})  "
+          f"[{card_line}]", flush=True)
+    return n, one_ms, track_ms
 
 
 PHOTO_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2310,7 +2431,11 @@ def photo_writers():
         ("all-Paeth PNG", "png", photos.encode_png_paeth),
         ("lossless WebP", "wbp", photos.encode_webp_lossless),
         ("animated lossless WebP", "wbp", photos.encode_webp_animated),
-        ("24-bit Sun raster", "ras", photos.encode_sun_raster))
+        ("24-bit Sun raster", "ras", photos.encode_sun_raster),
+        ("CMYK TIFF, K = 0", "tif",
+         lambda f: photos.encode_tiff(np.concatenate(
+             [255 - f, np.zeros_like(f[..., :1])], axis=-1),
+             photometric=5)))
 
 
 def held_to_photo_fixtures() -> int:
@@ -3355,26 +3480,35 @@ FFVH_FHD_FIXTURE = os.path.join(os.path.dirname(MP4_FIXTURE),
                                 "ffvh_fhd_cv2.avi")
 
 
-def fixture_clis(scene, mpng_path: str, photos_pattern: str) -> tuple:
-    """The CLI with ``usePhotosCycle=false`` on each committed headline
-    video, one run after another in one subprocess (cli_counted_many's
-    checks on each), which pays the interpreter's, PyTorch's and the
-    card's start once: the lossless phase's first, so that its run is a
-    cold one as in a user's ``python -m``; then the mp4, asp (its two
-    runs: the packed fixture, "asp", and the interlaced one, "asp-il"),
-    webm, vp9, mpeg2, h263 and flv phases', the mpng phase's AVI
-    (``mpng_path``) and the photos phase's glob (``photos_pattern``); then
-    the lossless run again, warm, which measures what the shared process
-    saves → ({phase: (counts, cameras, ATE %, poses.txt, run s, "run k of
-    n in one process, cold|warm")}, the subprocess's s, the decoders'
-    build s); the warm repeat is "lossless-warm"."""
+def fixture_clis(scene, mpng_path: str, photos_pattern: str,
+                 jpegs: dict) -> tuple:
+    """The CLI on each committed headline video (``usePhotosCycle=false``)
+    and photo glob, one run after another in one subprocess
+    (cli_counted_many's checks on each), which pays the interpreter's,
+    PyTorch's and the card's start once: the lossless phase's first, so
+    that its run is a cold one as in a user's ``python -m``; then the
+    jpeg, video, progjpeg and tiffjpeg phases' (``jpegs``: jpeg_files'),
+    the jp2 phase's fixture glob, the mp4, asp (its two runs: the packed
+    fixture, "asp", and the interlaced one, "asp-il"), webm, vp9, mpeg2,
+    h263 and flv phases', the mpng phase's AVI (``mpng_path``) and the
+    photos phase's glob (``photos_pattern``); then the lossless run again,
+    warm, which measures what the shared process saves → ({phase: (counts,
+    cameras, ATE %, poses.txt, run s, "run k of n in one process,
+    cold|warm")}, the subprocess's s, the decoders' build s); the warm
+    repeat is "lossless-warm"."""
     from concurrent.futures import ThreadPoolExecutor
 
     from slam_indoor_code_tpu_torch.io import (ffv1, gif, h263, huffyuv,
-                                               mpeg4, mpeg12, png, tiff,
-                                               vp8, vp9, webp)
+                                               jp2, jpeg, mpeg4, mpeg12, png,
+                                               tiff, vp8, vp9, webp)
 
-    videos = {"lossless": FFV1_FIXTURE, "mp4": MP4_FIXTURE,
+    globs = {"jpeg": jpegs["jpeg"], "progjpeg": jpegs["prog_pattern"],
+             "tiffjpeg": jpegs["tiff_pattern"],
+             "jp2": os.path.join(JP2_FIXTURES, "frame_*.jp2"),
+             "photos": photos_pattern}
+    videos = {"lossless": FFV1_FIXTURE, "jpeg": None,
+              "video": jpegs["avi"], "progjpeg": None, "tiffjpeg": None,
+              "jp2": None, "mp4": MP4_FIXTURE,
               "asp": ASP_FIXTURE, "asp-il": ASP_IL_FIXTURE,
               "webm": WEBM_FIXTURE, "vp9": VP9_FIXTURE,
               "mpeg2": MPEG2_FIXTURE, "h263": H263_FIXTURE,
@@ -3385,8 +3519,8 @@ def fixture_clis(scene, mpng_path: str, photos_pattern: str) -> tuple:
     t = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda m: m.load(),
-                      (ffv1, gif, h263, huffyuv, mpeg4, mpeg12, png, tiff,
-                       vp8, vp9, webp)))
+                      (ffv1, gif, h263, huffyuv, jp2, jpeg, mpeg4, mpeg12,
+                       png, tiff, vp8, vp9, webp)))
     build_s = time.perf_counter() - t
     with tempfile.TemporaryDirectory() as top:
         jobs = []
@@ -3394,7 +3528,7 @@ def fixture_clis(scene, mpng_path: str, photos_pattern: str) -> tuple:
             root = os.path.join(top, what)
             os.makedirs(root)
             cfg = headline_config(os.path.join(root, "out"))
-            cfg = (dataclasses.replace(cfg, photosPathPattern=photos_pattern)
+            cfg = (dataclasses.replace(cfg, photosPathPattern=globs[what])
                    if path is None else dataclasses.replace(
                        cfg, usePhotosCycle=False, videoSourcePath=path))
             jobs.append((what, cfg, root, ()))
@@ -4214,29 +4348,45 @@ def main() -> None:
         phase("telemetry", top2_batch_launches=n["top2_batch"])
         cli_counts, cli_poses = cli_path(card_line, scene, frames, logged_l2)
         phase("cli")
-        n, poses_jpeg, jpegs, decoded = jpeg_phase(card_line, scene, frames,
-                                                   gd_l2)
+        media_root = tempfile.mkdtemp()
+        jpeg_written = jpeg_files(frames, os.path.join(media_root, "jpegs"))
+        written = write_photo_glob(frames, media_root)
+        mpng_path = mpng_video(frames, media_root)
+        clis, clis_s, build_s = fixture_clis(scene, mpng_path,
+                                             written["pattern"], jpeg_written)
+        phase("fixture-clis", runs=len(clis), subprocess_s=f"{clis_s:.3f}",
+              decoders_build_s=f"{build_s:.3f}",
+              photo_glob_write_ms_per_frame=f"{written['write_ms']:.1f}")
+        n, poses_jpeg, jpegs, decoded = jpeg_phase(
+            card_line, scene, frames, gd_l2, jpeg_written, clis["jpeg"])
+        jpeg_counts = n
         by_path["jpeg (cli)"] = n["top2_batch"]
         phase("jpeg", top2_batch_launches=n["top2_batch"])
-        n = video_phase(card_line, scene, jpegs, decoded, poses_jpeg)
+        n = video_phase(card_line, scene, jpegs, decoded, poses_jpeg,
+                        jpeg_written, clis["video"])
         by_path["video (cli)"] = n["top2_batch"]
         phase("video", top2_batch_launches=n["top2_batch"])
         n, dec3_ms, dec1_ms, track_ms = progjpeg_phase(
-            card_line, scene, frames, decoded, poses_jpeg)
+            card_line, scene, frames, decoded, poses_jpeg, jpeg_written,
+            clis["progjpeg"])
         by_path["progjpeg (cli)"] = n["top2_batch"]
-        del jpegs, decoded
         phase("progjpeg", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame_3_workers=f"{dec3_ms:.3f}",
               decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
-        media_root = tempfile.mkdtemp()
-        written = write_photo_glob(frames, media_root)
-        mpng_path = mpng_video(frames, media_root)
-        clis, clis_s, build_s = fixture_clis(scene, mpng_path,
-                                             written["pattern"])
-        phase("fixture-clis", runs=len(clis), subprocess_s=f"{clis_s:.3f}",
-              decoders_build_s=f"{build_s:.3f}",
-              photo_glob_write_ms_per_frame=f"{written['write_ms']:.1f}")
+        n, dec1_ms, track_ms = tiffjpeg_phase(
+            card_line, decoded, poses_jpeg, jpeg_counts, jpeg_written,
+            clis["tiffjpeg"])
+        by_path["tiffjpeg (cli)"] = n["top2_batch"]
+        del jpegs, decoded, jpeg_written
+        phase("tiffjpeg", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, dec1_ms, track_ms = jp2_phase(card_line, clis["jp2"])
+        by_path["jp2 (cli)"] = n["top2_batch"]
+        phase("jp2", top2_batch_launches=n["top2_batch"],
+              decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
+              tracking_ms_per_frame=f"{track_ms:.3f}")
         n = mp4_phase(card_line, scene, clis["mp4"])
         by_path["mp4 (cli)"] = n["top2_batch"]
         phase("mp4", top2_batch_launches=n["top2_batch"])

@@ -2,8 +2,8 @@
 binding of ``native/jpeg.cpp``, which needs nothing but the C++ standard
 library.
 
-It gives libjpeg-turbo 3.1's default decode bit for bit (the ISLOW IDCT,
-fancy upsampling, the fixed-point YCbCr->RGB tables; for progressive JPEG
+It gives libjpeg-turbo 3.1's default decode bit for bit (the ISLOW IDCT
+with its SIMD code's 16-bit arithmetic, fancy upsampling, the fixed-point YCbCr->RGB tables; for progressive JPEG
 the whole-image coefficient buffer and block smoothing where the scan
 script stops short) for sequential and progressive Huffman JPEG with 8-bit
 samples, 1 or 3 components at any integral sampling factors, restart
@@ -57,10 +57,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jpegdec_decode.restype = I
 
 
-def decode(data: bytes, lenient: bool = False) -> Optional[np.ndarray]:
+def decode(data: bytes, lenient: bool = False,
+           colour: str = "guess") -> Optional[np.ndarray]:
     """HxWx3 uint8 RGB of the JPEG ``data``; None if it is corrupt or
     truncated (with ``lenient``: only if its headers are); ``ValueError``
-    naming the process for a JPEG this decoder does not read."""
+    naming the process for a JPEG this decoder does not read.  ``colour``
+    sets the colour space of three components as libtiff sets it: "guess"
+    (libjpeg's, from JFIF/Adobe markers and component ids), "ycbcr"
+    (converted to RGB) or "none" (the samples as stored)."""
     lib = load()
     h, w = ctypes.c_int(), ctypes.c_int()
     msg = ctypes.create_string_buffer(_MSG_LEN)
@@ -69,7 +73,8 @@ def decode(data: bytes, lenient: bool = False) -> Optional[np.ndarray]:
     if rc == 0:
         out = np.empty((h.value, w.value, 3), np.uint8)
         rc = lib.jpegdec_decode(
-            data, len(data), int(lenient),
+            data, len(data),
+            int(lenient) | {"guess": 0, "ycbcr": 2, "none": 4}[colour],
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             out.nbytes, ctypes.byref(h), ctypes.byref(w), msg, _MSG_LEN)
         if rc == 0:

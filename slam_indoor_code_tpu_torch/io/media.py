@@ -6,8 +6,9 @@ lexicographic, as the reference's ``sortGlobs``, src/misc/IOmisc.cpp:36-51)
 and decoded in order by ``threadsCount`` workers a bounded number of frames
 ahead: by the native sequence reader (io/native.py, libjpeg/libpng) where
 it builds, else by the port's own photo readers (io/photo.py: JPEG, PNG,
-BMP, PBM/PGM/PPM/PAM, TIFF, WebP (lossy, lossless and animated) and GIF,
-EXIF orientation applied, as
+BMP, PBM/PGM/PPM/PAM, TIFF (JPEG-compressed, YCbCr, CMYK and CIE Lab
+too), JPEG 2000, WebP (lossy, lossless and animated), GIF, PFM, Radiance
+HDR and Sun raster, EXIF orientation applied, as
 ``cv2.imread`` reads them) in a thread pool, which skips a file that does
 not decode and passes on the ``NotImplementedError`` of a format it does
 not read.  Video (``usePhotosCycle=false``) is opened

@@ -1,19 +1,20 @@
 """One photo file to HxWx3 uint8 RGB without OpenCV, as ``cv2.imread``
 gives it in colour: the format found by its first bytes, as OpenCV finds
 it, then decoded by the port's own reader (JPEG: io/jpeg.py; PNG:
-io/png.py; BMP: io/bmp.py; PBM/PGM/PPM/PAM: io/pnm.py; TIFF: io/tiff.py;
-lossy, lossless and animated WebP: io/webp.py; GIF: io/gif.py; PFM:
-io/pfm.py; Radiance HDR: io/hdr.py; Sun raster: io/sunras.py), and turned
-by the EXIF orientation where OpenCV turns it (io/exif.py: a JPEG's APP1, a
-PNG's ``eXIf``, a WebP's ``EXIF``; a TIFF's own Orientation tag in
-io/tiff.py).
+io/png.py; BMP: io/bmp.py; PBM/PGM/PPM/PAM: io/pnm.py; TIFF, with
+JPEG-compressed, YCbCr, CMYK and CIE Lab images: io/tiff.py; JPEG 2000,
+JP2 or J2K: io/jp2.py; lossy, lossless and animated WebP: io/webp.py;
+GIF: io/gif.py; PFM: io/pfm.py; Radiance HDR: io/hdr.py; Sun raster:
+io/sunras.py), and turned by the EXIF orientation where OpenCV turns it
+(io/exif.py: a JPEG's APP1, a PNG's ``eXIf``, a WebP's ``EXIF``; a TIFF's
+own Orientation tag in io/tiff.py).
 
 Three outcomes besides a frame:
 
-- a format that OpenCV reads and the port does not yet (JPEG 2000, AVIF,
-  JPEG-compressed, YCbCr and CMYK TIFF)
-  raises ``NotImplementedError`` naming it, which the photo sequence
-  passes on to its caller;
+- a format that OpenCV reads and the port does not yet (AVIF; CCITT,
+  old-style JPEG and the other TIFF compressions io/tiff.py names; JPEG
+  2000 code-block styles and HTJ2K) raises ``NotImplementedError`` naming
+  it, which the photo sequence passes on to its caller;
 - a damaged file of a format the port reads gives None (and is skipped,
   as OpenCV's ``imread`` gives an empty image);
 - bytes that are no image OpenCV knows give None too.
@@ -25,14 +26,10 @@ from typing import Optional
 
 import numpy as np
 
-from . import bmp, exif, gif, hdr, jpeg, pfm, png, pnm, sunras, tiff, webp
+from . import (bmp, exif, gif, hdr, jp2, jpeg, pfm, png, pnm, sunras, tiff,
+               webp)
 
 _SPACE = b" \t\n\v\f\r"
-# leading bytes -> the name of a format OpenCV reads that the port does not
-_REFUSED = (
-    (b"\xff\x4f\xff\x51", "JPEG 2000"),
-    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-)
 
 
 def _refused(name: str) -> NotImplementedError:
@@ -41,13 +38,12 @@ def _refused(name: str) -> NotImplementedError:
 
 def sniff(head: bytes) -> Optional[str]:
     """The format of a file that starts with ``head`` (its first 32 bytes
-    or more): "jpeg", "png", "bmp", "pnm", "tiff", "webp", "gif", "pfm",
-    "hdr" or "sunras"; None
-    for bytes that are no image OpenCV reads.  Raises ``NotImplementedError``
-    for a format OpenCV reads that the port does not."""
-    for magic, name in _REFUSED:
-        if head.startswith(magic):
-            raise _refused(name)
+    or more): "jpeg", "png", "bmp", "pnm", "tiff", "jp2", "webp", "gif",
+    "pfm", "hdr" or "sunras"; None for bytes that are no image OpenCV
+    reads.  Raises ``NotImplementedError`` for a format OpenCV reads that
+    the port does not."""
+    if head.startswith(jp2.MAGICS):
+        return "jp2"
     if head[4:8] == b"ftyp" and (b"avif" in head[8:32]
                                  or b"avis" in head[8:32]):
         raise _refused("AVIF")
@@ -94,6 +90,8 @@ def decode(data: bytes) -> Optional[np.ndarray]:
                 img, block = webp.decode(data)
             elif kind == "tiff":
                 img, block = tiff.decode(data), None
+            elif kind == "jp2":
+                img, block = jp2.decode(data), None
             elif kind == "gif":
                 img, block = gif.decode(data), None
             elif kind in ("pfm", "hdr", "sunras"):

@@ -12,8 +12,11 @@
 //     decompress_smooth_data) where the scan script left any of the first
 //     nine AC coefficients short of full precision, as in a file cut at a
 //     scan boundary;
-//   - the ISLOW inverse DCT (jidctint.c: 13-bit constants, the
-//     CONST_BITS/PASS1_BITS descales and the wrapping range-limit table);
+//   - the ISLOW inverse DCT as libjpeg-turbo's SIMD code computes it
+//     (jidctint-sse2/avx2.asm, what OpenCV runs on x86-64): jidctint.c's
+//     13-bit constants and descales, with 16-bit dequantised
+//     coefficients, sums and pass outputs (saturated), so that damaged
+//     data gives OpenCV's pixels too;
 //   - fancy upsampling (jdsample.c): the triangle filters of h2v1, h1v2 and
 //     h2v2 with their biases, the first and last columns special-cased and
 //     the rows above the first and below the last real row replicated;
@@ -23,9 +26,13 @@
 // Arithmetic-coded, lossless, hierarchical and 12-bit JPEGs are refused
 // with the process named; a corrupt or truncated stream decodes to nothing,
 // unless the caller asks for libjpeg's reading of a damaged sequential
-// frame (`lenient`, for Motion-JPEG).  A scan that references Huffman table 0 or 1 without defining
-// it takes the Annex K tables, as libjpeg does (Motion-JPEG frames carry
-// no DHT).
+// frame (`lenient`, for Motion-JPEG and JPEG-in-TIFF strips).  A scan that
+// references Huffman table 0 or 1 without defining it takes the Annex K
+// tables, as libjpeg does (Motion-JPEG frames carry no DHT).  Markers
+// libjpeg's read_markers() does not know fail the stream; what follows a
+// single scan of every component is not read (libjpeg has given every row
+// by then).  The caller may set the colour space of three components as
+// libtiff sets jpeg_color_space (YCbCr, or none).
 //
 // C ABI; Python binds it through ctypes (io/jpeg.py).  Build:
 //   g++ -O2 -fPIC -std=c++17 -shared -o libjpegdec.so jpeg.cpp
@@ -97,14 +104,21 @@ struct Huffman {
   uint8_t vals[256];
 
   // Canonical codes from the counts by length (jdhuff.c
-  // jpeg_make_d_derived_tbl); false for a table that overflows its lengths.
+  // jpeg_make_d_derived_tbl); false for a table that overflows its lengths
+  // (JERR_BAD_HUFF_TABLE: a code of all ones, or one past its length).
   bool build(const uint8_t bits[16], const uint8_t* symbols, int count) {
     int total = 0;
     for (int l = 0; l < 16; ++l) total += bits[l];
     if (total > 256 || total > count) return false;
+    int32_t code = 0;
+    for (int l = 1; l <= 16; ++l) {
+      code += bits[l - 1];
+      if (code >= (int32_t(1) << l)) return false;
+      code <<= 1;
+    }
     std::memcpy(vals, symbols, total);
     std::memset(look_len, 0, sizeof(look_len));
-    int32_t code = 0;
+    code = 0;
     int k = 0;
     for (int l = 1; l <= 16; ++l) {
       valoff[l] = k - code;
@@ -118,7 +132,6 @@ struct Huffman {
         }
       }
       maxcode[l] = bits[l - 1] ? code - 1 : -1;
-      if (code > (1 << l)) return false;
       code <<= 1;
     }
     maxcode[17] = 0x7fffffff;
@@ -246,125 +259,80 @@ inline int64_t descale(int64_t x, int n) {
   return (x + (int64_t(1) << (n - 1))) >> n;
 }
 
-// jdmaster.c's post-IDCT range-limit table, indexed by (x & 1023): x + 128
-// clamped to [0, 255] for |x| < 384, wrapping beyond as libjpeg's does.
-struct RangeLimit {
-  uint8_t t[1024];
-  RangeLimit() {
-    for (int v = 0; v < 1024; ++v)
-      t[v] = v < 128 ? v + 128 : v < 512 ? 255 : v < 896 ? 0 : v - 896;
-  }
-};
-const RangeLimit kLimit;
+// libjpeg-turbo's jpeg_idct_islow as its SIMD versions compute it
+// (jidctint-sse2/avx2.asm, what OpenCV's build runs on x86-64): the
+// algorithm of jidctint.c, but the dequantized coefficients, the sums
+// in0 +- in4, in7 + in3 and in5 + in1, and the left shift of a block whose
+// AC terms are all zero are 16-bit (they wrap), each pass's outputs are
+// saturated to 16 bits, and the samples to [0, 255].  On valid data this
+// equals jidctint.c; on damaged data it gives what OpenCV gives.
+inline int32_t wrap16(int64_t v) {
+  return static_cast<int16_t>(static_cast<uint16_t>(v & 0xffff));
+}
+inline int32_t sat16(int64_t v) {
+  return static_cast<int32_t>(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
 
-// jidctint.c jpeg_idct_islow: coefficients in natural order times the
-// quantization table, into an 8x8 block of out (row stride `stride`).
+// One 1-D pass over 8 values (stride `st`) into 8 outputs, descaled by `s`
+// and saturated to 16 bits.
+inline void idct_1d(const int32_t* in, int st, int32_t* out, int ost, int s) {
+  const int64_t F054 = FIX_0_541196100, F076 = FIX_0_765366865,
+                F184 = FIX_1_847759065, F117 = FIX_1_175875602,
+                F196 = FIX_1_961570560, F039 = FIX_0_390180644,
+                F029 = FIX_0_298631336, F089 = FIX_0_899976223,
+                F150 = FIX_1_501321110, F205 = FIX_2_053119869,
+                F256 = FIX_2_562915447, F307 = FIX_3_072711026;
+  const int64_t in0 = in[0], in1 = in[st], in2 = in[2 * st], in3 = in[3 * st],
+                in4 = in[4 * st], in5 = in[5 * st], in6 = in[6 * st],
+                in7 = in[7 * st];
+  const int64_t tmp3 = in2 * (F054 + F076) + in6 * F054;
+  const int64_t tmp2 = in2 * F054 + in6 * (F054 - F184);
+  const int64_t tmp0 = int64_t(wrap16(in0 + in4)) * (int64_t(1) << kConstBits);
+  const int64_t tmp1 = int64_t(wrap16(in0 - in4)) * (int64_t(1) << kConstBits);
+  const int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int64_t z3 = wrap16(in7 + in3), z4 = wrap16(in5 + in1);
+  const int64_t z3m = z3 * (F117 - F196) + z4 * F117;
+  const int64_t z4m = z3 * F117 + z4 * (F117 - F039);
+  const int64_t o0 = in7 * (F029 - F089) + in1 * -F089 + z3m;
+  const int64_t o3 = in7 * -F089 + in1 * (F150 - F089) + z4m;
+  const int64_t o1 = in5 * (F205 - F256) + in3 * -F256 + z4m;
+  const int64_t o2 = in5 * -F256 + in3 * (F307 - F256) + z3m;
+  out[0] = sat16(descale(tmp10 + o3, s));
+  out[7 * ost] = sat16(descale(tmp10 - o3, s));
+  out[ost] = sat16(descale(tmp11 + o2, s));
+  out[6 * ost] = sat16(descale(tmp11 - o2, s));
+  out[2 * ost] = sat16(descale(tmp12 + o1, s));
+  out[5 * ost] = sat16(descale(tmp12 - o1, s));
+  out[3 * ost] = sat16(descale(tmp13 + o0, s));
+  out[4 * ost] = sat16(descale(tmp13 - o0, s));
+}
+
+// Coefficients in natural order times the quantization table, into an
+// 8x8 block of out (row stride `stride`).
 void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
                 size_t stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const int16_t* qp = q + c;
-    int* wp = ws + c;
-    if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-        ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-      int dc = (ip[0] * qp[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
-      continue;
-    }
-    int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    int64_t tmp0 = (z2 + z3) * (int64_t(1) << kConstBits);
-    int64_t tmp1 = (z2 - z3) * (int64_t(1) << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConstBits - kPass1Bits;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp3, s));
-    wp[56] = static_cast<int>(descale(tmp10 - tmp3, s));
-    wp[8] = static_cast<int>(descale(tmp11 + tmp2, s));
-    wp[48] = static_cast<int>(descale(tmp11 - tmp2, s));
-    wp[16] = static_cast<int>(descale(tmp12 + tmp1, s));
-    wp[40] = static_cast<int>(descale(tmp12 - tmp1, s));
-    wp[24] = static_cast<int>(descale(tmp13 + tmp0, s));
-    wp[32] = static_cast<int>(descale(tmp13 - tmp0, s));
+  int32_t deq[64], ws[64];
+  bool ac_zero = true;
+  for (int i = 0; i < 64; ++i) {
+    deq[i] = wrap16(int32_t(in[i]) * q[i]);
+    if (i >= 8 && in[i] != 0) ac_zero = false;
   }
-  for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
-    uint8_t* op = out + r * stride;
-    if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 &&
-        wp[6] == 0 && wp[7] == 0) {
-      uint8_t v = kLimit.t[static_cast<int>(descale(wp[0], kPass1Bits + 3)) &
-                           1023];
-      for (int c = 0; c < 8; ++c) op[c] = v;
-      continue;
+  if (ac_zero) {
+    for (int c = 0; c < 8; ++c) {
+      const int32_t dc = wrap16(int64_t(deq[c]) * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
     }
-    int64_t z2 = wp[2], z3 = wp[6];
-    int64_t z1 = (z2 + z3) * FIX_0_541196100;
-    int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-    int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-    int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (int64_t(1) << kConstBits);
-    int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (int64_t(1) << kConstBits);
-    int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * FIX_1_175875602;
-    tmp0 *= FIX_0_298631336;
-    tmp1 *= FIX_2_053119869;
-    tmp2 *= FIX_3_072711026;
-    tmp3 *= FIX_1_501321110;
-    z1 *= -FIX_0_899976223;
-    z2 *= -FIX_2_562915447;
-    z3 *= -FIX_1_961570560;
-    z4 *= -FIX_0_390180644;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConstBits + kPass1Bits + 3;
-    op[0] = kLimit.t[static_cast<int>(descale(tmp10 + tmp3, s)) & 1023];
-    op[7] = kLimit.t[static_cast<int>(descale(tmp10 - tmp3, s)) & 1023];
-    op[1] = kLimit.t[static_cast<int>(descale(tmp11 + tmp2, s)) & 1023];
-    op[6] = kLimit.t[static_cast<int>(descale(tmp11 - tmp2, s)) & 1023];
-    op[2] = kLimit.t[static_cast<int>(descale(tmp12 + tmp1, s)) & 1023];
-    op[5] = kLimit.t[static_cast<int>(descale(tmp12 - tmp1, s)) & 1023];
-    op[3] = kLimit.t[static_cast<int>(descale(tmp13 + tmp0, s)) & 1023];
-    op[4] = kLimit.t[static_cast<int>(descale(tmp13 - tmp0, s)) & 1023];
+  } else {
+    for (int c = 0; c < 8; ++c)
+      idct_1d(deq + c, 8, ws + c, 8, kConstBits - kPass1Bits);
+  }
+  int32_t row[8];
+  for (int r = 0; r < 8; ++r) {
+    idct_1d(ws + 8 * r, 1, row, 1, kConstBits + kPass1Bits + 3);
+    uint8_t* op = out + r * stride;
+    for (int c = 0; c < 8; ++c)
+      op[c] = static_cast<uint8_t>(std::clamp(row[c], -128, 127) + 128);
   }
 }
 
@@ -435,6 +403,7 @@ struct Decoder {
   // decode damaged entropy-coded data as libjpeg-turbo does (a Motion-JPEG
   // frame): a bad code reads as zero; data that ends early is read as zero
   // bits to the end of that MCU and the MCUs after it are left zero
+  int colour = 0;          // 0: libjpeg's guess; 1: YCbCr; 2: none (raw)
   bool lenient = false;
 
   Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
@@ -460,7 +429,8 @@ struct Decoder {
     if (ncomp == 4)
       return refuse("4-component (CMYK/YCCK) JPEG is not decoded");
     if (ncomp != 1 && ncomp != 3) return kCorrupt;
-    if (height == 0 || width == 0 || len < 6 + 3 * ncomp) return kCorrupt;
+    // get_sof: JERR_BAD_LENGTH unless the length is exactly the components'
+    if (height == 0 || width == 0 || len != 6 + 3 * ncomp) return kCorrupt;
     for (int c = 0; c < ncomp; ++c) {
       Component& k = comp[c];
       k.id = p[6 + 3 * c];
@@ -925,14 +895,17 @@ struct Decoder {
   Status run(bool header_only) {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kCorrupt;
     size_t pos = 2;
-    bool any_scan = false;
-    for (;;) {
+    bool any_scan = false, complete = false;
+    while (!complete) {
       while (pos < n && d[pos] != 0xFF) ++pos;    // garbage before a marker
       while (pos < n && d[pos] == 0xFF) ++pos;
       if (pos >= n) break;                        // no EOI: end of data
       int m = d[pos++];
       if (m == 0xD9) break;                       // EOI
-      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      // TEM and RSTn carry no length; FF00 is stuffed data, which
+      // next_marker() discards
+      if (m == 0x00 || m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      if (m == 0xD8) return kCorrupt;             // JERR_SOI_DUPLICATE
       if (pos + 2 > n) return kCorrupt;
       int len = be16(d + pos) - 2;
       if (len < 0 || pos + 2 + len > n) return kCorrupt;
@@ -984,7 +957,8 @@ struct Decoder {
         case 0xDA: {
           if (!frame || len < 1) return kCorrupt;
           int ns = p[0];
-          if (ns < 1 || ns > ncomp || len < 4 + 2 * ns) return kCorrupt;
+          // get_sos: JERR_BAD_LENGTH unless the length is exactly 6 + 2 ns
+          if (ns < 1 || ns > ncomp || len != 4 + 2 * ns) return kCorrupt;
           Component* sc[3];
           int td[3], ta[3];
           for (int i = 0; i < ns; ++i) {
@@ -1007,12 +981,22 @@ struct Decoder {
               : decode_scan(br, sc, td, ta, ns);
           if (st != kOk) return st;
           any_scan = true;
+          // one scan of every component, not progressive: libjpeg outputs
+          // it as it reads it and reads what follows only in
+          // jpeg_finish_decompress, whose errors OpenCV ignores
+          if (!progressive && ns == ncomp) {
+            complete = true;
+            break;
+          }
           br.seek_marker();
           pos = br.pos;
           break;
         }
         default:
-          break;  // APPn, COM, DNL, ...
+          // APPn, COM, DNL; read_markers() fails on any other marker
+          if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC))
+            return kCorrupt;
+          break;
       }
     }
     if (!frame) return kCorrupt;
@@ -1115,7 +1099,9 @@ struct Decoder {
     }
     // jdapimin.c default_decompress_parms: the JPEG colour space.
     bool rgb_space;
-    if (saw_jfif)
+    if (colour != 0)
+      rgb_space = colour == 2;
+    else if (saw_jfif)
       rgb_space = false;
     else if (saw_adobe)
       rgb_space = adobe_transform == 0;
@@ -1172,12 +1158,15 @@ int jpegdec_info(const uint8_t* data, int64_t n, int* h, int* w, char* msg,
 
 // Decode a JPEG in memory to h*w*3 RGB bytes.  0: done, *h and *w set;
 // 1: corrupt or truncated; 2: refused (msg names the process); 3: `cap`
-// is smaller than h*w*3.  With `lenient`, damaged or short entropy-coded
-// data of a sequential JPEG decodes as libjpeg-turbo decodes it.
-int jpegdec_decode(const uint8_t* data, int64_t n, int lenient, uint8_t* rgb,
+// is smaller than h*w*3.  `flags` bit 0 (lenient): damaged or short
+// entropy-coded data of a sequential JPEG decodes as libjpeg-turbo decodes
+// it; bits 1-2: the colour space as a caller sets jpeg_color_space (0:
+// libjpeg's guess, 1: YCbCr, 2: none, three components as stored).
+int jpegdec_decode(const uint8_t* data, int64_t n, int flags, uint8_t* rgb,
                    int64_t cap, int* h, int* w, char* msg, int msg_len) {
   Decoder dec(data, static_cast<size_t>(n));
-  dec.lenient = lenient != 0;
+  dec.lenient = (flags & 1) != 0;
+  dec.colour = (flags >> 1) & 3;
   Status st = dec.run(false);
   if (st == kOk) {
     *h = dec.height;

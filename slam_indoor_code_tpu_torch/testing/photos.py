@@ -103,6 +103,40 @@ def _differenced(block: np.ndarray) -> np.ndarray:
     return d
 
 
+def split_jpeg(stream: bytes) -> tuple[bytes, bytes]:
+    """A JPEG ``stream`` as JPEG-in-TIFF stores it: (the tables-only
+    datastream of its DQT and DHT segments, for the JPEGTables tag; the
+    abbreviated stream of the rest, APPn segments dropped)."""
+    tables, rest = [], []
+    p = 2
+    while p < len(stream):
+        m = stream[p + 1]
+        if m == 0xDA:
+            rest.append(stream[p:])
+            break
+        seg = stream[p:p + 2 + int.from_bytes(stream[p + 2:p + 4], "big")]
+        if m in (0xDB, 0xC4):
+            tables.append(seg)
+        elif not 0xE0 <= m <= 0xEF:
+            rest.append(seg)
+        p += len(seg)
+    return (b"\xff\xd8" + b"".join(tables) + b"\xff\xd9",
+            b"\xff\xd8" + b"".join(rest))
+
+
+def ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """Y, Cb, Cr samples [rows, cols, 3] uint8 as TIFF's YCbCr data units:
+    hs*vs luma samples (rows of hs), then the unit's top left Cb and Cr;
+    a unit cut by the block's edge repeats its last row and column."""
+    rows, cols = block.shape[:2]
+    down, across = -(-rows // vs), -(-cols // hs)
+    pad = np.pad(block, ((0, down * vs - rows), (0, across * hs - cols),
+                         (0, 0)), mode="edge")
+    y = pad[..., 0].reshape(down, vs, across, hs).transpose(0, 2, 1, 3)
+    return np.concatenate([y.reshape(down, across, vs * hs),
+                           pad[::vs, ::hs, 1:]], axis=2).tobytes()
+
+
 def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                 compression: str = "none", predictor: int = 1,
                 rows_per_strip: int | None = None,
@@ -110,20 +144,33 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                 big_endian: bool = False, bigtiff: bool = False,
                 orientation: int | None = None,
                 extra_samples: tuple[int, ...] = (),
-                colormap: np.ndarray | None = None) -> bytes:
-    """TIFF of ``samples`` [H,W,spp] (uint8 or uint16; [H,W] for one
-    sample) with ``compression`` "none", "deflate" (8) or "packbits", the
-    horizontal predictor where ``predictor`` is 2, in strips of
-    ``rows_per_strip`` rows (default: one strip) or in tiles of ``tile`` =
-    (width, height), chunky or ``planar``; ``colormap`` [3, 2^bits] for a
-    palette image (``photometric`` 3)."""
+                colormap: np.ndarray | None = None,
+                extra_tags: tuple = (), jpeg_encoder=None,
+                subsampling: tuple[int, int] | None = None) -> bytes:
+    """TIFF of ``samples`` [H,W,spp] (uint8 or uint16, or float16, 32 or
+    64 with SampleFormat 3; [H,W] for one sample) with ``compression``
+    "none", "deflate" (8), "packbits" or "jpeg" (7: each strip or tile
+    coded by ``jpeg_encoder``, an RGB array to a JPEG, by default
+    ``mjpeg.encode_jpeg`` at quality 95, 4:2:0 YCbCr for
+    ``photometric`` 6, which gets YCbCrSubsampling 2, 2; the tables in
+    JPEGTables, the strips abbreviated streams), the horizontal predictor
+    where ``predictor`` is 2, in strips of ``rows_per_strip`` rows
+    (default: one strip) or in tiles of ``tile`` = (width, height), chunky
+    or ``planar``; ``colormap`` [3, 2^bits] for a palette image
+    (``photometric`` 3); CMYK (``photometric`` 5) from four samples C, M,
+    Y, K; YCbCr (``photometric`` 6) from samples Y, Cb, Cr, stored in
+    data units of ``subsampling`` = (horizontal, vertical) luma samples and
+    the Cb, Cr of each unit's top left one, with its YCbCrSubsampling tag;
+    ``extra_tags`` (tag, field type, values; a rational as numerator and
+    denominator) entries added to the directory, or put in place of the
+    writer's own entry of the same tag."""
     s = np.asarray(samples)
     if s.ndim == 2:
         s = s[:, :, None]
     h, w, spp = s.shape
-    bits = 16 if s.dtype == np.uint16 else 8
+    bits = s.dtype.itemsize * 8
     e = ">" if big_endian else "<"
-    dtype = np.dtype(e + "u2") if bits == 16 else np.dtype(np.uint8)
+    dtype = s.dtype.newbyteorder(e) if bits > 8 else np.dtype(np.uint8)
     if tile is not None:
         cw, ch = tile
         across, down = -(-w // cw), -(-h // ch)
@@ -133,8 +180,11 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
         cw, ch = w, min(rows_per_strip or h, h)
         across, down = 1, -(-h // ch)
         padded = s
-    code = {"none": 1, "deflate": 8, "packbits": 32773}[compression]
-    chunks = []
+    code = {"none": 1, "deflate": 8, "packbits": 32773,
+            "jpeg": 7}[compression]
+    if code == 7 and jpeg_encoder is None:
+        from .mjpeg import encode_jpeg as jpeg_encoder
+    chunks, tables = [], None
     for plane in range(spp if planar else 1):
         for ty in range(down):
             for tx in range(across):
@@ -144,7 +194,12 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                 if predictor == 2:
                     block = _differenced(block)
                 raw = np.ascontiguousarray(block).astype(dtype).tobytes()
-                if code == 8:
+                if subsampling is not None:
+                    raw = ycbcr_units(block, *subsampling)
+                if code == 7:
+                    tables, raw = split_jpeg(jpeg_encoder(
+                        np.ascontiguousarray(block)))
+                elif code == 8:
                     raw = zlib.compress(raw, 6)
                 elif code == 32773:
                     raw = _packbits(raw)
@@ -154,6 +209,14 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                (277, 3, [spp]), (284, 3, [2 if planar else 1])]
     if predictor == 2:
         entries.append((317, 3, [2]))
+    if subsampling is not None:
+        entries.append((530, 3, list(subsampling)))
+    if code == 7:
+        entries.append((347, 7, list(tables)))
+        if photometric == 6:
+            entries.append((530, 3, [2, 2]))
+    if s.dtype.kind == "f":
+        entries.append((339, 3, [3] * spp))
     if orientation is not None:
         entries.append((274, 3, [orientation]))
     if extra_samples:
@@ -169,9 +232,12 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
     offset_type = 16 if bigtiff else 4
     entries += [(off_tag, offset_type, [0] * len(chunks)),
                 (count_tag, offset_type, [len(c) for c in chunks])]
-    entries.sort()
-    codes = {3: "H", 4: "I", 16: "Q"}
-    sizes = {3: 2, 4: 4, 16: 8}
+    replaced = {tag for tag, _, _ in extra_tags}
+    entries = [t for t in entries if t[0] not in replaced] + list(extra_tags)
+    entries.sort(key=lambda t: t[0])
+    codes = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 8: "h",
+             9: "i", 10: "i", 16: "Q"}
+    sizes = {1: 1, 2: 1, 3: 2, 4: 4, 5: 4, 7: 1, 8: 2, 9: 4, 10: 4, 16: 8}
     word, inline = ("Q", 8) if bigtiff else ("I", 4)
     head = ((b"MM" if big_endian else b"II")
             + (struct.pack(e + "HHHQ", 43, 8, 0, 16) if bigtiff
@@ -198,7 +264,8 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
         if tag == off_tag:
             values = chunk_offsets
         packed = struct.pack(f"{e}{len(values)}{codes[ftype]}", *values)
-        head_fields = struct.pack(e + "HH" + word, tag, ftype, len(values))
+        count = len(values) // 2 if ftype in (5, 10) else len(values)
+        head_fields = struct.pack(e + "HH" + word, tag, ftype, count)
         if len(packed) > inline:
             ifd += head_fields + struct.pack(e + word, where[tag])
             blobs.append(packed)
