@@ -137,6 +137,17 @@ Phases, each followed by one flushed line with the elapsed seconds:
               equal to the jpeg run's byte for byte and its ``top2_batch``
               launches; prints the decode ms per FHD frame beside the
               tracking ms per frame.
+18c. damaged — the committed damaged FHD frames of
+              testing/jpeg_fixtures/damaged/ (frames 8, 16, 24 and 31 of the
+              render from the numpy writer at q95: cut at 60 %, three
+              flipped bits, a restart interval then flips, progressive and
+              cut mid-scan) each decoded on one thread, timed, and held to
+              the committed sha256 of cv2's decode (libjpeg-turbo's
+              recovery, native/jpeg.cpp's ``lenient``); then the jpeg
+              phase's glob with those four in place of the same frames
+              through ``MediaSource`` (32 frames, none skipped) and the CLI
+              (fixture-clis): the jpeg phase's checks; prints the decode ms
+              of each damaged frame and the run's launches.
 18b. jp2    — the committed fixture testing/photo_fixtures/headline_jp2/
               (the 32 frames as Pillow writes JPEG 2000: 9/7, RPCL,
               1024x1024 tiles, 256x256 precincts, three layers, PLT; 5.9
@@ -288,7 +299,15 @@ Phases, each followed by one flushed line with the elapsed seconds:
               views in each XML, fx/fy within 1 %, cx/cy within 1 % of the
               image size, rms < 0.3 px; prints the detection ms per FHD
               photo with and without a board, each branch's K and its
-              solve's seconds on the card.
+              solve's seconds on the card.  Then the 12 views thresholded
+              at 128 as bilevel pages, six as Group 4 and six as Group 3 2D
+              with FillOrder 2, written on the host by the numpy writer
+              (testing/ccitt.py): each decoded on one thread by io/tiff.py
+              (native/fax3.cpp) equal to its thresholded view bit for bit,
+              timed; the CLI's calibrate branch on them (the third run of
+              the subprocess): exit 0, 12 views in the XML, fx/fy within
+              1 %, cx/cy within 1 % of the image size; prints its rms (no
+              bound: bilevel corners are not the grey ones).
 28. shard   — eight virtual shards on cuda:0: ``ShardedFrontend`` on 16
               FHD frames (two a shard), SIFT/L2 and ORB/Hamming, gives the
               unsplit call's match counts exactly with 8 ``top2_batch``
@@ -2108,16 +2127,18 @@ def jpeg_files(frames, root: str) -> dict:
     one Motion-JPEG AVI (the video phase's); as progressive JPEG at
     quality 95 (the progjpeg phase's, encoded on every core); and each
     JPEG as a one-strip YCbCr JPEG TIFF, its tables in JPEGTables (the
-    tiffjpeg phase's) → {"jpegs", "jpeg", "encode_ms", "avi", "parse_ms",
-    "prog", "prog_pattern", "prog_encode_ms", "tiff_pattern"}: written
-    before fixture-clis, whose subprocess runs the CLI on each."""
+    tiffjpeg phase's); the glob again with the damaged phase's committed
+    frames in place of the same frames → {"jpegs", "jpeg", "encode_ms",
+    "avi", "parse_ms", "prog", "prog_pattern", "prog_encode_ms",
+    "tiff_pattern", "damaged"}: written before fixture-clis, whose
+    subprocess runs the CLI on each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from slam_indoor_code_tpu_torch.io import avi
     from slam_indoor_code_tpu_torch.testing import mjpeg, photos
 
     out = {}
-    for d in ("jpeg", "prog", "tiffjpeg"):
+    for d in ("jpeg", "prog", "tiffjpeg", "damaged"):
         os.makedirs(os.path.join(root, d))
     t = time.perf_counter()
     jpegs = [mjpeg.encode_jpeg(f, 95) for f in frames]
@@ -2130,6 +2151,14 @@ def jpeg_files(frames, root: str) -> dict:
             f.write(photos.encode_tiff(frames[i], photometric=6,
                                        compression="jpeg",
                                        jpeg_encoder=lambda _, d=data: d))
+        # the damaged phase's glob: its committed frames in place
+        damaged = os.path.join(DAMAGED_FIXTURES, f"frame_{i:02d}.jpg")
+        if os.path.exists(damaged):
+            with open(damaged, "rb") as f:
+                data = f.read()
+        with open(os.path.join(root, "damaged", f"frame_{i}.jpg"),
+                  "wb") as f:
+            f.write(data)
     path = os.path.join(root, "seq.avi")
     h, w = frames[0].shape[:2]
     mjpeg.write_avi(path, jpegs, w, h)
@@ -2149,6 +2178,7 @@ def jpeg_files(frames, root: str) -> dict:
         with open(os.path.join(root, "prog", f"frame_{i}.jpg"), "wb") as f:
             f.write(d)
     out.update(jpegs=jpegs, jpeg=os.path.join(root, "jpeg", "*.jpg"),
+               damaged=os.path.join(root, "damaged", "*.jpg"),
                avi=path, prog=prog,
                prog_pattern=os.path.join(root, "prog", "*.jpg"),
                tiff_pattern=os.path.join(root, "tiffjpeg", "*.tif"))
@@ -2352,6 +2382,56 @@ def tiffjpeg_phase(card_line: str, decoded_jpeg, poses_jpeg, jpeg_counts,
           f"FHD frame on one thread; tracking {track_ms:.3f} ms per frame; "
           f"CLI run {run_s:.3f} s ({when})  [{card_line}]", flush=True)
     return n, one_ms, track_ms
+
+
+DAMAGED_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "slam_indoor_code_tpu_torch", "testing",
+                                "jpeg_fixtures", "damaged")
+
+
+def damaged_phase(card_line: str, written, cli):
+    """The committed damaged FHD frames (the card has no encoder and no
+    cv2), each decoded by io/photo.py on one thread, timed, and held to
+    the committed sha256 of cv2's decode; the jpeg phase's glob with them
+    in place of the same frames (jpeg_files' "damaged") through
+    ``MediaSource``: 32 frames, none skipped; the CLI on it (``cli``:
+    fixture_clis), with the jpeg phase's checks → (counts, decode ms of
+    each damaged frame)."""
+    import hashlib
+
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import photo
+    from slam_indoor_code_tpu_torch.io.media import MediaSource
+
+    with open(os.path.join(DAMAGED_FIXTURES, "cv2_sha256_damaged.json")) as f:
+        table = json.load(f)
+    decode_ms = {}
+    for name in sorted(table):
+        with open(os.path.join(DAMAGED_FIXTURES, name), "rb") as f:
+            data = f.read()
+        t = time.perf_counter()
+        img = photo.decode(data)
+        decode_ms[name] = 1e3 * (time.perf_counter() - t)
+        got = (None if img is None else hashlib.sha256(
+            np.ascontiguousarray(img).tobytes()).hexdigest())
+        if got != table[name]:
+            fail(f"damaged: {name} decodes to sha256 {got}, cv2's is "
+                 f"{table[name]}")
+    n_read = sum(1 for _ in MediaSource(photos_pattern=written["damaged"],
+                                        threads=3))
+    if n_read != N_FRAMES:
+        fail(f"damaged: the glob gives {n_read} frames of {N_FRAMES}")
+    n, n_cams, ate_pct, poses, run_s, when = cli
+    track_ms = 1e3 * n["slam_main_s"] / N_FRAMES
+    ms = "  ".join(f"{k} {v:.3f}" for k, v in decode_ms.items())
+    print(f"damaged: {len(table)} damaged FHD JPEG frames equal cv2's decode "
+          f"(sha256); decode ms on one thread: {ms}; the glob with them in "
+          f"place: {n_read}/{N_FRAMES} frames read; exit 0, cameras "
+          f"{n_cams}/{N_FRAMES}  ATE {ate_pct:.4f}% of extent  launches "
+          f"{json.dumps(n)}; tracking {track_ms:.3f} ms per frame; CLI run "
+          f"{run_s:.3f} s ({when})  [{card_line}]", flush=True)
+    return n, decode_ms
 
 
 JP2_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -3487,7 +3567,8 @@ def fixture_clis(scene, mpng_path: str, photos_pattern: str,
     (cli_counted_many's checks on each), which pays the interpreter's,
     PyTorch's and the card's start once: the lossless phase's first, so
     that its run is a cold one as in a user's ``python -m``; then the
-    jpeg, video, progjpeg and tiffjpeg phases' (``jpegs``: jpeg_files'),
+    jpeg, video, progjpeg, tiffjpeg and damaged phases' (``jpegs``:
+    jpeg_files'),
     the jp2 phase's fixture glob, the mp4, asp (its two runs: the packed
     fixture, "asp", and the interlaced one, "asp-il"), webm, vp9, mpeg2,
     h263 and flv phases', the mpng phase's AVI (``mpng_path``) and the
@@ -3503,12 +3584,12 @@ def fixture_clis(scene, mpng_path: str, photos_pattern: str,
                                                tiff, vp8, vp9, webp)
 
     globs = {"jpeg": jpegs["jpeg"], "progjpeg": jpegs["prog_pattern"],
-             "tiffjpeg": jpegs["tiff_pattern"],
+             "tiffjpeg": jpegs["tiff_pattern"], "damaged": jpegs["damaged"],
              "jp2": os.path.join(JP2_FIXTURES, "frame_*.jp2"),
              "photos": photos_pattern}
     videos = {"lossless": FFV1_FIXTURE, "jpeg": None,
               "video": jpegs["avi"], "progjpeg": None, "tiffjpeg": None,
-              "jp2": None, "mp4": MP4_FIXTURE,
+              "damaged": None, "jp2": None, "mp4": MP4_FIXTURE,
               "asp": ASP_FIXTURE, "asp-il": ASP_IL_FIXTURE,
               "webm": WEBM_FIXTURE, "vp9": VP9_FIXTURE,
               "mpeg2": MPEG2_FIXTURE, "h263": H263_FIXTURE,
@@ -3935,7 +4016,7 @@ def cli_calibrate(runs: dict, root: str) -> dict:
 
 def hold_k(what: str, K, K_true, size, rms) -> None:
     """fx/fy within 1 % of the truth, cx/cy within 1 % of the image size,
-    rms < 0.3 px."""
+    rms < 0.3 px (not held where ``rms`` is None)."""
     H, W = size
     for i, name in ((0, "fx"), (1, "fy")):
         err = abs(K[i, i] - K_true[i, i]) / K_true[i, i]
@@ -3946,8 +4027,47 @@ def hold_k(what: str, K, K_true, size, rms) -> None:
         if not abs(K[i, 2] - K_true[i, 2]) < 0.01 * n:
             fail(f"calibrate ({what}): {name} {K[i, 2]:.3f} is more than "
                  f"1% of {n} px from the truth {K_true[i, 2]:.3f}")
-    if not rms < 0.3:
+    if rms is not None and not rms < 0.3:
         fail(f"calibrate ({what}): rms {rms:.4f} px >= 0.3")
+
+
+def fax_pages(views, root: str):
+    """The board views thresholded at 128 as bilevel CCITT TIFF pages under
+    ``root`` (the first half Group 4, the rest Group 3 2D with FillOrder
+    2, by the numpy writer), each decoded on one thread by io/photo.py
+    and held to its thresholded view bit for bit → (the glob, write ms per
+    page, decode ms per page, bytes per page)."""
+    import numpy as np
+
+    from slam_indoor_code_tpu_torch.io import photo, tiff
+    from slam_indoor_code_tpu_torch.testing import photos
+
+    tiff.load_fax()       # built first: the pages' decode is timed alone
+    pages, spent = [], 0.0
+    for i, img in enumerate(views):
+        bits = (np.asarray(img) < 128).astype(np.uint8)
+        t = time.perf_counter()
+        data = (photos.encode_tiff(bits, compression="group4")
+                if i < len(views) // 2 else
+                photos.encode_tiff(bits, compression="group3", t4_options=1,
+                                   fill_order=2))
+        spent += time.perf_counter() - t
+        pages.append(data)
+        with open(os.path.join(root, f"board_{i:02d}.tif"), "wb") as f:
+            f.write(data)
+    decoded = 0.0
+    for i, (img, data) in enumerate(zip(views, pages)):
+        t = time.perf_counter()
+        got = photo.decode(data)
+        decoded += time.perf_counter() - t
+        want = np.where(np.asarray(img) >= 128, 255, 0).astype(np.uint8)
+        if got is None or not np.array_equal(
+                got, np.repeat(want[..., None], 3, axis=2)):
+            fail(f"calibrate (fax): page {i} does not decode to its "
+                 "thresholded view")
+    n = len(pages)
+    return (os.path.join(root, "*.tif"), 1e3 * spent / n, 1e3 * decoded / n,
+            sum(map(len, pages)) / n)
 
 
 def calibrate_pixels(card_line: str, scene, frames):
@@ -4004,16 +4124,22 @@ def calibrate_pixels(card_line: str, scene, frames):
         avi = os.path.join(root, "board.avi")
         mjpeg.write_avi(avi, [j for j in jpegs for _ in range(10)], size[1],
                         size[0])
+        os.makedirs(os.path.join(root, "fax"))
+        fax_glob, fax_write_ms, fax_ms, fax_bytes = fax_pages(
+            views, os.path.join(root, "fax"))
         runs = cli_calibrate({
             what: Config(calibrate=True, usePhotosCycle=use_photos,
-                         photosPathPattern=os.path.join(photos, "*.png"),
-                         videoSourcePath=avi,
+                         photosPathPattern=pattern, videoSourcePath=avi,
                          calibrationPath=os.path.join(root, f"{what}.xml"),
                          outputDataDir=os.path.join(root, "out"))
-            for what, use_photos in (("photos", True), ("video", False))},
-            root)
+            for what, use_photos, pattern in (
+                ("photos", True, os.path.join(photos, "*.png")),
+                ("video", False, ""), ("fax", True, fax_glob))}, root)
         for what, (Kc, seen) in runs.items():
-            hold_k(what, Kc, K, size, seen["rms"][0])
+            # bilevel corners are not the grey ones: the fax run's rms is
+            # reported, not held
+            hold_k(what, Kc, K, size,
+                   None if what == "fax" else seen["rms"][0])
             if what == "photos" and sum(seen["found"]) != BOARD_VIEWS:
                 fail(f"calibrate (photos): {sum(seen['found'])}/"
                      f"{BOARD_VIEWS} boards found")
@@ -4031,8 +4157,11 @@ def calibrate_pixels(card_line: str, scene, frames):
           f"{1e3 * np.mean(board_s):.1f} ms per FHD photo with a board "
           f"(max {1e3 * max(board_s):.1f}), {1e3 * empty_s:.1f} ms without "
           f"(host, numpy); truth fx {K[0, 0]:.1f} cx {K[0, 2]:.1f} cy "
-          f"{K[1, 2]:.1f}; CLI {'; '.join(lines)}  [{card_line}]",
-          flush=True)
+          f"{K[1, 2]:.1f}; CLI {'; '.join(lines)}; fax pages (6 Group 4, 6 "
+          f"Group 3 2D FillOrder 2) equal their thresholded views, "
+          f"{fax_bytes / 1e3:.1f} kB, written in {fax_write_ms:.1f} ms and "
+          f"decoded in {fax_ms:.3f} ms per FHD page on one thread  "
+          f"[{card_line}]", flush=True)
     return {w: seen["solve_s"][0] for w, (_, seen) in runs.items()}
 
 
@@ -4378,10 +4507,17 @@ def main() -> None:
             card_line, decoded, poses_jpeg, jpeg_counts, jpeg_written,
             clis["tiffjpeg"])
         by_path["tiffjpeg (cli)"] = n["top2_batch"]
-        del jpegs, decoded, jpeg_written
+        del jpegs, decoded
         phase("tiffjpeg", top2_batch_launches=n["top2_batch"],
               decode_ms_per_frame_1_thread=f"{dec1_ms:.3f}",
               tracking_ms_per_frame=f"{track_ms:.3f}")
+        n, damaged_ms = damaged_phase(card_line, jpeg_written,
+                                      clis["damaged"])
+        del jpeg_written
+        by_path["damaged (cli)"] = n["top2_batch"]
+        phase("damaged", top2_batch_launches=n["top2_batch"],
+              decode_ms_1_thread=json.dumps(
+                  {k: round(v, 3) for k, v in damaged_ms.items()}))
         n, dec1_ms, track_ms = jp2_phase(card_line, clis["jp2"])
         by_path["jp2 (cli)"] = n["top2_batch"]
         phase("jp2", top2_batch_launches=n["top2_batch"],

@@ -47,8 +47,12 @@ from scipy.spatial import cKDTree
 
 # OpenCV rejects a board with a corner this close to the image edge
 BORDER = 8
-# saddle detection: Gaussian scale, suppression window, candidates kept
+# saddle detection: Gaussian scale, suppression window, candidates kept;
+# the scale of a second search where the first finds no board (a bilevel
+# image, a scanned or faxed page: its pixel-wide steps make saddles of
+# their own at the first scale, which crowd out the board's)
 SMOOTH_SIGMA = 1.5
+WIDE_SIGMA = 3.0
 NMS_SIZE = 5
 MAX_CANDIDATES = 400
 MAX_SEEDS = 40
@@ -691,10 +695,20 @@ def _opencv_order(img8: np.ndarray, g: np.ndarray, P: np.ndarray,
 def find_corners(img8: np.ndarray, pattern_size=(7, 7)):
     """The chessboard's inner corners [w·h, 2] (x, y) in OpenCV's order,
     after OpenCV's own closing ``cornerSubPix`` (a 5×5 window, 15
-    iterations, eps 0.1), or None."""
+    iterations, eps 0.1), or None.  The lattice is sought at
+    ``SMOOTH_SIGMA``, then, where none is found there, at ``WIDE_SIGMA``."""
     img8 = np.asarray(img8, np.uint8)
+    for sigma in (SMOOTH_SIGMA, WIDE_SIGMA):
+        corners = _find_at(img8, pattern_size, sigma)
+        if corners is not None:
+            return corners
+    return None
+
+
+def _find_at(img8: np.ndarray, pattern_size, sigma: float):
+    """find_corners with the lattice sought at one smoothing scale."""
     H, W = img8.shape
-    g = ndimage.gaussian_filter(img8.astype(np.float32), SMOOTH_SIGMA,
+    g = ndimage.gaussian_filter(img8.astype(np.float32), sigma,
                                 truncate=3.0)
     pts = _saddles(g)
     if len(pts) < pattern_size[0] * pattern_size[1]:

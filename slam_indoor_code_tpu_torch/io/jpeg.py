@@ -11,8 +11,13 @@ intervals and optimized or absent Huffman tables (Motion-JPEG frames
 without a DHT take the Annex K tables, as libjpeg does).  Arithmetic-coded,
 lossless, hierarchical and 12-bit JPEG raise ``ValueError`` naming the
 process; a corrupt or truncated stream decodes to None, or, with
-``lenient`` (a Motion-JPEG frame, which FFmpeg gives whenever its headers
-are whole), to libjpeg-turbo's reading of its damaged entropy-coded data.
+``lenient`` (a photo file as ``cv2.imread`` reads it, a Motion-JPEG frame,
+a JPEG-in-TIFF strip), to libjpeg-turbo 3.1's reading of its damaged
+data: bad codes read as zero, data that runs out as zero bits, restart
+markers resynchronised as jpeg_resync_to_restart does, damaged and cut
+progressive scans read into the coefficient buffer and smoothed by the
+progression as it stood before a scan that did not finish, reads past the
+end given its fake EOI.
 This module applies no EXIF orientation: io/photo.py applies it to a JPEG
 photo (io/exif.py), as ``cv2.imread`` does, and Motion-JPEG video frames
 are left as stored, as OpenCV's video readers leave them.
@@ -48,7 +53,7 @@ def load() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, I64 = ctypes.POINTER, ctypes.c_int, ctypes.c_int64
-    lib.jpegdec_info.argtypes = [ctypes.c_char_p, I64, P(I), P(I),
+    lib.jpegdec_info.argtypes = [ctypes.c_char_p, I64, I, P(I), P(I),
                                  ctypes.c_char_p, I]
     lib.jpegdec_info.restype = I
     lib.jpegdec_decode.argtypes = [ctypes.c_char_p, I64, I,
@@ -60,21 +65,22 @@ def _bind(lib: ctypes.CDLL) -> None:
 def decode(data: bytes, lenient: bool = False,
            colour: str = "guess") -> Optional[np.ndarray]:
     """HxWx3 uint8 RGB of the JPEG ``data``; None if it is corrupt or
-    truncated (with ``lenient``: only if its headers are); ``ValueError``
-    naming the process for a JPEG this decoder does not read.  ``colour``
-    sets the colour space of three components as libtiff sets it: "guess"
-    (libjpeg's, from JFIF/Adobe markers and component ids), "ycbcr"
-    (converted to RGB) or "none" (the samples as stored)."""
+    truncated (with ``lenient``: only if its headers are, its damage read
+    as libjpeg-turbo reads it); ``ValueError`` naming the process for a
+    JPEG this decoder does not read.  ``colour`` sets the colour space of
+    three components as libtiff sets it: "guess" (libjpeg's, from
+    JFIF/Adobe markers and component ids), "ycbcr" (converted to RGB) or
+    "none" (the samples as stored)."""
     lib = load()
     h, w = ctypes.c_int(), ctypes.c_int()
     msg = ctypes.create_string_buffer(_MSG_LEN)
-    rc = lib.jpegdec_info(data, len(data), ctypes.byref(h), ctypes.byref(w),
-                          msg, _MSG_LEN)
+    flags = int(lenient) | {"guess": 0, "ycbcr": 2, "none": 4}[colour]
+    rc = lib.jpegdec_info(data, len(data), flags, ctypes.byref(h),
+                          ctypes.byref(w), msg, _MSG_LEN)
     if rc == 0:
         out = np.empty((h.value, w.value, 3), np.uint8)
         rc = lib.jpegdec_decode(
-            data, len(data),
-            int(lenient) | {"guess": 0, "ycbcr": 2, "none": 4}[colour],
+            data, len(data), flags,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             out.nbytes, ctypes.byref(h), ctypes.byref(w), msg, _MSG_LEN)
         if rc == 0:
@@ -85,6 +91,7 @@ def decode(data: bytes, lenient: bool = False,
 
 
 def imread_rgb(path: str) -> Optional[np.ndarray]:
-    """Decode one JPEG file (see ``decode``)."""
+    """Decode one JPEG file as ``cv2.imread`` does, damage recovered (see
+    ``decode``), with no EXIF orientation."""
     with open(path, "rb") as fh:
-        return decode(fh.read())
+        return decode(fh.read(), lenient=True)

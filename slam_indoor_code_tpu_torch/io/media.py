@@ -65,7 +65,9 @@ def _imread_rgb(path: str) -> Optional[np.ndarray]:
 class _PooledSequence:
     """In-order reader of ``decode(item)`` over ``items`` in a thread pool,
     at most ``capacity`` frames ahead; undecodable frames (None) are
-    skipped, as the native reader skips photos, or, with ``stop_on_none``
+    skipped, as the native reader and ``cv2.imread`` skip a photo that
+    gives no image (a damaged one gives what they give), or, with
+    ``stop_on_none``
     (a video), end the sequence, as OpenCV's reader stops at the first
     frame that fails.  An exception of ``decode`` closes the pool and is
     raised by the ``next_frame`` that reaches its frame.  ``on_close``

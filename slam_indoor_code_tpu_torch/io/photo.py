@@ -15,8 +15,10 @@ Three outcomes besides a frame:
   old-style JPEG and the other TIFF compressions io/tiff.py names; JPEG
   2000 code-block styles and HTJ2K) raises ``NotImplementedError`` naming
   it, which the photo sequence passes on to its caller;
-- a damaged file of a format the port reads gives None (and is skipped,
-  as OpenCV's ``imread`` gives an empty image);
+- a damaged file of a format the port reads gives what OpenCV's reader
+  gives for it: a JPEG as libjpeg-turbo recovers it (io/jpeg.py's
+  ``lenient``), a TIFF strip as libtiff leaves it, or None (and the file
+  is skipped) where ``imread`` gives an empty image;
 - bytes that are no image OpenCV knows give None too.
 """
 
@@ -80,7 +82,7 @@ def decode(data: bytes) -> Optional[np.ndarray]:
     if kind is None:
         return None
     if kind == "jpeg":
-        img = jpeg.decode(data)
+        img = jpeg.decode(data, lenient=True)
         block = exif.jpeg_block(data) if img is not None else None
     else:
         try:

@@ -65,7 +65,9 @@ def _bind(lib: ctypes.CDLL) -> None:
 def chunks(data: bytes):
     """(type, payload) of each chunk of the PNG ``data`` up to IEND;
     ``ValueError`` where a critical chunk is cut short or fails its CRC
-    (an ancillary one that does is left out, as libpng discards it)."""
+    (an ancillary one that does is left out, as libpng discards it), and
+    where the data ends before IEND (libpng's png_read_end, which OpenCV
+    calls, fails on a file cut after its image data)."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
@@ -83,6 +85,7 @@ def chunks(data: bytes):
             yield kind, body
         if kind == b"IEND":
             return
+    raise ValueError("PNG: the data ends before IEND")
 
 
 def decode(data: bytes) -> np.ndarray:

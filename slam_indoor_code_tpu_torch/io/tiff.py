@@ -1,8 +1,8 @@
 """TIFF photos without libtiff: the first image directory parsed here,
-its strips or tiles inflated by Python's ``zlib`` (Deflate, 8 and 32946),
-decoded by ``native/tiff.cpp`` (LZW, PackBits, the horizontal predictor)
-or by io/jpeg.py (JPEG, 7), and the samples converted to RGB as libtiff
-4.7's RGBA interface converts them for OpenCV's ``imread`` in colour:
+its strips or tiles decoded by ``native/tiff.cpp`` (LZW, Deflate,
+PackBits, the horizontal predictor), by ``native/fax3.cpp`` (CCITT) or by
+io/jpeg.py (JPEG, 7), and the samples converted to RGB as libtiff 4.7's
+RGBA interface converts them for OpenCV's ``imread`` in colour:
 
 - classic and BigTIFF, II and MM byte orders, strips and tiles, chunky
   and planar layout, compression none, LZW, Deflate, PackBits and JPEG,
@@ -40,10 +40,19 @@ photometrics its RGBA reader takes no routine for (ICC Lab, ITU Lab,
 LogL, LogLuv, ...) and the layouts above it refuses (YCbCr 1x4 or 2x4,
 CMYK of another ink set, 16 bits or a fifth sample, planar Lab, 12-bit
 JPEG, sampling factors that disagree, a strip past the file's end).
-CCITT, old-style JPEG, ThunderScan, NeXT, SGILog and unknown compressions
-(JPEG 2000 in TIFF among them: cv2 gives a black frame) raise
-``NotImplementedError`` naming them; a file libtiff would refuse raises
-``ValueError``.  Only the first page of a multi-page file is read.
+Bilevel CCITT strips and tiles (RLE 2, Group 3 3 in 1D or 2D, Group 4 4,
+RLEW 32771; FillOrder 1 and 2) decode as libtiff's tif_fax3.c decodes
+them (native/fax3.cpp), damage included.  A strip or tile whose data
+libtiff's decoder fails on (damaged or short LZW, Deflate, PackBits,
+CCITT or uncompressed data) keeps what the decoder wrote and zeros, with
+neither the predictor nor the byte swap, as libtiff's RGBA reader hands
+it to OpenCV; one that lies past the file's end gives no image (zeros
+where it is a later plane's); the directory's strip arrays, types and
+counts are read by libtiff's rules.  Old-style JPEG, ThunderScan, NeXT,
+SGILog and unknown compressions (JPEG 2000 in TIFF among them: cv2 gives
+a black frame) raise ``NotImplementedError`` naming them; a file libtiff
+would refuse raises ``ValueError``.  Only the first page of a multi-page
+file is read.
 
 The library is built at first use with ``g++ -O2 -fPIC -shared`` into
 ``_build/`` inside the package (ignored by git).  If the build fails,
@@ -56,7 +65,6 @@ from __future__ import annotations
 import ctypes
 import struct
 import threading
-import zlib
 from typing import Optional
 
 import numpy as np
@@ -67,16 +75,20 @@ from .png import MAX_PIXELS
 
 SOURCE = _PKG_DIR / "native" / "tiff.cpp"
 LIBRARY = _PKG_DIR / "_build" / "libtiffdec.so"
+FAX_SOURCE = _PKG_DIR / "native" / "fax3.cpp"
+FAX_LIBRARY = _PKG_DIR / "_build" / "libfax3dec.so"
 _state: dict = {"lib": None, "error": None}
+_fax_state: dict = {"lib": None, "error": None}
 _LOCK = threading.Lock()
 
 _NONE, _LZW, _JPEG, _DEFLATE, _DEFLATE_OLD, _PACKBITS = (1, 5, 7, 8, 32946,
                                                       32773)
+# CCITT compression -> native/fax3.cpp's decoder (RLE, RLEW, Group 3 1D;
+# Group 3 2D is 3 with T4Options bit 0; Group 4)
+_FAX = {2: 0, 32771: 1, 3: 2, 4: 4}
 # compressions OpenCV's libtiff reads that the port does not
-_COMPRESSIONS = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
-                 32771: "CCITT RLEW", 6: "old-style JPEG",
-                 32809: "ThunderScan", 32766: "NeXT", 34676: "SGILog",
-                 34677: "SGILog24"}
+_COMPRESSIONS = {6: "old-style JPEG", 32809: "ThunderScan", 32766: "NeXT",
+                 34676: "SGILog", 34677: "SGILog24"}
 # compressions OpenCV's libtiff is built without: imread gives no image
 _UNCONFIGURED = {34925, 50000, 50001, 34887}
 # photometrics the port converts (0-3 and these three)
@@ -86,14 +98,30 @@ _CMYK, _YCBCR, _CIELAB = 5, 6, 8
 _SUBSAMPLINGS = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
 # tag -> name
 _TAGS = {256: "width", 257: "height", 258: "bits", 259: "compression",
-         262: "photometric", 273: "strip_offsets", 274: "orientation",
+         262: "photometric", 266: "fill_order", 273: "strip_offsets",
+         274: "orientation",
          277: "spp", 278: "rows_per_strip", 279: "strip_counts",
-         284: "planar", 317: "predictor", 318: "white_point",
+         284: "planar", 292: "t4_options", 293: "t6_options",
+         317: "predictor", 318: "white_point",
          320: "colormap", 322: "tile_width", 323: "tile_height",
          324: "tile_offsets", 325: "tile_counts", 332: "ink_set",
          338: "extra", 339: "sample_format", 347: "jpeg_tables",
          529: "ycbcr_coefficients", 530: "ycbcr_subsampling",
          532: "reference_black_white"}
+# integer field types, which libtiff reads an integer tag from, and the
+# tags of real or byte-string values
+_INTEGER_TYPES = {1, 3, 4, 6, 8, 9, 16, 17}
+_REAL_TAGS = {318, 347, 529, 532}
+# tags of one value; a directory whose entry of one of _FATAL is of another
+# count or of no integer type fails to read (the others are ignored)
+_SINGLE = {256, 257, 262, 266, 274, 277, 278, 284, 292, 293, 317, 322, 323,
+           332}
+_FATAL = {256, 257, 258, 259, 277, 278, 284, 322, 323, 339}
+# each byte with its bits in the other order
+_REVERSED = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
+                     np.uint8)
+# the strip and tile offset and byte count tags
+_STRILES = {273, 279, 324, 325}
 # field type -> (struct code, size); rationals are read as pairs
 _TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4), 5: ("I", 8),
           6: ("b", 1), 7: ("B", 1), 8: ("h", 2), 9: ("i", 4),
@@ -107,12 +135,33 @@ def load() -> ctypes.CDLL:
     return load_shared(_state, _LOCK, SOURCE, LIBRARY, [], _bind)
 
 
+def load_fax() -> ctypes.CDLL:
+    """The CCITT decoder library (native/fax3.cpp), built on first use;
+    raises with the compiler's message when it cannot be built."""
+    return load_shared(_fax_state, _LOCK, FAX_SOURCE, FAX_LIBRARY, [],
+                       _bind_fax)
+
+
+def _bind_fax(lib: ctypes.CDLL) -> None:
+    I, I64 = ctypes.c_int, ctypes.c_int64
+    lib.fax_decode.argtypes = [ctypes.c_char_p, I64,
+                               ctypes.POINTER(ctypes.c_uint8), I64,
+                               ctypes.c_int32, I64, I, I, I64,
+                               ctypes.POINTER(I),
+                               ctypes.POINTER(ctypes.c_uint32)]
+    lib.fax_decode.restype = I
+    lib.fax_runs_size.argtypes = [ctypes.c_int32]
+    lib.fax_runs_size.restype = I64
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     I, I64, U8 = ctypes.c_int, ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)
-    for name in ("tiff_lzw", "tiff_packbits"):
+    for name in ("tiff_inflate", "tiff_packbits"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_char_p, I64, U8, I64]
-        fn.restype = I64
+        fn.restype = I
+    lib.tiff_lzw.argtypes = [ctypes.c_char_p, I64, U8, I64, I]
+    lib.tiff_lzw.restype = I
     lib.tiff_predict.argtypes = [U8, I64, I64, I, I, I]
     lib.tiff_predict.restype = None
 
@@ -140,13 +189,24 @@ def _directory(data: bytes) -> tuple[dict, str]:
             p = at + k * entry
             tag, ftype = struct.unpack_from(e + "HH", data, p)
             n = struct.unpack_from(e + ("Q" if big else "I"), data, p + 4)[0]
-            if tag not in _TAGS or ftype not in _TYPES:
+            if tag not in _TAGS:
                 continue
+            bad = ((tag not in _REAL_TAGS and ftype not in _INTEGER_TYPES)
+                   or (tag in _SINGLE and n != 1) or ftype not in _TYPES)
+            if bad and tag in _FATAL:   # TIFFReadDirectory fails
+                raise ValueError(f"TIFF: tag {tag} of type {ftype} x {n}")
+            if bad:
+                continue     # libtiff: a warning, and the tag is ignored
             code, size = _TYPES[ftype]
             where = p + (12 if big else 8)
             if n * size > inline:
                 where = struct.unpack_from(e + ("Q" if big else "I"), data,
                                            where)[0]
+                if tag in _STRILES:
+                    # libtiff reads a strip or tile array up to the count
+                    # of strips or tiles: a count past the file reads what
+                    # lies in it
+                    n = min(n, max(len(data) - where, 0) // size)
             if ftype in (5, 10):     # as libtiff: (float)num / (float)den
                 v = np.array(struct.unpack_from(f"{e}{2 * n}{code}", data,
                                                 where), np.float32)
@@ -162,25 +222,26 @@ def _directory(data: bytes) -> tuple[dict, str]:
     return fields, e
 
 
-def _inflate(chunk: bytes, compression: int, size: int) -> np.ndarray:
-    """A strip's or tile's ``size`` bytes; ``ValueError`` if it gives
-    fewer."""
-    if compression == _NONE:
-        raw = np.frombuffer(chunk, np.uint8)
+def _inflate(chunk: bytes, compression: int, size: int,
+             compat: bool = False) -> tuple[np.ndarray, bool]:
+    """A strip's or tile's ``size`` bytes and whether libtiff's decoder
+    filled them.  Where it fails (damaged or short data), the bytes it
+    wrote stay and the rest are zero, as libtiff's RGBA reader leaves its
+    buffer for OpenCV.  ``compat``: LZW in the old-style codes."""
+    raw = np.zeros(size, np.uint8)
+    if compression == _NONE:     # DumpModeDecode: a short strip copies none
+        ok = len(chunk) >= size
+        if ok:
+            raw[:] = np.frombuffer(chunk, np.uint8, size)
+        return raw, ok
+    lib = load()
+    if compression == _LZW:
+        ok = lib.tiff_lzw(chunk, len(chunk), _u8(raw), size, int(compat))
     elif compression in (_DEFLATE, _DEFLATE_OLD):
-        try:
-            raw = np.frombuffer(zlib.decompressobj().decompress(chunk, size),
-                                np.uint8)
-        except zlib.error as err:
-            raise ValueError(f"TIFF: {err}") from err
+        ok = lib.tiff_inflate(chunk, len(chunk), _u8(raw), size)
     else:
-        raw = np.empty(size, np.uint8)
-        fn = load().tiff_lzw if compression == _LZW else load().tiff_packbits
-        got = fn(chunk, len(chunk), _u8(raw), size)
-        raw = raw[:max(got, 0)]
-    if raw.size < size:
-        raise ValueError("TIFF: a strip or tile decodes short")
-    return raw[:size]
+        ok = lib.tiff_packbits(chunk, len(chunk), _u8(raw), size)
+    return raw, bool(ok)
 
 
 def _samples(raw: np.ndarray, rows: int, cols: int, spp: int, bits: int,
@@ -460,6 +521,13 @@ def decode(data: bytes) -> Optional[np.ndarray]:
 
     w, h = one("width", 0), one("height", 0)
     spp = one("spp", 1)
+    for name in ("bits", "compression", "sample_format"):
+        # one value, or one per sample (TIFFReadDirEntryPersampleShort:
+        # at least SamplesPerPixel of them, those equal)
+        v = f.get(name, (1,))
+        if len(v) != 1 and (len(v) < spp or len(set(v[:spp])) != 1):
+            raise ValueError(f"TIFF: {name} {v}")
+        f[name] = v[:max(spp, 1)] if len(v) != 1 else v
     bits_all = f.get("bits", (1,))
     bits = bits_all[0]
     compression = one("compression", _NONE)
@@ -475,9 +543,12 @@ def decode(data: bytes) -> Optional[np.ndarray]:
         raise NotImplementedError(f"{_COMPRESSIONS[compression]}-compressed"
                                   " TIFF photos are not read by the port")
     if compression not in (_NONE, _LZW, _JPEG, _DEFLATE, _DEFLATE_OLD,
-                           _PACKBITS):
+                           _PACKBITS) and compression not in _FAX:
         raise NotImplementedError(f"TIFF photos of compression {compression}"
                                   " are not read by the port")
+    if compression in _FAX and (bits_all[0] != 1
+                                or (spp != 1 and planar != 2)):
+        return None     # Fax3SetupState refuses: 1 bit, one sample a plane
     if photometric is None:
         photometric = 2 if spp >= 3 else 1
     subsampling = (1, 1)
@@ -521,12 +592,25 @@ def decode(data: bytes) -> Optional[np.ndarray]:
         if not (0 < cw * ch <= MAX_PIXELS and cw % 16 == 0
                 and ch % 16 == 0):
             raise ValueError(f"TIFF: tiles of {cw}x{ch}")
+        if cw * ch * 4 >= 1 << 30:       # OpenCV's bound on an RGBA tile
+            return None
     else:
-        cw, ch = w, min(one("rows_per_strip", h) or h, h)
+        rps = one("rows_per_strip", h)
+        rps = h if rps in (0, 0xFFFFFFFF) else rps
+        cw, ch = w, min(rps, h)
+        # OpenCV's own bounds on a strip, which it reads as RGBA
+        if rps > 1 << 24 or w * rps * 4 >= 1 << 30:
+            return None
         offsets, counts = f.get("strip_offsets", ()), f.get("strip_counts",
                                                             ())
     across, down = -(-w // cw), -(-h // ch)
     planes = spp if planar == 2 else 1
+    if (compression == _NONE and planar == 1 and not tiled
+            and len(counts) > 2 and counts[0] != counts[1] and counts[0]
+            and counts[1]):
+        # TIFFReadDirectory: "Wrong StripByteCounts field, ignoring and
+        # calculating from imagelength" (EstimateStripByteCounts)
+        counts = ((w * spp * bits + 7) // 8 * (h // down),) * len(counts)
     cspp = 1 if planar == 2 else spp             # samples per chunk pixel
     if len(offsets) < across * down * planes or len(counts) < len(offsets):
         raise ValueError("TIFF: too few strips or tiles")
@@ -543,28 +627,68 @@ def decode(data: bytes) -> Optional[np.ndarray]:
                               planar)
         if colour == "ycbcr":
             photometric = 2          # libjpeg gives RGB
+    # FillOrder 2: TIFFFillStrip reverses each byte's bits for the codecs
+    # that read bytes (the CCITT decoder reads the bits in either order)
+    lsb_first = one("fill_order", 1) == 2
+    reverse = lsb_first and compression in (_NONE, _LZW, _DEFLATE,
+                                            _DEFLATE_OLD, _PACKBITS)
+    # LZWPreDecode: old-style codes where the first chunk read begins with
+    # 0x00 and an odd byte; libtiff keeps that decoder for the whole file
+    first = data[offsets[0]:offsets[0] + 2] if offsets else b""
+    if reverse:
+        first = _REVERSED[np.frombuffer(first, np.uint8)].tobytes()
+    if compression in _FAX:     # the codec's state, kept from chunk to chunk
+        noeol = ctypes.c_int(0)              # Group 3 read without EOLs
+        runs = np.zeros(load_fax().fax_runs_size(cw), np.uint32)
+    compat = (compression == _LZW and len(first) == 2 and first[0] == 0
+              and first[1] & 1 == 1)
     for plane in range(planes):
         for i in range(across * down):
             k = plane * across * down + i
             ty, tx = divmod(i, across)
             rows = ch if tiled else min(ch, h - ty * ch)
             chunk = data[offsets[k]:offsets[k] + counts[k]]
-            if len(chunk) < counts[k]:       # TIFFFillStrip's read error
+            # TIFFFillStrip fails on a chunk past the file's end or of no
+            # bytes: no image where it is the first plane's (libtiff's RGBA
+            # reader has no buffer yet), zeros where it is a later plane's
+            lost = len(chunk) < counts[k] or (counts[k] == 0
+                                               and compression != _JPEG)
+            if lost and (plane == 0 or compression == _JPEG):
                 raise ValueError("TIFF: a strip or tile past the file's end")
-            if compression == _JPEG:
+            if lost:
+                chunk = b""
+            if reverse:
+                chunk = _REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
+            if compression in _FAX:
+                raw = np.zeros(rows * row_bytes, np.uint8)
+                kind = _FAX[compression]
+                if compression == 3 and one("t4_options", 0) & 1:
+                    kind = 3                      # two-dimensional rows
+                load_fax().fax_decode(chunk, len(chunk), _u8(raw), rows, cw,
+                                      row_bytes, kind, int(lsb_first),
+                                      offsets[k], ctypes.byref(noeol),
+                                      runs.ctypes.data_as(
+                                          ctypes.POINTER(ctypes.c_uint32)))
+                block = _samples(raw, rows, cw, cspp, bits, e)
+            elif compression == _JPEG:
                 block = _jpeg_chunk(chunk, tables, colour, rows, cw,
                                     not tiled and ty == down - 1)[..., :cspp]
             elif (hs, vs) != (1, 1):
-                raw = _inflate(chunk, compression,
-                               -(-rows // vs) * unit_bytes)
+                raw, _ = _inflate(chunk, compression,
+                                  -(-rows // vs) * unit_bytes, compat)
                 block = _units(raw, rows, cw, hs, vs,
                                (w - tx * cw) if tiled else 0)
             else:
-                raw = _inflate(chunk, compression, rows * row_bytes).copy()
-                if lib is not None:
+                raw, ok = _inflate(chunk, compression, rows * row_bytes,
+                                   compat)
+                # a chunk that failed gets neither the predictor nor the
+                # byte swap (libtiff's post-decode step): its 16-bit
+                # samples read in the host's order
+                order = e if ok else "<"
+                if lib is not None and ok:
                     lib.tiff_predict(_u8(raw), rows, cw * cspp, cspp, bits,
                                      int(e == ">"))
-                block = _samples(raw, rows, cw, cspp, bits, e)
+                block = _samples(raw, rows, cw, cspp, bits, order)
             sl = (slice(ty * ch, ty * ch + rows), slice(tx * cw, tx * cw + cw))
             if planar == 2:
                 s[sl + (plane,)] = block[..., 0]

@@ -116,6 +116,11 @@ bool parse(const uint8_t* d, int64_t n, Gif* g) {
         if (r.byte() != 0) return false;
         g->trans = (packed & 1) ? index : -1;
       } else {
+        // OpenCV 5 counts frames only past the one application extension
+        // it knows (its assertion in getFrameCount_)
+        if (label == 0xFF && r.pos + 12 <= r.n && d[r.pos] == 11 &&
+            std::memcmp(d + r.pos + 1, "NETSCAPE2.0", 11) != 0)
+          return false;
         r.sub_blocks(nullptr);
       }
     } else if (block == 0x2C) {

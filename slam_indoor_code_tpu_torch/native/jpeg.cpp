@@ -25,8 +25,13 @@
 //   - jdcolor.c's fixed-point YCbCr->RGB tables (16 fraction bits).
 // Arithmetic-coded, lossless, hierarchical and 12-bit JPEGs are refused
 // with the process named; a corrupt or truncated stream decodes to nothing,
-// unless the caller asks for libjpeg's reading of a damaged sequential
-// frame (`lenient`, for Motion-JPEG and JPEG-in-TIFF strips).  A scan that
+// unless the caller asks for libjpeg-turbo 3.1's reading of damaged data
+// (`lenient`: a photo as cv2.imread reads it, a Motion-JPEG frame, a
+// JPEG-in-TIFF strip): a bad code reads as zero, data that runs out as
+// zero bits, restart markers resynchronised (jpeg_resync_to_restart),
+// damaged and cut progressive scans kept (jdphuff.c's insufficient_data,
+// jdcoefct.c's last_good_iMCU_row and prev_coef_bits in block smoothing),
+// and the source managers' fake EOI for every read past the end.  A scan that
 // references Huffman table 0 or 1 without defining it takes the Annex K
 // tables, as libjpeg does (Motion-JPEG frames carry no DHT).  Markers
 // libjpeg's read_markers() does not know fail the stream; what follows a
@@ -102,6 +107,15 @@ struct Huffman {
   int32_t maxcode[18];                // largest code of each length, or -1
   int32_t valoff[18];                 // symbol index minus smallest code
   uint8_t vals[256];
+  int nsym = 0;                       // symbols
+
+  // jdhuff.c jpeg_make_d_derived_tbl's check of a DC table, made where a
+  // scan first uses it: every symbol a size of at most 15 bits.
+  bool dc_ok() const {
+    for (int i = 0; i < nsym; ++i)
+      if (vals[i] > 15) return false;
+    return true;
+  }
 
   // Canonical codes from the counts by length (jdhuff.c
   // jpeg_make_d_derived_tbl); false for a table that overflows its lengths
@@ -117,6 +131,7 @@ struct Huffman {
       code <<= 1;
     }
     std::memcpy(vals, symbols, total);
+    nsym = total;
     std::memset(look_len, 0, sizeof(look_len));
     code = 0;
     int k = 0;
@@ -140,9 +155,12 @@ struct Huffman {
   }
 };
 
-// Entropy-coded bits, MSB first, with 0xFF00 unstuffed.  At a marker (or the
-// end of the data) it feeds zero bits, as libjpeg does, and flags a read of
-// any of them: a valid stream never consumes one.
+// Entropy-coded bits, MSB first, with 0xFF00 unstuffed, as jdhuff.c's
+// jpeg_fill_bit_buffer reads them.  At a marker it stops, keeps the
+// marker's code (libjpeg's unread_marker; the end of the data gives the
+// fake EOI of libjpeg's source managers) and feeds zero bits; consuming any
+// of them sets `insufficient` (libjpeg's insufficient_data).  A valid
+// stream never consumes one.
 struct BitReader {
   const uint8_t* d;
   size_t n;
@@ -150,17 +168,17 @@ struct BitReader {
   uint64_t acc = 0;
   int cnt = 0;            // valid bits in the low end of acc
   int fill = 0;           // of which this many (the lowest) are zero fill
-  bool at_marker = false; // pos is at the 0xFF of the marker ending the data
-  bool overrun = false;
+  int marker = 0;         // the marker the data ran into, or 0
+  bool insufficient = false;
   bool lenient = false;   // a code the table lacks reads as libjpeg's
 
   void refill() {
     while (cnt <= 56) {
       uint32_t b = 0;
-      if (at_marker) {
+      if (marker) {
         fill += 8;
       } else if (pos >= n) {
-        at_marker = true;
+        marker = 0xD9;
         fill += 8;
       } else {
         b = d[pos];
@@ -170,8 +188,8 @@ struct BitReader {
           if (q < n && d[q] == 0x00) {
             pos = q + 1;
           } else {
-            pos = q - 1;                       // the FF of the marker
-            at_marker = true;
+            marker = q < n ? d[q] : 0xD9;
+            pos = q < n ? q + 1 : n;
             b = 0;
             fill += 8;
           }
@@ -189,7 +207,7 @@ struct BitReader {
   inline void skip(int k) {
     cnt -= k;
     if (cnt < fill) {
-      overrun = true;
+      insufficient = true;
       fill = cnt;
     }
   }
@@ -202,7 +220,7 @@ struct BitReader {
   }
   // One Huffman symbol, or -1 for a code the table does not hold.
   inline int decode(const Huffman& h) {
-    if (cnt < 16) refill();
+    if (cnt < 17) refill();   // a bad code reads 17 bits
     uint32_t p = peek(kLookBits);
     int l = h.look_len[p];
     if (l) {
@@ -220,18 +238,69 @@ struct BitReader {
     skip(17);      // jpeg_huff_decode: 17 bits read, a zero faked
     return 0;
   }
-  // Move to the next marker (skipping what libjpeg would discard); false at
-  // the end of the data.
-  bool seek_marker() {
+  // jdmarker.c next_marker: drop the bit buffer and, unless the data has
+  // already run into a marker, skip to the next one (FF00 is data).
+  void next_marker() {
     acc = 0;
     cnt = fill = 0;
-    if (!at_marker) {
-      while (pos + 1 < n &&
-             !(d[pos] == 0xFF && d[pos + 1] != 0x00 && d[pos + 1] != 0xFF))
-        ++pos;
+    while (!marker) {
+      while (pos < n && d[pos] != 0xFF) ++pos;
+      while (pos < n && d[pos] == 0xFF) ++pos;
+      if (pos >= n) {
+        marker = 0xD9;
+      } else {
+        const int c = d[pos++];
+        if (c != 0) marker = c;
+      }
     }
-    at_marker = false;
-    return pos + 1 < n && d[pos] == 0xFF;
+  }
+  // The restart marker expected after an interval (jdhuff.c
+  // process_restart, jdmarker.c read_restart_marker and
+  // jpeg_resync_to_restart): a marker that is not RSTn `rst` is discarded
+  // (one far from it), skipped to the next marker (an earlier RSTn or a
+  // code below SOF0), or left for the next interval (one of the next two
+  // RSTn, or another marker), which then reads no data.
+  void restart(int& rst) {
+    next_marker();
+    if (marker != 0xD0 + rst) {
+      for (;;) {
+        int action;
+        if (marker < 0xC0) {
+          action = 2;
+        } else if (marker < 0xD0 || marker > 0xD7) {
+          action = 3;
+        } else if (marker == 0xD0 + ((rst + 1) & 7) ||
+                   marker == 0xD0 + ((rst + 2) & 7)) {
+          action = 3;
+        } else if (marker == 0xD0 + ((rst - 1) & 7) ||
+                   marker == 0xD0 + ((rst - 2) & 7)) {
+          action = 2;
+        } else {
+          action = 1;
+        }
+        if (action == 3) break;
+        if (action == 1) {
+          marker = 0;
+          break;
+        }
+        marker = 0;
+        next_marker();
+      }
+    } else {
+      marker = 0;
+    }
+    rst = (rst + 1) & 7;
+    if (!marker) insufficient = false;
+  }
+  // The strict reading of a restart: the interval's data whole and RSTn
+  // `rst` right after it.
+  bool strict_restart(int& rst) {
+    if (insufficient) return false;
+    next_marker();
+    if (marker != 0xD0 + rst) return false;
+    marker = 0;
+    rst = (rst + 1) & 7;
+    return true;
   }
 };
 
@@ -379,6 +448,10 @@ struct Component {
   // -1: none of it yet)
   std::vector<int16_t> coef;
   int coef_bits[64];
+  // coef_bits[1..9] as they were before the component's latest scan
+  // (libjpeg-turbo's prev_coef_bits): block smoothing takes them for the
+  // iMCU rows past the last one whose data was whole
+  int prev_bits[10];
   int blocks_w() const { return plane_w / 8; }
   int16_t* block(int bx, int by) {
     return coef.data() + (static_cast<size_t>(by) * blocks_w() + bx) * 64;
@@ -400,11 +473,12 @@ struct Decoder {
   int adobe_transform = 0;
   bool frame = false;
   bool progressive = false;
-  // decode damaged entropy-coded data as libjpeg-turbo does (a Motion-JPEG
-  // frame): a bad code reads as zero; data that ends early is read as zero
-  // bits to the end of that MCU and the MCUs after it are left zero
   int colour = 0;          // 0: libjpeg's guess; 1: YCbCr; 2: none (raw)
+  // damaged data read as libjpeg-turbo reads it (see the header); else a
+  // damaged stream fails
   bool lenient = false;
+  int scans = 0;           // libjpeg's input_scan_number
+  int last_good_row = 0;   // libjpeg-turbo's master->last_good_iMCU_row
 
   Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
 
@@ -421,6 +495,9 @@ struct Decoder {
     height = be16(p + 1);
     width = be16(p + 3);
     ncomp = p[5];
+    // jdinput.c initial_setup: a DCT-based JPEG of any precision but 8 or
+    // 12 bits is an error (a damaged header)
+    if (precision != 8 && precision != 12) return kCorrupt;
     if (precision != 8)
       return refuse(std::to_string(precision) +
                     "-bit sample precision (SOF" +
@@ -451,6 +528,7 @@ struct Decoder {
       k.plane_w = mcux * k.h * 8;
       k.plane_h = mcuy * k.v * 8;
       for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+      for (int i = 0; i < 10; ++i) k.prev_bits[i] = 0;
       std::memset(k.q, 0, sizeof(k.q));
     }
     progressive = marker == 0xC2;
@@ -522,7 +600,9 @@ struct Decoder {
     if (!ac_tab[1].defined) ac_tab[1].build(kAcChromBits, kAcChromVals, 162);
     for (int i = 0; i < ns; ++i) {
       Component& k = *sc[i];
+      if (td[i] > 3 || ta[i] > 3) return kCorrupt;
       if (!dc_tab[td[i]].defined || !ac_tab[ta[i]].defined) return kCorrupt;
+      if (!dc_tab[td[i]].dc_ok()) return kCorrupt;
       if (!latch(k)) return kCorrupt;
       if (k.plane.empty())
         k.plane.assign(static_cast<size_t>(k.plane_w) * k.plane_h, 0);
@@ -540,16 +620,16 @@ struct Decoder {
     int16_t blk[64];
     int rst = 0;
     br.lenient = lenient;
-    bool short_data = false;     // libjpeg's insufficient_data
     for (int64_t m = 0; m < total; ++m) {
-      if (lenient && br.overrun) short_data = true;
-      if (restart_interval && m && m % restart_interval == 0 && !short_data) {
-        if (br.overrun || !br.seek_marker()) return kCorrupt;
-        if (br.d[br.pos + 1] != 0xD0 + rst) return kCorrupt;
-        br.pos += 2;
-        rst = (rst + 1) & 7;
+      if (restart_interval && m && m % restart_interval == 0) {
+        if (lenient)
+          br.restart(rst);
+        else if (!br.strict_restart(rst))
+          return kCorrupt;
         for (int i = 0; i < ns; ++i) sc[i]->dc = 0;
       }
+      // out of data: the MCU is left zero, a uniform grey
+      const bool short_data = br.insufficient;
       int mx = static_cast<int>(m % units_x), my = static_cast<int>(m / units_x);
       for (int i = 0; i < ns; ++i) {
         Component& k = *sc[i];
@@ -566,7 +646,7 @@ struct Decoder {
           }
       }
     }
-    if (br.overrun && !lenient) return kCorrupt;
+    if (br.insufficient && !lenient) return kCorrupt;
     return kOk;
   }
 
@@ -586,13 +666,17 @@ struct Decoder {
     if (bad) return kCorrupt;                  // JERR_BAD_PROGRESSION
     for (int i = 0; i < ns; ++i) {
       Component& k = *sc[i];
-      if (dc_band ? (ah == 0 && !dc_tab[td[i]].defined)
-                  : !ac_tab[ta[i]].defined)
+      if (dc_band ? (ah == 0 && (td[i] > 3 || !dc_tab[td[i]].defined))
+                  : (ta[i] > 3 || !ac_tab[ta[i]].defined))
         return kCorrupt;
+      if (dc_band && ah == 0 && !dc_tab[td[i]].dc_ok()) return kCorrupt;
       if (!latch(k)) return kCorrupt;
       if (k.coef.empty())
         k.coef.assign(static_cast<size_t>(k.plane_w / 8) * (k.plane_h / 8) *
                           64, 0);
+      // jdphuff.c start_pass_phuff_decoder's progression bookkeeping
+      for (int c = std::min(ss, 1); c <= std::max(se, 9); ++c)
+        if (c < 10) k.prev_bits[c] = scans > 1 ? k.coef_bits[c] : 0;
       for (int c = ss; c <= se; ++c) k.coef_bits[c] = al;
       k.dc = 0;
     }
@@ -606,17 +690,24 @@ struct Decoder {
     }
     const int64_t total = int64_t(units_x) * units_y;
     int eobrun = 0, rst = 0;
+    br.lenient = lenient;
     for (int64_t m = 0; m < total; ++m) {
+      const int mx = static_cast<int>(m % units_x);
+      const int my = static_cast<int>(m / units_x);
+      // jdcoefct.c consume_data: the iMCU row of the last MCU met with
+      // data left
+      if (!br.insufficient) last_good_row = ns == 1 ? my / sc[0]->v : my;
       if (restart_interval && m && m % restart_interval == 0) {
-        if (br.overrun || !br.seek_marker()) return kCorrupt;
-        if (br.d[br.pos + 1] != 0xD0 + rst) return kCorrupt;
-        br.pos += 2;
-        rst = (rst + 1) & 7;
+        if (lenient)
+          br.restart(rst);
+        else if (!br.strict_restart(rst))
+          return kCorrupt;
         for (int i = 0; i < ns; ++i) sc[i]->dc = 0;
         eobrun = 0;
       }
-      const int mx = static_cast<int>(m % units_x);
-      const int my = static_cast<int>(m / units_x);
+      // out of data: the blocks keep what earlier scans gave them (a DC
+      // refinement reads on, its zero bits change nothing)
+      if (br.insufficient && !(dc_band && ah != 0)) continue;
       for (int i = 0; i < ns; ++i) {
         Component& k = *sc[i];
         const int bh = ns == 1 ? 1 : k.h, bv = ns == 1 ? 1 : k.v;
@@ -638,7 +729,7 @@ struct Decoder {
           }
       }
     }
-    if (br.overrun) return kCorrupt;
+    if (br.insufficient && !lenient) return kCorrupt;
     return kOk;
   }
 
@@ -730,7 +821,9 @@ struct Decoder {
   // libjpeg-turbo's output of the coefficient buffers (jdcoefct.c): the
   // ISLOW IDCT of every block, after block smoothing where the scans left
   // some of the first nine AC coefficients (or, with none of them sent,
-  // the DC too) short of full precision (smoothing_ok).
+  // the DC too) short of full precision (smoothing_ok).  Block smoothing
+  // reads the progression as it stood before the last scan's start in the
+  // iMCU rows after the last one that scan reached with data left.
   Status prog_output() {
     const bool smooth = smoothing_ok();
     for (int c = 0; c < ncomp; ++c) {
@@ -775,16 +868,20 @@ struct Decoder {
   // bookkeeping included).
   void smooth_component(Component& k) {
     const int wib = (k.ds_w + 7) / 8, hib = (k.ds_h + 7) / 8;
-    const int* bits = k.coef_bits;
-    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 &&
-                           bits[4] == -1 && bits[5] == -1 && bits[6] == -1 &&
-                           bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
+    int prev_latch[10];         // smoothing_ok's latch of prev_coef_bits
+    prev_latch[0] = k.coef_bits[0];
+    for (int i = 1; i < 10; ++i) prev_latch[i] = scans > 1 ? k.prev_bits[i] : -1;
     const int64_t Q00 = k.q[0], Q01 = k.q[1], Q10 = k.q[8], Q20 = k.q[16],
                   Q11 = k.q[9], Q02 = k.q[2], Q03 = k.q[3], Q12 = k.q[10],
                   Q21 = k.q[17], Q30 = k.q[24];
     const int rows = mcuy, v = ncomp == 1 ? k.v : k.v;
     int16_t ws[64];
     for (int R = 0; R < rows; ++R) {
+      const int* bits = R > last_good_row ? prev_latch : k.coef_bits;
+      const bool change_dc = bits[1] == -1 && bits[2] == -1 &&
+                             bits[3] == -1 && bits[4] == -1 &&
+                             bits[5] == -1 && bits[6] == -1 &&
+                             bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
       int block_rows = v;
       if (R == rows - 1 && hib % v) block_rows = hib % v;
       const int image_rows = block_rows * rows;
@@ -896,11 +993,16 @@ struct Decoder {
     if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) return kCorrupt;
     size_t pos = 2;
     bool any_scan = false, complete = false;
+    int pending = 0;     // the marker a scan's data ran into
     while (!complete) {
-      while (pos < n && d[pos] != 0xFF) ++pos;    // garbage before a marker
-      while (pos < n && d[pos] == 0xFF) ++pos;
-      if (pos >= n) break;                        // no EOI: end of data
-      int m = d[pos++];
+      int m = pending;
+      pending = 0;
+      if (!m) {
+        while (pos < n && d[pos] != 0xFF) ++pos;  // garbage before a marker
+        while (pos < n && d[pos] == 0xFF) ++pos;
+        if (pos >= n) break;                      // no EOI: end of data
+        m = d[pos++];
+      }
       if (m == 0xD9) break;                       // EOI
       // TEM and RSTn carry no length; FF00 is stuffed data, which
       // next_marker() discards
@@ -912,8 +1014,8 @@ struct Decoder {
       const uint8_t* p = d + pos + 2;
       pos += 2 + len;
       if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+        if (frame) return kCorrupt;               // JERR_SOF_DUPLICATE
         if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
-          if (frame) return kCorrupt;
           Status st = parse_sof(m, p, len);
           if (st != kOk || header_only) return st;
           continue;
@@ -935,14 +1037,22 @@ struct Decoder {
           break;
         }
         case 0xCC:
-          return refuse("arithmetic-coded JPEG (DAC) is not decoded");
+          // after a Huffman frame header (a damaged photo): jdmarker.c
+          // get_dac's checks, the values unused
+          if (!(lenient && frame))
+            return refuse("arithmetic-coded JPEG (DAC) is not decoded");
+          if (len % 2) return kCorrupt;
+          for (int i = 0; i < len; i += 2)
+            if (p[i] >= 32 || (p[i] < 16 && (p[i + 1] & 15) > (p[i + 1] >> 4)))
+              return kCorrupt;
+          break;
         case 0xDB: {
           Status st = parse_dqt(p, len);
           if (st != kOk) return st;
           break;
         }
         case 0xDD:
-          if (len < 2) return kCorrupt;
+          if (len != 2) return kCorrupt;           // get_dri
           restart_interval = be16(p);
           break;
         case 0xE0:
@@ -968,13 +1078,16 @@ struct Decoder {
               if (comp[c].id == id) sc[i] = &comp[c];
             td[i] = p[2 + 2 * i] >> 4;
             ta[i] = p[2 + 2 * i] & 15;
-            if (!sc[i] || td[i] > 3 || ta[i] > 3) return kCorrupt;
+            // a table number past 3 fails where a scan uses the table
+            // (jdhuff.c jpeg_make_d_derived_tbl)
+            if (!sc[i]) return kCorrupt;
           }
           int blocks = 0;
           for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
           if (ns > 1 && blocks > 10) return kCorrupt;
           const uint8_t* sp = p + 1 + 2 * ns;  // Ss, Se, Ah/Al
           BitReader br{d, n, pos};
+          ++scans;
           Status st = progressive
               ? decode_prog_scan(br, sc, td, ta, ns, sp[0], sp[1], sp[2] >> 4,
                                  sp[2] & 15)
@@ -988,7 +1101,7 @@ struct Decoder {
             complete = true;
             break;
           }
-          br.seek_marker();
+          pending = br.marker;
           pos = br.pos;
           break;
         }
@@ -1132,6 +1245,22 @@ struct Decoder {
   }
 };
 
+// The bytes a lenient decoder reads: the data, then what libjpeg's
+// source managers give for every read past its end, a fake EOI (FF D9) as
+// often as they are asked (enough for a segment of the largest length cut
+// at its first byte).  So a segment or scan header cut by the end of a
+// file reads those bytes, as libjpeg reads them.
+std::vector<uint8_t> past_the_end(const uint8_t* data, size_t n) {
+  std::vector<uint8_t> v;
+  v.reserve(n + 65540);
+  v.assign(data, data + n);
+  for (int i = 0; i < 32770; ++i) {
+    v.push_back(0xFF);
+    v.push_back(0xD9);
+  }
+  return v;
+}
+
 void put_msg(const std::string& s, char* msg, int msg_len) {
   if (msg && msg_len > 0) {
     std::snprintf(msg, static_cast<size_t>(msg_len), "%s", s.c_str());
@@ -1143,10 +1272,14 @@ void put_msg(const std::string& s, char* msg, int msg_len) {
 extern "C" {
 
 // Image size of a JPEG in memory.  0: *h and *w set; 1: not a decodable
-// JPEG; 2: a JPEG this decoder refuses (msg names the process).
-int jpegdec_info(const uint8_t* data, int64_t n, int* h, int* w, char* msg,
-                 int msg_len) {
-  Decoder dec(data, static_cast<size_t>(n));
+// JPEG; 2: a JPEG this decoder refuses (msg names the process).  `flags`
+// as jpegdec_decode's (bit 0 reads past the end as libjpeg does).
+int jpegdec_info(const uint8_t* data, int64_t n, int flags, int* h, int* w,
+                 char* msg, int msg_len) {
+  std::vector<uint8_t> padded;
+  if (flags & 1) padded = past_the_end(data, static_cast<size_t>(n));
+  Decoder dec(padded.empty() ? data : padded.data(),
+              padded.empty() ? static_cast<size_t>(n) : padded.size());
   Status st = dec.run(true);
   put_msg(dec.msg, msg, msg_len);
   if (st == kOk) {
@@ -1160,11 +1293,16 @@ int jpegdec_info(const uint8_t* data, int64_t n, int* h, int* w, char* msg,
 // 1: corrupt or truncated; 2: refused (msg names the process); 3: `cap`
 // is smaller than h*w*3.  `flags` bit 0 (lenient): damaged or short
 // entropy-coded data of a sequential JPEG decodes as libjpeg-turbo decodes
-// it; bits 1-2: the colour space as a caller sets jpeg_color_space (0:
-// libjpeg's guess, 1: YCbCr, 2: none, three components as stored).
+// it (restart markers resynchronised, progressive scans kept, reads past
+// the end given the fake EOI); bits 1-2: the colour space as a caller sets
+// jpeg_color_space (0: libjpeg's guess, 1: YCbCr, 2: none, three
+// components as stored).
 int jpegdec_decode(const uint8_t* data, int64_t n, int flags, uint8_t* rgb,
                    int64_t cap, int* h, int* w, char* msg, int msg_len) {
-  Decoder dec(data, static_cast<size_t>(n));
+  std::vector<uint8_t> padded;
+  if (flags & 1) padded = past_the_end(data, static_cast<size_t>(n));
+  Decoder dec(padded.empty() ? data : padded.data(),
+              padded.empty() ? static_cast<size_t>(n) : padded.size());
   dec.lenient = (flags & 1) != 0;
   dec.colour = (flags >> 1) & 3;
   Status st = dec.run(false);

@@ -164,10 +164,24 @@ def _mcu_blocks(cy, ccb, ccr):
     return blocks, np.tile(np.array([0, 0, 0, 0, 1, 2]), my * mx)
 
 
-def _pack(keys, codes, lens) -> bytes:
+def _pack(keys, codes, lens, interval_keys: int = 0) -> bytes:
     """Entropy-coded data: the codes in the order of their keys, MSB first,
-    padded with one bits, 0xFF stuffed."""
+    padded with one bits, 0xFF stuffed; with ``interval_keys``, each run
+    of that many keys padded on its own and followed by the next restart
+    marker (RST0 ... RST7 in turn)."""
     order = np.argsort(np.concatenate(keys), kind="stable")
+    if interval_keys:
+        key = np.concatenate(keys)[order]
+        group = key // interval_keys
+        cuts = np.flatnonzero(np.diff(group)) + 1
+        parts = []
+        for k, (a, b) in enumerate(zip(np.r_[0, cuts], np.r_[cuts,
+                                                               len(key)])):
+            if k:
+                parts.append(bytes([0xFF, 0xD0 + (k - 1) % 8]))
+            parts.append(_pack([key[a:b]], [np.concatenate(codes)[order][
+                a:b]], [np.concatenate(lens)[order][a:b]]))
+        return b"".join(parts)
     code = np.concatenate(codes)[order]
     length = np.concatenate(lens)[order]
     length, code = length[length > 0], code[length > 0]
@@ -190,8 +204,11 @@ def _header(H: int, W: int, qy, qc, sof: int) -> list:
                      + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))]
 
 
-def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
-    """Baseline 4:2:0 JPEG of an HxWx3 uint8 RGB image."""
+def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True,
+                restart_interval: int = 0) -> bytes:
+    """Baseline 4:2:0 JPEG of an HxWx3 uint8 RGB image; with
+    ``restart_interval``, a restart marker after every that many MCUs
+    (DRI), each interval's DC predictions from zero."""
     H, W, qy, qc, cy, ccb, ccr = _coefficients(rgb, quality)
     blocks, comp = _mcu_blocks(cy, ccb, ccr)
     chroma = comp > 0
@@ -202,6 +219,11 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
     for c in range(3):
         sel = np.flatnonzero(comp == c)
         diff[sel] = np.diff(dc[sel], prepend=0)
+        if restart_interval:     # the first block of a component per interval
+            mcu = sel // 6
+            first = np.r_[True, mcu[1:] // restart_interval
+                          != mcu[:-1] // restart_interval]
+            diff[sel[first]] = dc[sel[first]]
     tabs = {name: _huff_codes(spec) for name, spec in (
         ("dcl", DC_LUMA), ("dcc", DC_CHROMA), ("acl", AC_LUMA),
         ("acc", AC_CHROMA))}
@@ -253,9 +275,12 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95, dht: bool = True) -> bytes:
                              (0x01, DC_CHROMA), (0x11, AC_CHROMA)):
             payload += bytes([cls_id] + spec[0] + spec[1])
         out.append(_segment(0xC4, payload))
+    if restart_interval:
+        out.append(_segment(0xDD, struct.pack(">H", restart_interval)))
     out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11,
                                      0, 63, 0])))
-    out += [_pack(keys, codes, lens), b"\xff\xd9"]
+    out += [_pack(keys, codes, lens, 6 * 1024 * restart_interval),
+            b"\xff\xd9"]
     return b"".join(out)
 
 

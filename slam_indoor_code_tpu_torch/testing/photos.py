@@ -2,12 +2,15 @@
 with no image encoder: binary PPM (P6), 24-bit BMP, TIFF (none, Deflate
 or PackBits compression, with or without the horizontal predictor, in
 strips or tiles, chunky or planar, 8 or 16-bit, either byte order, classic
-or BigTIFF, with an Orientation tag), 16-bit RGB PNG and 8-bit PNG with
+or BigTIFF, with an Orientation tag; bilevel CCITT RLE, Group 3, Group 4
+and RLEW pages through testing/ccitt.py), 16-bit RGB PNG and 8-bit PNG with
 every row filtered Paeth, lossless WebP (still and animated), GIF from an
 index image and its palette, Sun raster (1, 8, 24 or 32 bits, a palette,
 run-length coded or not), PFM, Radiance HDR (new-style scanlines), and an
 EXIF APP1 segment put into a JPEG.
-Each ``encode_*`` returns the file's bytes."""
+Each ``encode_*`` returns the file's bytes; ``damage`` cuts or flips a
+file's bytes from a seed (the damaged photo tests' cases and the committed
+damaged fixtures chip_smoke.py holds come from it)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import zlib
 
 import numpy as np
 
+from . import ccitt
 from ..io.png import SIGNATURE as PNG_SIGNATURE
 from ..io.png import _chunk as _png_chunk
 
@@ -85,6 +89,30 @@ def encode_png_paeth(rgb: np.ndarray) -> bytes:
     return _png(w, h, 8, 2, raw.tobytes())
 
 
+# encode_tiff's CCITT compressions -> testing/ccitt.py's modes
+_FAX_MODES = {"ccitt_rle": "rle", "group3": "g3", "group4": "g4",
+              "rlew": "rlew"}
+
+
+def damage(data: bytes, seed: int, kind: str) -> bytes:
+    """``data`` damaged from ``seed`` as files are: "cut" keeps a random
+    prefix of at least 2 bytes (an interrupted copy or write), "flip"
+    inverts one random bit, "flips" three, "byte" puts a random value in
+    one random byte."""
+    rng = np.random.default_rng(seed)
+    b = bytearray(data)
+    if kind == "cut":
+        return bytes(b[:int(rng.integers(2, len(b)))])
+    count = {"flip": 1, "flips": 3, "byte": 1}[kind]
+    for _ in range(count):
+        i = int(rng.integers(0, len(b)))
+        if kind == "byte":
+            b[i] = int(rng.integers(0, 256))
+        else:
+            b[i] ^= 1 << int(rng.integers(0, 8))
+    return bytes(b)
+
+
 def _packbits(data: bytes) -> bytes:
     """PackBits of ``data`` as literal runs of up to 128 bytes."""
     out = bytearray()
@@ -146,7 +174,8 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                 extra_samples: tuple[int, ...] = (),
                 colormap: np.ndarray | None = None,
                 extra_tags: tuple = (), jpeg_encoder=None,
-                subsampling: tuple[int, int] | None = None) -> bytes:
+                subsampling: tuple[int, int] | None = None,
+                t4_options: int = 0, fill_order: int = 1) -> bytes:
     """TIFF of ``samples`` [H,W,spp] (uint8 or uint16, or float16, 32 or
     64 with SampleFormat 3; [H,W] for one sample) with ``compression``
     "none", "deflate" (8), "packbits" or "jpeg" (7: each strip or tile
@@ -163,12 +192,24 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
     the Cb, Cr of each unit's top left one, with its YCbCrSubsampling tag;
     ``extra_tags`` (tag, field type, values; a rational as numerator and
     denominator) entries added to the directory, or put in place of the
-    writer's own entry of the same tag."""
+    writer's own entry of the same tag.
+
+    CCITT ``compression`` "ccitt_rle" (2), "group3" (3: 1D rows, or 2D
+    ones with ``t4_options`` bit 0; EOLs ending on byte boundaries with bit
+    2), "group4" (4) or "rlew" (32771) codes ``samples`` [H,W] of 0/1 as a
+    1-bit image (1 black where ``photometric`` is 0, MinIsWhite, the
+    default for them) by testing/ccitt.py, in the bit order of
+    ``fill_order``."""
     s = np.asarray(samples)
     if s.ndim == 2:
         s = s[:, :, None]
     h, w, spp = s.shape
     bits = s.dtype.itemsize * 8
+    fax = _FAX_MODES.get(compression)
+    if fax is not None:
+        bits, photometric = 1, 0 if photometric == 2 else photometric
+        if compression == "group3" and t4_options & 1:
+            fax = "g3_2d"
     e = ">" if big_endian else "<"
     dtype = s.dtype.newbyteorder(e) if bits > 8 else np.dtype(np.uint8)
     if tile is not None:
@@ -180,8 +221,9 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
         cw, ch = w, min(rows_per_strip or h, h)
         across, down = 1, -(-h // ch)
         padded = s
-    code = {"none": 1, "deflate": 8, "packbits": 32773,
-            "jpeg": 7}[compression]
+    code = {"none": 1, "deflate": 8, "packbits": 32773, "jpeg": 7,
+            "ccitt_rle": 2, "group3": 3, "group4": 4,
+            "rlew": 32771}[compression]
     if code == 7 and jpeg_encoder is None:
         from .mjpeg import encode_jpeg as jpeg_encoder
     chunks, tables = [], None
@@ -196,7 +238,11 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                 raw = np.ascontiguousarray(block).astype(dtype).tobytes()
                 if subsampling is not None:
                     raw = ycbcr_units(block, *subsampling)
-                if code == 7:
+                if fax is not None:
+                    raw = ccitt.strip(block[..., 0], fax,
+                                      eol_align=bool(t4_options & 4),
+                                      lsb_first=fill_order == 2)
+                elif code == 7:
                     tables, raw = split_jpeg(jpeg_encoder(
                         np.ascontiguousarray(block)))
                 elif code == 8:
@@ -209,6 +255,10 @@ def encode_tiff(samples: np.ndarray, *, photometric: int = 2,
                (277, 3, [spp]), (284, 3, [2 if planar else 1])]
     if predictor == 2:
         entries.append((317, 3, [2]))
+    if fill_order != 1:
+        entries.append((266, 3, [fill_order]))
+    if code == 3:
+        entries.append((292, 4, [t4_options]))
     if subsampling is not None:
         entries.append((530, 3, list(subsampling)))
     if code == 7:

@@ -954,9 +954,11 @@ def test_mixed_glob_equals_jax_and_refusal_reaches_the_caller(tmp_path,
     EXIF) through both MediaSources with the native readers off: the same
     frames in the same order.  Then an AVIF at its end raises
     NotImplementedError from next_frame, where the JAX package (cv2)
-    reads it; and a damaged file in its place is skipped (the JAX
-    package's pure-Python reader stops at it instead; its native one
-    skips it, as the port does)."""
+    reads it; and a file that no reader decodes (a PNG signature and
+    nothing else) in its place is skipped, as the JAX package's native
+    reader and cv2 give it no image (its pure-Python reader stops at it
+    instead).  A damaged file that cv2 still decodes is kept
+    (tests/test_torch_photo_damage.py)."""
     sc = make_scene(n_points=300, n_frames=8, seed=5, baseline=0.3)
     frames = [sc.render(i) for i in range(8)]
     pattern = _mixed_glob(tmp_path, frames[:6])

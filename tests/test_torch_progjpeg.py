@@ -234,10 +234,28 @@ def test_refused_progressive_processes_raise_naming_themselves(images, make,
 
 
 def test_truncated_progressive_decodes_to_none(images):
-    """Cut inside a scan (no EOI): None, as for a baseline file."""
+    """Cut inside a scan (no EOI): None from the strict decode, as for a
+    baseline file."""
     data = encode_progressive(images[270, 480], 95)
     for cut in (scan_starts(data)[2] + 40, len(data) // 2, len(data) - 20):
         assert jpeg.decode(data[:cut]) is None
+
+
+@pytest.mark.parametrize("where", ["third scan", "half", "end"])
+def test_truncated_progressive_recovers_as_cv2(images, tmp_path, where):
+    """The strict test's cuts read with ``lenient`` (a photo's reading):
+    libjpeg-turbo's fake EOI, the cut scan kept as far as its data goes,
+    then block smoothing by its bookkeeping of a scan that did not
+    finish; equal to cv2.imread of the cut file."""
+    data = encode_progressive(images[270, 480], 95)
+    cut = {"third scan": scan_starts(data)[2] + 40, "half": len(data) // 2,
+           "end": len(data) - 20}[where]
+    p = tmp_path / "cut.jpg"
+    p.write_bytes(data[:cut])
+    want = cv2.imread(str(p), cv2.IMREAD_COLOR)
+    assert want is not None
+    np.testing.assert_array_equal(jpeg.decode(data[:cut], lenient=True),
+                                  want[..., ::-1])
 
 
 # ------------------------------------------------------- the numpy writer

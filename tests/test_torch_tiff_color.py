@@ -139,13 +139,18 @@ def test_compressions_cv2_lacks_give_none(tmp_path, code):
     (34712, "compression 34712")])
 def test_compressions_still_unread_are_refused_by_name(tmp_path, code,
                                                        name):
-    """Pillow's CCITT files, which cv2 reads; old-style JPEG and
-    ThunderScan (nothing here writes them); JPEG 2000 in TIFF, which cv2's
-    libtiff does not know (it gives a black frame)."""
+    """Old-style JPEG and ThunderScan (nothing here writes them) and JPEG
+    2000 in TIFF, which cv2's libtiff does not know (it gives a black
+    frame), are refused by name.  Pillow's CCITT files, which cv2 reads,
+    were refused until native/fax3.cpp read them: they now equal cv2
+    (tests/test_torch_fax.py holds every CCITT mode)."""
     if code in (2, 3, 4):
         data = pil_tiff(scene_image(*HW), "1", compression={
             2: "tiff_ccitt", 3: "group3", 4: "group4"}[code])
-        assert cv2_read(tmp_path, data) is not None
+        want = cv2_read(tmp_path, data)
+        assert want is not None
+        np.testing.assert_array_equal(photo.decode(data), want)
+        return
     else:
         data = photos.encode_tiff(samples(HW, 3, 1),
                                   extra_tags=((259, 3, [code]),))
